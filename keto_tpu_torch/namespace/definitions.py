@@ -1,0 +1,57 @@
+"""Namespace model (counterpart of ``keto_tpu/namespace/definitions.py``;
+reference internal/namespace/definitions.go:8-23).
+
+A namespace is ``{id: int32, name: str}``; tuples may only be written into
+known namespaces (unknown namespace -> NotFound, reference
+manager_requirements.go:58-66).
+"""
+
+from __future__ import annotations
+
+import abc
+import threading
+from dataclasses import dataclass
+
+from ..utils.errors import ErrNamespaceNotFound
+
+
+@dataclass(frozen=True)
+class Namespace:
+    name: str
+    id: int = 0
+
+
+class NamespaceManager(abc.ABC):
+    @abc.abstractmethod
+    def get_namespace_by_name(self, name: str) -> Namespace:
+        """Raises ErrNamespaceNotFound for unknown names."""
+
+
+class MemoryNamespaceManager(NamespaceManager):
+    """In-memory, thread-safe namespace registry."""
+
+    def __init__(self, *namespaces: Namespace):
+        self._lock = threading.RLock()
+        self._by_name: dict[str, Namespace] = {}
+        for ns in namespaces:
+            self.add(ns)
+
+    def add(self, ns: Namespace | str) -> Namespace:
+        if isinstance(ns, str):
+            ns = Namespace(name=ns)
+        with self._lock:
+            if ns.id == 0 and ns.name not in self._by_name:
+                used = {n.id for n in self._by_name.values()}
+                nid = 1
+                while nid in used:
+                    nid += 1
+                ns = Namespace(name=ns.name, id=nid)
+            self._by_name[ns.name] = ns
+        return ns
+
+    def get_namespace_by_name(self, name: str) -> Namespace:
+        with self._lock:
+            try:
+                return self._by_name[name]
+            except KeyError:
+                raise ErrNamespaceNotFound(name) from None

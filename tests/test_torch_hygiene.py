@@ -1,0 +1,69 @@
+"""The port's boundaries: no JAX, no keto_tpu, no quiet CPU fallback."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+import torch.utils.cpp_extension
+
+from keto_tpu_torch.engine import ClosureCheckEngine
+from keto_tpu_torch.engine import masked_spmv
+from keto_tpu_torch.graph import SnapshotManager
+from keto_tpu_torch.store import InMemoryTupleStore
+from keto_tpu_torch.utils import kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "keto_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_and_no_keto_tpu_imports(path):
+    assert path.exists()
+    for mod in imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "keto_tpu"), f"{path}: {mod}"
+
+
+def test_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mgr = SnapshotManager(InMemoryTupleStore())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClosureCheckEngine(mgr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClosureCheckEngine(mgr, device="cuda")
+    ClosureCheckEngine(mgr, device="cpu")  # asked for explicitly: fine
+
+
+def test_wrapper_never_runs_the_plain_version_off_the_cpu():
+    f = torch.zeros((128, 256), dtype=torch.bfloat16, device="meta")
+    a = torch.zeros((256, 256), dtype=torch.bfloat16, device="meta")
+    before = masked_spmv.masked_step.launches
+    with pytest.raises(ValueError):
+        masked_spmv.masked_step(f, a, f)
+    assert masked_spmv.masked_step.launches == before
+
+
+def test_kernel_load_raises_without_a_compiler(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)  # nothing built yet
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(torch.utils.cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.load("masked_spmv")
+
+
+def test_every_kernel_source_is_known():
+    assert kernels.kernel_names() == ["masked_spmv"]
