@@ -1,24 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of keto_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--tuples N] [--checks N] [--oracle N]
+    python3 chip_smoke.py [--seed N] [--tuples N] [--gh-tuples N]
+                          [--checks N] [--oracle N]
 
 Phases, in order; any failure exits non-zero:
 
-1. build    compile every kernel in keto_tpu_torch/csrc with nvcc (sm_90a)
-2. kernels  hold the masked-SpMV kernel against its plain PyTorch version,
-            bitwise, at M in {256, 2048, 11520}, then a whole closure build
-            with the kernel against one with the plain step (D byte-equal)
-3. example  the cat-videos example and a depth-boundary chain on the card
-4. main     an rbac1m store (1M tuples, the distribution of bench.py
-            gen_rbac; BASELINE.json "Synthetic RBAC: 1M tuples",
+1. build    compile every kernel in keto_tpu_torch/csrc with nvcc (sm_90a),
+            one nvcc per source, all started together
+2. kernels  hold the masked-SpMV kernel (B1) against its plain PyTorch
+            version, bitwise, at M in {256, 2048, 11520}, then a whole
+            closure build with the kernel against one with the plain step
+            (D byte-equal); hold the packed-propagate kernel (B2) against
+            its plain version, bitwise, at W in {128, 256} (rows with no
+            in-edge, duplicate edges, a hub row with thousands of in-edges,
+            probe and padding edges, the dummy row) and at N_pad 2^20
+3. example  the cat-videos example and a depth-boundary chain on the card,
+            through ClosureCheckEngine and through DeviceCheckEngine in the
+            dense, scatter and packed modes
+4. main     (closure) an rbac1m store (1M tuples, the distribution of
+            bench.py gen_rbac; BASELINE.json "Synthetic RBAC: 1M tuples",
             serve.read.max-depth 5), a ClosureCheckEngine on the card, a
             few thousand sampled checks; the kernel launch count of the full
             build, D against a plain-built D, answers against the host BFS
-            oracle, then one interior and one leaf write and a re-check
-5. numbers  kernel time per launch at the main path's shape beside its
+            oracle, then one interior and one leaf write and a re-check;
+            B1 numbers: time per launch at the main path's shape beside its
             bound, the plain version and torch.matmul plus the mask (a
             yardstick only); full-build time; batch-check p50 and rate
+5. main     (packed) a github10m store (10M tuples, the pools and edge mix
+            of bench.py gen_github; BASELINE.json "GitHub-style
+            org/team/repo ACL: 10M tuples"), whose interior is above the
+            closure limit, served by DeviceCheckEngine(mode="packed") on
+            the card: 4096 repo#pull checks against the same loop with the
+            plain propagate and against the host BFS oracle, the launch
+            count against the loop's iterations, one write and a re-check;
+            B2 against its plain version on the real edges; B2 numbers:
+            time per launch beside its bound and the plain version, packed
+            batch p50 and rate, peak device memory
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -39,6 +57,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
+CLOSURE_INTERIOR_LIMIT = 16384  # ClosureCheckEngine's default interior_limit
 
 
 def require(cond, what: str) -> None:
@@ -64,6 +83,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profile_batch(fn) -> str:
+    """One call of fn under torch.profiler: its wall time, the device's
+    busy share (kernel time over wall time, one stream) and the kernels
+    that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [
+        (e.key[:48], e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    busy_ms = sum(t for _, t, _ in kern)
+    kern.sort(key=lambda k: -k[1])
+    top = "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in kern[:6])
+    return (f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+            f"({busy_ms / wall_ms:.1%}); top kernels: {top}")
+
+
 def random_masks(gen, g, m, density, device):
     def bern(shape, p):
         return (
@@ -81,10 +123,47 @@ def random_masks(gen, g, m, density, device):
     return f.contiguous(), a.contiguous(), r.contiguous()
 
 
+def propagate_case(rng, gen, n_pad, w, m, hub, device):
+    """Inputs of one packed pass: a random frontier int32[n_pad, W] and m
+    dst-sorted edges (duplicates, `hub` in-edges into one row, rows
+    >= n_pad/2 with no in-edge, the dummy row as a source), then the probe
+    edges of a batch of 32 W requests and the padding edges to the 1024
+    multiple, as packed_batched_check appends them."""
+    bsz = 32 * w
+    n_out = n_pad + bsz
+    src = rng.integers(n_pad, size=m)
+    dst = rng.integers(n_pad // 2, size=m)
+    dst[:hub] = 17
+    src[hub : hub + 100] = src[hub + 100 : hub + 200]  # duplicate edges
+    dst[hub : hub + 100] = dst[hub + 100 : hub + 200]
+    src[-1] = n_pad - 1
+    order = np.argsort(dst, kind="stable")
+    pad = (-(m + bsz)) % 1024
+    src_all = np.concatenate(
+        [src[order], rng.integers(n_pad, size=bsz), np.full(pad, n_pad - 1)]
+    ).astype(np.int32)
+    dst_all = np.concatenate(
+        [dst[order], n_pad + np.arange(bsz), np.full(pad, n_out - 1)]
+    ).astype(np.int32)
+    f = torch.randint(
+        -(2**31), 2**31 - 1, (n_pad, w), generator=gen, device=device,
+        dtype=torch.int32,
+    )
+    f[: n_pad // 8] = 0  # empty frontier rows
+    return (
+        f,
+        torch.from_numpy(src_all).to(device),
+        torch.from_numpy(dst_all).to(device),
+        n_out,
+    )
+
+
 class IndexedTuples:
     """Read-only relationtuple.Manager over a columnar store's live edges,
     indexed by subject set: the host BFS oracle's view of the store without
-    a full-column scan per query. Re-indexed when the store version moves."""
+    a full-column scan per query. Pages are kept once built (the oracle
+    walks the same team rows check after check); everything is re-indexed
+    when the store version moves."""
 
     def __init__(self, store):
         self.store = store
@@ -98,6 +177,7 @@ class IndexedTuples:
             counts = np.bincount(src, minlength=len(vocab))
             self._indptr = np.concatenate([[0], np.cumsum(counts)])
             self._vocab = vocab
+            self._pages = {}
             self._version = version
 
     def get_relation_tuples(self, query, pagination=None):
@@ -113,9 +193,13 @@ class IndexedTuples:
         nid = self._vocab.lookup((query.namespace, query.object, query.relation))
         if nid is None or nid + 1 >= len(self._indptr):
             return [], ""
-        lo, hi = int(self._indptr[nid]), int(self._indptr[nid + 1])
         off = decode_page_token(pagination.token)
         per = pagination.per_page
+        key = (nid, off, per)
+        hit = self._pages.get(key)
+        if hit is not None:
+            return hit
+        lo, hi = int(self._indptr[nid]), int(self._indptr[nid + 1])
         page = [
             RelationTuple(
                 namespace=query.namespace,
@@ -126,7 +210,14 @@ class IndexedTuples:
             for d in self._dst[lo + off : min(hi, lo + off + per)]
         ]
         token = encode_page_token(off + per) if lo + off + per < hi else ""
+        self._pages[key] = (page, token)
         return page, token
+
+
+def pool(items):
+    arr = np.empty(len(items), dtype=object)
+    arr[:] = items
+    return arr
 
 
 def gen_rbac(n_tuples: int, rng: np.random.Generator):
@@ -134,11 +225,6 @@ def gen_rbac(n_tuples: int, rng: np.random.Generator):
     gen_rbac's pool sizes and edge mix, bulk-loaded into a columnar store.
     Returns the store, the key pools and the edges of each stage."""
     from keto_tpu_torch.store import ColumnarTupleStore
-
-    def pool(items):
-        arr = np.empty(len(items), dtype=object)
-        arr[:] = items
-        return arr
 
     n_users = max(n_tuples // 10, 100)
     n_groups = min(max(n_tuples // 100, 20), 20_000)
@@ -177,6 +263,53 @@ def gen_rbac(n_tuples: int, rng: np.random.Generator):
     return store, {"users": users, "resources": resources}, edges
 
 
+def gen_github(n_tuples: int, rng: np.random.Generator):
+    """Team membership and nesting, then per-repo permission grants to
+    teams or direct collaborators, with bench.py gen_github's pool sizes and
+    edge mix, bulk-loaded into a columnar store: 45% memberships, 3% team
+    nesting, the rest grants (80% to teams, 20% to users) on
+    gh:repoN#{pull,triage,push,admin}. A grant's repo#perm key is built
+    only for the index drawn, from the same 4 * n_repos pool. Returns the
+    store, the key pools and the edges of each stage."""
+    from keto_tpu_torch.store import ColumnarTupleStore
+
+    n_users = max(n_tuples // 8, 100)
+    n_teams = min(max(n_tuples // 400, 20), 25_000)
+    n_repos = max(n_tuples // 3, 50)
+    perms = ("pull", "triage", "push", "admin")
+    users = pool([(f"u{i}",) for i in range(n_users)])
+    teams = pool([("gh", f"team{i}", "member") for i in range(n_teams)])
+    store = ColumnarTupleStore()
+    edges = {}
+
+    def load(name, s, d):
+        edges[name] = (s, d)
+        store.bulk_load_edges(s.tolist(), d.tolist())
+
+    k = int(n_tuples * 0.45)  # team membership
+    load("membership", teams[rng.integers(n_teams, size=k)],
+         users[rng.integers(n_users, size=k)])
+    k = int(n_tuples * 0.03)  # team nesting
+    load("nesting", teams[rng.integers(n_teams, size=k)],
+         teams[rng.integers(n_teams, size=k)])
+    grants_s, grants_d = [], []
+    while len(store) < n_tuples:  # grants; top up collision losses
+        k = n_tuples - len(store)
+        to_team = rng.random(k) < 0.8
+        d = np.where(
+            to_team,
+            teams[rng.integers(n_teams, size=k)],
+            users[rng.integers(n_users, size=k)],
+        )
+        s = pool([("gh", f"repo{i >> 2}", perms[i & 3])
+                  for i in rng.integers(4 * n_repos, size=k).tolist()])
+        store.bulk_load_edges(s.tolist(), d.tolist())
+        grants_s.append(s)
+        grants_d.append(d)
+    edges["grant"] = (np.concatenate(grants_s), np.concatenate(grants_d))
+    return store, {"users": users, "n_repos": n_repos}, edges
+
+
 def to_tuple(src_key, dst_key):
     from keto_tpu_torch.relationtuple import RelationTuple, SubjectID, SubjectSet
 
@@ -186,85 +319,31 @@ def to_tuple(src_key, dst_key):
     return RelationTuple(*src_key, subject=subject)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tuples", type=int, default=1_000_000)
-    ap.add_argument("--checks", type=int, default=4096)
-    ap.add_argument("--oracle", type=int, default=256)
-    args = ap.parse_args()
+def check_b2_small(rng, gen, dev) -> float:
+    """B2 against its plain version at W in {128, 256} and at N_pad 2^20."""
+    from keto_tpu_torch.ops import packed
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from keto_tpu_torch.engine import CheckEngine, ClosureCheckEngine
-    from keto_tpu_torch.engine import masked_spmv
-    from keto_tpu_torch.engine.closure import _m_pad_for
+    for n_pad, w, m, hub in (
+        (4096, 128, 60_000, 5000),
+        (1 << 14, 256, 200_000, 3000),
+        (1 << 20, 128, 4_000_000, 2000),
+    ):
+        f, s, d, n_out = propagate_case(rng, gen, n_pad, w, m, hub, dev)
+        got = packed.packed_propagate(f, s, d, n_out)
+        want = packed.packed_propagate_plain(f, s, d, n_out)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"B2 != plain at N_pad={n_pad} W={w}")
+        require(not got[n_pad // 2 : n_pad].any(), "rows with no in-edge")
+    return 0.0  # bitwise equal: the largest absolute difference is 0
+
+
+def run_example(repo: Path, dev) -> None:
+    """cat-videos and the depth boundary through every check engine."""
+    from keto_tpu_torch.engine import ClosureCheckEngine, DeviceCheckEngine
     from keto_tpu_torch.graph import SnapshotManager
-    from keto_tpu_torch.ops.closure import pack_adjacency, unpack_adjacency
     from keto_tpu_torch.relationtuple import RelationTuple
     from keto_tpu_torch.store import InMemoryTupleStore
-    from keto_tpu_torch.utils import kernels
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
-    torch.backends.cudnn.allow_tf32 = False
-    step = masked_spmv.masked_step
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    t_all = time.perf_counter()
-
-    # -- 1. build ---------------------------------------------------------------
-    t0 = time.perf_counter()
-    secs = kernels.build()
-    say(f"[build] {secs} wall={time.perf_counter() - t0:.3f}s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    card = smi.stdout.strip().splitlines()[0]
-    say(card)
-
-    # -- 2. kernel vs plain -----------------------------------------------------
-    max_err = 0.0
-    for m in (256, 2048, 11520):
-        for density in (0.002, 0.05):
-            f, a, r = random_masks(gen, 256, m, density, dev)
-            kn, kr = step(f, a, r)
-            pn, pr = masked_spmv.masked_step_plain(f, a, r)
-            torch.cuda.synchronize()
-            err = max(
-                (kn.float() - pn.float()).abs().max().item(),
-                (kr.float() - pr.float()).abs().max().item(),
-            )
-            max_err = max(max_err, err)
-            require(
-                torch.equal(kn, pn) and torch.equal(kr, pr),
-                f"kernel != plain at M={m} density={density} (err {err})",
-            )
-    del f, a, r, kn, kr, pn, pr
-    rng = np.random.default_rng(args.seed)
-    m_small = 3000
-    m_pad_small = _m_pad_for(m_small)
-    n_e = 4 * m_small
-    src = rng.integers(m_small, size=n_e)
-    dst = rng.integers(m_small, size=n_e)
-    packed = pack_adjacency(src, dst, m_pad_small)
-    d_kernel = masked_spmv.build_closure_semiring(
-        packed, m_small, m_pad=m_pad_small, k_max=4, device=dev
-    )
-    d_plain = masked_spmv.build_closure_semiring(
-        packed, m_small, m_pad=m_pad_small, k_max=4, device=dev,
-        step=masked_spmv.masked_step_plain,
-    )
-    require(torch.equal(d_kernel, d_plain), "kernel-built D != plain-built D")
-    say(f"[kernels] bitwise equal at M=256,2048,11520; D equal at "
-        f"m={m_small} m_pad={m_pad_small}; max_abs_err={max_err}")
-    del d_kernel, d_plain
-
-    # -- 3. cat-videos and the depth boundary ----------------------------------
-    repo = Path(__file__).resolve().parent
     cat = InMemoryTupleStore()
     for path in sorted((repo / "contrib/cat-videos-example/relation-tuples").glob("*.json")):
         doc = json.loads(path.read_text())
@@ -277,26 +356,46 @@ def main() -> int:
         "videos:/cats/1.mp4#view@*": True,
         "videos:/cats/2.mp4#view@*": False,
     }
-    cat_eng = ClosureCheckEngine(SnapshotManager(cat), device=dev)
-    got = cat_eng.batch_check([RelationTuple.from_string(s) for s in expect])
-    require(got == list(expect.values()), f"cat-videos answers {got}")
     chain = InMemoryTupleStore()
     chain.write_relation_tuples(
         *(RelationTuple.from_string(f"n:c{i}#m@(n:c{i + 1}#m)") for i in range(5)),
         RelationTuple.from_string("n:c5#m@alice"),
     )
-    ch_eng = ClosureCheckEngine(SnapshotManager(chain), max_depth=5, device=dev)
-    got = ch_eng.batch_check(
-        [RelationTuple.from_string("n:c1#m@alice"),
-         RelationTuple.from_string("n:c0#m@alice")]
-    )
-    require(got == [True, False], f"depth boundary 5/6 answers {got}")
-    say("[example] cat-videos 5/5, depth boundary 5 allowed / 6 denied")
+    engines = {
+        "closure": lambda mgr, **kw: ClosureCheckEngine(mgr, device=dev, **kw),
+    }
+    for mode in ("dense", "scatter", "packed"):
+        engines[mode] = (
+            lambda mgr, mode=mode, **kw: DeviceCheckEngine(
+                mgr, mode=mode, device=dev, **kw
+            )
+        )
+    for name, make in engines.items():
+        got = make(SnapshotManager(cat)).batch_check(
+            [RelationTuple.from_string(s) for s in expect]
+        )
+        require(got == list(expect.values()), f"{name}: cat-videos answers {got}")
+        got = make(SnapshotManager(chain), max_depth=5).batch_check(
+            [RelationTuple.from_string("n:c1#m@alice"),
+             RelationTuple.from_string("n:c0#m@alice")]
+        )
+        require(got == [True, False], f"{name}: depth boundary 5/6 answers {got}")
+    say(f"[example] cat-videos 5/5, depth boundary 5 allowed / 6 denied, "
+        f"engines {list(engines)}")
 
-    # -- 4. main path at rbac1m -------------------------------------------------
+
+def run_rbac(args, rng, dev, card) -> dict:
+    """The closure path at rbac1m, and B1's numbers."""
+    from keto_tpu_torch.engine import CheckEngine, ClosureCheckEngine
+    from keto_tpu_torch.engine import masked_spmv
+    from keto_tpu_torch.graph import SnapshotManager
+    from keto_tpu_torch.ops import packed as packed_ops
+    from keto_tpu_torch.ops.closure import pack_adjacency, unpack_adjacency
+
+    step = masked_spmv.masked_step
     t0 = time.perf_counter()
     store, pools, edges = gen_rbac(args.tuples, rng)
-    say(f"[main] store: {len(store)} tuples, {len(store.vocab)} nodes, "
+    say(f"[main:closure] store: {len(store)} tuples, {len(store.vocab)} nodes, "
         f"load {time.perf_counter() - t0:.3f}s")
     users, resources = pools["users"], pools["resources"]
     k = args.checks
@@ -312,6 +411,7 @@ def main() -> int:
     oracle = CheckEngine(IndexedTuples(store), max_depth=5)
 
     masked_spmv.masked_step.launches = 0  # main path starts here
+    packed_ops.packed_propagate.launches = 0
     t0 = time.perf_counter()
     allowed = eng.batch_check(sample)
     torch.cuda.synchronize()
@@ -319,9 +419,10 @@ def main() -> int:
     state = eng._state
     ig, m_pad = state.ig, state.m_pad
     expected = (m_pad // 256) * (5 - 2)  # groups x waves k = 2..k_max
-    say(f"[main] interior m={ig.m} m_pad={m_pad} ii_edges={len(ig.ii_src)}; "
-        f"first batch (build + {k} checks) {first_s:.3f}s, phases "
-        f"{eng.last_build_phases}, allowed {sum(allowed)}/{k}")
+    say(f"[main:closure] interior m={ig.m} m_pad={m_pad} "
+        f"ii_edges={len(ig.ii_src)}; first batch (build + {k} checks) "
+        f"{first_s:.3f}s, phases {eng.last_build_phases}, allowed "
+        f"{sum(allowed)}/{k}")
     require(len(allowed) == k, "answer count")
     require(masked_spmv.masked_step.launches == expected,
             f"{masked_spmv.masked_step.launches} launches, expected {expected}")
@@ -336,7 +437,7 @@ def main() -> int:
     t0 = time.perf_counter()
     want = oracle.batch_check(sample[:n_or])
     bad = sum(a != b for a, b in zip(allowed[:n_or], want))
-    say(f"[main] D byte-equal to plain; oracle {n_or} checks, "
+    say(f"[main:closure] D byte-equal to plain; oracle {n_or} checks, "
         f"{sum(want)} allowed, {bad} disagree ({time.perf_counter() - t0:.1f}s)")
     require(bad == 0, f"{bad} answers disagree with the host oracle")
 
@@ -350,6 +451,8 @@ def main() -> int:
         lat.append(time.perf_counter() - t0)
     p50_ms = float(np.median(lat)) * 1e3
     rate = k * reps / sum(lat)
+    say(f"[numbers] closure batch under the profiler: "
+        f"{profile_batch(lambda: eng.batch_check(sample))}")
 
     # writes: a leaf edge (group -> new user), then an interior edge
     # (role -> role) that opens a path to a user four hops from a resource
@@ -382,11 +485,12 @@ def main() -> int:
             f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}")
     launches = masked_spmv.masked_step.launches  # main path ends here
     require(launches == expected, f"{launches} launches after the writes")
-    say(f"[main] writes: leaf + interior edge absorbed incrementally "
+    require(packed_ops.packed_propagate.launches == 0, "B2 ran on the closure path")
+    say(f"[main:closure] writes: leaf + interior edge absorbed incrementally "
         f"(full={eng.n_full_builds}, incremental={eng.n_incremental_builds}); "
         f"{len(want)} re-checks equal the oracle")
 
-    # -- 5. numbers -------------------------------------------------------------
+    # numbers: B1 at the main path's shape
     adj = unpack_adjacency(packed, m_pad, dev)
     f = adj[:256]
     r = f
@@ -417,21 +521,335 @@ def main() -> int:
         f"/launch, bound {bound_ms:.4f} ms ({bound_by}), plain f32 "
         f"{plain_ms:.4f} ms, torch.matmul+mask {lib_ms:.4f} ms")
     say(f"[numbers] full build ({expected} launches + unpack) {build_ms:.3f} ms;"
-        f" batch_check {k}: p50 {p50_ms:.3f} ms, {rate:.0f} checks/s")
-    say(f"[numbers] total {time.perf_counter() - t_all:.1f}s")
-    say(json.dumps({"kernels": [{
+        f" closure batch_check {k}: p50 {p50_ms:.3f} ms, {rate:.0f} checks/s")
+    return {
         "name": "masked_spmv",
         "route": "cuda",
         "source": "keto_tpu_torch/csrc/masked_spmv.cu",
         "replaces": "keto_tpu/engine/pallas_spmv.py:66",
         "launches": launches,
-        "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
-    }]}))
+    }
+
+
+def plain_check(eng, requests, depths=None):
+    """The packed engine's answers for `requests` through the same loop
+    with the plain propagate, and the number of passes the loop ran."""
+    from keto_tpu_torch.ops import packed
+
+    passes = []
+
+    def counting(*a, **kw):
+        passes.append(1)
+        return packed.packed_propagate_plain(*a, **kw)
+
+    enc = eng.encode_batch(requests, depths=depths)
+    dg, dev = enc.dg, eng.device
+    try:
+        hit = packed.packed_batched_check(
+            dg.src_by_dst, dg.dst_by_dst,
+            torch.tensor(enc.start, device=dev),
+            torch.tensor(enc.target, device=dev),
+            torch.tensor(enc.depth, device=dev),
+            padded_nodes=dg.padded_nodes, max_steps=eng.global_max_depth,
+            row_ptr=dg.row_ptr, propagate=counting,
+        )
+        return hit[: enc.n].cpu().tolist(), len(passes)
+    finally:
+        enc.release()
+
+
+def run_github(args, rng, dev) -> dict:
+    """The packed path at github10m, and B2's numbers."""
+    from keto_tpu_torch.engine import CheckEngine, DeviceCheckEngine
+    from keto_tpu_torch.engine import masked_spmv
+    from keto_tpu_torch.graph import SnapshotManager
+    from keto_tpu_torch.graph.interior import build_interior
+    from keto_tpu_torch.ops import packed
+
+    t0 = time.perf_counter()
+    store, pools, edges = gen_github(args.gh_tuples, rng)
+    say(f"[main:packed] store: {len(store)} tuples, {len(store.vocab)} nodes, "
+        f"load {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    mgr = SnapshotManager(store)
+    snap = mgr.snapshot()
+    ig = build_interior(snap)
+    say(f"[main:packed] snapshot: padded_nodes={snap.padded_nodes} "
+        f"padded_edges={snap.padded_edges}; interior_nodes={ig.m} (closure "
+        f"limit {CLOSURE_INTERIOR_LIMIT}) ({time.perf_counter() - t0:.1f}s)")
+    require(ig.m > CLOSURE_INTERIOR_LIMIT,
+            "interior fits the closure: not a packed-mode graph")
+    del ig
+
+    # 4096 repo#pull checks: uniform pairs (bench.py's sample) mixed with
+    # pairs from real chains — a pull grant to a team and one of its
+    # members (depth 2), and direct collaborator pull grants (depth 1)
+    users, n_repos = pools["users"], pools["n_repos"]
+    mem_s, mem_d = edges["membership"]
+    member_of = {}
+    for t_key, u_key in zip(mem_s[:200_000], mem_d[:200_000]):
+        member_of.setdefault(t_key, u_key)
+    g_src, g_dst = edges["grant"]
+    chains, direct = [], []
+    for s_key, d_key in zip(g_src, g_dst):
+        if s_key[2] != "pull":
+            continue
+        if len(d_key) == 1:
+            if len(direct) < 256:
+                direct.append(to_tuple(s_key, d_key))
+        elif d_key in member_of and len(chains) < 1024:
+            chains.append(to_tuple(s_key, member_of[d_key]))
+        if len(direct) == 256 and len(chains) == 1024:
+            break
+    k = args.checks
+    n_uniform = k - len(chains) - len(direct)
+    uniform = [
+        to_tuple(("gh", f"repo{i}", "pull"), users[j])
+        for i, j in zip(
+            rng.integers(n_repos, size=n_uniform).tolist(),
+            rng.integers(len(users), size=n_uniform).tolist(),
+        )
+    ]
+    mixed = chains + direct + uniform
+    sample = [mixed[i] for i in rng.permutation(len(mixed))]
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = DeviceCheckEngine(mgr, mode="packed", max_depth=5, device=dev)
+    masked_spmv.masked_step.launches = 0  # main path starts here
+    packed.packed_propagate.launches = 0
+    t0 = time.perf_counter()
+    allowed = eng.batch_check(sample)
+    first_s = time.perf_counter() - t0
+    first_launches = packed.packed_propagate.launches
+    say(f"[main:packed] first batch (residency + {k} checks) {first_s:.3f}s, "
+        f"allowed {sum(allowed)}/{k}, {first_launches} B2 launches")
+    t0 = time.perf_counter()
+    want, passes = plain_check(eng, sample)
+    plain_s = time.perf_counter() - t0
+    bad = sum(a != b for a, b in zip(allowed, want))
+    say(f"[main:packed] plain-propagate loop: {passes} passes "
+        f"({plain_s:.1f}s), {bad} of {k} answers disagree")
+    require(bad == 0, f"{bad} packed answers disagree with the plain path")
+    require(first_launches == passes > 0,
+            f"{first_launches} launches, the loop ran {passes} passes")
+    require(0 < sum(allowed) < k, "no allowed (or no denied) answers")
+    oracle = CheckEngine(IndexedTuples(store), max_depth=5)
+    n_or = min(args.oracle, k)
+    t0 = time.perf_counter()
+    want = oracle.batch_check(sample[:n_or])
+    bad = sum(a != b for a, b in zip(allowed[:n_or], want))
+    say(f"[main:packed] oracle {n_or} checks, {sum(want)} allowed, {bad} "
+        f"disagree ({time.perf_counter() - t0:.1f}s)")
+    require(bad == 0, f"{bad} packed answers disagree with the host oracle")
+
+    # one write: a new user joins a team that holds a pull grant
+    gi = next(i for i in range(len(g_src))
+              if g_src[i][2] == "pull" and len(g_dst[i]) == 3)
+    repo, team = g_src[gi], g_dst[gi]
+    probe = to_tuple(repo, ("smoke-user",))
+    require(not eng.batch_check([probe])[0], "allowed before the write")
+    store.write_relation_tuples(to_tuple(team, ("smoke-user",)))
+    before = packed.packed_propagate.launches
+    recheck = [probe] + sample[:64]
+    got = eng.batch_check(recheck)
+    launches = packed.packed_propagate.launches  # main path ends here
+    re_launches = launches - before
+    want, passes = plain_check(eng, recheck)
+    require(got == want and got[0], f"after the write: {got[:1]} vs {want[:1]}")
+    require(got == oracle.batch_check(recheck), "re-check disagrees with oracle")
+    require(re_launches == passes, f"{re_launches} launches, {passes} passes")
+    require(masked_spmv.masked_step.launches == 0, "B1 ran on the packed path")
+    say(f"[main:packed] write seen: {probe} allowed; {len(recheck)} re-checks "
+        f"equal the plain path and the oracle ({re_launches} B2 launches)")
+
+    # steady state at B = 4096
+    lat = []
+    reps = 8
+    for i in range(reps):
+        batch = sample[i * 97 % k:] + sample[: i * 97 % k]
+        t0 = time.perf_counter()
+        eng.batch_check(batch)
+        lat.append(time.perf_counter() - t0)
+    p50_ms = float(np.median(lat)) * 1e3
+    rate = k * reps / sum(lat)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[numbers] packed batch under the profiler: "
+        f"{profile_batch(lambda: eng.batch_check(sample))}")
+
+    # B2 on the real edges at github10m's shape: bitwise, then timed
+    dg = eng._cached
+    n_pad = dg.padded_nodes
+    w = 4096 // 32
+    n_out = n_pad + 4096
+    n_real = dg.src_by_dst.shape[0]
+    pad = (-(n_real + 4096)) % 1024
+    targets = torch.randint(0, n_pad - 1, (4096,), device=dev, dtype=torch.int32)
+    src_all = torch.cat([
+        dg.src_by_dst, targets,
+        torch.full((pad,), n_pad - 1, dtype=torch.int32, device=dev),
+    ])
+    dst_all = torch.cat([
+        dg.dst_by_dst,
+        n_pad + torch.arange(4096, dtype=torch.int32, device=dev),
+        torch.full((pad,), n_out - 1, dtype=torch.int32, device=dev),
+    ])
+    row_ptr = packed.csr_row_ptr(dst_all, n_out)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    f = torch.randint(-(2**31), 2**31 - 1, (n_pad, w), generator=gen,
+                      device=dev, dtype=torch.int32)
+    got = packed.packed_propagate(f, src_all, dst_all, n_out, row_ptr=row_ptr)
+    want = packed.packed_propagate_plain(f, src_all, dst_all, n_out, row_ptr=row_ptr)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "B2 != plain at github10m")
+    del got, want
+    kern_ms = cuda_ms(
+        lambda: packed.packed_propagate(f, src_all, dst_all, n_out, row_ptr=row_ptr),
+        10,
+    )
+    plain_ms = cuda_ms(
+        lambda: packed.packed_propagate_plain(
+            f, src_all, dst_all, n_out, row_ptr=row_ptr
+        ),
+        2,
+    )
+    m_edges = src_all.shape[0]
+    distinct = int(torch.unique(src_all).numel())
+    bytes_moved = distinct * w * 4 + n_out * w * 4 + m_edges * 8
+    bound_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    say(f"[kernels] B2 bitwise equal to plain at github10m: N_pad={n_pad} "
+        f"W={w} M={m_edges}")
+    say(f"[numbers] packed_propagate [{n_pad}, {w}] x {m_edges} edges: kernel "
+        f"{kern_ms:.4f} ms/launch, bound {bound_ms:.4f} ms (bytes: "
+        f"{distinct} distinct sources x {w * 4} B + {n_out} rows x {w * 4} B "
+        f"+ {m_edges} x 8 B), plain {plain_ms:.4f} ms, library none")
+    say(f"[numbers] packed batch_check {k}: p50 {p50_ms:.3f} ms, "
+        f"{rate:.0f} checks/s; peak device memory {peak_gib:.3f} GiB")
+    return {
+        "name": "packed_propagate",
+        "route": "cuda",
+        "source": "keto_tpu_torch/csrc/packed_propagate.cu",
+        "replaces": "keto_tpu/ops/packed.py:60",
+        "launches": launches,
+        "ms": kern_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tuples", type=int, default=1_000_000)
+    ap.add_argument("--gh-tuples", type=int, default=10_000_000)
+    ap.add_argument("--checks", type=int, default=4096)
+    ap.add_argument("--oracle", type=int, default=256)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from keto_tpu_torch.engine import masked_spmv
+    from keto_tpu_torch.engine.closure import _m_pad_for
+    from keto_tpu_torch.ops.closure import pack_adjacency
+    from keto_tpu_torch.utils import kernels
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
+    torch.backends.cudnn.allow_tf32 = False
+    step = masked_spmv.masked_step
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t_all = time.perf_counter()
+    walls = {}
+
+    # -- 1. build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = kernels.build()
+    say(f"[build] {secs} wall={time.perf_counter() - t0:.3f}s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
+    walls["build"] = time.perf_counter() - t0
+
+    # -- 2. kernels vs plain ----------------------------------------------------
+    t0 = time.perf_counter()
+    max_err = 0.0
+    for m in (256, 2048, 11520):
+        for density in (0.002, 0.05):
+            f, a, r = random_masks(gen, 256, m, density, dev)
+            kn, kr = step(f, a, r)
+            pn, pr = masked_spmv.masked_step_plain(f, a, r)
+            torch.cuda.synchronize()
+            err = max(
+                (kn.float() - pn.float()).abs().max().item(),
+                (kr.float() - pr.float()).abs().max().item(),
+            )
+            max_err = max(max_err, err)
+            require(
+                torch.equal(kn, pn) and torch.equal(kr, pr),
+                f"kernel != plain at M={m} density={density} (err {err})",
+            )
+    del f, a, r, kn, kr, pn, pr
+    rng = np.random.default_rng(args.seed)
+    m_small = 3000
+    m_pad_small = _m_pad_for(m_small)
+    n_e = 4 * m_small
+    src = rng.integers(m_small, size=n_e)
+    dst = rng.integers(m_small, size=n_e)
+    packed = pack_adjacency(src, dst, m_pad_small)
+    d_kernel = masked_spmv.build_closure_semiring(
+        packed, m_small, m_pad=m_pad_small, k_max=4, device=dev
+    )
+    d_plain = masked_spmv.build_closure_semiring(
+        packed, m_small, m_pad=m_pad_small, k_max=4, device=dev,
+        step=masked_spmv.masked_step_plain,
+    )
+    require(torch.equal(d_kernel, d_plain), "kernel-built D != plain-built D")
+    say(f"[kernels] B1 bitwise equal at M=256,2048,11520; D equal at "
+        f"m={m_small} m_pad={m_pad_small}; max_abs_err={max_err}")
+    del d_kernel, d_plain
+    b2_err = check_b2_small(rng, gen, dev)
+    say("[kernels] B2 bitwise equal at N_pad=4096 W=128, N_pad=16384 W=256, "
+        "N_pad=2^20 W=128")
+    walls["kernels"] = time.perf_counter() - t0
+
+    # -- 3. examples ------------------------------------------------------------
+    t0 = time.perf_counter()
+    run_example(repo, dev)
+    walls["example"] = time.perf_counter() - t0
+
+    # -- 4. closure path at rbac1m ----------------------------------------------
+    t0 = time.perf_counter()
+    b1 = run_rbac(args, rng, dev, card)
+    b1["max_abs_err"] = max_err
+    walls["main:closure"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- 5. packed path at github10m --------------------------------------------
+    t0 = time.perf_counter()
+    b2 = run_github(args, rng, dev)
+    b2["max_abs_err"] = b2_err
+    walls["main:packed"] = time.perf_counter() - t0
+
+    walls["total"] = time.perf_counter() - t_all
+    say(f"[numbers] card: {card}")
+    say("[numbers] phase wall seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

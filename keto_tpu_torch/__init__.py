@@ -1,12 +1,15 @@
-"""keto_tpu_torch: the closure Check path of keto_tpu in PyTorch and CUDA.
+"""keto_tpu_torch: the Check paths of keto_tpu in PyTorch and CUDA.
 
 A second package beside ``keto_tpu``. It answers Zanzibar-style Check
-requests with the default closure engine: the tuple store is snapshotted
-into a node vocabulary and COO edge arrays, split into the small interior
-subgraph, a bounded all-pairs distance matrix ``D`` over that interior is
-built once per snapshot on the GPU (the masked-SpMV kernel in
-``csrc/masked_spmv.cu``), and every check batch is answered by gathers into
-``D``.
+requests two ways. The default closure engine snapshots the tuple store
+into a node vocabulary and COO edge arrays, splits off the small interior
+subgraph, builds a bounded all-pairs distance matrix ``D`` over that
+interior once per snapshot on the GPU (the masked-SpMV kernel in
+``csrc/masked_spmv.cu``), and answers every check batch by gathers into
+``D``. The frontier engine (``DeviceCheckEngine``) runs a batched BFS over
+the whole graph instead; its packed mode, for graphs whose interior is too
+large for ``D``, propagates bitpacked frontiers with the kernel in
+``csrc/packed_propagate.cu``.
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``keto_tpu``: each module it needs is its own trimmed copy, and its

@@ -1,4 +1,5 @@
 from .check import CheckEngine, clamp_depth
 from .closure import ClosureCheckEngine
+from .device import DeviceCheckEngine
 
-__all__ = ["CheckEngine", "ClosureCheckEngine", "clamp_depth"]
+__all__ = ["CheckEngine", "ClosureCheckEngine", "DeviceCheckEngine", "clamp_depth"]

@@ -1,0 +1,454 @@
+"""Frontier check engine: batched BFS over the whole tuple graph on the GPU
+(counterpart of ``keto_tpu/engine/device.py``, its ``DeviceCheckEngine``).
+
+``DeviceCheckEngine`` answers the same contract as the host ``CheckEngine``
+but evaluates whole batches on the device: requests are vocab-encoded to
+(start, target, depth) int32 triples, padded to a batch bucket, and handed
+to the frontier functions. Depth clamping matches the reference (the
+global max-depth wins when smaller or when the request depth is <= 0).
+
+Modes (``mode``):
+
+- ``dense``: a bf16 [N, N] adjacency per snapshot, one matmul per step
+  (``ops.frontier``);
+- ``scatter``: COO edges, gather and scatter-OR per step (``ops.frontier``);
+- ``packed``: bitpacked frontiers, 32 requests per int32 word, one pass of
+  the ``packed_propagate`` kernel per step (``ops.packed``). It serves
+  graphs too large for the closure engine's interior limit;
+- ``auto``: dense up to ``dense_threshold`` padded nodes, else scatter.
+
+Unknown subjects and sets map to the snapshot's dummy node, which nothing
+reaches. The engine reads through a ``SnapshotManager``, so every answer is
+at least as fresh as the store version at call time.
+
+Left to later slices of the port: the columnar encode path
+(``encode_columns``/``batch_check_columns``) and the batcher's hooks on
+``EncodedBatch`` (its requests and fallback depths, ``keys``, ``compact``),
+the fault-injection sites and device telemetry hooks, and
+``SnapshotExpandEngine``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..graph.snapshot import GraphSnapshot, SnapshotManager, _bucket
+from ..ops.frontier import (
+    batched_check_dense,
+    batched_check_scatter,
+    batched_distances_dense,
+    batched_distances_scatter,
+    build_dense_adjacency,
+    pick_edge_chunk,
+)
+from ..ops.packed import PACKED_BATCH_MULTIPLE, csr_row_ptr, packed_batched_check
+from ..relationtuple.definitions import RelationTuple, SubjectSet
+from ..utils.kernels import resolve_device
+from .check import DEFAULT_MAX_DEPTH, clamp_depth
+
+_MIN_BATCH = 8
+_DENSE_THRESHOLD_DEFAULT = 8192  # adj = bf16 N*N: 8192^2 = 128 MiB
+
+
+def _bucket_batch(b: int) -> int:
+    return _bucket(b, _MIN_BATCH)
+
+
+def _batch_size(mode: str, n: int) -> int:
+    if mode == "packed":  # W = B/32 lanes must fill 128-lane tiles
+        m = PACKED_BATCH_MULTIPLE
+        return m * ((n + m - 1) // m)
+    return _bucket_batch(n)
+
+
+class EncodedBatch:
+    """A vocab-encoded batch parked between pipeline stages: staging
+    buffers filled, kernel not yet dispatched."""
+
+    __slots__ = ("n", "b", "snap", "dg", "start", "target", "depth")
+
+    def __init__(self, n, b, snap, dg, start, target, depth):
+        self.n = n
+        self.b = b
+        self.snap = snap
+        self.dg = dg
+        self.start = start
+        self.target = target
+        self.depth = depth
+
+    def release(self) -> None:
+        """Return the staging buffers to the per-bucket free-list (idempotent)."""
+        if self.start is not None:
+            self.dg.return_staging((self.start, self.target, self.depth))
+            self.start = self.target = self.depth = None
+
+
+class LaunchedBatch:
+    """A dispatched batch: the device result, not yet copied to the host.
+    CUDA launches return at enqueue; decode blocks on the copy."""
+
+    __slots__ = ("enc", "hit")
+
+    def __init__(self, enc: EncodedBatch, hit: torch.Tensor):
+        self.enc = enc
+        self.hit = hit
+
+
+class _DeviceGraph:
+    """Per-snapshot device residency: COO edge tensors, the dense
+    adjacency, or (``packed``) the dst-sorted edges with their CSR row
+    pointers.
+
+    Also owns the per-bucket staging buffers: the (start, target, depth)
+    int32 arrays a batch is encoded into are allocated once per (bucket,
+    snapshot) and recycled through a bounded free-list. The dummy fill value
+    is snapshot-dependent (padded_nodes - 1), which is why the buffers live
+    here and not on the engine: a snapshot swap retires them."""
+
+    # free-list depth per bucket
+    _STAGING_KEEP = 8
+
+    def __init__(self, snap: GraphSnapshot, mode: str, device: torch.device):
+        self.host_src = snap.src  # identity keys for the residency cache:
+        self.host_dst = snap.dst  # equal arrays => equal device contents
+        self.padded_nodes = snap.padded_nodes
+        self.padded_edges = snap.padded_edges
+        self.dummy = snap.dummy_node
+        self.mode = mode
+        self.adj = self.src = self.dst = None
+        self.src_by_dst = self.dst_by_dst = self.row_ptr = None
+        self._staging_lock = threading.Lock()
+        self._staging: dict[int, list] = {}
+        if mode == "dense":
+            self.adj = build_dense_adjacency(
+                torch.from_numpy(snap.src).to(device),
+                torch.from_numpy(snap.dst).to(device),
+                snap.padded_nodes,
+            )
+        elif mode == "packed":
+            # in-CSR (dst-sorted) order of the live edges, and the row
+            # pointers the kernel walks; the padding edges are left out
+            e = snap.num_edges
+            order = np.argsort(snap.dst[:e], kind="stable")
+            self.src_by_dst = torch.from_numpy(snap.src[:e][order]).to(device)
+            self.dst_by_dst = torch.from_numpy(snap.dst[:e][order]).to(device)
+            self.row_ptr = csr_row_ptr(self.dst_by_dst, snap.padded_nodes)
+        else:
+            self.src = torch.from_numpy(snap.src).to(device)
+            self.dst = torch.from_numpy(snap.dst).to(device)
+
+    @property
+    def dense(self) -> bool:
+        return self.mode == "dense"
+
+    def checkout_staging(
+        self, b: int
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(start, target, depth) int32[b] buffers, reset to the inert
+        state (start/target = dummy, depth = 1) so stale rows from the
+        previous batch can never leak past the new batch's length."""
+        with self._staging_lock:
+            pool = self._staging.get(b)
+            bufs = pool.pop() if pool else None
+        if bufs is None:
+            return (
+                np.full(b, self.dummy, dtype=np.int32),
+                np.full(b, self.dummy, dtype=np.int32),
+                np.ones(b, dtype=np.int32),
+            )
+        start, target, depth = bufs
+        start.fill(self.dummy)
+        target.fill(self.dummy)
+        depth.fill(1)
+        return start, target, depth
+
+    def return_staging(self, bufs) -> None:
+        b = len(bufs[0])
+        with self._staging_lock:
+            pool = self._staging.setdefault(b, [])
+            if len(pool) < self._STAGING_KEEP:
+                pool.append(bufs)
+
+
+class DeviceCheckEngine:
+    def __init__(
+        self,
+        snapshots: SnapshotManager,
+        max_depth: int = DEFAULT_MAX_DEPTH,
+        mode: str = "auto",  # auto | dense | scatter | packed
+        dense_threshold: int = _DENSE_THRESHOLD_DEFAULT,
+        device=None,
+    ):
+        if mode not in ("auto", "dense", "scatter", "packed"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.device = resolve_device(device)
+        self.snapshots = snapshots
+        self.global_max_depth = max_depth
+        self.mode = mode
+        self.dense_threshold = dense_threshold
+        self._lock = threading.Lock()
+        self._cached: Optional[_DeviceGraph] = None
+        self._scatter_companion: Optional[_DeviceGraph] = None
+
+    # -- device residency ----------------------------------------------------
+
+    def _device_graph(self, snap: GraphSnapshot) -> _DeviceGraph:
+        with self._lock:
+            cached = self._cached
+            # keyed on edge-array identity, not snapshot identity: version-only
+            # snapshots (duplicate writes) share arrays and must not trigger a
+            # re-upload or dense-adjacency rebuild
+            if (
+                cached is not None
+                and cached.host_src is snap.src
+                and cached.host_dst is snap.dst
+            ):
+                return cached
+            if self.mode != "auto":
+                mode = self.mode
+            else:
+                mode = (
+                    "dense"
+                    if snap.padded_nodes <= self.dense_threshold
+                    else "scatter"
+                )
+            self._cached = None  # let the old residency go before the upload
+            dg = _DeviceGraph(snap, mode, self.device)
+            self._cached = dg
+            return dg
+
+    def reset_residency(self) -> None:
+        """Drop every device-resident artifact: the edge tensors / dense
+        adjacency, the staging free-lists hanging off them, and the packed
+        mode's scatter companion. The next dispatch re-uploads from the
+        live snapshot."""
+        with self._lock:
+            self._cached = None
+            self._scatter_companion = None
+
+    def warmup(self, batch: int = 1) -> None:
+        """Run the current snapshot's path once at the `batch` bucket (the
+        configured maximum) and at the smallest bucket: builds the kernel
+        and the residency before live traffic arrives."""
+        dummy = RelationTuple(
+            namespace="", object="", relation="",
+            subject=SubjectSet(namespace="", object="", relation=""),
+        )
+        batch = max(1, batch)
+        self.batch_check([dummy] * batch)
+        if _bucket_batch(batch) != _bucket_batch(1):
+            self.batch_check([dummy])
+
+    def subject_is_allowed(
+        self, requested: RelationTuple, max_depth: int = 0
+    ) -> bool:
+        return self.batch_check([requested], max_depth)[0]
+
+    def batch_check(
+        self,
+        requests: Sequence[RelationTuple],
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> list[bool]:
+        """Evaluate a batch; `depths` (per-request) overrides `max_depth`.
+        Serial composition of the pipeline stages — one batch in flight."""
+        if not requests:
+            return []
+        return self.decode_launched(
+            self.launch_encoded(self.encode_batch(requests, max_depth, depths))
+        )
+
+    # -- pipelined dispatch: encode -> launch -> decode ----------------------
+
+    def _fill_depths(self, dg, n, start, target, depth, want) -> None:
+        """Clamp the requested depths into `depth`."""
+        gmax = self.global_max_depth
+        depth[:n] = np.where((want <= 0) | (want > gmax), gmax, want)
+        if dg.mode == "packed":
+            # unknown-node contract: a dummy start must not "reach" the
+            # dummy target through the shared dummy row — force depth 0,
+            # and the same for the batch's padding rows
+            dummy = dg.dummy
+            depth[:n] = np.where(
+                (start[:n] == dummy) | (target[:n] == dummy), 0, depth[:n]
+            )
+            depth[n:] = 0
+
+    def encode_batch(
+        self,
+        requests: Sequence[RelationTuple],
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> EncodedBatch:
+        """Stage 1 (host): vocab-encode into persistent per-(bucket,
+        snapshot) staging buffers."""
+        snap = self.snapshots.snapshot()
+        dg = self._device_graph(snap)
+        n = len(requests)
+        b = _batch_size(dg.mode, n)
+        start, target, depth = dg.checkout_staging(b)
+        snap.encode_requests(requests, out_start=start, out_target=target)
+        if depths is not None:
+            want = np.asarray(depths, dtype=np.int32)
+        else:
+            want = np.full(n, max_depth, dtype=np.int32)
+        self._fill_depths(dg, n, start, target, depth, want)
+        return EncodedBatch(n, b, snap, dg, start, target, depth)
+
+    def check_ids(
+        self,
+        start,
+        target,
+        is_id=None,
+        depths: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """Array-native check over pre-encoded vocab ids: bool[n] out (the
+        frontier paths do not distinguish subject-id from subject-set
+        targets, so ``is_id`` is accepted for signature parity with the
+        closure engine and ignored). Unknown or beyond-snapshot ids are
+        clamped to the inert dummy node."""
+        if len(start) == 0:
+            return np.zeros(0, dtype=bool)
+        enc = self.encode_ids(start, target, depths)
+        return np.asarray(
+            self.decode_launched(self.launch_encoded(enc)), dtype=bool
+        )
+
+    def encode_ids(
+        self,
+        start,
+        target,
+        depths: Optional[Sequence[int]] = None,
+    ) -> EncodedBatch:
+        """Stage 1 for pre-encoded id batches: the ids go straight into
+        staging — no vocab probe at all."""
+        return self.encode_ids_at(
+            self.snapshots.snapshot(), start, target, depths
+        )
+
+    def encode_ids_at(
+        self,
+        snap: GraphSnapshot,
+        start,
+        target,
+        depths: Optional[Sequence[int]] = None,
+    ) -> EncodedBatch:
+        """encode_ids pinned to an explicit snapshot. Node ids are only
+        meaningful against the vocab that produced them (the dummy id in
+        particular is ``padded_nodes - 1``, which moves as the graph
+        grows), so a retry of part of a batch re-encodes against the
+        parent batch's snapshot."""
+        dg = self._device_graph(snap)
+        n = len(start)
+        b = _batch_size(dg.mode, n)
+        dummy = snap.dummy_node
+        pn = snap.padded_nodes
+        st, tg, dp = dg.checkout_staging(b)
+        s = np.asarray(start, dtype=np.int64)
+        t = np.asarray(target, dtype=np.int64)
+        st[:n] = np.where((s < 0) | (s >= pn), dummy, s)
+        tg[:n] = np.where((t < 0) | (t >= pn), dummy, t)
+        if depths is not None:
+            want = np.asarray(depths, dtype=np.int32)
+        else:
+            want = np.full(n, 0, dtype=np.int32)
+        self._fill_depths(dg, n, st, tg, dp, want)
+        return EncodedBatch(n, b, snap, dg, st, tg, dp)
+
+    def launch_encoded(self, enc: EncodedBatch) -> LaunchedBatch:
+        """Stage 2 (the device stage): copy the batch to the device and
+        enqueue the steps. The loop reads one `done.all()` per step, so it
+        returns once the last step is enqueued; the result stays on the
+        device."""
+        dg = enc.dg
+        dev = self.device
+        # torch.tensor copies: the staging buffers are recycled after decode
+        start = torch.tensor(enc.start, device=dev)
+        target = torch.tensor(enc.target, device=dev)
+        depth = torch.tensor(enc.depth, device=dev)
+        if dg.mode == "packed":
+            hit = packed_batched_check(
+                dg.src_by_dst,
+                dg.dst_by_dst,
+                start,
+                target,
+                depth,
+                padded_nodes=dg.padded_nodes,
+                max_steps=self.global_max_depth,
+                row_ptr=dg.row_ptr,
+            )
+        elif dg.dense:
+            hit = batched_check_dense(
+                dg.adj, start, target, depth, max_steps=self.global_max_depth
+            )
+        else:
+            hit = batched_check_scatter(
+                dg.src,
+                dg.dst,
+                start,
+                target,
+                depth,
+                padded_nodes=dg.padded_nodes,
+                edge_chunk=pick_edge_chunk(dg.padded_edges, enc.b),
+                max_steps=self.global_max_depth,
+            )
+        return LaunchedBatch(enc, hit)
+
+    def decode_launched(self, launched: LaunchedBatch) -> list[bool]:
+        """Stage 3: copy the result to the host (the blocking step) and
+        recycle the staging buffers."""
+        enc = launched.enc
+        try:
+            return launched.hit[: enc.n].cpu().tolist()
+        finally:
+            enc.release()
+
+    def distances(
+        self, subject_sets: Sequence[SubjectSet], max_depth: int = 0
+    ) -> np.ndarray:
+        """BFS levels int32[n, padded_nodes] from each subject set
+        (UNREACHED where unreachable) — bulk expand support."""
+        snap = self.snapshots.snapshot()
+        dg = self._device_graph(snap)
+        n = len(subject_sets)
+        b = _bucket_batch(n)
+        start = np.full(b, snap.dummy_node, dtype=np.int32)
+        for i, s in enumerate(subject_sets):
+            start[i] = snap.node_for_set(s.namespace, s.object, s.relation)
+        d = clamp_depth(max_depth, self.global_max_depth)
+        dev = self.device
+        start_t = torch.tensor(start, device=dev)
+        depth_t = torch.full((b,), d, dtype=torch.int32, device=dev)
+        if dg.mode == "packed":
+            # distances are an expand-support query, not the packed check's
+            # hot path: reuse the COO scatter path, cached per snapshot
+            with self._lock:
+                companion = self._scatter_companion
+                if not (
+                    companion is not None
+                    and companion.host_src is snap.src
+                    and companion.host_dst is snap.dst
+                ):
+                    self._scatter_companion = None
+                    companion = _DeviceGraph(snap, "scatter", dev)
+                    self._scatter_companion = companion
+            dg = companion
+        if dg.dense:
+            dist = batched_distances_dense(
+                dg.adj, start_t, depth_t, max_steps=self.global_max_depth
+            )
+        else:
+            dist = batched_distances_scatter(
+                dg.src,
+                dg.dst,
+                start_t,
+                depth_t,
+                padded_nodes=dg.padded_nodes,
+                edge_chunk=pick_edge_chunk(dg.padded_edges, b),
+                max_steps=self.global_max_depth,
+            )
+        return dist[:n].cpu().numpy()

@@ -69,6 +69,33 @@ class GraphSnapshot:
             return self.dummy_node
         return nid
 
+    def encode_requests(
+        self,
+        requests: Sequence[RelationTuple],
+        out_start: Optional[np.ndarray] = None,
+        out_target: Optional[np.ndarray] = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Bulk vocab-encode: requests -> (start, target) node ids, unknown
+        or beyond-this-snapshot ids clamped to the inert dummy node. When
+        `out_start`/`out_target` are given, rows [0, n) are written in place
+        (persistent staging buffers) and the same arrays are returned."""
+        n = len(requests)
+        s_ids = self.vocab.lookup_bulk(
+            [(r.namespace, r.object, r.relation) for r in requests]
+        )
+        t_ids = self.vocab.lookup_bulk(
+            [subject_node_key(r.subject) for r in requests]
+        )
+        pn = self.padded_nodes
+        dummy = self.dummy_node
+        s = np.where((s_ids < 0) | (s_ids >= pn), dummy, s_ids)
+        t = np.where((t_ids < 0) | (t_ids >= pn), dummy, t_ids)
+        if out_start is None or out_target is None:
+            return s.astype(np.int32), t.astype(np.int32)
+        out_start[:n] = s
+        out_target[:n] = t
+        return out_start, out_target
+
 
 class SnapshotBuilder:
     """Full encode: tuples -> GraphSnapshot. The vocab may be carried over

@@ -7,9 +7,10 @@ import pytest
 import torch
 import torch.utils.cpp_extension
 
-from keto_tpu_torch.engine import ClosureCheckEngine
+from keto_tpu_torch.engine import ClosureCheckEngine, DeviceCheckEngine
 from keto_tpu_torch.engine import masked_spmv
 from keto_tpu_torch.graph import SnapshotManager
+from keto_tpu_torch.ops import packed
 from keto_tpu_torch.store import InMemoryTupleStore
 from keto_tpu_torch.utils import kernels
 
@@ -47,6 +48,15 @@ def test_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
     ClosureCheckEngine(mgr, device="cpu")  # asked for explicitly: fine
 
 
+def test_device_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mgr = SnapshotManager(InMemoryTupleStore())
+    for mode in ("packed", "dense", "scatter", "auto"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DeviceCheckEngine(mgr, mode=mode)
+    DeviceCheckEngine(mgr, mode="packed", device="cpu")
+
+
 def test_wrapper_never_runs_the_plain_version_off_the_cpu():
     f = torch.zeros((128, 256), dtype=torch.bfloat16, device="meta")
     a = torch.zeros((256, 256), dtype=torch.bfloat16, device="meta")
@@ -54,6 +64,15 @@ def test_wrapper_never_runs_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError):
         masked_spmv.masked_step(f, a, f)
     assert masked_spmv.masked_step.launches == before
+
+
+def test_packed_wrapper_never_runs_the_plain_version_off_the_cpu():
+    f = torch.zeros((256, 128), dtype=torch.int32, device="meta")
+    e = torch.zeros(1024, dtype=torch.int32, device="meta")
+    before = packed.packed_propagate.launches
+    with pytest.raises(ValueError):
+        packed.packed_propagate(f, e, e, 256 + 4096)
+    assert packed.packed_propagate.launches == before
 
 
 def test_kernel_load_raises_without_a_compiler(monkeypatch, tmp_path):
@@ -66,4 +85,4 @@ def test_kernel_load_raises_without_a_compiler(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_is_known():
-    assert kernels.kernel_names() == ["masked_spmv"]
+    assert kernels.kernel_names() == ["masked_spmv", "packed_propagate"]
