@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero:
 1. build    compile every kernel in keto_tpu_torch/csrc with nvcc (sm_90a),
             one nvcc per source, all started together
 2. kernels  hold the masked-SpMV kernel (B1) against its plain PyTorch
-            version, bitwise, at M in {256, 2048, 11520}, then a whole
-            closure build with the kernel against one with the plain step
-            (D byte-equal); hold the packed-propagate kernel (B2) against
+            version, bitwise, at G 256 and M in {256, 2048, 11520}, at
+            G 128 and M in {128, 384} (ragged 96-column stripes, CTAs that
+            only pad the grid to whole clusters), and at the largest
+            interior, M 17152, where an all-one row meets an all-one
+            column and the count reaches M; then a whole closure build
+            with the kernel against one with the plain step (D
+            byte-equal); hold the packed-propagate kernel (B2) against
             its plain version, bitwise, at W in {128, 256} (rows with no
             in-edge, duplicate edges, a hub row with thousands of in-edges,
             probe and padding edges, the dummy row) and at N_pad 2^20
@@ -25,8 +29,10 @@ Phases, in order; any failure exits non-zero:
             build, D against a plain-built D, answers against the host BFS
             oracle, then one interior and one leaf write and a re-check;
             B1 numbers: time per launch at the main path's shape beside its
-            bound, the plain version and torch.matmul plus the mask (a
-            yardstick only); full-build time; batch-check p50 and rate
+            bound (TFLOP/s and share of the bound), the plain version and
+            torch.matmul plus the mask (a yardstick only); full-build time,
+            and the same build with the wave step an identity (the unpack
+            and distance fills alone); batch-check p50 and rate
 5. main     (packed) a github10m store (10M tuples, the pools and edge mix
             of bench.py gen_github; BASELINE.json "GitHub-style
             org/team/repo ACL: 10M tuples"), whose interior is above the
@@ -120,6 +126,7 @@ def random_masks(gen, g, m, density, device):
     r[2] = 1  # fully reached row
     a[:, 3] = 0  # unreachable column
     a[4] = 1  # a node with an edge to every node
+    a[:, 5] = 1  # reached from every node: row 1 counts to M here
     return f.contiguous(), a.contiguous(), r.contiguous()
 
 
@@ -516,11 +523,20 @@ def run_rbac(args, rng, dev, card) -> dict:
         ),
         3,
     )
+    fills_ms = cuda_ms(  # the same build with no kernel: unpack and fills
+        lambda: masked_spmv.build_closure_semiring(
+            packed, ig.m, m_pad=m_pad, k_max=4, device=dev,
+            step=lambda fr, a, re: (fr, re),
+        ),
+        3,
+    )
     say(f"[numbers] card: {card}")
     say(f"[numbers] masked_spmv [{g}, {m}] x [{m}, {m}]: kernel {kern_ms:.4f} ms"
-        f"/launch, bound {bound_ms:.4f} ms ({bound_by}), plain f32 "
+        f"/launch ({ops / kern_ms / 1e9:.1f} TFLOP/s, {bound_ms / kern_ms:.1%} "
+        f"of the bound), bound {bound_ms:.4f} ms ({bound_by}), plain f32 "
         f"{plain_ms:.4f} ms, torch.matmul+mask {lib_ms:.4f} ms")
-    say(f"[numbers] full build ({expected} launches + unpack) {build_ms:.3f} ms;"
+    say(f"[numbers] full build ({expected} launches + unpack) {build_ms:.3f} ms,"
+        f" with an identity wave step (unpack and fills) {fills_ms:.3f} ms;"
         f" closure batch_check {k}: p50 {p50_ms:.3f} ms, {rate:.0f} checks/s")
     return {
         "name": "masked_spmv",
@@ -786,21 +802,23 @@ def main() -> int:
     # -- 2. kernels vs plain ----------------------------------------------------
     t0 = time.perf_counter()
     max_err = 0.0
-    for m in (256, 2048, 11520):
-        for density in (0.002, 0.05):
-            f, a, r = random_masks(gen, 256, m, density, dev)
-            kn, kr = step(f, a, r)
-            pn, pr = masked_spmv.masked_step_plain(f, a, r)
-            torch.cuda.synchronize()
-            err = max(
-                (kn.float() - pn.float()).abs().max().item(),
-                (kr.float() - pr.float()).abs().max().item(),
-            )
-            max_err = max(max_err, err)
-            require(
-                torch.equal(kn, pn) and torch.equal(kr, pr),
-                f"kernel != plain at M={m} density={density} (err {err})",
-            )
+    b1_cases = [(256, m, p) for m in (256, 2048, 11520) for p in (0.002, 0.05)]
+    b1_cases += [(128, 128, 0.05), (128, 384, 0.05), (256, 17152, 0.001)]
+    for g, m, density in b1_cases:
+        f, a, r = random_masks(gen, g, m, density, dev)
+        kn, kr = step(f, a, r)
+        pn, pr = masked_spmv.masked_step_plain(f, a, r)
+        torch.cuda.synchronize()
+        err = max(
+            (kn.float() - pn.float()).abs().max().item(),
+            (kr.float() - pr.float()).abs().max().item(),
+        )
+        max_err = max(max_err, err)
+        require(
+            torch.equal(kn, pn) and torch.equal(kr, pr),
+            f"kernel != plain at G={g} M={m} density={density} (err {err})",
+        )
+        require(kr[1, 5] == 1 and not kn[0].any(), f"edge rows at M={m}")
     del f, a, r, kn, kr, pn, pr
     rng = np.random.default_rng(args.seed)
     m_small = 3000
@@ -817,7 +835,9 @@ def main() -> int:
         step=masked_spmv.masked_step_plain,
     )
     require(torch.equal(d_kernel, d_plain), "kernel-built D != plain-built D")
-    say(f"[kernels] B1 bitwise equal at M=256,2048,11520; D equal at "
+    say(f"[kernels] B1 bitwise equal at "
+        + ", ".join(f"[{g}, {m}]" for g, m, _ in b1_cases)
+        + "; D equal at "
         f"m={m_small} m_pad={m_pad_small}; max_abs_err={max_err}")
     del d_kernel, d_plain
     b2_err = check_b2_small(rng, gen, dev)

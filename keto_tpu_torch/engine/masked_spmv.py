@@ -7,21 +7,23 @@ The closure build is a batched multi-source BFS whose per-wave step is
     reached = reached OR newly
 
 Masks live as bf16 0/1: the tensor cores take bf16 tiles, and counts up to
-the 16k interior limit are exact in the f32 accumulator, so ``> 0.5`` is an
-exact boolean OR.
+the widest closure (17 152 columns) are exact in the f32 accumulator, so
+``> 0.5`` is an exact boolean OR.
 
 Kernel note. ``masked_step`` launches ``csrc/masked_spmv.cu``, the
 hand-written Hopper replacement of the Pallas kernel
 ``keto_tpu/engine/pallas_spmv.py::_spmv_kernel`` (``_masked_step_pallas``).
 At the engine's 256-row groups one wave reads the whole adjacency (M^2
 bf16 bytes) for 2*256*M^2 operations, so it is bound by the adjacency
-bytes, not the tensor cores. The kernel tiles the output 128 x 128, walks
-K through double-buffered shared-memory tiles (so A is read G/128 times per
-wave), multiplies on the tensor cores and fuses the threshold and the
-reached-mask into the epilogue, so no [G, M] intermediate touches device
-memory. ``masked_step_plain`` is the same function in float32 PyTorch: the
-wrapper uses it only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.
+bytes, with the tensor cores close behind. One CTA owns all G rows of a
+96-column stripe, so A crosses device memory once per wave; F is shared
+across a cluster by TMA multicast; wgmma runs from a TMA ring under
+mbarriers, and the threshold and reached-mask run from the accumulator
+registers, so no [G, M] intermediate touches device memory.
+``launch_geometry`` picks the rows per CTA and the grid here in Python,
+where the CPU tests can check them. ``masked_step_plain`` is the
+same function in float32 PyTorch: the wrapper uses it only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
 
 ``build_closure_semiring`` drives the waves: D is byte-identical to
 ``ops.closure.build_closure_packed`` (uint8 distances clamped at k_max,
@@ -31,6 +33,7 @@ INF elsewhere, live diagonal 0, padding rows INF).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +41,33 @@ from ..ops.closure import INF_DIST, set_diagonal_, unpack_adjacency
 from ..utils import kernels
 
 KERNEL = "masked_spmv"
-TILE = 128  # the kernel's output tile: G and M must be multiples of it
+TILE = 128  # G and M must be multiples of it
+# the kernel's compile-time tile: csrc/masked_spmv.cu BN and CLUSTER
+STRIPE = 96  # adjacency columns per CTA
+CLUSTER = 4  # CTAs along N that share each F tile by TMA multicast
+
+
+class Geometry(NamedTuple):
+    """One launch of the kernel: CTAs of `rows` frontier rows by STRIPE
+    adjacency columns, `grid_x` column stripes (a whole number of clusters
+    of CLUSTER; stripes past M do nothing) by `grid_y` row blocks."""
+
+    rows: int
+    grid_x: int
+    grid_y: int
+
+
+def launch_geometry(g: int, m: int) -> Geometry:
+    """The kernel's launch for a [g, m] frontier: each CTA covers all 256
+    rows of the group (128 when g is not a multiple of 256), so every
+    adjacency tile is read once per 256 rows; the column stripes are padded
+    to whole clusters."""
+    if g % TILE or m % TILE:
+        raise ValueError(f"G={g} and M={m} must be multiples of {TILE}")
+    rows = 256 if g % 256 == 0 else 128
+    stripes = -(-m // STRIPE)
+    grid_x = -(-stripes // CLUSTER) * CLUSTER
+    return Geometry(rows, grid_x, g // rows)
 
 
 def masked_step_plain(frontier, adj, reached):
@@ -78,8 +107,7 @@ def masked_step(frontier, adj, reached):
             f"masked_step runs on CPU or CUDA tensors, not {frontier.device}"
         )
     g, m = frontier.shape
-    if g % TILE or m % TILE:
-        raise ValueError(f"G={g} and M={m} must be multiples of {TILE}")
+    geom = launch_geometry(g, m)
     for t in (frontier, adj, reached):
         if t.data_ptr() % 16:
             raise ValueError("operands must be 16-byte aligned")
@@ -90,7 +118,8 @@ def masked_step(frontier, adj, reached):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             frontier.data_ptr(), adj.data_ptr(), reached.data_ptr(),
-            newly.data_ptr(), reached_out.data_ptr(), g, m, stream,
+            newly.data_ptr(), reached_out.data_ptr(), g, m,
+            geom.rows, geom.grid_x, stream,
         )
     if err != 0:
         raise RuntimeError(f"masked_spmv launch failed: CUDA error {err}")
@@ -108,7 +137,8 @@ def _kernel_fn():
     fn = lib.masked_spmv_step
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 

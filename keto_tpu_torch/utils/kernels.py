@@ -5,8 +5,10 @@ Each ``keto_tpu_torch/csrc/<name>.cu`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
 plain C interface and loaded with ``ctypes``: seconds to build, against the
 minutes a source that includes PyTorch's headers takes. Libraries land in
-``keto_tpu_torch/_build/`` (git-ignored), named by a hash of their source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+``keto_tpu_torch/_build/`` (git-ignored), named by a hash of everything
+the build reads (the source, every ``csrc/*.cuh`` header it may include,
+and the flags), so an edited source or header is rebuilt and an unchanged
+one is reused.
 
 Nothing here falls back: a missing GPU, a missing ``nvcc``, a failed build
 or a failed load raises.
@@ -63,9 +65,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def kernel_names() -> list[str]:

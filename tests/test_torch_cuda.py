@@ -48,6 +48,57 @@ def test_kernel_matches_plain(cuda, g, m):
     assert torch.equal(kn, pn) and torch.equal(kr, pr)
 
 
+def _edge_masks(device, g, m, density, seed):
+    """Random 0/1 masks with an all-zero frontier row (0), an all-one row
+    (1) against an all-one adjacency column (5), and a fully reached row
+    (2)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def bern(shape):
+        return (torch.rand(shape, generator=gen, device=device) < density).to(
+            torch.bfloat16
+        )
+
+    f, a = bern((g, m)), bern((m, m))
+    r = torch.maximum(f, bern((g, m)))
+    f[0] = 0
+    f[1] = 1
+    a[:, 5] = 1
+    r[2] = 1
+    return f, a, r
+
+
+def _assert_kernel_matches_plain(f, a, r):
+    before = masked_spmv.masked_step.launches
+    kn, kr = masked_spmv.masked_step(f, a, r)
+    pn, pr = masked_spmv.masked_step_plain(f, a, r)
+    torch.cuda.synchronize()
+    assert masked_spmv.masked_step.launches == before + 1
+    assert torch.equal(kn, pn) and torch.equal(kr, pr)
+    assert not kn[0].any()  # an empty frontier row reaches nothing new
+    assert not kn[2].any() and bool((kr[2] == 1).all())  # fully reached
+    assert kr[1, 5] == 1  # the all-one row meets the all-one column
+
+
+@pytest.mark.parametrize("m", [128, 256, 384, 2048, 11520])
+@pytest.mark.parametrize("g", [128, 256])
+def test_kernel_edges_match_plain(cuda, g, m):
+    """Ragged 96-column stripes (every M here but 384 and 11520) and CTAs
+    that only pad the grid to whole clusters (M = 128, 256, 2048)."""
+    geom = masked_spmv.launch_geometry(g, m)
+    assert geom.grid_x * masked_spmv.STRIPE >= m
+    _assert_kernel_matches_plain(*_edge_masks(cuda, g, m, 0.02, seed=g + m))
+
+
+def test_kernel_at_the_largest_interior(cuda):
+    """M = _m_pad_for(16384) = 17152: the all-one row against the all-one
+    column counts to M in the accumulator, still exact in f32."""
+    m = 17152
+    f, a, r = _edge_masks(cuda, 256, m, 0.001, seed=m)
+    assert int((f[1].float() @ a[:, 5].float()).item()) == m
+    _assert_kernel_matches_plain(f, a, r)
+
+
 def test_engine_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(3)
     store = InMemoryTupleStore()

@@ -84,5 +84,19 @@ def test_kernel_load_raises_without_a_compiler(monkeypatch, tmp_path):
         kernels.load("masked_spmv")
 
 
+def test_library_name_follows_the_headers(monkeypatch, tmp_path):
+    for src in kernels.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = kernels._lib_path("masked_spmv")
+    assert kernels._lib_path("masked_spmv") == before  # stable
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// touched\n")
+    assert kernels._lib_path("masked_spmv") != before
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")  # a new header too
+    assert kernels._lib_path("masked_spmv") != before
+
+
 def test_every_kernel_source_is_known():
     assert kernels.kernel_names() == ["masked_spmv", "packed_propagate"]

@@ -107,3 +107,37 @@ def test_semiring_build_with_explicit_plain_step():
         step=tspmv.masked_step_plain,
     )
     assert torch.equal(a, b)
+
+
+# every closure width the engine can produce: multiples of 256 up to
+# _m_pad_for(16384) = 17152
+M_PADS = range(256, 17152 + 1, 256)
+
+
+@pytest.mark.parametrize("g", [128, 256])
+def test_launch_geometry_covers_every_column_once(g):
+    for m in list(M_PADS) + [128, 384]:
+        geom = tspmv.launch_geometry(g, m)
+        assert geom.grid_x % tspmv.CLUSTER == 0  # whole clusters
+        assert geom.grid_y * geom.rows == g  # every frontier row, once
+        assert geom.rows == (256 if g % 256 == 0 else 128)
+        stripe = tspmv.STRIPE
+        cover = np.zeros(m, dtype=np.int64)
+        for x in range(geom.grid_x):
+            cover[x * stripe : min((x + 1) * stripe, m)] += 1
+        assert (cover == 1).all(), m
+        # stripes past M only pad the grid to whole clusters
+        assert (geom.grid_x - tspmv.CLUSTER) * stripe < m
+
+
+@pytest.mark.parametrize("g", [128, 256])
+def test_launch_geometry_fills_one_wave_at_rbac1m(g):
+    geom = tspmv.launch_geometry(g, 11520)
+    assert geom.grid_x * geom.grid_y <= 132  # the H100's SMs: one wave
+    assert geom.grid_y == 1  # the adjacency is read once per group
+
+
+@pytest.mark.parametrize("g,m", [(100, 256), (256, 200), (64, 128)])
+def test_launch_geometry_rejects_what_the_kernel_does_not_take(g, m):
+    with pytest.raises(ValueError):
+        tspmv.launch_geometry(g, m)
