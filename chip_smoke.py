@@ -27,7 +27,10 @@ Phases, in order; any failure exits non-zero:
             serve.read.max-depth 5), a ClosureCheckEngine on the card, a
             few thousand sampled checks; the kernel launch count of the full
             build, D against a plain-built D, answers against the host BFS
-            oracle, then one interior and one leaf write and a re-check;
+            oracle, then a leaf and an interior insert and delete, each
+            absorbed by the write overlay and re-checked against the
+            oracle, and the patched D against a plain build of the written
+            snapshot;
             B1 numbers: time per launch at the main path's shape beside its
             bound (TFLOP/s and share of the bound), the plain version and
             torch.matmul plus the mask (a yardstick only); full-build time,
@@ -43,6 +46,20 @@ Phases, in order; any failure exits non-zero:
             B2 against its plain version on the real edges; B2 numbers:
             time per launch beside its bound and the plain version, packed
             batch p50 and rate, peak device memory
+6. serve    the serving seam at rbac1m: Registry(Config(...)) on the card
+            with a columnar store, start_all (one closure build: 135 B1
+            launches), then over HTTP (urllib, a thread pool): the
+            cat-videos drive, 4096 sampled checks as POST /check/batch and
+            as single GET /check from 64 clients, a leaf and an interior
+            insert and delete each followed by a check that must reflect
+            it, 1000 mixed random writes and 256 checks after them, every
+            answer against a host oracle; no rebuild, exactly 135 B1
+            launches, no B2 launch; then bounded freshness after a bulk
+            load (stale answers with the old snaptoken, a new-snaptoken
+            check that waits for the swap). Numbers: single-check p50/p99
+            and rate at 64 clients, /check/batch p50 and rate, the mean
+            batch the batcher formed, write-to-visible and overlay apply
+            time per write class, bulk load to swap, peak device memory
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -227,10 +244,11 @@ def pool(items):
     return arr
 
 
-def gen_rbac(n_tuples: int, rng: np.random.Generator):
+def gen_rbac(n_tuples: int, rng: np.random.Generator, store=None):
     """users ∈ groups ∈ roles -> per-resource grants, with bench.py
-    gen_rbac's pool sizes and edge mix, bulk-loaded into a columnar store.
-    Returns the store, the key pools and the edges of each stage."""
+    gen_rbac's pool sizes and edge mix, bulk-loaded into `store` (a new
+    columnar store when None). Returns the store, the key pools and the
+    edges of each stage."""
     from keto_tpu_torch.store import ColumnarTupleStore
 
     n_users = max(n_tuples // 10, 100)
@@ -241,7 +259,8 @@ def gen_rbac(n_tuples: int, rng: np.random.Generator):
     groups = pool([("rbac", f"g{i}", "member") for i in range(n_groups)])
     roles = pool([("rbac", f"role{i}", "member") for i in range(n_roles)])
     resources = pool([("rbac", f"res{i}", "view") for i in range(n_resources)])
-    store = ColumnarTupleStore()
+    store = ColumnarTupleStore() if store is None else store
+    n0 = len(store)
     edges = {}
 
     def load(name, s, d):
@@ -259,15 +278,16 @@ def gen_rbac(n_tuples: int, rng: np.random.Generator):
          roles[rng.integers(n_roles, size=k)])
     grant_dst = pool(list(roles) + list(groups))
     grants_s, grants_d = [], []
-    while len(store) < n_tuples:  # grants; top up collision losses
-        k = n_tuples - len(store)
+    while len(store) - n0 < n_tuples:  # grants; top up collision losses
+        k = n_tuples - (len(store) - n0)
         s = resources[rng.integers(n_resources, size=k)]
         d = grant_dst[rng.integers(len(grant_dst), size=k)]
         store.bulk_load_edges(s.tolist(), d.tolist())
         grants_s.append(s)
         grants_d.append(d)
     edges["grant"] = (np.concatenate(grants_s), np.concatenate(grants_d))
-    return store, {"users": users, "resources": resources}, edges
+    pools = {"users": users, "resources": resources, "groups": groups, "roles": roles}
+    return store, pools, edges
 
 
 def gen_github(n_tuples: int, rng: np.random.Generator):
@@ -396,6 +416,7 @@ def run_rbac(args, rng, dev, card) -> dict:
     from keto_tpu_torch.engine import CheckEngine, ClosureCheckEngine
     from keto_tpu_torch.engine import masked_spmv
     from keto_tpu_torch.graph import SnapshotManager
+    from keto_tpu_torch.graph.interior import build_interior
     from keto_tpu_torch.ops import packed as packed_ops
     from keto_tpu_torch.ops.closure import pack_adjacency, unpack_adjacency
 
@@ -461,15 +482,18 @@ def run_rbac(args, rng, dev, card) -> dict:
     say(f"[numbers] closure batch under the profiler: "
         f"{profile_batch(lambda: eng.batch_check(sample))}")
 
-    # writes: a leaf edge (group -> new user), then an interior edge
-    # (role -> role) that opens a path to a user four hops from a resource
+    # writes through the write overlay: a leaf edge (group -> new user),
+    # then an interior edge (role -> role) that opens a path to a user four
+    # hops from a resource, then the leaf delete and the interior delete;
+    # none may rebuild the closure
     g_src, g_dst = edges["grant"]
     gi = next(i for i in range(len(g_src)) if g_dst[i][1].startswith("g"))
     res_g, grp = g_src[gi], g_dst[gi]
-    store.write_relation_tuples(to_tuple(grp, ("smoke-user",)))
-    probes = [to_tuple(res_g, ("smoke-user",))]
-    got = eng.batch_check(probes + sample[:64])
-    want = oracle.batch_check(probes + sample[:64])
+    leaf = to_tuple(grp, ("smoke-user",))
+    store.write_relation_tuples(leaf)
+    leaf_probes = [to_tuple(res_g, ("smoke-user",))]
+    got = eng.batch_check(leaf_probes + sample[:64])
+    want = oracle.batch_check(leaf_probes + sample[:64])
     require(got == want and got[0], f"after leaf write: {got[:1]} vs {want[:1]}")
     gr_s, gr_d = edges["group_role"]
     mem_s, mem_d = edges["membership"]
@@ -482,20 +506,52 @@ def run_rbac(args, rng, dev, card) -> dict:
     ai = next(i for i in range(len(g_src)) if g_dst[i][1].startswith("role")
               and g_dst[i] != role_b)
     res_a, role_a = g_src[ai], g_dst[ai]
-    store.write_relation_tuples(to_tuple(role_a, role_b))
+    interior = to_tuple(role_a, role_b)
+    store.write_relation_tuples(interior)
     probes = [to_tuple(res_a, user_b), to_tuple(res_a, grp_b)]
     got = eng.batch_check(probes + sample[:n_or])
     want = oracle.batch_check(probes + sample[:n_or])
     require(got == want, "answers after the interior write disagree with oracle")
     require(got[0], f"{probes[0]} should be allowed after the interior write")
-    require(eng.n_full_builds == 1 and eng.n_incremental_builds == 2,
-            f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}")
+    ov = eng._overlay
+    require(eng.n_full_builds == 1 and eng.n_incremental_builds == 0
+            and ov.n_events == 2 and not ov.broken,
+            f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}, "
+            f"overlay events={ov.n_events} broken={ov.broken_reason!r}")
+    # the overlay-patched D equals a fresh plain build of the same snapshot
+    # when the interior node set is unchanged
+    snap2 = mgr.snapshot()
+    ig2 = build_interior(snap2)
+    require(np.array_equal(ig2.interior_ids, ig.interior_ids),
+            "the interior write changed the interior node set")
+    d_fresh = masked_spmv.build_closure_semiring(
+        pack_adjacency(ig2.ii_src, ig2.ii_dst, m_pad), ig2.m, m_pad=m_pad,
+        k_max=4, device=dev, step=masked_spmv.masked_step_plain,
+    )
+    require(torch.equal(eng._state.d, d_fresh),
+            "overlay-patched D != plain D of the written snapshot")
+    del d_fresh, snap2, ig2
+    store.delete_relation_tuples(leaf)
+    got = eng.batch_check(leaf_probes + sample[:32])
+    want = oracle.batch_check(leaf_probes + sample[:32])
+    require(got == want and not got[0], f"after leaf delete: {got[:1]}")
+    store.delete_relation_tuples(interior)
+    got = eng.batch_check(probes + sample[:32])
+    want = oracle.batch_check(probes + sample[:32])
+    require(got == want, "answers after the interior delete disagree with oracle")
+    require(eng.n_full_builds == 1 and eng.n_incremental_builds == 0
+            and ov.n_events == 4 and ov.n_interior_deletes == 1
+            and not ov.broken and eng._overlay is ov,
+            f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}, "
+            f"overlay events={ov.n_events} broken={ov.broken_reason!r}")
     launches = masked_spmv.masked_step.launches  # main path ends here
     require(launches == expected, f"{launches} launches after the writes")
     require(packed_ops.packed_propagate.launches == 0, "B2 ran on the closure path")
-    say(f"[main:closure] writes: leaf + interior edge absorbed incrementally "
-        f"(full={eng.n_full_builds}, incremental={eng.n_incremental_builds}); "
-        f"{len(want)} re-checks equal the oracle")
+    say(f"[main:closure] writes: leaf + interior insert, leaf + interior "
+        f"delete absorbed by the overlay (full={eng.n_full_builds}, "
+        f"incremental={eng.n_incremental_builds}, overlay events "
+        f"{ov.n_events}); patched D equal to a plain build of the written "
+        f"snapshot; every re-check equals the oracle")
 
     # numbers: B1 at the main path's shape
     adj = unpack_adjacency(packed, m_pad, dev)
@@ -759,6 +815,491 @@ def run_github(args, rng, dev) -> dict:
     }
 
 
+class SetGraphOracle:
+    """Exact host oracle over a columnar store's live edges, fast enough for
+    thousands of checks at rbac1m: a breadth-first search over subject-set
+    nodes only, from the start set, then a test of the target's
+    in-neighbours — allowed iff some in-neighbour u has dist(start, u) <=
+    depth - 1. The semantics of the host BFS oracle (CheckEngine: a tuple
+    path of length <= depth); the serve phase holds it against CheckEngine
+    on a sample before using it. Built at one store version."""
+
+    def __init__(self, store):
+        from keto_tpu_torch.graph.vocab import subject_node_key
+
+        self._key = subject_node_key
+        src, dst, vocab, version = store.snapshot_ids()
+        self.vocab, self.version, self.n = vocab, version, len(vocab)
+        src, dst = src.astype(np.int64), dst.astype(np.int64)
+        keep = vocab.is_set_array()[dst]
+        order = np.argsort(src[keep], kind="stable")
+        self.out_vals = dst[keep][order]
+        self.out_ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(src[keep], minlength=self.n))]
+        )
+        order = np.argsort(dst, kind="stable")
+        self.in_vals = src[order]
+        self.in_ptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=self.n))])
+        self.dist = np.full(self.n, 127, dtype=np.int8)
+
+    def _successors(self, rows: np.ndarray) -> np.ndarray:
+        lo = self.out_ptr[rows]
+        lens = self.out_ptr[rows + 1] - lo
+        base = np.repeat(lo - np.cumsum(lens) + lens, lens)
+        return self.out_vals[base + np.arange(int(lens.sum()))]
+
+    def check(self, tup, depth: int = 5) -> bool:
+        s = self.vocab.lookup((tup.namespace, tup.object, tup.relation))
+        t = self.vocab.lookup(self._key(tup.subject))
+        if s is None or t is None or s >= self.n or t >= self.n:
+            return False
+        preds = self.in_vals[self.in_ptr[t] : self.in_ptr[t + 1]]
+        if not len(preds):
+            return False
+        dist = self.dist
+        frontier = np.array([s], dtype=np.int64)
+        dist[frontier] = 0
+        touched = [frontier]
+        try:
+            for level in range(depth):
+                if (dist[preds] <= level).any():
+                    return True
+                if level == depth - 1:
+                    return False
+                nxt = np.unique(self._successors(frontier))
+                nxt = nxt[dist[nxt] == 127]
+                if not len(nxt):
+                    return False
+                dist[nxt] = level + 1
+                touched.append(nxt)
+                frontier = nxt
+            return False
+        finally:
+            for arr in touched:
+                dist[arr] = 127
+
+    def batch(self, tuples, depth: int = 5) -> list[bool]:
+        return [self.check(t, depth) for t in tuples]
+
+
+def http(method: str, url: str, body=None, timeout: float = 120.0):
+    """One request with urllib; (status, parsed JSON body or None)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, method=method, headers={"Content-Type": "application/json"}
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, (json.loads(raw) if raw else None)
+
+
+def tuple_query(t) -> str:
+    from urllib.parse import urlencode
+
+    q = {"namespace": t.namespace, "object": t.object, "relation": t.relation}
+    if hasattr(t.subject, "id"):
+        q["subject_id"] = t.subject.id
+    else:
+        q.update({"subject_set.namespace": t.subject.namespace,
+                  "subject_set.object": t.subject.object,
+                  "subject_set.relation": t.subject.relation})
+    return urlencode(q)
+
+
+def rest_check(read: str, t, depth: int = 0) -> bool:
+    extra = f"&max-depth={depth}" if depth else ""
+    status, doc = http("GET", f"{read}/check?{tuple_query(t)}{extra}")
+    require(status in (200, 403) and doc == {"allowed": status == 200},
+            f"GET /check {t}: {status} {doc}")
+    return status == 200
+
+
+def http_clients(urls: list[str], clients: int) -> tuple[list, float]:
+    """GET every url from `clients` threads of a separate process, so the
+    clients do not share the server's interpreter lock. Returns (status,
+    seconds) per url and the wall time of the whole run."""
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1]); "
+        "import chip_smoke; chip_smoke.client_main()"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
+        input=json.dumps({"urls": urls, "clients": clients}),
+        capture_output=True, text=True, timeout=600, check=True,
+    )
+    doc = json.loads(proc.stdout)
+    return doc["results"], doc["wall"]
+
+
+def client_main() -> None:
+    """The client side of http_clients: urls on stdin, results on stdout."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    req = json.load(sys.stdin)
+    # one opener for every thread: urlopen builds its own on first use, and
+    # 64 threads doing so at once parse the CA bundle 64 times
+    urllib.request.install_opener(urllib.request.build_opener())
+
+    def one(url):
+        t0 = time.perf_counter()
+        status, _ = http("GET", url)
+        return status, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(req["clients"]) as pool:
+        t0 = time.perf_counter()
+        results = list(pool.map(one, req["urls"]))
+        wall = time.perf_counter() - t0
+    json.dump({"results": results, "wall": wall}, sys.stdout)
+
+
+def pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def serve_config(freshness: str) -> dict:
+    return {
+        "dsn": "columnar",
+        "namespaces": [{"id": 1, "name": "rbac"}, {"id": 2, "name": "videos"}],
+        "serve": {"read": {"host": "127.0.0.1", "port": 0, "max-depth": 5},
+                  "write": {"host": "127.0.0.1", "port": 0}},
+        "engine": {"freshness": freshness},
+    }
+
+
+def chain_sample(rng, pools, edges, k: int):
+    """k resource -> user checks: a quarter along real grant -> group ->
+    member chains (allowed at depth 2 or more), the rest uniform pairs."""
+    mem_s, mem_d = edges["membership"]
+    member_of = {}
+    for g_key, u_key in zip(mem_s[:100_000], mem_d[:100_000]):
+        member_of.setdefault(g_key, u_key)
+    g_src, g_dst = edges["grant"]
+    chains = [
+        to_tuple(r_key, member_of[d_key])
+        for r_key, d_key in zip(g_src[: 4 * k], g_dst[: 4 * k])
+        if d_key in member_of
+    ][: k // 4]
+    users, resources = pools["users"], pools["resources"]
+    uniform = [
+        to_tuple(r_key, u_key)
+        for r_key, u_key in zip(
+            resources[rng.integers(len(resources), size=k - len(chains))],
+            users[rng.integers(len(users), size=k - len(chains))],
+        )
+    ]
+    mixed = chains + uniform
+    return [mixed[i] for i in rng.permutation(len(mixed))], member_of
+
+
+def run_serve(args, dev, card) -> dict:
+    """The serving seam at rbac1m: Registry -> REST planes -> CheckBatcher ->
+    ClosureCheckEngine on the card, driven over HTTP."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keto_tpu_torch.driver import Config, Registry
+    from keto_tpu_torch.engine import CheckEngine, masked_spmv
+    from keto_tpu_torch.ops import packed as packed_ops
+    from keto_tpu_torch.relationtuple import RelationTuple
+
+    torch.cuda.reset_peak_memory_stats()
+    t_serve = time.perf_counter()
+
+    def at() -> str:  # seconds into the phase, for the log
+        return f"+{time.perf_counter() - t_serve:.1f}s"
+
+    numbers = {}
+    reg = Registry(Config(values=serve_config("auto")))
+    t0 = time.perf_counter()
+    store, pools, edges = gen_rbac(
+        args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
+    )
+    say(f"[serve {at()}] store: {len(store)} tuples, load {time.perf_counter() - t0:.3f}s")
+    masked_spmv.masked_step.launches = 0  # the serve path starts here
+    packed_ops.packed_propagate.launches = 0
+    t0 = time.perf_counter()
+    read_port, write_port = reg.start_all()
+    start_s = time.perf_counter() - t0
+    eng, batcher = reg.check_engine(), reg.checker()
+    read = f"http://127.0.0.1:{read_port}"
+    write = f"http://127.0.0.1:{write_port}"
+    m_pad = eng._state.m_pad
+    expected = (m_pad // 256) * (5 - 2)
+    say(f"[serve {at()}] start_all (closure build + warmup) {start_s:.3f}s, m_pad "
+        f"{m_pad}, phases {eng.last_build_phases}; read :{read_port}, write "
+        f":{write_port}")
+    rng = np.random.default_rng(args.seed + 2)
+    try:
+        # 1. the cat-videos drive over REST, minus Expand
+        for path in sorted(
+            (Path(__file__).resolve().parent
+             / "contrib/cat-videos-example/relation-tuples").glob("*.json")
+        ):
+            doc = json.loads(path.read_text())
+            doc.pop("$schema", None)
+            status, _ = http("PUT", f"{write}/relation-tuples", doc)
+            require(status == 201, f"PUT {path.name}: {status}")
+        expect = {
+            "videos:/cats#owner@cat lady": True,
+            "videos:/cats/1.mp4#owner@cat lady": True,
+            "videos:/cats/1.mp4#view@cat lady": True,
+            "videos:/cats/1.mp4#view@*": True,
+            "videos:/cats/2.mp4#view@*": False,
+        }
+        got = [rest_check(read, RelationTuple.from_string(q)) for q in expect]
+        require(got == list(expect.values()), f"cat-videos over REST: {got}")
+        status, doc = http("POST", f"{read}/check", RelationTuple.from_string(
+            "videos:/cats/1.mp4#view@cat lady").to_dict())
+        require(status == 200 and doc == {"allowed": True}, f"POST /check {status}")
+        say(f"[serve {at()}] cat-videos over REST: 5/5, POST /check 200")
+
+        # 2. 4096 sampled checks: POST /check/batch, then single GET /check
+        # from 64 concurrent clients; every answer equals the host oracle
+        k = args.checks
+        sample, member_of = chain_sample(rng, pools, edges, k)
+        t0 = time.perf_counter()
+        so = SetGraphOracle(store)
+        want = so.batch(sample)
+        oracle_s = time.perf_counter() - t0
+        base_oracle = CheckEngine(IndexedTuples(store), max_depth=5)
+        n_ref = min(args.oracle, k) // 4
+        require(base_oracle.batch_check(sample[:n_ref]) == want[:n_ref],
+                "the set-graph oracle disagrees with CheckEngine")
+        say(f"[serve {at()}] oracle: {k} checks {oracle_s:.1f}s, {sum(want)} allowed; "
+            f"equal to CheckEngine on the first {n_ref}")
+        body = [t.to_dict() for t in sample]
+        lat = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            status, doc = http("POST", f"{read}/check/batch", body)
+            lat.append(time.perf_counter() - t0)
+            require(status == 200 and doc["allowed"] == want,
+                    "/check/batch answers differ from the oracle")
+            require(doc["snaptoken"] == str(store.version), f"snaptoken {doc}")
+        numbers["batch_p50_ms"] = pct(lat[1:], 50)
+        numbers["batch_rate"] = k * len(lat[1:]) / sum(lat[1:])
+        batcher.n_batches = batcher.n_dispatched = 0
+
+        with ThreadPoolExecutor(64) as pool:  # warm the server's threads
+            warm = list(pool.map(lambda t: rest_check(read, t), sample[:256]))
+        require(warm == want[:256], "GET /check answers differ from oracle")
+        batcher.n_batches = batcher.n_dispatched = 0
+        singles, wall = http_clients(
+            [f"{read}/check?{tuple_query(t)}" for t in sample], 64
+        )
+        require([status == 200 for status, _ in singles] == want
+                and all(status in (200, 403) for status, _ in singles),
+                "GET /check answers differ from oracle")
+        single_lat = [s for _, s in singles]
+        numbers["single_p50_ms"] = pct(single_lat, 50)
+        numbers["single_p99_ms"] = pct(single_lat, 99)
+        numbers["single_rate"] = k / wall
+        numbers["mean_batch"] = batcher.mean_batch_size()
+        say(f"[serve {at()}] {k} checks as /check/batch x{len(lat)} and as {k} GET "
+            f"/check from 64 client threads of a second process: all equal the "
+            f"oracle")
+
+        # 3. writes over REST, each class followed by a check that must
+        # reflect it: the drain (overlay apply + D patch) is timed apart
+        oracle = CheckEngine(IndexedTuples(store), max_depth=5)
+        g_src, g_dst = edges["grant"]
+        gr_s, gr_d = edges["group_role"]
+        to_groups = [i for i in range(len(g_src)) if g_dst[i][1].startswith("g")]
+        to_roles = [i for i in range(len(g_src)) if g_dst[i][1].startswith("role")]
+        classes = {c: ([], []) for c in ("leaf insert", "leaf delete",
+                                         "interior insert", "interior delete")}
+
+        def timed(cls, method, tup, probe, expect_allowed, depth=0):
+            url = f"{write}/relation-tuples"
+            body = None
+            if method == "PUT":
+                body = tup.to_dict()
+            else:
+                url += "?" + tuple_query(tup)
+            t0 = time.perf_counter()
+            status, _ = http(method, url, body)
+            require(status == (201 if method == "PUT" else 204), f"{method} {status}")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.served_version()  # drains the overlay: apply + D patch
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t1
+            got = rest_check(read, probe, depth)
+            visible_s = time.perf_counter() - t0
+            require(got == expect_allowed == oracle.subject_is_allowed(probe, depth),
+                    f"{cls}: {probe} answered {got}, expected {expect_allowed}")
+            classes[cls][0].append(visible_s)
+            classes[cls][1].append(apply_s)
+
+        picked = 0
+        for rep in range(3):
+            gi = to_groups[rep * 7]
+            leaf = to_tuple(g_dst[gi], (f"serve-user-{rep}",))
+            probe = to_tuple(g_src[gi], (f"serve-user-{rep}",))
+            timed("leaf insert", "PUT", leaf, probe, True)
+            timed("leaf delete", "DELETE", leaf, probe, False)
+        # interior: role_a -> role_b, probed as resource -> role_b set at
+        # max-depth 2, which only the new edge can satisfy
+        for ai in to_roles:
+            if picked == 3:
+                break
+            res_a, role_a = g_src[ai], g_dst[ai]
+            role_b = pools["roles"][(ai * 13) % len(pools["roles"])]
+            probe = to_tuple(res_a, role_b)
+            if role_a == role_b or so.check(probe, 2):
+                continue  # the insert must flip this answer
+            edge = to_tuple(role_a, role_b)
+            timed("interior insert", "PUT", edge, probe, True, depth=2)
+            timed("interior delete", "DELETE", edge, probe, False, depth=2)
+            picked += 1
+        require(picked == 3, "found no interior insert that flips a check")
+        say(f"[serve {at()}] leaf and interior inserts and deletes over REST, "
+            f"3 of each, each visible to the next check")
+        numbers["classes"] = {
+            c: (pct(v, 50), pct(a, 50)) for c, (v, a) in classes.items()
+        }
+
+        # 4. 1000 mixed random writes, then 256 oracle checks
+        users, resources = pools["users"], pools["resources"]
+        groups, roles = pools["groups"], pools["roles"]
+        mem_s, mem_d = edges["membership"]
+        inserted, touched = [], []
+        t0 = time.perf_counter()
+        for i in range(1000):
+            roll = rng.random()
+            if roll < 0.55:  # leaf insert: a user joins a group
+                tup = to_tuple(groups[rng.integers(len(groups))],
+                               users[rng.integers(len(users))])
+                inserted.append(tup)
+            elif roll < 0.75:  # leaf delete: a membership goes
+                j = int(rng.integers(len(mem_s)))
+                tup = (inserted.pop() if inserted and roll < 0.65
+                       else to_tuple(mem_s[j], mem_d[j]))
+            elif roll < 0.95:  # boundary insert: a resource grant
+                tup = to_tuple(resources[rng.integers(len(resources))],
+                               groups[rng.integers(len(groups))])
+            elif roll < 0.98:  # interior insert: a role nests a group
+                tup = to_tuple(roles[rng.integers(len(roles))],
+                               groups[rng.integers(len(groups))])
+            else:  # interior delete: a role loses a group
+                j = int(rng.integers(len(gr_s)))
+                tup = to_tuple(gr_s[j], gr_d[j])
+            delete = 0.55 <= roll < 0.75 or roll >= 0.98
+            if delete:
+                status, _ = http("PATCH", f"{write}/relation-tuples",
+                                 [{"action": "delete", "relation_tuple": tup.to_dict()}])
+                require(status == 204, f"PATCH delete {status}")
+            else:
+                status, _ = http("PUT", f"{write}/relation-tuples", tup.to_dict())
+                require(status == 201, f"PUT {status}")
+            touched.append(tup)
+        writes_s = time.perf_counter() - t0
+        # checks through the written edges, from resources (a role as a
+        # start has more than f0_max set successors and would take the
+        # fallback oracle instead of the closure)
+        granting = {}
+        for r_key, d_key in zip(g_src, g_dst):
+            granting.setdefault(d_key, r_key)
+        after = []
+        for t in touched[:128]:
+            obj = (t.namespace, t.object, t.relation)
+            user = (t.subject.id,) if hasattr(t.subject, "id") else (
+                users[rng.integers(len(users))])
+            start = obj if t.object.startswith("res") else granting.get(
+                obj, resources[rng.integers(len(resources))])
+            after.append(to_tuple(start, user))
+        after += sample[:128]
+        so_after = SetGraphOracle(store)
+        status, doc = http("POST", f"{read}/check/batch",
+                           [t.to_dict() for t in after])
+        require(status == 200 and doc["allowed"] == so_after.batch(after),
+                "answers after the mixed writes differ from the oracle")
+        require(doc["snaptoken"] == str(store.version), f"snaptoken {doc['snaptoken']}")
+        ov = eng._overlay
+        launches = masked_spmv.masked_step.launches  # the serve path ends here
+        say(f"[serve {at()}] 1000 mixed writes over REST in {writes_s:.2f}s; 256 "
+            f"checks after them equal the oracle; overlay events {ov.n_events}, "
+            f"interior edges {ov.n_interior_edges}, interior deletes "
+            f"{ov.n_interior_deletes}, broken={ov.broken}")
+        require(eng.n_full_builds == 1 and eng.n_incremental_builds == 0
+                and not ov.broken,
+                f"serve builds full={eng.n_full_builds} "
+                f"incr={eng.n_incremental_builds} broken={ov.broken_reason!r}")
+        require(launches == expected, f"serve path: {launches} B1 launches, "
+                f"expected {expected}")
+        require(packed_ops.packed_propagate.launches == 0, "B2 ran on the serve path")
+    finally:
+        reg.stop_all()
+
+    # 5. bounded freshness: a bulk load breaks the overlay; checks answer
+    # from the previous closure with its snaptoken until the swap, and a
+    # check carrying the new snaptoken waits for it
+    reg = Registry(Config(values=serve_config("bounded")))
+    store, pools, edges = gen_rbac(
+        args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
+    )
+    read_port, _ = reg.start_all()
+    read = f"http://127.0.0.1:{read_port}"
+    eng = reg.check_engine()
+    say(f"[serve {at()}] restarted with engine.freshness bounded")
+    try:
+        g_src, g_dst = edges["grant"]
+        to_groups = [i for i in range(len(g_src)) if g_dst[i][1].startswith("g")][:8]
+        bulk_src = [g_dst[i] for i in to_groups]
+        bulk_dst = [(f"bulk-user-{j}",) for j in range(len(to_groups))]
+        probes = [to_tuple(g_src[i], d) for i, d in zip(to_groups, bulk_dst)]
+        probes += chain_sample(rng, pools, edges, 56)[0]
+        body = [t.to_dict() for t in probes]
+        v_old = store.version
+        want_old = SetGraphOracle(store).batch(probes)
+        ov = eng._overlay
+        t_bulk = time.perf_counter()
+        store.bulk_load_edges(bulk_src, bulk_dst)
+        v_new = store.version
+        status, stale = http("POST", f"{read}/check/batch", body)
+        require(status == 200 and stale["snaptoken"] == str(v_old)
+                and stale["allowed"] == want_old,
+                f"before the swap: snaptoken {stale['snaptoken']} (old {v_old})")
+        status, fresh = http("POST", f"{read}/check/batch?snaptoken={v_new}", body)
+        swap_s = time.perf_counter() - t_bulk
+        want_new = SetGraphOracle(store).batch(probes)
+        require(status == 200 and fresh["snaptoken"] == str(v_new)
+                and fresh["allowed"] == want_new,
+                f"after the swap: snaptoken {fresh['snaptoken']} (new {v_new})")
+        require(want_new[:8] == [True] * 8 and want_old[:8] == [False] * 8,
+                "the bulk-loaded edges do not flip the probes")
+        numbers["swap_s"] = swap_s
+        say(f"[serve {at()}] bounded: overlay broke ({ov.broken_reason}); stale answers at "
+            f"snaptoken {v_old} equal the oracle there; snaptoken {v_new} "
+            f"waited {swap_s:.3f}s for the swap and equals the new oracle; "
+            f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}")
+    finally:
+        reg.stop_all()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    classes = "; ".join(
+        f"{c} {v:.3f} ms visible, {a:.3f} ms apply"
+        for c, (v, a) in numbers["classes"].items()
+    )
+    say(f"[numbers] serve ({card}): GET /check at 64 clients (another process) p50 "
+        f"{numbers['single_p50_ms']:.3f} ms, p99 {numbers['single_p99_ms']:.3f} "
+        f"ms, {numbers['single_rate']:.0f} checks/s; mean batch formed "
+        f"{numbers['mean_batch']:.2f}")
+    say(f"[numbers] serve ({card}): /check/batch of {k}: p50 "
+        f"{numbers['batch_p50_ms']:.3f} ms, {numbers['batch_rate']:.0f} checks/s")
+    say(f"[numbers] serve ({card}): write-to-visible and overlay apply "
+        f"(drain + D patch), median of 3: {classes}")
+    say(f"[numbers] serve ({card}): bounded freshness, bulk load to swap "
+        f"{numbers['swap_s']:.3f} s; B1 launches on the serve path {launches}; "
+        f"peak device memory {peak_gib:.3f} GiB")
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -862,6 +1403,12 @@ def main() -> int:
     b2 = run_github(args, rng, dev)
     b2["max_abs_err"] = b2_err
     walls["main:packed"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- 6. the serving seam at rbac1m --------------------------------------------
+    t0 = time.perf_counter()
+    serve = run_serve(args, dev, card)
+    walls["serve"] = time.perf_counter() - t0
 
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")
@@ -869,6 +1416,8 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    say(f"[numbers] B1 launches: main:closure {b1['launches']}, serve "
+        f"{serve['launches']}")
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

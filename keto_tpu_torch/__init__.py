@@ -9,10 +9,16 @@ interior once per snapshot on the GPU (the masked-SpMV kernel in
 ``D``. The frontier engine (``DeviceCheckEngine``) runs a batched BFS over
 the whole graph instead; its packed mode, for graphs whose interior is too
 large for ``D``, propagates bitpacked frontiers with the kernel in
-``csrc/packed_propagate.cu``.
+``csrc/packed_propagate.cu``. Writes reach the closure through a write
+overlay (``engine/overlay.py``) instead of a rebuild, and ``driver/`` with
+``api/`` and ``cli/`` serve Check and tuple writes over REST
+(``python -m keto_tpu_torch.cli serve -c config.json``).
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``keto_tpu``: each module it needs is its own trimmed copy, and its
 docstring names the ``keto_tpu`` counterpart. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 """
+
+# the keto_tpu release whose behaviour this package ports (GET /version)
+__version__ = "0.3.0"

@@ -1,0 +1,415 @@
+"""REST transport on the standard library (counterpart of
+``keto_tpu/api/rest.py``): the reference's routes, status codes and JSON
+bodies, served by ``http.server.ThreadingHTTPServer`` (``api/daemon.py``).
+
+Read port:
+- GET  /relation-tuples   paginated query, ``snaptoken`` validated
+- GET  /check, POST /check          200 {"allowed":true} / 403 {"allowed":false}
+- POST /check/batch       a json array of tuples, or {"tuples": [...],
+                          "max_depth": n} -> {"allowed": [...], "snaptoken"}
+
+Write port:
+- PUT    /relation-tuples   create -> 201 + Location
+- DELETE /relation-tuples   delete by query -> 204
+- PATCH  /relation-tuples   [{action: insert|delete, relation_tuple}] -> 204
+
+Both ports: /health/alive, /health/ready, /version. Errors use the
+herodot envelope {"error": {code, status, message}}: unknown namespaces are
+404, malformed input 400, a shed request 429, an unavailable snapshot 503,
+a passed deadline 504, anything else 500. Subjects arrive either as
+``subject_id`` or dotted ``subject_set.*`` query params; supplying both
+(or neither, where one is required) is a 400.
+
+Each request runs on its connection's thread, so concurrent single checks
+meet in the check batcher. Not ported yet, and so not registered: /expand,
+the list routes, the columnar and encoded batch forms, the vocab,
+pipeline, metrics, debug, replication and cluster routes, and CORS.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+from urllib.parse import parse_qsl, urlencode, urlsplit
+
+from ..relationtuple.definitions import (
+    RelationQuery,
+    RelationTuple,
+    Subject,
+    SubjectID,
+    SubjectSet,
+)
+from ..utils.errors import DeadlineExceeded, ErrMalformedInput, KetoError
+from ..utils.pagination import PaginationOptions
+
+ROUTE_TUPLES = "/relation-tuples"
+ROUTE_CHECK = "/check"
+ROUTE_CHECK_BATCH = "/check/batch"
+
+#: the REST spelling of a deadline: milliseconds of budget the caller grants
+#: this request, measured from when the header is parsed
+DEADLINE_HEADER = "X-Request-Deadline-Ms"
+
+#: min_version for `latest=true`: far above any real store version
+LATEST_SENTINEL = 1 << 62
+
+_TOKEN_RE = re.compile(r"^z(\d+)\.(\d+)\.(\d+)$")
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    query: dict  # first value of each query parameter
+    headers: dict  # lower-cased names
+    body: bytes = b""
+
+    @classmethod
+    def parse(cls, method: str, target: str, headers, body: bytes) -> "Request":
+        parts = urlsplit(target)
+        query: dict = {}
+        for k, v in parse_qsl(parts.query, keep_blank_values=True):
+            query.setdefault(k, v)
+        return cls(
+            method=method,
+            path=parts.path,
+            query=query,
+            headers={k.lower(): v for k, v in headers.items()},
+            body=body,
+        )
+
+
+@dataclass
+class Response:
+    status: int
+    body: bytes = b""
+    content_type: str = "application/json"
+    headers: dict = field(default_factory=dict)
+
+
+def json_response(doc, status: int = 200, headers: Optional[dict] = None) -> Response:
+    return Response(status, json.dumps(doc).encode(), headers=headers or {})
+
+
+def json_error(err: KetoError) -> Response:
+    headers = {}
+    retry_after = getattr(err, "retry_after_s", None)
+    if retry_after is not None or err.status_code in (429, 503):
+        # invite the retry-with-backoff; round UP and never emit 0
+        headers["Retry-After"] = str(max(1, math.ceil(retry_after or 1)))
+    return json_response(err.envelope(), err.status_code, headers)
+
+
+class Router:
+    """(method, path) -> handler; dispatch maps errors to the wire exactly
+    as the reference's error middleware does."""
+
+    def __init__(self):
+        self._routes: dict[tuple[str, str], Callable[[Request], Response]] = {}
+
+    def add(self, method: str, path: str, handler) -> None:
+        self._routes[(method, path)] = handler
+
+    def dispatch(self, req: Request) -> Response:
+        handler = self._routes.get((req.method, req.path))
+        if handler is None:
+            allowed = sorted(m for m, p in self._routes if p == req.path)
+            if allowed:
+                return Response(
+                    405, b"405: Method Not Allowed", "text/plain",
+                    {"Allow": ",".join(allowed)},
+                )
+            return Response(404, b"404: Not Found", "text/plain")
+        try:
+            return handler(req)
+        except KetoError as e:
+            return json_error(e)
+        except TimeoutError:
+            # a timeout that escaped typed handling is still "the request
+            # ran out of time", not a server bug
+            return json_error(DeadlineExceeded())
+        except Exception as e:  # internal
+            return json_response(
+                {
+                    "error": {
+                        "code": 500,
+                        "status": "Internal Server Error",
+                        "message": str(e),
+                    }
+                },
+                500,
+            )
+
+
+def deadline_from_headers(req: Request) -> Optional[float]:
+    """:data:`DEADLINE_HEADER` as an absolute ``time.monotonic()`` deadline
+    (None when absent); a non-numeric or negative value is a 400."""
+    raw = req.headers.get(DEADLINE_HEADER.lower())
+    if raw is None:
+        return None
+    try:
+        ms = float(raw)
+    except ValueError:
+        raise ErrMalformedInput(
+            f"{DEADLINE_HEADER} must be a number of milliseconds, got {raw!r}"
+        ) from None
+    if ms < 0:
+        raise ErrMalformedInput(f"{DEADLINE_HEADER} must be >= 0, got {raw!r}")
+    return time.monotonic() + ms / 1000.0
+
+
+def min_version_from(snaptoken: str, latest) -> int:
+    """`snaptoken` (a structured ``z<version>.<segment>.<offset>`` token or
+    a bare version) and `latest` -> the minimum version a read must be
+    answered at; malformed spellings are a 400, not a silent stale read."""
+    min_version = 0
+    if snaptoken:
+        m = _TOKEN_RE.match(snaptoken)
+        try:
+            min_version = int(m.group(1)) if m is not None else int(snaptoken)
+        except ValueError:
+            raise ErrMalformedInput(f"malformed snaptoken {snaptoken!r}") from None
+    if isinstance(latest, str):
+        val = latest.strip().lower()
+        if val in ("true", "1", "yes"):
+            latest = True
+        elif val in ("", "false", "0", "no"):
+            latest = False
+        else:
+            raise ErrMalformedInput(f"malformed latest flag {latest!r}")
+    if latest:
+        min_version = max(min_version, LATEST_SENTINEL)
+    return min_version
+
+
+def _min_version_from_query(params) -> int:
+    return min_version_from(params.get("snaptoken", ""), params.get("latest", ""))
+
+
+def subject_from_query(params, required: bool) -> Optional[Subject]:
+    """subject_id XOR subject_set.{namespace,object,relation}."""
+    sid = params.get("subject_id")
+    sns = params.get("subject_set.namespace")
+    sobj = params.get("subject_set.object")
+    srel = params.get("subject_set.relation")
+    has_set = sns is not None or sobj is not None or srel is not None
+    if sid is not None and has_set:
+        raise ErrMalformedInput("exactly one of subject_id or subject_set.* is allowed")
+    if sid is not None:
+        return SubjectID(id=sid)
+    if has_set:
+        if sns is None or sobj is None or srel is None:
+            raise ErrMalformedInput("subject_set requires namespace, object, and relation")
+        return SubjectSet(namespace=sns, object=sobj, relation=srel)
+    if required:
+        raise ErrMalformedInput("either subject_id or subject_set.* is required")
+    return None
+
+
+def max_depth_from_query(params) -> int:
+    raw = params.get("max-depth", "0")
+    try:
+        return int(raw)
+    except ValueError:
+        raise ErrMalformedInput(f"max-depth must be an integer, got {raw!r}") from None
+
+
+def _tuple_from_query(params) -> RelationTuple:
+    for key in ("namespace", "object", "relation"):
+        if params.get(key) is None:
+            raise ErrMalformedInput(f"missing query parameter {key}")
+    return RelationTuple(
+        namespace=params["namespace"],
+        object=params["object"],
+        relation=params["relation"],
+        subject=subject_from_query(params, required=True),
+    )
+
+
+def _query_from_params(params) -> RelationQuery:
+    return RelationQuery(
+        namespace=params.get("namespace"),
+        object=params.get("object"),
+        relation=params.get("relation"),
+        subject=subject_from_query(params, required=False),
+    )
+
+
+def _json_body(req: Request):
+    try:
+        return json.loads(req.body.decode("utf-8"))
+    except (json.JSONDecodeError, UnicodeDecodeError) as e:
+        raise ErrMalformedInput(f"invalid json body: {e}") from None
+
+
+class ReadAPI:
+    def __init__(self, manager, checker, snaptoken_fn):
+        self.manager = manager
+        self.checker = checker
+        self.snaptoken_fn = snaptoken_fn
+
+    def register(self, router: Router) -> None:
+        router.add("GET", ROUTE_TUPLES, self.get_relations)
+        router.add("GET", ROUTE_CHECK, self.get_check)
+        router.add("POST", ROUTE_CHECK, self.post_check)
+        router.add("POST", ROUTE_CHECK_BATCH, self.post_check_batch)
+
+    def get_relations(self, req: Request) -> Response:
+        p = req.query
+        # snaptoken: validated, then trivially satisfied (listing reads the
+        # live store)
+        _min_version_from_query(p)
+        query = _query_from_params(p)
+        try:
+            size = int(p.get("page_size", "0"))
+        except ValueError:
+            raise ErrMalformedInput("page_size must be an integer") from None
+        tuples, next_token = self.manager.get_relation_tuples(
+            query, PaginationOptions(token=p.get("page_token", ""), size=size)
+        )
+        return json_response(
+            {
+                "relation_tuples": [t.to_dict() for t in tuples],
+                "next_page_token": next_token,
+            }
+        )
+
+    def get_check(self, req: Request) -> Response:
+        p = req.query
+        tup = _tuple_from_query(p)
+        return self._check_response(
+            req, tup, max_depth_from_query(p), _min_version_from_query(p)
+        )
+
+    def post_check(self, req: Request) -> Response:
+        tup = RelationTuple.from_dict(_json_body(req))
+        p = req.query
+        return self._check_response(
+            req, tup, max_depth_from_query(p), _min_version_from_query(p)
+        )
+
+    def post_check_batch(self, req: Request) -> Response:
+        """Many checks per request: a bare json array of relation tuples, or
+        {"tuples": [...], "max_depth": n}. Always 200, answers in request
+        order with the snaptoken they were answered at."""
+        body = _json_body(req)
+        p = req.query
+        max_depth = max_depth_from_query(p)
+        min_version = _min_version_from_query(p)
+        deadline = deadline_from_headers(req)
+        if deadline is not None and time.monotonic() >= deadline:
+            raise DeadlineExceeded()
+        if isinstance(body, dict):
+            items = body.get("tuples")
+            max_depth = int(body.get("max_depth", max_depth) or max_depth)
+        else:
+            items = body
+        if not isinstance(items, list):
+            raise ErrMalformedInput("expected a json array of relation tuples")
+        tuples = [RelationTuple.from_dict(d) for d in items]
+        allowed = self.checker.check_batch(
+            tuples, max_depth, min_version=min_version, deadline=deadline
+        )
+        return json_response({"allowed": allowed, "snaptoken": self.snaptoken_fn()})
+
+    def _check_response(
+        self, req: Request, tup: RelationTuple, max_depth: int, min_version: int
+    ) -> Response:
+        allowed = self.checker.check(
+            tup, max_depth, min_version=min_version,
+            deadline=deadline_from_headers(req),
+        )
+        # 200 when allowed, 403 when denied — both carry the body
+        return json_response({"allowed": allowed}, 200 if allowed else 403)
+
+
+class WriteAPI:
+    def __init__(self, manager):
+        self.manager = manager
+
+    def register(self, router: Router) -> None:
+        router.add("PUT", ROUTE_TUPLES, self.create_relation)
+        router.add("DELETE", ROUTE_TUPLES, self.delete_relations)
+        router.add("PATCH", ROUTE_TUPLES, self.patch_relations)
+
+    def create_relation(self, req: Request) -> Response:
+        body = _json_body(req)
+        if not isinstance(body, dict):
+            raise ErrMalformedInput("expected a json relation-tuple object")
+        tup = RelationTuple.from_dict(body)
+        self.manager.write_relation_tuples(tup)
+        location = ROUTE_TUPLES + "?" + _tuple_location_query(tup)
+        return json_response(tup.to_dict(), 201, {"Location": location})
+
+    def delete_relations(self, req: Request) -> Response:
+        self.manager.delete_all_relation_tuples(_query_from_params(req.query))
+        return Response(204)
+
+    def patch_relations(self, req: Request) -> Response:
+        body = _json_body(req)
+        if not isinstance(body, list):
+            raise ErrMalformedInput("expected a json array of deltas")
+        inserts: list[RelationTuple] = []
+        deletes: list[RelationTuple] = []
+        for delta in body:
+            if not isinstance(delta, dict):
+                raise ErrMalformedInput("expected delta object")
+            action = delta.get("action")
+            tup = RelationTuple.from_dict(delta.get("relation_tuple") or {})
+            if action == "insert":
+                inserts.append(tup)
+            elif action == "delete":
+                deletes.append(tup)
+            else:
+                # an unknown action is a 400 and nothing is applied
+                raise ErrMalformedInput(f"unknown action {action!r}")
+        self.manager.transact_relation_tuples(inserts, deletes)
+        return Response(204)
+
+
+def _tuple_location_query(t: RelationTuple) -> str:
+    q = {"namespace": t.namespace, "object": t.object, "relation": t.relation}
+    if isinstance(t.subject, SubjectID):
+        q["subject_id"] = t.subject.id
+    else:
+        q["subject_set.namespace"] = t.subject.namespace
+        q["subject_set.object"] = t.subject.object
+        q["subject_set.relation"] = t.subject.relation
+    return urlencode(q)
+
+
+def register_common(router: Router, version: str, healthy_fn=None) -> None:
+    """/health/alive, /health/ready and /version on both ports."""
+
+    def alive(_req):
+        return json_response({"status": "ok"})
+
+    def ready(_req):
+        if healthy_fn is not None and not healthy_fn():
+            return json_response({"errors": {"server": "not ready"}}, 503)
+        return json_response({"status": "ok"})
+
+    def get_version(_req):
+        return json_response({"version": version})
+
+    router.add("GET", "/health/alive", alive)
+    router.add("GET", "/health/ready", ready)
+    router.add("GET", "/version", get_version)
+
+
+def build_read_router(manager, checker, snaptoken_fn, version: str, healthy_fn=None):
+    router = Router()
+    ReadAPI(manager, checker, snaptoken_fn).register(router)
+    register_common(router, version, healthy_fn)
+    return router
+
+
+def build_write_router(manager, version: str, healthy_fn=None):
+    router = Router()
+    WriteAPI(manager).register(router)
+    register_common(router, version, healthy_fn)
+    return router

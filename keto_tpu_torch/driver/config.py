@@ -1,0 +1,216 @@
+"""Config provider (counterpart of ``keto_tpu/driver/config.py``, trimmed).
+
+The same key tree as the reference — ``dsn``, ``serve.read.{host,port,
+max-depth,max_freshness_wait_s,workers}``, ``serve.write.{host,port}``,
+``namespaces`` (an inline array of ``{id, name}``) and the ``engine``
+subtree — from a JSON or TOML file (YAML where PyYAML is installed) merged
+with ``values``. Only the keys this package reads are validated, by hand
+and with the reference's messages (no jsonschema); other keys are carried
+and ignored. Environment overrides, hot reload and namespace file
+watchers are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from ..namespace.definitions import MemoryNamespaceManager, Namespace, NamespaceManager
+from ..utils.errors import ErrMalformedInput
+from ..utils.fileformat import load_structured_file
+
+KEY_DSN = "dsn"
+KEY_READ_PORT = "serve.read.port"
+KEY_READ_HOST = "serve.read.host"
+KEY_WRITE_PORT = "serve.write.port"
+KEY_WRITE_HOST = "serve.write.host"
+KEY_READ_MAX_DEPTH = "serve.read.max-depth"  # reference provider.go:32
+KEY_NAMESPACES = "namespaces"
+
+_UNSET = object()  # sentinel so falsy explicit defaults (0/False/"") are honored
+
+DEFAULTS = {
+    "dsn": "memory",
+    "serve.read.port": 4466,
+    "serve.read.host": "",
+    "serve.read.max-depth": 5,
+    "serve.read.workers": 1,
+    "serve.read.max_freshness_wait_s": 30.0,
+    "serve.write.port": 4467,
+    "serve.write.host": "",
+    "namespaces": [],
+    "engine.mode": "closure",
+    "engine.max_batch": 4096,
+    "engine.interior_limit": 16384,
+    "engine.query_mode": "auto",
+    "engine.freshness": "auto",
+    "engine.strong_freshness_edges": 1 << 21,
+    "engine.rebuild_debounce_ms": 50,
+    "engine.sharding.enabled": False,
+}
+
+_ENGINE_MODES = [
+    "device", "host", "auto", "dense", "scatter", "packed", "closure", "sharded",
+]
+
+# dotted key -> (type, constraint): "enum" with its values, or a minimum
+_RULES: dict[str, tuple[str, Any]] = {
+    "dsn": ("string", None),
+    "serve.read.port": ("integer", None),
+    "serve.read.host": ("string", None),
+    "serve.read.max-depth": ("integer", 1),
+    "serve.read.workers": ("integer", 1),
+    "serve.read.max_freshness_wait_s": ("number", 0),
+    "serve.write.port": ("integer", None),
+    "serve.write.host": ("string", None),
+    "engine.mode": ("enum", _ENGINE_MODES),
+    "engine.max_batch": ("integer", 1),
+    "engine.interior_limit": ("integer", 2),
+    "engine.query_mode": ("enum", ["auto", "host", "device"]),
+    "engine.freshness": ("enum", ["auto", "strong", "bounded"]),
+    "engine.strong_freshness_edges": ("integer", 0),
+    "engine.rebuild_debounce_ms": ("number", 0),
+    "engine.sharding.enabled": ("boolean", None),
+}
+
+_MISSING = object()
+
+
+def _is_type(value: Any, kind: str) -> bool:
+    if kind == "string":
+        return isinstance(value, str)
+    if kind == "boolean":
+        return isinstance(value, bool)
+    if isinstance(value, bool):
+        return False  # JSON Schema: a boolean is neither integer nor number
+    if kind == "integer":
+        return isinstance(value, int)
+    return isinstance(value, (int, float))  # number
+
+
+def _invalid(message: str, path: str) -> ErrMalformedInput:
+    return ErrMalformedInput(f"invalid configuration: {message} (at {path})")
+
+
+def _dig(data: dict, key: str) -> Any:
+    node: Any = data
+    for part in key.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return _MISSING
+        node = node[part]
+    return node
+
+
+def validate(data: dict) -> None:
+    """Check the keys this package reads; raise ErrMalformedInput with the
+    reference's jsonschema wording on the first violation."""
+    if not isinstance(data, dict):
+        raise _invalid(f"{data!r} is not of type 'object'", "")
+    for key, (kind, rule) in _RULES.items():
+        value = _dig(data, key)
+        if value is _MISSING:
+            continue
+        path = key.replace(".", "/")
+        if kind == "enum":
+            if value not in rule:
+                raise _invalid(f"{value!r} is not one of {rule!r}", path)
+            continue
+        if not _is_type(value, kind):
+            raise _invalid(f"{value!r} is not of type {kind!r}", path)
+        if rule is not None and value < rule:
+            raise _invalid(f"{value!r} is less than the minimum of {rule!r}", path)
+    spec = data.get(KEY_NAMESPACES, _MISSING)
+    if spec is _MISSING:
+        return
+    if not isinstance(spec, list):
+        raise _invalid(f"{spec!r} is not of type 'array'", "namespaces")
+    for i, ns in enumerate(spec):
+        # the reference reports namespace errors relative to the array
+        # (the failing branch of its oneOf), so the path starts at the index
+        path = str(i)
+        if not isinstance(ns, dict):
+            raise _invalid(f"{ns!r} is not of type 'object'", path)
+        if "name" not in ns:
+            raise _invalid("'name' is a required property", path)
+        if not isinstance(ns["name"], str):
+            raise _invalid(f"{ns['name']!r} is not of type 'string'", path + "/name")
+        if "id" in ns and not _is_type(ns["id"], "integer"):
+            raise _invalid(f"{ns['id']!r} is not of type 'integer'", path + "/id")
+
+
+def load_config_file(path: str) -> dict:
+    data = load_structured_file(path)
+    if data is None:
+        data = {}
+    if not isinstance(data, dict):
+        raise ErrMalformedInput(f"config root must be a mapping: {path}")
+    return data
+
+
+class Config:
+    def __init__(
+        self,
+        values: Optional[dict] = None,
+        config_file: Optional[str] = None,
+    ):
+        data: dict = {}
+        if config_file:
+            data = load_config_file(config_file)
+        if values:
+            data = _deep_merge(data, values)
+        validate(data)
+        self._data = data
+        self.config_file = config_file
+        self._namespace_manager: Optional[NamespaceManager] = None
+
+    def get(self, key: str, default: Any = _UNSET) -> Any:
+        value = _dig(self._data, key)
+        if value is not _MISSING:
+            return value
+        # a caller-provided default wins even when falsy (0/False/"")
+        if default is not _UNSET:
+            return default
+        return DEFAULTS.get(key)
+
+    # -- typed accessors (reference provider.go) ------------------------------
+
+    def dsn(self) -> str:
+        return self.get(KEY_DSN)
+
+    def read_api_host(self) -> str:
+        return self.get(KEY_READ_HOST) or "0.0.0.0"
+
+    def read_api_port(self) -> int:
+        return int(self.get(KEY_READ_PORT))
+
+    def write_api_host(self) -> str:
+        return self.get(KEY_WRITE_HOST) or "0.0.0.0"
+
+    def write_api_port(self) -> int:
+        return int(self.get(KEY_WRITE_PORT))
+
+    def read_api_max_depth(self) -> int:
+        return int(self.get(KEY_READ_MAX_DEPTH))
+
+    def engine_mode(self) -> str:
+        return self.get("engine.mode")
+
+    def namespace_manager(self) -> NamespaceManager:
+        """The inline ``namespaces`` array as a memory manager."""
+        if self._namespace_manager is None:
+            self._namespace_manager = MemoryNamespaceManager(
+                *(
+                    Namespace(name=n["name"], id=int(n.get("id", 0)))
+                    for n in self.get(KEY_NAMESPACES) or []
+                )
+            )
+        return self._namespace_manager
+
+
+def _deep_merge(base: dict, extra: dict) -> dict:
+    out = dict(base)
+    for k, v in extra.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out

@@ -1,0 +1,227 @@
+"""Service registry (counterpart of ``keto_tpu/driver/registry.py``,
+trimmed): lazily built, memoized providers for the namespace manager, the
+store, the snapshot manager, the check engine and the check batcher, the
+snaptokens, and the two REST planes that ``start_all`` brings up.
+
+``Registry(config, device=None)`` runs its engines on the CUDA card unless
+the caller passes ``device="cpu"``; without CUDA it raises. Engines and
+paths this package does not have yet fail with an error that names the
+roadmap item that brings them: the sharded tiers (12), host query mode and
+the forked read replicas it serves (6).
+"""
+
+from __future__ import annotations
+
+import gc
+import threading
+from typing import Optional
+
+from .. import __version__
+from ..api.daemon import PlaneServer
+from ..api.rest import build_read_router, build_write_router
+from ..engine.batcher import CheckBatcher, DirectChecker
+from ..engine.check import CheckEngine
+from ..graph.snapshot import SnapshotManager
+from ..store.columnar import ColumnarTupleStore
+from ..store.memory import InMemoryTupleStore
+from ..utils.errors import ErrMalformedInput
+from ..utils.kernels import resolve_device
+from .config import Config
+
+_SHARDED_MSG = (
+    "sharded serving (engine.mode sharded, engine.sharding.enabled) is not "
+    "ported to keto_tpu_torch yet: ROADMAP item 12, the multi-device tiers"
+)
+_HOST_QUERY_MSG = (
+    "host query mode ({what}) is not ported to keto_tpu_torch yet: ROADMAP "
+    "item 6; serve with engine.query_mode auto or device and one read worker"
+)
+
+
+class Registry:
+    def __init__(self, config: Optional[Config] = None, device=None):
+        self.config = config if config is not None else Config()
+        self.device = resolve_device(device)
+        self.version = __version__
+        self._lock = threading.RLock()  # providers are built once
+        self._namespace_manager = None
+        self._store = None
+        self._snapshots: Optional[SnapshotManager] = None
+        self._check_engine = None
+        self._checker = None
+        self._read_plane: Optional[PlaneServer] = None
+        self._write_plane: Optional[PlaneServer] = None
+        self._serving = False  # readiness: flips only after bring-up
+
+    # -- providers -------------------------------------------------------------
+
+    def namespace_manager(self):
+        with self._lock:
+            if self._namespace_manager is None:
+                self._namespace_manager = self.config.namespace_manager()
+            return self._namespace_manager
+
+    def store(self):
+        with self._lock:
+            if self._store is None:
+                dsn = self.config.dsn()
+                if dsn in ("memory", "sqlite://:memory:", ""):
+                    cls = InMemoryTupleStore
+                elif dsn == "columnar":
+                    cls = ColumnarTupleStore
+                else:
+                    raise ErrMalformedInput(
+                        f"unsupported DSN {dsn!r}: keto_tpu_torch supports "
+                        "'memory' and 'columnar'"
+                    )
+                self._store = cls(namespace_manager=self.namespace_manager())
+            return self._store
+
+    def snapshots(self) -> SnapshotManager:
+        with self._lock:
+            if self._snapshots is None:
+                self._snapshots = SnapshotManager(self.store())
+            return self._snapshots
+
+    def check_engine(self):
+        with self._lock:
+            if self._check_engine is None:
+                self._check_engine = self._build_check_engine()
+            return self._check_engine
+
+    def _build_check_engine(self):
+        cfg = self.config
+        max_depth = cfg.read_api_max_depth()
+        mode = cfg.engine_mode()
+        if mode == "sharded" or (
+            bool(cfg.get("engine.sharding.enabled")) and mode != "host"
+        ):
+            raise ErrMalformedInput(_SHARDED_MSG)
+        if mode == "host":
+            return CheckEngine(self.store(), max_depth=max_depth)
+        if mode in ("closure", "auto"):
+            if str(cfg.get("engine.query_mode")) == "host":
+                raise ErrMalformedInput(
+                    _HOST_QUERY_MSG.format(what="engine.query_mode: host")
+                )
+            if int(cfg.get("serve.read.workers")) > 1:
+                # forked read replicas need host query mode: a forked child
+                # cannot re-initialise CUDA
+                raise ErrMalformedInput(
+                    _HOST_QUERY_MSG.format(what="serve.read.workers > 1")
+                )
+            from ..engine.closure import ClosureCheckEngine
+
+            return ClosureCheckEngine(
+                self.snapshots(),
+                max_depth=max_depth,
+                interior_limit=int(cfg.get("engine.interior_limit")),
+                freshness=str(cfg.get("engine.freshness")),
+                strong_freshness_edges=int(cfg.get("engine.strong_freshness_edges")),
+                rebuild_debounce_s=float(cfg.get("engine.rebuild_debounce_ms")) / 1e3,
+                device=self.device,
+            )
+        from ..engine.device import DeviceCheckEngine
+
+        # 'device' -> size-based choice; 'dense'/'scatter'/'packed' force it
+        return DeviceCheckEngine(
+            self.snapshots(),
+            max_depth=max_depth,
+            mode=mode if mode in ("dense", "scatter", "packed") else "auto",
+            device=self.device,
+        )
+
+    def checker(self):
+        """The check entry point handlers use: batched on the device
+        engines, direct on the host oracle."""
+        with self._lock:
+            if self._checker is None:
+                engine = self.check_engine()
+                max_batch = int(self.config.get("engine.max_batch"))
+                if isinstance(engine, CheckEngine):
+                    self._checker = DirectChecker(engine, max_batch=max_batch)
+                else:
+                    self._checker = CheckBatcher(
+                        engine,
+                        max_batch=max_batch,
+                        max_freshness_wait_s=float(
+                            self.config.get("serve.read.max_freshness_wait_s")
+                        ),
+                    )
+            return self._checker
+
+    # -- snaptokens ------------------------------------------------------------
+
+    def snaptoken(self) -> str:
+        """Write-plane snaptoken: the store's version counter."""
+        return str(self.store().version)
+
+    def _served_version(self) -> int:
+        """The version checks are actually answered at (engine-served
+        under bounded freshness, else the store's)."""
+        served = getattr(self.check_engine(), "served_version", None)
+        if served is not None:
+            return served()
+        return self.store().version
+
+    def read_snaptoken(self) -> str:
+        """Read-plane snaptoken: the version checks are answered at. Under
+        bounded freshness the engine may serve an older snapshot while a
+        rebuild runs; the token names that snapshot."""
+        return str(self._served_version())
+
+    # -- serving ---------------------------------------------------------------
+
+    def is_serving(self) -> bool:
+        return self._serving
+
+    def read_plane(self) -> PlaneServer:
+        with self._lock:
+            if self._read_plane is None:
+                router = build_read_router(
+                    self.store(), self.checker(), self.read_snaptoken,
+                    self.version, healthy_fn=self.is_serving,
+                )
+                self._read_plane = PlaneServer(
+                    router, self.config.read_api_host(), self.config.read_api_port()
+                )
+            return self._read_plane
+
+    def write_plane(self) -> PlaneServer:
+        with self._lock:
+            if self._write_plane is None:
+                router = build_write_router(
+                    self.store(), self.version, healthy_fn=self.is_serving
+                )
+                self._write_plane = PlaneServer(
+                    router, self.config.write_api_host(), self.config.write_api_port()
+                )
+            return self._write_plane
+
+    def start_all(self) -> tuple[int, int]:
+        """Warm the check engine up (the closure build, the query path at
+        max_batch), then start both planes; returns (read_port,
+        write_port). Readiness flips only after bring-up."""
+        engine = self.check_engine()
+        if hasattr(engine, "warmup"):
+            engine.warmup(int(self.config.get("engine.max_batch")))
+        # freeze the long-lived object graph (store rows, vocab keys,
+        # closure artifacts) out of the cyclic GC: a full collection over
+        # millions of immortal objects would land inside random requests
+        # as tail latency
+        gc.freeze()
+        read_port = self.read_plane().start()
+        write_port = self.write_plane().start()
+        self._serving = True
+        return read_port, write_port
+
+    def stop_all(self) -> None:
+        self._serving = False  # readiness first, so balancers stop routing
+        if self._read_plane is not None:
+            self._read_plane.stop()
+        if self._write_plane is not None:
+            self._write_plane.stop()
+        if self._checker is not None:
+            self._checker.close()
+        if self._snapshots is not None:
+            self._snapshots.close()

@@ -15,14 +15,27 @@ lifetime with gathers:
 Correctness contract is identical to the host oracle (CheckEngine): allowed
 iff a tuple path of length <= depth exists.
 
-Freshness is ``strong``: a write makes the next check rebuild before it
-answers. An append-only delta whose new interior edges (at most 8) connect
-existing interior nodes updates the resident ``D`` in O(M^2) per edge
-(``ops.closure.closure_insert_edge``) instead of rebuilding. ``auto``
-resolves to strong below ``strong_freshness_edges`` live edges; the
-``bounded`` policy (and ``auto`` above the threshold) is a later slice of
-the port and raises ValueError. Also left to later slices: the write
-overlay, host query mode, the reverse index, scrubbing, metrics and tracing.
+Writes are absorbed by the write overlay (``engine/overlay.py``), which
+subscribes to the store's delta feed and keeps answers exact at the live
+store version without a rebuild: leaf and boundary edges as per-node
+deltas, interior inserts and deletes as patches of ``D``. When the overlay
+cannot absorb a write (a budget, a bulk load), ``freshness`` decides:
+
+- ``strong``  — the next check rebuilds synchronously before answering;
+- ``bounded`` — checks keep serving the previous closure (and its
+  overlay) while a background thread rebuilds; ``served_version()`` names
+  the store version that answered, so the snaptoken is honest;
+- ``auto``    — strong below ``strong_freshness_edges`` live edges,
+  bounded above it.
+
+An append-only delta whose new interior edges (at most 8) connect existing
+interior nodes rebuilds incrementally, in O(M^2) per edge
+(``ops.closure.closure_insert_edge``). The background rebuild runs on the
+same CUDA stream as the queries, so a query never reads a ``D`` whose
+build has not finished on the card; queries issued meanwhile queue behind
+the build's launches. Left to later slices: host query mode and the
+semiring dirty-row rebuild (host ``D``), the reverse index, scrubbing,
+metrics and tracing.
 
 Rows whose F0/L fan-out overflows the padded width, and snapshots whose
 interior exceeds ``interior_limit`` (D is O(M^2) bytes), are answered by an
@@ -33,6 +46,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
@@ -47,10 +61,12 @@ from ..ops.closure import (
     closure_query,
     pack_adjacency,
 )
-from ..relationtuple.definitions import RelationTuple, SubjectID
+from ..relationtuple.definitions import RelationTuple, SubjectID, SubjectSet
+from ..utils.errors import ErrUnavailable
 from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, CheckEngine
 from .masked_spmv import build_closure_semiring
+from .overlay import WriteOverlay
 
 # the closure stores distances in uint8 with INF_DIST=255 reserved, so the
 # deepest resolvable path is 254 interior steps
@@ -64,15 +80,9 @@ _MAX_INCR_EDGES = 8
 # path; the heavy tail is processed separately at full width
 _NARROW_WIDTH = 8
 
-# spare D rows the JAX engine reserves for interior nodes grown between
-# rebuilds; kept so D has the same shape in both packages
+# spare D rows reserved for overlay-grown interior nodes (new subject sets
+# gaining their first in-edge) between rebuilds
 _GROW_RESERVE = 512
-
-_BOUNDED_MSG = (
-    "bounded freshness (serving the previous closure while a background "
-    "rebuild runs) is not ported yet; it arrives with the write-overlay "
-    "slice of keto_tpu_torch. Use freshness='strong'."
-)
 
 
 def _m_pad_for(m: int) -> int:
@@ -130,13 +140,14 @@ class ClosureCheckEngine:
         interior_limit: int = 16384,
         f0_max: int = 32,
         l_max: int = 32,
-        freshness: str = "auto",  # auto | strong
+        freshness: str = "auto",  # auto | strong | bounded
         strong_freshness_edges: int = 1 << 21,
+        rebuild_debounce_s: float = 0.05,
+        rebuild_gate=None,  # zero-arg callable run before each background
+        # rebuild (blocks until the device has room for one)
         device=None,
     ):
-        if freshness == "bounded":
-            raise ValueError(_BOUNDED_MSG)
-        if freshness not in ("auto", "strong"):
+        if freshness not in ("auto", "strong", "bounded"):
             raise ValueError(f"unknown freshness {freshness!r}")
         self.device = resolve_device(device)
         self.snapshots = snapshots
@@ -146,13 +157,36 @@ class ClosureCheckEngine:
         self.l_max = l_max
         self.freshness = freshness
         self.strong_freshness_edges = strong_freshness_edges
+        self.rebuild_debounce_s = rebuild_debounce_s
+        self._rebuild_gate = rebuild_gate
         self._fallback: Optional[CheckEngine] = None
+        self._lock = threading.Lock()  # guards _rebuilding
         self._build_lock = threading.Lock()  # serializes state builds
+        self._state_cv = threading.Condition()  # notified on state swap
         self._state: Optional[_State] = None
+        self._rebuilding = False
+        # write overlay: exact serving-time deltas over the resident
+        # closure (engine/overlay.py), fed by the store's delta feed;
+        # subscribed weakly so a dead engine neither leaks nor taxes writes
+        self._overlay: Optional[WriteOverlay] = None
+        subscribe = getattr(snapshots.store, "subscribe_deltas", None)
+        if subscribe is not None:
+            ref = weakref.ref(self)
+            store = snapshots.store
+
+            def _cb(version, inserted, deleted, _ref=ref, _store=store):
+                eng = _ref()
+                if eng is None:
+                    _store.unsubscribe_deltas(_cb)
+                    return
+                eng._on_delta(version, inserted, deleted)
+
+            subscribe(_cb)
         # build telemetry (read by tests and the smoke run)
         self.n_full_builds = 0
         self.n_incremental_builds = 0
-        # seconds of the most recent build: interior / kernel / incremental
+        # seconds of the most recent build: snapshot_encode / interior /
+        # kernel or incremental / total
         self.last_build_phases: dict[str, float] = {}
 
     @classmethod
@@ -175,12 +209,14 @@ class ClosureCheckEngine:
             )
         if ig.m > eng.interior_limit or eng.global_max_depth > _MAX_CLOSURE_DEPTH:
             raise ValueError("this snapshot is served by the fallback engine")
-        eng._state = _ClosureArtifacts(
+        art = _ClosureArtifacts(
             snap,
             ig,
             eng.global_max_depth - 1,
             torch.from_numpy(np.array(d, copy=True)).to(eng.device),
         )
+        eng._overlay = WriteOverlay(art)
+        eng._state = art
         return eng
 
     def fallback_engine(self) -> CheckEngine:
@@ -193,37 +229,170 @@ class ClosureCheckEngine:
         return self._fallback
 
     def closure(self) -> Optional[np.ndarray]:
-        """The serving closure D as a host array (building it first when
-        stale), or None when the snapshot is served by the fallback."""
+        """The serving closure D as a host array, overlay patches included
+        (building it first when the policy requires), or None when the
+        snapshot is served by the fallback."""
         state = self._serving()
         if not isinstance(state, _ClosureArtifacts):
             return None
         return state.d.cpu().numpy()
 
+    # -- write overlay ---------------------------------------------------------
+
+    def _on_delta(self, version, inserted, deleted) -> None:
+        """Store delta feed (writer thread): enqueue onto the live overlay,
+        no device work; classification and D patches run on the next
+        query's drain."""
+        ov = self._overlay
+        if ov is not None:
+            ov.enqueue(version, inserted, deleted)
+        with self._state_cv:
+            self._state_cv.notify_all()  # freshness waiters re-check
+
     # -- residency ------------------------------------------------------------
 
-    def _serving(self) -> _State:
-        """The state answering this batch: fresh under strong freshness."""
+    def served_version(self) -> int:
+        """The store version checks are currently answered at. Equals the
+        live store version except in bounded freshness mid-rebuild, where it
+        names the (older) snapshot still serving. An active write overlay
+        advances it to the live version without any rebuild."""
         state = self._state
-        if state is not None and state.version == self.snapshots.store.version:
-            return state
-        if (
-            state is not None
-            and self.freshness == "auto"
-            and state.num_edges >= self.strong_freshness_edges
-        ):
-            raise ValueError(_BOUNDED_MSG)
-        return self._build_sync()
+        if isinstance(state, _ClosureArtifacts):
+            ov = self._overlay
+            if ov is not None and ov.art is state:
+                ov.drain()
+                if not ov.broken:
+                    return ov.version
+            return state.version
+        return self.snapshots.store.version
+
+    def answering_version(self) -> int:
+        """The version the NEXT check will be answered at. Differs from
+        served_version under strong freshness right after a write the
+        overlay cannot absorb: the serving state still names the old
+        version, but the next check rebuilds and answers at the store's."""
+        state = self._state
+        store_version = self.snapshots.store.version
+        if state is not None and state.version == store_version:
+            return store_version
+        if isinstance(state, _ClosureArtifacts):
+            ov = self._overlay
+            if ov is not None and ov.art is state:
+                ov.drain()
+                if ov.active(store_version):
+                    return ov.version  # overlay-corrected: live-exact
+        if self._bounded(state) and isinstance(state, _ClosureArtifacts):
+            # serving stale while rebuilding — kick the rebuild here too,
+            # so bounded staleness cannot turn unbounded. (_TooBig states
+            # answer from the LIVE store and stamp store_version below.)
+            self._kick_rebuild()
+            return state.version
+        return store_version  # synchronous rebuild / live-store fallback
+
+    def _bounded(self, state: Optional[_State]) -> bool:
+        if state is None:
+            return False  # nothing to serve stale from: must build
+        if self.freshness == "strong":
+            return False
+        if self.freshness == "bounded":
+            return True
+        return state.num_edges >= self.strong_freshness_edges
+
+    def _serving(self) -> _State:
+        """The serving state, for callers that need no overlay corrections."""
+        return self._serving_pinned()[0]
+
+    def _serving_pinned(self) -> tuple[_State, Optional[WriteOverlay]]:
+        """The (state, pinned overlay) pair answering this batch — fresh,
+        overlay-corrected (exact at the live version, no rebuild), or
+        stale-with-rebuild under bounded freshness. Never stalls on a
+        rebuild once a state exists and the policy is bounded.
+
+        State and overlay are read together and returned as HELD
+        references: re-reading self._overlay later would race the
+        rebuild's generation swap and drop the corrections promised here."""
+        while True:
+            state = self._state
+            ov = self._overlay
+            if not (
+                isinstance(state, _ClosureArtifacts)
+                and ov is not None
+                and ov.art is state
+            ):
+                ov = None
+            if ov is not None:
+                ov.drain()
+            store_version = self.snapshots.store.version
+            pinned = ov if (ov is not None and ov.n_events) else None
+            if state is not None and state.version == store_version:
+                return state, pinned
+            if ov is not None and ov.active(store_version):
+                # every write since the snapshot is absorbed: serve the
+                # resident closure + overlay corrections, exact at the
+                # live version under ANY freshness policy
+                if ov.n_events > ov.max_events // 2:
+                    # proactive compaction: fold a large overlay back into
+                    # a fresh closure in the background while it serves
+                    self._kick_rebuild()
+                return state, pinned
+            if self._bounded(state):
+                self._kick_rebuild()
+                return state, pinned
+            self._build_sync()
+            # loop: re-read state AND overlay together for the fresh pin
 
     def _build_sync(self) -> _State:
         with self._build_lock:
             state = self._state
             if state is not None and state.version == self.snapshots.store.version:
                 return state  # a concurrent builder got there first
+            t_snap = time.perf_counter()
             snap = self.snapshots.snapshot()
+            snap_s = time.perf_counter() - t_snap
             state = self._build_state(snap, prev=state)
+            self.last_build_phases["snapshot_encode"] = snap_s
+            self.last_build_phases["total"] += snap_s
+            if isinstance(state, _ClosureArtifacts):
+                # fresh overlay generation for the new residency. A delta
+                # racing this swap may land on the outgoing overlay and be
+                # missed here; the new overlay then sees a version gap and
+                # breaks — a conservative rebuild, never a wrong answer.
+                self._overlay = WriteOverlay(state)
+            else:
+                self._overlay = None
             self._state = state
+            with self._state_cv:
+                self._state_cv.notify_all()  # wake wait_for_version
             return state
+
+    def _kick_rebuild(self) -> None:
+        with self._lock:
+            if self._rebuilding:
+                return
+            self._rebuilding = True
+        threading.Thread(
+            target=self._rebuild_worker, name="closure-rebuild", daemon=True
+        ).start()
+
+    def _rebuild_worker(self) -> None:
+        try:
+            while True:
+                if self.rebuild_debounce_s > 0:
+                    time.sleep(self.rebuild_debounce_s)  # coalesce bursts
+                if self._rebuild_gate is not None:
+                    self._rebuild_gate()
+                state = self._build_sync()
+                # exit check and flag clear are atomic wrt _kick_rebuild:
+                # otherwise a write landing between them would see
+                # _rebuilding=True, skip the kick, and strand a stale state
+                with self._lock:
+                    if self.snapshots.store.version == state.version:
+                        self._rebuilding = False
+                        return
+        except BaseException:
+            with self._lock:
+                self._rebuilding = False
+            raise
 
     def _build_state(
         self, snap: GraphSnapshot, prev: Optional[_State]
@@ -287,12 +456,62 @@ class ClosureCheckEngine:
         both = (si >= 0) & (di >= 0)
         return np.stack([si[both], di[both]], axis=1)
 
+    def warmup(self, batch: int = 1) -> None:
+        """Build the closure for the current snapshot and run the query path
+        once at one row and once at `batch` rows (serve paths call this at
+        boot, so the first live request pays neither the build nor the
+        device's first-launch costs at the largest batch)."""
+        dummy = RelationTuple(
+            namespace="", object="", relation="",
+            subject=SubjectSet(namespace="", object="", relation=""),
+        )
+        self.batch_check([dummy])
+        if batch > 1 and isinstance(self._state, _ClosureArtifacts):
+            self.batch_check([dummy] * batch)
+
     # -- public API -----------------------------------------------------------
 
     def subject_is_allowed(
         self, requested: RelationTuple, max_depth: int = 0
     ) -> bool:
         return self.batch_check([requested], max_depth)[0]
+
+    def wait_for_version(self, min_version: int, timeout_s: float = 30.0) -> None:
+        """Block until checks are answered at >= min_version (clamped to
+        the store's current version): the at-least-as-fresh half of the
+        snaptoken contract. Under strong freshness this returns at once
+        (the next check rebuilds anyway); under bounded freshness it kicks
+        the background rebuild once and waits on the state-swap condition.
+        Raises ErrUnavailable (503) when the snapshot cannot catch up
+        within the deadline."""
+        target = min(min_version, self.snapshots.store.version)
+        deadline = time.monotonic() + timeout_s
+        kicked = False
+        while True:
+            state = self._state
+            if state is None or not isinstance(state, _ClosureArtifacts):
+                return  # fallback/first-build paths answer from live data
+            if state.version >= target:
+                return
+            ov = self._overlay
+            if ov is not None and ov.art is state:
+                ov.drain()
+                if not ov.broken and ov.version >= target:
+                    return  # overlay absorbs the writes: already fresh
+            if not self._bounded(state):
+                return  # strong freshness: the check itself rebuilds
+            if not kicked:
+                self._kick_rebuild()
+                kicked = True
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise ErrUnavailable(
+                    f"snapshot did not reach version {target} within "
+                    f"{timeout_s:.1f}s (serving {state.version})"
+                )
+            with self._state_cv:
+                if self._state is state:  # not yet swapped: sleep on it
+                    self._state_cv.wait(timeout=min(remaining, 1.0))
 
     def _depths(self, n: int, max_depth: int, depths) -> np.ndarray:
         gmax = self.global_max_depth
@@ -312,7 +531,7 @@ class ClosureCheckEngine:
     ) -> list[bool]:
         if not requests:
             return []
-        state = self._serving()
+        state, pinned = self._serving_pinned()
         if not isinstance(state, _ClosureArtifacts):
             return self.fallback_engine().batch_check(
                 list(requests), max_depth, None if depths is None else list(depths)
@@ -329,7 +548,9 @@ class ClosureCheckEngine:
         t_ids = vocab.lookup_bulk(tkeys)
         is_id = np.fromiter((len(k) == 1 for k in tkeys), dtype=bool, count=n)
         depth = self._depths(n, max_depth, depths)
-        allowed = self._check_arrays(state, s_ids, t_ids, is_id, depth, requests)
+        allowed = self._check_arrays(
+            state, s_ids, t_ids, is_id, depth, pinned, requests
+        )
         return allowed.tolist()
 
     def check_ids(
@@ -348,7 +569,7 @@ class ClosureCheckEngine:
         target = np.asarray(target, dtype=np.int64)
         is_id = np.asarray(is_id, dtype=bool)
         depth = self._depths(len(start), 0, depths)
-        state = self._serving()
+        state, pinned = self._serving_pinned()
         if not isinstance(state, _ClosureArtifacts):
             snap = self.snapshots.snapshot()
             reqs = self._decode_requests(snap, start, target)
@@ -362,7 +583,7 @@ class ClosureCheckEngine:
             n_snap = min(snap.num_nodes, snap.dummy_node)
             res[(start >= n_snap) | (target >= n_snap)] = False
             return res
-        return self._check_arrays(state, start, target, is_id, depth)
+        return self._check_arrays(state, start, target, is_id, depth, pinned)
 
     def _decode_requests(self, snap, start, target) -> list[RelationTuple]:
         """ids -> RelationTuples (overflow/fallback paths only)."""
@@ -389,10 +610,13 @@ class ClosureCheckEngine:
         target_raw: np.ndarray,
         is_id: np.ndarray,
         depth: np.ndarray,
+        pinned_overlay: Optional[WriteOverlay] = None,
         requests: Optional[Sequence[RelationTuple]] = None,
     ) -> np.ndarray:
         """`start_raw`/`target_raw` are raw vocab ids (-1 unknown, or beyond
-        this snapshot's width): both are clamped to the inert dummy node."""
+        this snapshot's width): the base path clamps both to the inert dummy
+        node, while the write-overlay correction needs the real ids to see
+        edges on nodes interned after the snapshot."""
         snap = art.snap
         ig = art.ig
         n = len(start_raw)
@@ -440,9 +664,39 @@ class ClosureCheckEngine:
                 over_reqs, depths=[int(depth[i]) for i in idxs]
             )
             allowed[idxs] = res
+        allowed = self._apply_overlay(
+            pinned_overlay,
+            allowed,
+            start_raw,
+            target_raw,
+            is_id,
+            depth,
+            skip=overflow,  # oracle rows read the live store: already exact
+        )
         out = np.empty(n, dtype=bool)
         out[order] = allowed
         return out
+
+    @staticmethod
+    def _apply_overlay(
+        ov: Optional[WriteOverlay],
+        allowed: np.ndarray,
+        start_raw: np.ndarray,
+        target_raw: np.ndarray,
+        is_id: np.ndarray,
+        depth: np.ndarray,
+        skip: np.ndarray,
+    ) -> np.ndarray:
+        """Correct the (few) rows the pinned write overlay says may differ
+        from the base closure answer — exact at the overlay's version."""
+        if ov is None:
+            return allowed
+        mask = ov.affected_rows(start_raw, target_raw, is_id) & ~skip
+        if mask.any():
+            allowed[mask] = ov.check_rows(
+                start_raw[mask], target_raw[mask], is_id[mask], depth[mask]
+            )
+        return allowed
 
     def _query_rows(
         self, art, start, target, is_id, depth, direct

@@ -34,6 +34,9 @@ class SubjectID:
     def __str__(self) -> str:
         return self.id
 
+    def to_dict(self) -> dict:
+        return {"id": self.id}
+
     def equals(self, other: "Subject") -> bool:
         return isinstance(other, SubjectID) and other.id == self.id
 
@@ -48,6 +51,13 @@ class SubjectSet:
 
     def __str__(self) -> str:
         return f"{self.namespace}:{self.object}#{self.relation}"
+
+    def to_dict(self) -> dict:
+        return {
+            "namespace": self.namespace,
+            "object": self.object,
+            "relation": self.relation,
+        }
 
     def equals(self, other: "Subject") -> bool:
         return (
@@ -101,6 +111,19 @@ class RelationTuple:
 
     def __str__(self) -> str:
         return f"{self.namespace}:{self.object}#{self.relation}@{self.subject}"
+
+    def to_dict(self) -> dict:
+        """The REST JSON form: ``subject_id`` or ``subject_set``."""
+        d = {
+            "namespace": self.namespace,
+            "object": self.object,
+            "relation": self.relation,
+        }
+        if isinstance(self.subject, SubjectID):
+            d["subject_id"] = self.subject.id
+        else:
+            d["subject_set"] = self.subject.to_dict()
+        return d
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "RelationTuple":

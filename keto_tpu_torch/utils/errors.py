@@ -1,8 +1,8 @@
 """Herodot-style rich errors (counterpart of ``keto_tpu/utils/errors.py``).
 
-Only the errors the closure Check path and its stores raise are kept. Each
-carries its HTTP status and gRPC code, so a later serving plane can map
-them to the wire unchanged.
+Only the errors the Check path, its stores and the REST plane raise are
+kept. Each carries its HTTP status and gRPC code, and renders the herodot
+JSON envelope ``{"error": {code, status, message}}`` the transports send.
 """
 
 from __future__ import annotations
@@ -14,13 +14,27 @@ class KetoError(Exception):
     status_code = 500
     status = "Internal Server Error"
     grpc_code = "INTERNAL"
+    reason = ""
 
-    def __init__(self, message: str | None = None):
+    def __init__(self, message: str | None = None, reason: str | None = None):
         self.message = message or self.default_message()
         super().__init__(self.message)
+        if reason is not None:
+            self.reason = reason
 
     def default_message(self) -> str:
         return self.status
+
+    def envelope(self) -> dict:
+        """JSON body matching herodot's error envelope."""
+        err = {
+            "code": self.status_code,
+            "status": self.status,
+            "message": self.message,
+        }
+        if self.reason:
+            err["reason"] = self.reason
+        return {"error": err}
 
 
 class ErrNotFound(KetoError):
@@ -64,3 +78,34 @@ class ErrUnavailable(KetoError):
     status_code = 503
     status = "Service Unavailable"
     grpc_code = "UNAVAILABLE"
+
+
+class ErrInternal(KetoError):
+    status_code = 500
+    status = "Internal Server Error"
+    grpc_code = "INTERNAL"
+
+
+class DeadlineExceeded(KetoError):
+    """The caller's deadline passed before (or while) the request was
+    served: the request ran out of time, the server was healthy."""
+
+    status_code = 504
+    status = "Gateway Timeout"
+    grpc_code = "DEADLINE_EXCEEDED"
+
+    def default_message(self) -> str:
+        return "The request deadline was exceeded."
+
+
+class ErrResourceExhausted(KetoError):
+    """Load shed: the server chose to reject rather than queue without
+    bound. Retryable after backoff (the transports send Retry-After)."""
+
+    status_code = 429
+    status = "Too Many Requests"
+    grpc_code = "RESOURCE_EXHAUSTED"
+    retry_after_s = 1
+
+    def default_message(self) -> str:
+        return "The server is overloaded; retry with backoff."

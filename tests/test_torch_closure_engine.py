@@ -227,7 +227,7 @@ def test_writes_between_checks():
     reqs = random_requests(rng, 12, 8)
     pair.check(reqs)
     # leaf edge, then an interior edge between existing interior nodes:
-    # both are appends the port absorbs without a full rebuild
+    # both packages' write overlays absorb them without any rebuild
     interior = pair.teng._state.ig
     keys = [pair.teng._state.snap.vocab.key(int(i)) for i in interior.interior_ids]
     (a_ns, a_obj, a_rel), (b_ns, b_obj, b_rel) = keys[0], keys[1]
@@ -236,8 +236,9 @@ def test_writes_between_checks():
     full = pair.teng.n_full_builds
     pair.write(f"{a_ns}:{a_obj}#{a_rel}@({b_ns}:{b_obj}#{b_rel})")
     pair.check(reqs)
-    assert pair.teng.n_full_builds == full
-    assert pair.teng.n_incremental_builds >= 2
+    assert pair.teng.n_full_builds == full == pair.jeng.n_full_builds
+    assert pair.teng.n_incremental_builds == pair.jeng.n_incremental_builds == 0
+    pair.assert_same_residency()
     # random writes and deletes
     for step in range(2):
         new = random_tuples(rng, 12, 8, 6)
@@ -334,14 +335,18 @@ def test_cat_videos_example():
 
 
 def test_bounded_freshness_is_a_later_slice():
-    with pytest.raises(ValueError, match="not ported"):
-        TClosure(TManager(InMemoryTupleStore()), freshness="bounded", device="cpu")
+    """Bounded freshness, once a later slice, is accepted now; `auto` above
+    strong_freshness_edges serves instead of raising, and an unknown policy
+    still raises."""
+    TClosure(TManager(InMemoryTupleStore()), freshness="bounded", device="cpu")
+    with pytest.raises(ValueError, match="unknown freshness"):
+        TClosure(TManager(InMemoryTupleStore()), freshness="eventual", device="cpu")
     pair = Pair(["n:a#r@(n:b#r)", "n:b#r@x"], strong_freshness_edges=1)
-    pair.teng.freshness = "auto"
-    pair.teng.batch_check([TTuple.from_string("n:a#r@x")])  # first build
+    pair.teng.freshness = pair.jeng.freshness = "auto"
+    pair.check(["n:a#r@x"])  # first build
     pair.write("n:a#r@y")
-    with pytest.raises(ValueError, match="not ported"):
-        pair.teng.batch_check([TTuple.from_string("n:a#r@y")])
+    assert pair.check(["n:a#r@y"]) == [True]  # absorbed by the overlay
+    assert pair.teng.served_version() == pair.tstore.version
 
 
 @pytest.mark.parametrize("store_cls", [InMemoryTupleStore, ColumnarTupleStore])

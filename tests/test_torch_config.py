@@ -1,0 +1,198 @@
+"""keto_tpu_torch's config and CLI vs keto_tpu's, on the CPU.
+
+The same values and files go into both packages' ``Config``: the keys the
+port reads come back equal, and invalid values raise ErrMalformedInput
+with the same message. Config files load from JSON and TOML (YAML only
+where PyYAML is installed). ``python -m keto_tpu_torch.cli serve`` starts
+both REST planes and stops on SIGTERM.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from keto_tpu.driver import Config as JConfig
+from keto_tpu.utils.errors import ErrMalformedInput as JMalformed
+from keto_tpu_torch.cli import main as cli_main
+from keto_tpu_torch.driver import Config as TConfig
+from keto_tpu_torch.driver import Registry, registry as registry_mod
+from keto_tpu_torch.driver.config import DEFAULTS
+from keto_tpu_torch.utils.errors import ErrMalformedInput as TMalformed
+
+REPO = Path(__file__).resolve().parent.parent
+
+VALUES = {
+    "dsn": "columnar",
+    "namespaces": [{"id": 3, "name": "videos"}, {"name": "n"}],
+    "serve": {
+        "read": {"port": 0, "host": "127.0.0.1", "max-depth": 7,
+                 "max_freshness_wait_s": 2.5},
+        "write": {"port": 0, "host": "127.0.0.1"},
+    },
+    "engine": {"mode": "closure", "freshness": "bounded", "max_batch": 128,
+               "rebuild_debounce_ms": 5, "strong_freshness_edges": 1000},
+    "log": {"level": "error"},
+}
+
+
+@pytest.mark.parametrize("values", [{}, VALUES])
+def test_keys_match_the_reference(values):
+    j, t = JConfig(values=values, env={}), TConfig(values=values)
+    for key in DEFAULTS:
+        assert t.get(key) == j.get(key), key
+    assert t.get("no.such.key", default=0) == 0
+    for accessor in ("dsn", "read_api_host", "read_api_port", "write_api_host",
+                     "write_api_port", "read_api_max_depth", "engine_mode"):
+        assert getattr(t, accessor)() == getattr(j, accessor)(), accessor
+    tnm, jnm = t.namespace_manager(), j.namespace_manager()
+    for ns in values.get("namespaces", []):
+        assert tnm.get_namespace_by_name(ns["name"]).id == (
+            jnm.get_namespace_by_name(ns["name"]).id
+        )
+
+
+@pytest.mark.parametrize(
+    "values",
+    [
+        {"engine": {"mode": "warp"}},
+        {"engine": {"freshness": "eventual"}},
+        {"engine": {"max_batch": 0}},
+        {"engine": {"max_batch": "many"}},
+        {"engine": {"max_batch": True}},
+        {"engine": {"rebuild_debounce_ms": -1}},
+        {"serve": {"read": {"max-depth": 0}}},
+        {"serve": {"read": {"port": "4466"}}},
+        {"serve": {"write": {"host": 7}}},
+        {"dsn": 5},
+        {"namespaces": [{"id": 1}]},
+    ],
+)
+def test_invalid_values_raise_the_reference_message(values):
+    with pytest.raises(JMalformed) as want:
+        JConfig(values=values, env={})
+    with pytest.raises(TMalformed) as got:
+        TConfig(values=values)
+    assert got.value.message == want.value.message
+    assert got.value.status_code == 400
+
+
+def test_config_files(tmp_path, monkeypatch):
+    as_json = tmp_path / "keto.json"
+    as_json.write_text(json.dumps(VALUES))
+    as_toml = tmp_path / "keto.toml"
+    as_toml.write_text(
+        'dsn = "columnar"\n[serve.read]\nport = 0\nmax-depth = 7\n'
+        '[engine]\nfreshness = "bounded"\n'
+    )
+    for path in (as_json, as_toml):
+        t, j = TConfig(config_file=str(path)), JConfig(config_file=str(path), env={})
+        for key in DEFAULTS:
+            assert t.get(key) == j.get(key), (path.name, key)
+    # values override the file, as in the reference
+    t = TConfig(values={"engine": {"freshness": "strong"}}, config_file=str(as_json))
+    assert t.get("engine.freshness") == "strong" and t.dsn() == "columnar"
+    bad = tmp_path / "bad.json"
+    bad.write_text("{")
+    with pytest.raises(TMalformed, match="cannot parse"):
+        TConfig(config_file=str(bad))
+    as_yaml = tmp_path / "keto.yaml"
+    as_yaml.write_text("dsn: columnar\n")
+    monkeypatch.setitem(sys.modules, "yaml", None)  # PyYAML absent
+    with pytest.raises(TMalformed, match="PyYAML"):
+        TConfig(config_file=str(as_yaml))
+
+
+@pytest.mark.parametrize(
+    "values,item",
+    [
+        ({"engine": {"mode": "sharded"}}, "item 12"),
+        ({"engine": {"sharding": {"enabled": True}}}, "item 12"),
+        ({"engine": {"query_mode": "host"}}, "item 6"),
+        ({"serve": {"read": {"workers": 2}}}, "item 6"),
+        ({"dsn": "postgres://db"}, "supports 'memory' and 'columnar'"),
+    ],
+)
+def test_unported_paths_name_their_roadmap_item(values, item):
+    reg = Registry(TConfig(values=values), device="cpu")
+    with pytest.raises(TMalformed, match=item):
+        reg.store()
+        reg.check_engine()
+
+
+def test_registry_engines_by_mode():
+    from keto_tpu_torch.engine import CheckEngine, ClosureCheckEngine, DeviceCheckEngine
+    from keto_tpu_torch.engine.batcher import CheckBatcher, DirectChecker
+
+    kinds = {
+        "host": (CheckEngine, DirectChecker),
+        "closure": (ClosureCheckEngine, CheckBatcher),
+        "auto": (ClosureCheckEngine, CheckBatcher),
+        "packed": (DeviceCheckEngine, CheckBatcher),
+        "device": (DeviceCheckEngine, CheckBatcher),
+    }
+    for mode, (engine_cls, checker_cls) in kinds.items():
+        reg = Registry(TConfig(values={"engine": {"mode": mode}}), device="cpu")
+        assert type(reg.check_engine()) is engine_cls, mode
+        assert type(reg.checker()) is checker_cls, mode
+        reg.checker().close()
+    reg = Registry(TConfig(values=VALUES), device="cpu")
+    eng = reg.check_engine()
+    assert (eng.freshness, eng.global_max_depth, eng.rebuild_debounce_s) == (
+        "bounded", 7, 0.005
+    )
+    assert reg.checker().max_freshness_wait_s == 2.5
+    reg.checker().close()  # no dispatcher thread may outlive the test
+
+
+def test_cli_serve_starts_both_planes_and_stops_on_sigterm(tmp_path, monkeypatch, capsys):
+    cfg = tmp_path / "keto.json"
+    cfg.write_text(json.dumps(VALUES))
+    monkeypatch.setattr(registry_mod, "resolve_device", lambda d: torch.device("cpu"))
+    seen = {}
+    start_all = Registry.start_all
+
+    def probe_then_stop(ports):
+        for port in ports:
+            url = f"http://127.0.0.1:{port}/health/ready"
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                seen[port] = resp.status
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    def start_and_probe(self):
+        ports = start_all(self)
+        threading.Thread(target=probe_then_stop, args=(ports,), daemon=True).start()
+        return ports
+
+    monkeypatch.setattr(Registry, "start_all", start_and_probe)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        assert cli_main.main(["serve", "-c", str(cfg)]) == 0
+    finally:
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    assert sorted(seen.values()) == [200, 200]
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("read API serving on :")
+    assert out[1].startswith("write API serving on :")
+    assert out[2] == "shutting down gracefully..."
+
+
+def test_cli_module_needs_a_card_or_says_so():
+    """Run as a module on a machine without CUDA, serve fails with the
+    device error rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: serve would start")
+    proc = subprocess.run(
+        [sys.executable, "-m", "keto_tpu_torch.cli", "serve"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr

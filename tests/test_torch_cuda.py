@@ -186,3 +186,100 @@ def test_packed_engine_on_card_matches_cpu(cuda):
     assert packed.packed_propagate.launches > before
     assert got == on_cpu.batch_check(reqs, depths=depths)
     assert 0 < sum(got) < len(got)
+
+
+def test_overlay_on_card_matches_cpu(cuda):
+    """One write sequence (leaf, interior insert with growth, interior and
+    leaf deletes) absorbed by the overlay on a CUDA D and on a CPU D: the
+    same answers, no rebuild, and D byte-equal after every step."""
+    rng = np.random.default_rng(8)
+    base = {
+        f"n:o{rng.integers(20)}#r{rng.integers(3)}@"
+        + (
+            f"(n:o{rng.integers(20)}#r{rng.integers(3)})"
+            if rng.random() < 0.45
+            else f"u{rng.integers(12)}"
+        ): None
+        for _ in range(200)
+    }
+    steps = [
+        ("write", "n:o1#r0@newuser"),
+        ("write", "n:o2#r1@(n:o3#r2)"),
+        ("write", "n:fresh#r@(n:o1#r0)"),
+        ("write", "n:o4#r0@(n:fresh#r)"),
+        ("delete", "n:o2#r1@(n:o3#r2)"),
+        ("delete", "n:o1#r0@newuser"),
+    ]
+    reqs = [
+        RelationTuple.from_string(
+            f"n:o{rng.integers(20)}#r{rng.integers(3)}@u{rng.integers(13)}"
+        )
+        for _ in range(96)
+    ] + [RelationTuple.from_string("n:o4#r0@newuser")]
+    engines = []
+    for dev in (cuda, "cpu"):
+        store = InMemoryTupleStore()
+        store.write_relation_tuples(*(RelationTuple.from_string(s) for s in base))
+        engines.append((store, ClosureCheckEngine(SnapshotManager(store), device=dev)))
+    answers = [eng.batch_check(reqs) for _, eng in engines]
+    assert answers[0] == answers[1]
+    for op, tup in steps:
+        for store, _ in engines:
+            getattr(store, f"{op}_relation_tuples")(RelationTuple.from_string(tup))
+        answers = [eng.batch_check(reqs) for _, eng in engines]
+        assert answers[0] == answers[1]
+        (_, on_card), (_, on_cpu) = engines
+        assert np.array_equal(on_card.closure(), on_cpu.closure())
+        assert on_card._overlay.n_events == on_cpu._overlay.n_events > 0
+    assert [e.n_full_builds for _, e in engines] == [1, 1]
+
+
+def test_registry_on_card_serves_cat_videos_over_rest(cuda):
+    import json
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    from pathlib import Path
+
+    from keto_tpu_torch.driver import Config, Registry
+
+    reg = Registry(Config(values={
+        "namespaces": [{"id": 1, "name": "videos"}],
+        "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                  "write": {"host": "127.0.0.1", "port": 0}},
+    }))
+    assert reg.device.type == "cuda"
+    read_port, write_port = reg.start_all()
+    try:
+        examples = Path(__file__).resolve().parent.parent / "contrib/cat-videos-example"
+        for path in sorted((examples / "relation-tuples").glob("*.json")):
+            doc = json.loads(path.read_text())
+            doc.pop("$schema", None)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{write_port}/relation-tuples",
+                data=json.dumps(doc).encode(), method="PUT",
+            )
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert resp.status == 201
+        expect = {
+            ("/cats", "owner", "cat lady"): 200,
+            ("/cats/1.mp4", "owner", "cat lady"): 200,
+            ("/cats/1.mp4", "view", "cat lady"): 200,
+            ("/cats/1.mp4", "view", "*"): 200,
+            ("/cats/2.mp4", "view", "*"): 403,
+        }
+        for (obj, rel, sub), status in expect.items():
+            query = urllib.parse.urlencode({
+                "namespace": "videos", "object": obj, "relation": rel,
+                "subject_id": sub,
+            })
+            url = f"http://127.0.0.1:{read_port}/check?{query}"
+            try:
+                with urllib.request.urlopen(url, timeout=60) as resp:
+                    got = resp.status
+            except urllib.error.HTTPError as e:
+                got = e.code
+            assert got == status, (obj, rel, sub)
+        assert reg.check_engine()._state.d.is_cuda
+    finally:
+        reg.stop_all()

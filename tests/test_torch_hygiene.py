@@ -38,6 +38,46 @@ def test_no_jax_and_no_keto_tpu_imports(path):
         assert root not in ("jax", "jaxlib", "keto_tpu"), f"{path}: {mod}"
 
 
+def module_level_imports(path):
+    """Roots of the modules a file imports outside any function or class."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            for child in ast.walk(node):
+                child._nested = True
+    for node in ast.walk(tree):
+        if getattr(node, "_nested", False):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_serving_library_imports(path):
+    """The card's machine has none of the reference's serving libraries:
+    the port's server, CLI and smoke run on the standard library. PyYAML
+    is optional, imported only inside the YAML loader."""
+    for mod in imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("aiohttp", "grpc", "click", "jsonschema", "httpx"), (
+            f"{path}: {mod}"
+        )
+    assert "yaml" not in set(module_level_imports(path)), path
+
+
+def test_registry_without_device_raises_when_cuda_is_missing(monkeypatch):
+    from keto_tpu_torch.driver import Config, Registry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Registry(Config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Registry(Config(), device="cuda")
+    Registry(Config(), device="cpu")  # asked for explicitly: fine
+
+
 def test_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mgr = SnapshotManager(InMemoryTupleStore())
