@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero:
             probe and padding edges, the dummy row) and at N_pad 2^20
 3. example  the cat-videos example and a depth-boundary chain on the card,
             through ClosureCheckEngine and through DeviceCheckEngine in the
-            dense, scatter and packed modes
+            dense, scatter and packed modes; the cat-videos Expand through
+            SnapshotExpandEngine and the host ExpandEngine
 4. main     (closure) an rbac1m store (1M tuples, the distribution of
             bench.py gen_rbac; BASELINE.json "Synthetic RBAC: 1M tuples",
             serve.read.max-depth 5), a ClosureCheckEngine on the card, a
@@ -59,7 +60,19 @@ Phases, in order; any failure exits non-zero:
             check that waits for the swap). Numbers: single-check p50/p99
             and rate at 64 clients, /check/batch p50 and rate, the mean
             batch the batcher formed, write-to-visible and overlay apply
-            time per write class, bulk load to swap, peak device memory
+            time per write class, bulk load to swap, peak device memory;
+            [serve:expand+list], on the same server after the mixed writes:
+            the first list query (it rebuilds the closure: its B1 launches,
+            its phases, the D^T transpose and the reverse CSRs), 64
+            list-objects and 64 list-subjects over REST (8 of each equal to
+            the card's check_ids over every resource or user, 2 of each
+            against a host oracle on 256 candidates), one paged list-objects
+            equal to the unpaged one and a 409 for its token after a write,
+            64 GET /expand of rbac resources at max-depth 5 (16 node for
+            node against the host ExpandEngine, 4 paged and stitched);
+            every list answered by the reverse path. Numbers: list and
+            expand p50/p99, items and tree nodes, the first list's split,
+            peak device memory with D^T
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -407,8 +420,37 @@ def run_example(repo: Path, dev) -> None:
              RelationTuple.from_string("n:c0#m@alice")]
         )
         require(got == [True, False], f"{name}: depth boundary 5/6 answers {got}")
+    from keto_tpu_torch.engine.device import SnapshotExpandEngine
+    from keto_tpu_torch.engine.expand import ExpandEngine
+    from keto_tpu_torch.relationtuple import SubjectSet
+
+    view = SubjectSet("videos", "/cats/1.mp4", "view")
+    tree = SnapshotExpandEngine(SnapshotManager(cat)).build_tree(view)
+    require(tree.to_dict() == ExpandEngine(cat).build_tree(view).to_dict(),
+            "cat-videos Expand: the snapshot engine != the host engine")
+    require(cat_videos_expand_ok(tree.to_dict()), f"cat-videos Expand: {tree}")
     say(f"[example] cat-videos 5/5, depth boundary 5 allowed / 6 denied, "
-        f"engines {list(engines)}")
+        f"engines {list(engines)}; Expand of {view}: a union of the owner "
+        f"chain and the * leaf, both Expand engines")
+
+
+def cat_videos_expand_ok(tree: dict) -> bool:
+    """videos:/cats/1.mp4#view expands to a union of the owner chain
+    (/cats/1.mp4#owner -> /cats#owner -> cat lady) and the * leaf."""
+    def subject_set(obj, rel):
+        return {"namespace": "videos", "object": obj, "relation": rel}
+
+    return tree == {
+        "type": "union",
+        "subject_set": subject_set("/cats/1.mp4", "view"),
+        "children": [
+            {"type": "union", "subject_set": subject_set("/cats/1.mp4", "owner"),
+             "children": [
+                 {"type": "union", "subject_set": subject_set("/cats", "owner"),
+                  "children": [{"type": "leaf", "subject_id": "cat lady"}]}]},
+            {"type": "leaf", "subject_id": "*"},
+        ],
+    }
 
 
 def run_rbac(args, rng, dev, card) -> dict:
@@ -1036,7 +1078,7 @@ def run_serve(args, dev, card) -> dict:
         f":{write_port}")
     rng = np.random.default_rng(args.seed + 2)
     try:
-        # 1. the cat-videos drive over REST, minus Expand
+        # 1. the cat-videos drive over REST, Expand included
         for path in sorted(
             (Path(__file__).resolve().parent
              / "contrib/cat-videos-example/relation-tuples").glob("*.json")
@@ -1057,7 +1099,12 @@ def run_serve(args, dev, card) -> dict:
         status, doc = http("POST", f"{read}/check", RelationTuple.from_string(
             "videos:/cats/1.mp4#view@cat lady").to_dict())
         require(status == 200 and doc == {"allowed": True}, f"POST /check {status}")
-        say(f"[serve {at()}] cat-videos over REST: 5/5, POST /check 200")
+        status, doc = http("GET", f"{read}/expand?namespace=videos"
+                                  "&object=/cats/1.mp4&relation=view")
+        require(status == 200 and cat_videos_expand_ok(doc),
+                f"GET /expand cat-videos: {status} {doc}")
+        say(f"[serve {at()}] cat-videos over REST: 5/5, POST /check 200, "
+            f"GET /expand a union of the owner chain and the * leaf")
 
         # 2. 4096 sampled checks: POST /check/batch, then single GET /check
         # from 64 concurrent clients; every answer equals the host oracle
@@ -1234,10 +1281,16 @@ def run_serve(args, dev, card) -> dict:
         require(launches == expected, f"serve path: {launches} B1 launches, "
                 f"expected {expected}")
         require(packed_ops.packed_propagate.launches == 0, "B2 ran on the serve path")
+
+        # 5. Expand and the list routes on the same server and store
+        t0 = time.perf_counter()
+        numbers["list"] = serve_expand_list(reg, store, pools, edges, rng, read,
+                                            write, at, card)
+        numbers["list"]["wall_s"] = time.perf_counter() - t0
     finally:
         reg.stop_all()
 
-    # 5. bounded freshness: a bulk load breaks the overlay; checks answer
+    # 6. bounded freshness: a bulk load breaks the overlay; checks answer
     # from the previous closure with its snaptoken until the swap, and a
     # check carrying the new snaptoken waits for it
     reg = Registry(Config(values=serve_config("bounded")))
@@ -1297,7 +1350,296 @@ def run_serve(args, dev, card) -> dict:
     say(f"[numbers] serve ({card}): bounded freshness, bulk load to swap "
         f"{numbers['swap_s']:.3f} s; B1 launches on the serve path {launches}; "
         f"peak device memory {peak_gib:.3f} GiB")
-    return {"launches": launches}
+    return {"launches": launches, "list_launches": numbers["list"]["launches"]}
+
+
+def tree_nodes(doc: dict) -> int:
+    """Nodes of an Expand tree's JSON form: the length of flat_subjects()."""
+    n, stack = 0, [doc]
+    while stack:
+        node = stack.pop()
+        n += 1
+        stack.extend(node.get("children", ()))
+    return n
+
+
+def serve_expand_list(reg, store, pools, edges, rng, read, write, at, card) -> dict:
+    """[serve:expand+list]: Expand and the list routes over REST on the
+    running server, after the mixed writes. Returns the phase's numbers."""
+    from urllib.parse import urlencode
+
+    from keto_tpu_torch.engine import CheckEngine, masked_spmv
+    from keto_tpu_torch.engine.expand import ExpandEngine
+    from keto_tpu_torch.engine.listing import _rows_min
+    from keto_tpu_torch.engine.tree import Tree, apply_expand_patches
+    from keto_tpu_torch.relationtuple import SubjectID, SubjectSet
+
+    tag = "serve:expand+list"
+    eng, le, xe = reg.check_engine(), reg.list_engine(), reg.expand_engine()
+    require(le is not None, "the registry built no list engine")
+    users, resources = pools["users"], pools["resources"]
+    q_users = [users[i][0] for i in rng.choice(len(users), 64, replace=False)]
+    q_res = [resources[i][1] for i in rng.choice(len(resources), 64, replace=False)]
+
+    def list_objects(user, **extra):
+        q = {"namespace": "rbac", "relation": "view", "subject_id": user, **extra}
+        return http("GET", f"{read}/relation-tuples/list-objects?{urlencode(q)}")
+
+    def list_subjects(res, **extra):
+        q = {"namespace": "rbac", "object": res, "relation": "view", **extra}
+        return http("GET", f"{read}/relation-tuples/list-subjects?{urlencode(q)}")
+
+    # 1. the first list query after the writes rebuilds the closure: the
+    # overlay's absorbed writes are folded in (the reverse CSRs are
+    # snapshot-time), then D^T and the reverse CSRs are built
+    full0, n_rev0 = eng.n_full_builds, le.n_reverse
+    masked_spmv.masked_step.launches = 0  # the list path's rebuild starts here
+    t0 = time.perf_counter()
+    status, doc = list_objects(q_users[0])
+    first_s = time.perf_counter() - t0
+    launches = masked_spmv.masked_step.launches
+    require(status == 200, f"first list-objects: {status} {doc}")
+    m_pad = eng._state.m_pad
+    expected = (m_pad // 256) * (5 - 2)
+    require(eng.n_full_builds == full0 + 1 and launches == expected,
+            f"first list query: {eng.n_full_builds - full0} full builds, "
+            f"{launches} B1 launches, expected one build of {expected}")
+    view = eng.reverse_artifacts()
+    require(view.d_rev.is_cuda and torch.equal(view.d_rev, view.d.t()),
+            "D^T on the card is not the transpose of D")
+    phases = {k: round(v, 4) for k, v in eng.last_build_phases.items()}
+    say(f"[{tag} {at()}] first list-objects after the writes {first_s:.3f}s: "
+        f"rebuild phases {phases}, D^T + reverse CSRs "
+        f"{eng.last_reverse_build_s:.4f}s, {launches} B1 launches (one full "
+        f"build at m_pad {m_pad}); D^T [{m_pad}, {m_pad}] on the card equals "
+        f"D.t(), {view.d_rev.numel() / 1e6:.1f} MB")
+
+    # 2. list-objects for 64 users; 8 against check_ids over every resource
+    # (the forward-D check path on the card)
+    vocab = view.snap.vocab
+    dummy = view.snap.dummy_node
+
+    def ids(keys):
+        out = vocab.lookup_bulk(list(keys))
+        return np.where(out < 0, dummy, out)
+
+    res_ids = ids(resources)
+    user_ids = ids(users)
+    lat, n_items, answers = [], [], {}
+    for u in q_users:
+        t0 = time.perf_counter()
+        status, doc = list_objects(u)
+        lat.append(time.perf_counter() - t0)
+        require(status == 200, f"list-objects {u}: {status} {doc}")
+        answers[u] = doc["objects"]
+        n_items.append(len(doc["objects"]))
+    for u in q_users[:8]:
+        target = vocab.lookup((u,))
+        allowed = eng.check_ids(
+            res_ids, np.full(len(res_ids), dummy if target is None else target),
+            np.ones(len(res_ids), dtype=bool),
+        )
+        want = {resources[i][1] for i in np.nonzero(allowed)[0]}
+        require(set(answers[u]) == want and len(answers[u]) == len(want),
+                f"list-objects {u}: {len(answers[u])} objects, check_ids "
+                f"allows {len(want)}")
+    numbers = {"objects_p50_ms": pct(lat, 50), "objects_p99_ms": pct(lat, 99),
+               "objects_mean": float(np.mean(n_items)), "first_s": first_s,
+               "launches": launches, "reverse_s": eng.last_reverse_build_s,
+               "phases": phases}
+    # where a list query's time goes: the engine in process (no HTTP, no
+    # JSON), and its one device op, the D^T row gather and min, alone
+    u = next(u for u in q_users if answers[u])
+    lat = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        le.list_objects(SubjectID(u), "view", "rbac")
+        lat.append(time.perf_counter() - t0)
+    ig, uid = view.ig, vocab.lookup((u,))
+    l_idx = ig.id_in_vals[ig.id_in_indptr[uid] : ig.id_in_indptr[uid + 1]]
+    numbers.update(
+        engine_p50_ms=pct(lat, 50),
+        rows_min_ms=cuda_ms(lambda: _rows_min(view.d_rev, l_idx.astype(np.int64)), 20),
+        transpose_ms=cuda_ms(lambda: view.d.t().contiguous(), 5),
+    )
+    say(f"[{tag} {at()}] 64 list-objects over REST, mean "
+        f"{numbers['objects_mean']:.1f} objects; 8 equal the card's check_ids "
+        f"over all {len(resources)} resources")
+
+    # 3. list-subjects for 64 resources; 8 against check_ids over every user
+    lat, n_items, subj_answers = [], [], {}
+    for r in q_res:
+        t0 = time.perf_counter()
+        status, doc = list_subjects(r)
+        lat.append(time.perf_counter() - t0)
+        require(status == 200, f"list-subjects {r}: {status} {doc}")
+        subj_answers[r] = doc["subject_ids"]
+        n_items.append(len(doc["subject_ids"]))
+    for r in q_res[:8]:
+        start = vocab.lookup(("rbac", r, "view"))
+        allowed = eng.check_ids(
+            np.full(len(user_ids), dummy if start is None else start), user_ids,
+            np.ones(len(user_ids), dtype=bool),
+        )
+        want = {users[i][0] for i in np.nonzero(allowed)[0]}
+        require(set(subj_answers[r]) == want and len(subj_answers[r]) == len(want),
+                f"list-subjects {r}: {len(subj_answers[r])} ids, check_ids "
+                f"allows {len(want)}")
+    numbers.update(subjects_p50_ms=pct(lat, 50), subjects_p99_ms=pct(lat, 99),
+                   subjects_mean=float(np.mean(n_items)))
+    say(f"[{tag} {at()}] 64 list-subjects over REST, mean "
+        f"{numbers['subjects_mean']:.1f} ids; 8 equal the card's check_ids over "
+        f"all {len(users)} users")
+
+    # 4. two users and two resources against the host oracles on 256
+    # candidates each: half from the answer, half drawn at random. The
+    # set-graph oracle settles all 256; CheckEngine (a full BFS per check)
+    # the first 16 of each
+    so = SetGraphOracle(store)
+    base = CheckEngine(IndexedTuples(store), max_depth=5)
+    n_cand = 0
+    for kind, key in [("objects", u) for u in q_users[:2]] + [
+            ("subjects", r) for r in q_res[:2]]:
+        got = answers[key] if kind == "objects" else subj_answers[key]
+        pool_keys = ([r[1] for r in resources] if kind == "objects"
+                     else [u[0] for u in users])
+        picks = [got[i] for i in rng.choice(len(got), min(128, len(got)),
+                                             replace=False)] if got else []
+        picks += [pool_keys[i] for i in rng.integers(len(pool_keys),
+                                                     size=256 - len(picks))]
+        cands = [to_tuple(("rbac", c, "view"), (key,)) if kind == "objects"
+                 else to_tuple(("rbac", key, "view"), (c,)) for c in picks]
+        got_set = set(got)
+        want = [c in got_set for c in picks]
+        require(so.batch(cands) == want,
+                f"list-{kind} {key}: the set-graph oracle disagrees")
+        require(base.batch_check(cands[:16]) == want[:16],
+                f"list-{kind} {key}: CheckEngine disagrees")
+        n_cand += len(cands)
+    say(f"[{tag} {at()}] 2 list-objects and 2 list-subjects answers hold on "
+        f"{n_cand} candidates against the set-graph oracle, the first 16 "
+        f"of each against CheckEngine")
+
+    # 5. Expand of 64 resources at max-depth 5; 16 node for node against
+    # the host ExpandEngine over the same store, 4 paged and stitched
+    lat, sizes, trees = [], [], {}
+    for r in q_res:
+        q = urlencode({"namespace": "rbac", "object": r, "relation": "view",
+                       "max-depth": 5})
+        t0 = time.perf_counter()
+        status, doc = http("GET", f"{read}/expand?{q}")
+        lat.append(time.perf_counter() - t0)
+        require(status == 200, f"expand {r}: {status}")
+        trees[r] = doc
+        sizes.append(0 if doc is None else tree_nodes(doc))
+    numbers.update(expand_p50_ms=pct(lat, 50), expand_p99_ms=pct(lat, 99),
+                   expand_mean=float(np.mean(sizes)), expand_max=max(sizes))
+    host = ExpandEngine(IndexedTuples(store), max_depth=5)
+    for r in q_res[:16]:
+        want = host.build_tree(SubjectSet("rbac", r, "view"), 5)
+        require((want and want.to_dict()) == trees[r],
+                f"expand {r}: the snapshot engine's tree != the host engine's")
+        require(want is None or len(want.flat_subjects()) == tree_nodes(trees[r]),
+                f"expand {r}: node count")
+    # paged over REST: the three smallest non-empty trees (a big tree's
+    # tokens carry its visited set, ~10^4 node ids, past the 64 KiB request
+    # line of http.server); the smallest big tree pages through the same
+    # engine object in process
+    small = sorted((s, r) for s, r in zip(sizes, q_res) if s)[:3]
+    bigs = [(s, r) for s, r in zip(sizes, q_res) if s > 4096]
+    require(len(small) == 3 and bigs, f"expand tree sizes {sorted(sizes)}")
+    big = min(bigs)
+    n_pages = []
+    for size, r in small + [big]:
+        subject = SubjectSet("rbac", r, "view")
+        token, tree, pages = "", None, 0
+        while True:
+            if size <= 4096:
+                q = {"namespace": "rbac", "object": r, "relation": "view",
+                     "max-depth": 5, "page_size": 256}
+                if token:
+                    q["page_token"] = token
+                status, page = http("GET", f"{read}/expand?{urlencode(q)}")
+                require(status == 200, f"paged expand {r}: {status}")
+            else:
+                page = xe.build_tree_page(subject, 5, page_size=256,
+                                          page_token=token).to_dict()
+            if tree is None:
+                tree = Tree.from_dict(page["tree"])
+            else:
+                apply_expand_patches(tree, [(p["path"], p["tree"])
+                                            for p in page.get("patches", ())])
+            pages += 1
+            token = page.get("next_page_token", "")
+            if not token:
+                break
+        require(tree.to_dict() == trees[r], f"paged expand {r}: stitched != unpaged")
+        n_pages.append(pages)
+    say(f"[{tag} {at()}] 64 GET /expand at max-depth 5 ({sum(s > 0 for s in sizes)} "
+        f"non-empty, mean {numbers['expand_mean']:.1f} nodes, largest "
+        f"{numbers['expand_max']}); 16 equal the host ExpandEngine node for "
+        f"node; 4 paged at 256 ({n_pages} pages; the last, {big[0]} nodes, "
+        f"in process) equal the unpaged trees")
+
+    # 6. one paged list-objects at max-depth 3 (tens of pages; at depth 5
+    # a user sees ~10^4 resources) equals the unpaged answer; a write
+    # turns the next page's token into a 409
+    u = next(u for u in q_users if answers[u])
+    status, full = list_objects(u, **{"max-depth": 3})
+    require(status == 200 and len(full["objects"]) > 200,
+            f"paged list-objects {u}: {len(full.get('objects', []))} objects")
+    items, token, pages = [], "", 0
+    while True:
+        extra = {"max-depth": 3, "page_size": 100}
+        if token:
+            extra["page_token"] = token
+        status, page = list_objects(u, **extra)
+        require(status == 200, f"page {pages} of {u}: {status} {page}")
+        items += page["objects"]
+        pages += 1
+        token = page["next_page_token"]
+        if not token or pages == 3:
+            break
+    stale = token
+    while token:
+        status, page = list_objects(u, **{"max-depth": 3, "page_size": 100,
+                                          "page_token": token})
+        items += page["objects"]
+        pages += 1
+        token = page["next_page_token"]
+    require(items == full["objects"], f"paged list-objects {u} != unpaged")
+    require(le.n_oracle == 0 and le.n_reverse == n_rev0 + 2 * 64 + 2 + 8 + pages,
+            f"list answers: {le.n_reverse - n_rev0} reverse, {le.n_oracle} oracle"
+            f" ({le.last_failure!r})")
+    page = le.list_objects(SubjectID(u), "view", "rbac")
+    require(page.source == "reverse", "an in-process list query took the oracle")
+    g_src, g_dst = edges["grant"]
+    status, _ = http("PUT", f"{write}/relation-tuples",
+                     to_tuple(g_src[0], ("list-user",)).to_dict())
+    require(status == 201, f"PUT {status}")
+    status, doc = list_objects(u, **{"max-depth": 3, "page_size": 100,
+                                     "page_token": stale})
+    require(status == 409 and doc["error"]["status"] == "Conflict",
+            f"a token from before the write: {status} {doc}")
+    say(f"[{tag} {at()}] paged list-objects of {u} at max-depth 3: {pages} pages "
+        f"of 100 equal the unpaged {len(items)} objects; every list answered by "
+        f"the reverse path; after one write the fourth page's token is a 409")
+    say(f"[numbers] {tag} ({card}): list-objects p50 "
+        f"{numbers['objects_p50_ms']:.3f} ms, p99 {numbers['objects_p99_ms']:.3f} ms, "
+        f"mean {numbers['objects_mean']:.1f} objects; list-subjects p50 "
+        f"{numbers['subjects_p50_ms']:.3f} ms, p99 {numbers['subjects_p99_ms']:.3f} "
+        f"ms, mean {numbers['subjects_mean']:.1f} ids; one list-objects in "
+        f"process (no HTTP) p50 {numbers['engine_p50_ms']:.3f} ms, of which "
+        f"_rows_min on the card {numbers['rows_min_ms']:.4f} ms ({len(l_idx)} "
+        f"D^T rows); D.t().contiguous() {numbers['transpose_ms']:.4f} ms")
+    say(f"[numbers] {tag} ({card}): GET /expand at max-depth 5 p50 "
+        f"{numbers['expand_p50_ms']:.3f} ms, p99 {numbers['expand_p99_ms']:.3f} ms, "
+        f"mean {numbers['expand_mean']:.1f} nodes (largest {numbers['expand_max']})")
+    say(f"[numbers] {tag} ({card}): first list query after 1000 writes "
+        f"{first_s:.3f} s (rebuild {phases}, D^T + reverse CSRs "
+        f"{numbers['reverse_s']:.4f} s, {launches} B1 launches); peak device "
+        f"memory so far in the phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return numbers
 
 
 def main() -> int:
@@ -1417,7 +1759,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(f"[numbers] B1 launches: main:closure {b1['launches']}, serve "
-        f"{serve['launches']}")
+        f"{serve['launches']}, the list path's rebuild {serve['list_launches']}")
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,5 @@
-"""keto_tpu_torch: the Check paths of keto_tpu in PyTorch and CUDA.
+"""keto_tpu_torch: the Check, Expand and list paths of keto_tpu in PyTorch
+and CUDA.
 
 A second package beside ``keto_tpu``. It answers Zanzibar-style Check
 requests two ways. The default closure engine snapshots the tuple store
@@ -10,8 +11,11 @@ interior once per snapshot on the GPU (the masked-SpMV kernel in
 the whole graph instead; its packed mode, for graphs whose interior is too
 large for ``D``, propagates bitpacked frontiers with the kernel in
 ``csrc/packed_propagate.cu``. Writes reach the closure through a write
-overlay (``engine/overlay.py``) instead of a rebuild, and ``driver/`` with
-``api/`` and ``cli/`` serve Check and tuple writes over REST
+overlay (``engine/overlay.py``) instead of a rebuild. Expand trees come
+from the snapshot's forward CSR (``engine/device.py``), and list queries
+from the transposed closure ``D^T`` beside ``D`` on the card
+(``engine/listing.py``). ``driver/`` with ``api/`` and ``cli/`` serve
+Check, Expand, the list queries and tuple writes over REST
 (``python -m keto_tpu_torch.cli serve -c config.json``).
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of

@@ -7,6 +7,12 @@ Read port:
 - GET  /check, POST /check          200 {"allowed":true} / 403 {"allowed":false}
 - POST /check/batch       a json array of tuples, or {"tuples": [...],
                           "max_depth": n} -> {"allowed": [...], "snaptoken"}
+- GET  /expand            the subject tree, or null (200) for a set with no
+                          tuples; with ``page_size`` or ``page_token``
+                          {"tree"|"patches", "next_page_token"?}
+- GET  /relation-tuples/list-objects   {"objects", "next_page_token",
+                          "snaptoken"}; registered only with a list engine
+- GET  /relation-tuples/list-subjects  {"subject_ids", ...}; likewise
 
 Write port:
 - PUT    /relation-tuples   create -> 201 + Location
@@ -16,14 +22,15 @@ Write port:
 Both ports: /health/alive, /health/ready, /version. Errors use the
 herodot envelope {"error": {code, status, message}}: unknown namespaces are
 404, malformed input 400, a shed request 429, an unavailable snapshot 503,
-a passed deadline 504, anything else 500. Subjects arrive either as
-``subject_id`` or dotted ``subject_set.*`` query params; supplying both
-(or neither, where one is required) is a 400.
+a passed deadline 504, a list page token from before a write 409,
+anything else 500. Subjects arrive either as ``subject_id`` or dotted
+``subject_set.*`` query params; supplying both (or neither, where one is
+required) is a 400.
 
 Each request runs on its connection's thread, so concurrent single checks
-meet in the check batcher. Not ported yet, and so not registered: /expand,
-the list routes, the columnar and encoded batch forms, the vocab,
-pipeline, metrics, debug, replication and cluster routes, and CORS.
+meet in the check batcher. Not ported yet, and so not registered: the
+columnar and encoded batch forms, the vocab, pipeline, metrics, debug,
+replication and cluster routes, and CORS.
 """
 
 from __future__ import annotations
@@ -49,6 +56,9 @@ from ..utils.pagination import PaginationOptions
 ROUTE_TUPLES = "/relation-tuples"
 ROUTE_CHECK = "/check"
 ROUTE_CHECK_BATCH = "/check/batch"
+ROUTE_EXPAND = "/expand"
+ROUTE_LIST_OBJECTS = "/relation-tuples/list-objects"
+ROUTE_LIST_SUBJECTS = "/relation-tuples/list-subjects"
 
 #: the REST spelling of a deadline: milliseconds of budget the caller grants
 #: this request, measured from when the header is parsed
@@ -219,9 +229,7 @@ def max_depth_from_query(params) -> int:
 
 
 def _tuple_from_query(params) -> RelationTuple:
-    for key in ("namespace", "object", "relation"):
-        if params.get(key) is None:
-            raise ErrMalformedInput(f"missing query parameter {key}")
+    _require_params(params, "namespace", "object", "relation")
     return RelationTuple(
         namespace=params["namespace"],
         object=params["object"],
@@ -246,17 +254,146 @@ def _json_body(req: Request):
         raise ErrMalformedInput(f"invalid json body: {e}") from None
 
 
+def _require_params(params, *keys) -> None:
+    for key in keys:
+        if params.get(key) is None:
+            raise ErrMalformedInput(f"missing query parameter {key}")
+
+
+def _dead_on_arrival(deadline: Optional[float]) -> None:
+    if deadline is not None and time.monotonic() >= deadline:
+        raise DeadlineExceeded()
+
+
 class ReadAPI:
-    def __init__(self, manager, checker, snaptoken_fn):
+    def __init__(
+        self,
+        manager,
+        checker,
+        snaptoken_fn,
+        expand_engine=None,
+        list_engine=None,
+        version_waiter=None,
+        max_freshness_wait_s: float = 30.0,
+    ):
         self.manager = manager
         self.checker = checker
         self.snaptoken_fn = snaptoken_fn
+        self.expand_engine = expand_engine
+        # reverse-index list serving (engine/listing.ListEngine); None when
+        # serve.read.list is off or the check engine has no reverse index
+        self.list_engine = list_engine
+        # the list routes' snaptoken gate: engine.wait_for_version
+        self.version_waiter = version_waiter
+        self.max_freshness_wait_s = max_freshness_wait_s
 
     def register(self, router: Router) -> None:
         router.add("GET", ROUTE_TUPLES, self.get_relations)
         router.add("GET", ROUTE_CHECK, self.get_check)
         router.add("POST", ROUTE_CHECK, self.post_check)
         router.add("POST", ROUTE_CHECK_BATCH, self.post_check_batch)
+        if self.expand_engine is not None:
+            router.add("GET", ROUTE_EXPAND, self.get_expand)
+        if self.list_engine is not None:
+            router.add("GET", ROUTE_LIST_OBJECTS, self.get_list_objects)
+            router.add("GET", ROUTE_LIST_SUBJECTS, self.get_list_subjects)
+
+    def _await_freshness(self, min_version: int, deadline: Optional[float]) -> None:
+        """Block until the engine answers at >= min_version, within the
+        freshness cap and the caller's deadline."""
+        if self.version_waiter is None or min_version <= 0:
+            return
+        timeout = self.max_freshness_wait_s
+        if deadline is not None:
+            timeout = min(timeout, max(0.0, deadline - time.monotonic()))
+        self.version_waiter(min_version, timeout_s=timeout)
+
+    def get_expand(self, req: Request) -> Response:
+        p = req.query
+        # snaptoken: validated; the snapshot expand engine reads the live
+        # store version by construction, so any token is already satisfied
+        _min_version_from_query(p)
+        _dead_on_arrival(deadline_from_headers(req))
+        _require_params(p, "namespace", "object", "relation")
+        subject = SubjectSet(
+            namespace=p["namespace"], object=p["object"], relation=p["relation"]
+        )
+        depth = max_depth_from_query(p)
+        page_token = p.get("page_token", "")
+        page_size_raw = p.get("page_size")
+        if page_size_raw is not None or page_token:
+            # paged expand: the response shape changes only when the client
+            # opted into paging
+            try:
+                page_size = int(page_size_raw) if page_size_raw else 0
+            except ValueError:
+                raise ErrMalformedInput(
+                    f"malformed page_size: {page_size_raw!r}"
+                ) from None
+            page = self.expand_engine.build_tree_page(
+                subject, depth, page_size=page_size, page_token=page_token
+            )
+            return json_response(page.to_dict())
+        tree = self.expand_engine.build_tree(subject, depth)
+        # a nil tree is null with 200, like the reference's herodot Write
+        # of a nil pointer (expand/handler.go:90)
+        return json_response(None if tree is None else tree.to_dict())
+
+    def _list_response(self, req: Request, items_key: str, run) -> Response:
+        p = req.query
+        min_version = _min_version_from_query(p)
+        try:
+            size = int(p.get("page_size", "0"))
+        except ValueError:
+            raise ErrMalformedInput("page_size must be an integer") from None
+        deadline = deadline_from_headers(req)
+        _dead_on_arrival(deadline)
+        self._await_freshness(min_version, deadline)
+        page = run(size, p.get("page_token", ""), deadline)
+        return json_response(
+            {
+                items_key: page.items,
+                "next_page_token": page.next_page_token,
+                "snaptoken": self.snaptoken_fn(),
+            }
+        )
+
+    def get_list_objects(self, req: Request) -> Response:
+        p = req.query
+        _require_params(p, "namespace", "relation")
+        subject = subject_from_query(p, required=True)
+        depth = max_depth_from_query(p)
+        return self._list_response(
+            req,
+            "objects",
+            lambda size, token, deadline: self.list_engine.list_objects(
+                subject=subject,
+                relation=p["relation"],
+                namespace=p["namespace"],
+                max_depth=depth,
+                page_size=size,
+                page_token=token,
+                deadline=deadline,
+            ),
+        )
+
+    def get_list_subjects(self, req: Request) -> Response:
+        p = req.query
+        _require_params(p, "namespace", "object", "relation")
+        depth = max_depth_from_query(p)
+        return self._list_response(
+            req,
+            "subject_ids",
+            lambda size, token, deadline: self.list_engine.list_subjects(
+                namespace=p["namespace"],
+                object=p["object"],
+                relation=p["relation"],
+                max_depth=depth,
+                page_size=size,
+                page_token=token,
+                deadline=deadline,
+            ),
+        )
 
     def get_relations(self, req: Request) -> Response:
         p = req.query
@@ -301,8 +438,7 @@ class ReadAPI:
         max_depth = max_depth_from_query(p)
         min_version = _min_version_from_query(p)
         deadline = deadline_from_headers(req)
-        if deadline is not None and time.monotonic() >= deadline:
-            raise DeadlineExceeded()
+        _dead_on_arrival(deadline)
         if isinstance(body, dict):
             items = body.get("tuples")
             max_depth = int(body.get("max_depth", max_depth) or max_depth)
@@ -401,9 +537,13 @@ def register_common(router: Router, version: str, healthy_fn=None) -> None:
     router.add("GET", "/version", get_version)
 
 
-def build_read_router(manager, checker, snaptoken_fn, version: str, healthy_fn=None):
+def build_read_router(
+    manager, checker, snaptoken_fn, version: str, healthy_fn=None, **read_kw
+):
+    """The read plane's routes; ``read_kw`` goes to ReadAPI (the expand and
+    list engines, the list routes' snaptoken gate)."""
     router = Router()
-    ReadAPI(manager, checker, snaptoken_fn).register(router)
+    ReadAPI(manager, checker, snaptoken_fn, **read_kw).register(router)
     register_common(router, version, healthy_fn)
     return router
 

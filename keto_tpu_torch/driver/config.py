@@ -1,7 +1,7 @@
 """Config provider (counterpart of ``keto_tpu/driver/config.py``, trimmed).
 
 The same key tree as the reference — ``dsn``, ``serve.read.{host,port,
-max-depth,max_freshness_wait_s,workers}``, ``serve.write.{host,port}``,
+max-depth,max_freshness_wait_s,workers,list}``, ``serve.write.{host,port}``,
 ``namespaces`` (an inline array of ``{id, name}``) and the ``engine``
 subtree — from a JSON or TOML file (YAML where PyYAML is installed) merged
 with ``values``. Only the keys this package reads are validated, by hand
@@ -35,6 +35,7 @@ DEFAULTS = {
     "serve.read.max-depth": 5,
     "serve.read.workers": 1,
     "serve.read.max_freshness_wait_s": 30.0,
+    "serve.read.list": True,
     "serve.write.port": 4467,
     "serve.write.host": "",
     "namespaces": [],
@@ -46,6 +47,10 @@ DEFAULTS = {
     "engine.strong_freshness_edges": 1 << 21,
     "engine.rebuild_debounce_ms": 50,
     "engine.sharding.enabled": False,
+    "engine.reverse_index": True,
+    "engine.expand_page_size": 0,
+    "engine.fallback_threshold": 3,
+    "engine.fallback_cooldown_ms": 1000,
 }
 
 _ENGINE_MODES = [
@@ -60,6 +65,7 @@ _RULES: dict[str, tuple[str, Any]] = {
     "serve.read.max-depth": ("integer", 1),
     "serve.read.workers": ("integer", 1),
     "serve.read.max_freshness_wait_s": ("number", 0),
+    "serve.read.list": ("boolean", None),
     "serve.write.port": ("integer", None),
     "serve.write.host": ("string", None),
     "engine.mode": ("enum", _ENGINE_MODES),
@@ -70,6 +76,10 @@ _RULES: dict[str, tuple[str, Any]] = {
     "engine.strong_freshness_edges": ("integer", 0),
     "engine.rebuild_debounce_ms": ("number", 0),
     "engine.sharding.enabled": ("boolean", None),
+    "engine.reverse_index": ("boolean", None),
+    "engine.expand_page_size": ("integer", 0),
+    "engine.fallback_threshold": ("integer", 1),
+    "engine.fallback_cooldown_ms": ("number", 0),
 }
 
 _MISSING = object()

@@ -1,7 +1,8 @@
 """Service registry (counterpart of ``keto_tpu/driver/registry.py``,
 trimmed): lazily built, memoized providers for the namespace manager, the
 store, the snapshot manager, the check engine and the check batcher, the
-snaptokens, and the two REST planes that ``start_all`` brings up.
+expand and list engines, the snaptokens, and the two REST planes that
+``start_all`` brings up.
 
 ``Registry(config, device=None)`` runs its engines on the CUDA card unless
 the caller passes ``device="cpu"``; without CUDA it raises. Engines and
@@ -49,6 +50,8 @@ class Registry:
         self._snapshots: Optional[SnapshotManager] = None
         self._check_engine = None
         self._checker = None
+        self._expand_engine = None
+        self._list_engine = None
         self._read_plane: Optional[PlaneServer] = None
         self._write_plane: Optional[PlaneServer] = None
         self._serving = False  # readiness: flips only after bring-up
@@ -150,6 +153,55 @@ class Registry:
                     )
             return self._checker
 
+    def expand_engine(self):
+        """Expand over the snapshot's CSR for every engine mode but
+        ``host``, which reads the store (as the reference does)."""
+        with self._lock:
+            if self._expand_engine is None:
+                max_depth = self.config.read_api_max_depth()
+                page_size = int(self.config.get("engine.expand_page_size"))
+                if self.config.engine_mode() == "host":
+                    from ..engine.expand import ExpandEngine
+
+                    self._expand_engine = ExpandEngine(
+                        self.store(), max_depth=max_depth,
+                        default_page_size=page_size,
+                    )
+                else:
+                    from ..engine.device import SnapshotExpandEngine
+
+                    self._expand_engine = SnapshotExpandEngine(
+                        self.snapshots(), max_depth=max_depth,
+                        default_page_size=page_size,
+                    )
+            return self._expand_engine
+
+    def list_engine(self):
+        """Reverse-index list serving over the closure engine's residency;
+        None when serve.read.list is off or the check engine has no reverse
+        residency (the host oracle, DeviceCheckEngine), and then the list
+        routes are not registered. engine.reverse_index false keeps the
+        routes and pins them to the exact oracle."""
+        with self._lock:
+            if self._list_engine is None:
+                if not bool(self.config.get("serve.read.list")):
+                    return None
+                engine = self.check_engine()
+                if not hasattr(engine, "reverse_artifacts"):
+                    return None
+                engine.reverse_enabled = bool(self.config.get("engine.reverse_index"))
+                from ..engine.listing import ListEngine
+
+                self._list_engine = ListEngine(
+                    engine,
+                    default_page_size=int(self.config.get("engine.expand_page_size")),
+                    breaker_threshold=int(self.config.get("engine.fallback_threshold")),
+                    breaker_cooldown_s=float(
+                        self.config.get("engine.fallback_cooldown_ms")
+                    ) / 1e3,
+                )
+            return self._list_engine
+
     # -- snaptokens ------------------------------------------------------------
 
     def snaptoken(self) -> str:
@@ -181,6 +233,16 @@ class Registry:
                 router = build_read_router(
                     self.store(), self.checker(), self.read_snaptoken,
                     self.version, healthy_fn=self.is_serving,
+                    expand_engine=self.expand_engine(),
+                    list_engine=self.list_engine(),
+                    # the list routes' snaptoken gate (the check routes
+                    # reach the same wait through the batcher)
+                    version_waiter=getattr(
+                        self.check_engine(), "wait_for_version", None
+                    ),
+                    max_freshness_wait_s=float(
+                        self.config.get("serve.read.max_freshness_wait_s")
+                    ),
                 )
                 self._read_plane = PlaneServer(
                     router, self.config.read_api_host(), self.config.read_api_port()

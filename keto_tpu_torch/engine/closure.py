@@ -33,9 +33,17 @@ interior nodes rebuilds incrementally, in O(M^2) per edge
 (``ops.closure.closure_insert_edge``). The background rebuild runs on the
 same CUDA stream as the queries, so a query never reads a ``D`` whose
 build has not finished on the card; queries issued meanwhile queue behind
-the build's launches. Left to later slices: host query mode and the
-semiring dirty-row rebuild (host ``D``), the reverse index, scrubbing,
-metrics and tracing.
+the build's launches.
+
+The list path (``engine/listing.py``) reads the reverse residency: the
+transposed closure ``D^T``, next to ``D`` on the card, and the reverse
+boundary CSRs (``graph/reverse.py``), both built lazily on the first list
+query against a snapshot (``reverse_artifacts``). A write the overlay has
+absorbed forces a rebuild there, since the reverse CSRs are snapshot-time.
+
+Left to later slices: host query mode and the semiring dirty-row rebuild
+(host ``D``, which would carry ``D^T`` forward), scrubbing, metrics and
+tracing.
 
 Rows whose F0/L fan-out overflows the padded width, and snapshots whose
 interior exceeds ``interior_limit`` (D is O(M^2) bytes), are answered by an
@@ -54,6 +62,7 @@ import numpy as np
 import torch
 
 from ..graph.interior import InteriorGraph, build_interior, gather_padded_rows
+from ..graph.reverse import ReverseIndex, build_reverse
 from ..graph.snapshot import GraphSnapshot, SnapshotManager
 from ..ops.closure import (
     INF_DIST,
@@ -93,8 +102,9 @@ def _m_pad_for(m: int) -> int:
 
 
 class _ClosureArtifacts:
-    """Per-snapshot residency: the snapshot, its interior decomposition and
-    the closure matrix D on the device."""
+    """Per-snapshot residency: the snapshot, its interior decomposition, the
+    closure matrix D on the device and, once a list query asks, the reverse
+    residency (D^T beside D, the reverse boundary CSRs)."""
 
     def __init__(
         self,
@@ -109,6 +119,12 @@ class _ClosureArtifacts:
         self.m_pad = _m_pad_for(ig.m)
         self.pad = self.m_pad - 1
         self.d = d
+        # reverse residency, built by ClosureCheckEngine._ensure_reverse.
+        # rev_lock pairs d with d_rev: an overlay patch swaps d and drops
+        # d_rev under it, so a D^T is always the transpose of the current d
+        self.d_rev: Optional[torch.Tensor] = None
+        self.rev: Optional[ReverseIndex] = None
+        self.rev_lock = threading.Lock()
 
     @property
     def version(self) -> int:
@@ -117,6 +133,23 @@ class _ClosureArtifacts:
     @property
     def num_edges(self) -> int:
         return self.snap.num_edges
+
+
+@dataclass(frozen=True)
+class ReverseView:
+    """What one list query reads: a snapshot's decomposition and reverse
+    CSRs with one consistent (D, D^T) pair, taken together under the
+    artifacts' rev_lock (an overlay patch may swap ``art.d`` right after)."""
+
+    snap: GraphSnapshot
+    ig: InteriorGraph
+    rev: ReverseIndex
+    d: torch.Tensor
+    d_rev: torch.Tensor
+
+    @property
+    def version(self) -> int:
+        return self.snap.version
 
 
 @dataclass
@@ -182,6 +215,10 @@ class ClosureCheckEngine:
                 eng._on_delta(version, inserted, deleted)
 
             subscribe(_cb)
+        # reverse residency for the list path (engine/listing.py); the
+        # registry sets reverse_enabled from engine.reverse_index
+        self.reverse_enabled = True
+        self.last_reverse_build_s = 0.0
         # build telemetry (read by tests and the smoke run)
         self.n_full_builds = 0
         self.n_incremental_builds = 0
@@ -236,6 +273,45 @@ class ClosureCheckEngine:
         if not isinstance(state, _ClosureArtifacts):
             return None
         return state.d.cpu().numpy()
+
+    # -- reverse residency (list serving) --------------------------------------
+
+    def reverse_artifacts(self) -> Optional[ReverseView]:
+        """The serving snapshot's reverse residency for the list path, or
+        None when the reverse path cannot answer exactly: reverse serving
+        is disabled (engine.reverse_index false) or no closure is resident
+        (the snapshot is served by the fallback).
+
+        A pinned write overlay is not a decline: the reverse boundary CSRs
+        are snapshot-time, so a rebuild folds the overlay's deltas in here
+        (``_build_sync``). Callers answer from the live-store oracle when
+        this returns None."""
+        if not self.reverse_enabled:
+            return None
+        state, pinned = self._serving_pinned()
+        if pinned is not None:
+            self._build_sync()
+            state, pinned = self._serving_pinned()
+        if pinned is not None or not isinstance(state, _ClosureArtifacts):
+            return None
+        return self._ensure_reverse(state)
+
+    def _ensure_reverse(self, art: _ClosureArtifacts) -> ReverseView:
+        """Build (or finish) `art`'s reverse residency, on the first list
+        query against the snapshot, so closure builds pay nothing where no
+        one lists: D^T on the card as one materialized transpose of the
+        current D, and the reverse CSRs on the host."""
+        with art.rev_lock:
+            if art.rev is None or art.d_rev is None:
+                t0 = time.perf_counter()
+                if art.rev is None:
+                    art.rev = build_reverse(art.snap, art.ig)
+                if art.d_rev is None:
+                    art.d_rev = art.d.t().contiguous()
+                    if art.d_rev.is_cuda:
+                        torch.cuda.synchronize(art.d_rev.device)
+                self.last_reverse_build_s = time.perf_counter() - t0
+            return ReverseView(art.snap, art.ig, art.rev, art.d, art.d_rev)
 
     # -- write overlay ---------------------------------------------------------
 

@@ -21,11 +21,13 @@ Unknown subjects and sets map to the snapshot's dummy node, which nothing
 reaches. The engine reads through a ``SnapshotManager``, so every answer is
 at least as fresh as the store version at call time.
 
+``SnapshotExpandEngine`` builds Expand trees from a snapshot's forward
+CSR (host work: no kernel runs), for every engine mode but ``host``.
+
 Left to later slices of the port: the columnar encode path
 (``encode_columns``/``batch_check_columns``) and the batcher's hooks on
 ``EncodedBatch`` (its requests and fallback depths, ``keys``, ``compact``),
-the fault-injection sites and device telemetry hooks, and
-``SnapshotExpandEngine``.
+the fault-injection sites and device telemetry hooks.
 """
 
 from __future__ import annotations
@@ -46,9 +48,16 @@ from ..ops.frontier import (
     pick_edge_chunk,
 )
 from ..ops.packed import PACKED_BATCH_MULTIPLE, csr_row_ptr, packed_batched_check
-from ..relationtuple.definitions import RelationTuple, SubjectSet
+from ..relationtuple.definitions import RelationTuple, Subject, SubjectID, SubjectSet
 from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, clamp_depth
+from .expand import (
+    FALLBACK_PAGE_SIZE,
+    ExpandPage,
+    decode_expand_page_token,
+    encode_expand_page_token,
+)
+from .tree import NodeType, Tree
 
 _MIN_BATCH = 8
 _DENSE_THRESHOLD_DEFAULT = 8192  # adj = bf16 N*N: 8192^2 = 128 MiB
@@ -452,3 +461,219 @@ class DeviceCheckEngine:
                 max_steps=self.global_max_depth,
             )
         return dist[:n].cpu().numpy()
+
+
+class _SnapFrame:
+    """One open Union node on the snapshot engine's explicit traversal
+    stack (the CSR twin of ``engine.expand._Frame``)."""
+
+    __slots__ = ("subject", "children", "successors", "i", "rest", "path")
+
+    def __init__(self, subject, successors, rest, path):
+        self.subject = subject
+        self.children: list[Tree] = []
+        self.successors = successors  # child node ids, CSR insertion order
+        self.i = 0
+        self.rest = rest
+        self.path = path
+
+
+class SnapshotExpandEngine:
+    """Expand trees over the snapshot's forward CSR, with no store round
+    trips (counterpart of ``keto_tpu/engine/device.py:677``).
+
+    Matches the host ``ExpandEngine`` node for node: SubjectID -> Leaf; a
+    subject set already visited or with no tuples -> no node; remaining
+    depth <= 1 -> Leaf; otherwise a Union over the expansions of each
+    tuple's subject, in store insertion order (the CSR's stable sort keeps
+    it).
+
+    The traversal is DFS-preorder, as in the reference: which occurrence of
+    a repeated set is expanded depends on the order the visited set
+    mutates. It runs on an explicit stack (no recursion limit); child ids
+    come straight from the CSR, the visited set is a bool array, and the
+    bottom level of the tree (where every child renders as a Leaf whatever
+    its own edges) is built in one bulk pass per node. The same stack
+    drives paged Expand (``build_tree_page``)."""
+
+    def __init__(
+        self,
+        snapshots: SnapshotManager,
+        max_depth: int = DEFAULT_MAX_DEPTH,
+        default_page_size: int = 0,
+    ):
+        self.snapshots = snapshots
+        self.global_max_depth = max_depth
+        self.default_page_size = default_page_size
+
+    def build_tree(self, subject: Subject, max_depth: int = 0) -> Optional[Tree]:
+        depth = clamp_depth(max_depth, self.global_max_depth)
+        snap = self.snapshots.snapshot()
+        if not isinstance(subject, SubjectSet):
+            return Tree(type=NodeType.LEAF, subject=subject)
+        nid = snap.vocab.lookup_subject(subject)
+        if nid is None or nid >= snap.padded_nodes:
+            # the set never appears in a tuple (or was interned after this
+            # snapshot): no tuples
+            return None
+        visited = np.zeros(snap.padded_nodes, dtype=bool)
+        return self._expand_one(
+            snap, subject, nid, depth, [], visited, [float("inf")], []
+        )
+
+    def build_tree_page(
+        self,
+        subject: Subject,
+        max_depth: int = 0,
+        page_size: int = 0,
+        page_token: str = "",
+    ) -> ExpandPage:
+        """Frontier-bounded paged Expand over the CSR: the host engine's
+        work-queue machinery; the token carries node ids and pins the
+        snapshot version."""
+        depth = clamp_depth(max_depth, self.global_max_depth)
+        snap = self.snapshots.snapshot()
+        if page_size <= 0:
+            page_size = self.default_page_size or FALLBACK_PAGE_SIZE
+        if not isinstance(subject, SubjectSet):
+            return ExpandPage(tree=Tree(type=NodeType.LEAF, subject=subject))
+        visited = np.zeros(snap.padded_nodes, dtype=bool)
+        key_of = snap.vocab.keys()
+        if page_token:
+            pending, vis = decode_expand_page_token(page_token, "snap", snap.version)
+            visited[np.asarray(vis, dtype=np.int64)] = True
+            work = [(path, int(nid), rest) for path, nid, rest in pending]
+            first = False
+        else:
+            nid = snap.vocab.lookup_subject(subject)
+            if nid is None or nid >= snap.padded_nodes:
+                return ExpandPage(tree=None)
+            work = [([], nid, depth)]
+            first = True
+        budget = [page_size]
+        tree: Optional[Tree] = None
+        patches = []
+        while work and budget[0] > 0:
+            path, nid, rest = work.pop(0)
+            k = key_of[nid]
+            subj = SubjectSet(namespace=k[0], object=k[1], relation=k[2])
+            deferred: list = []
+            t = self._expand_one(
+                snap, subj, nid, rest, path, visited, budget, deferred
+            )
+            # deferred descendants resume BEFORE later pending items:
+            # their DFS-preorder position in the unpaged walk
+            work = deferred + work
+            if first:
+                tree = t
+                first = False
+            elif t is not None:
+                patches.append((path, t))
+        token = ""
+        if work:
+            token = encode_expand_page_token(
+                "snap", snap.version, work, np.nonzero(visited)[0].tolist()
+            )
+        return ExpandPage(tree=tree, patches=patches, next_page_token=token)
+
+    def _enter(self, snap, subject, nid, rest, path, visited, budget):
+        """The visited/successors/depth gate of one subject set: a terminal
+        Optional[Tree], an open _SnapFrame, or the bulk bottom level."""
+        if visited[nid]:
+            return None  # cycle suppression (engine.go:42-45)
+        visited[nid] = True
+        successors = snap.out_neighbors(nid)
+        if successors.size == 0:
+            return None  # no tuples (engine.go:67-69)
+        budget[0] -= 1
+        if rest <= 1:
+            return Tree(type=NodeType.LEAF, subject=subject)
+        if rest == 2:
+            # the whole bottom level in one pass; the budget is charged for
+            # every Leaf, so a page overshoots by at most one node's fan-out
+            budget[0] -= int(successors.size)
+            return self._union_of_leaves(snap, subject, successors, visited)
+        return _SnapFrame(subject, successors.tolist(), rest, path)
+
+    def _expand_one(
+        self, snap, subject, nid, rest, path, visited, budget, deferred
+    ) -> Optional[Tree]:
+        """DFS-preorder expansion of one work item on an explicit stack.
+        Once `budget` is spent, not-yet-entered subject sets render as
+        placeholder Leaves and queue on `deferred` in preorder."""
+        res = self._enter(snap, subject, nid, rest, path, visited, budget)
+        if not isinstance(res, _SnapFrame):
+            return res
+        key_of = snap.vocab.keys()
+        stack = [res]
+        while True:
+            fr = stack[-1]
+            if fr.i >= len(fr.successors):
+                stack.pop()
+                tree = Tree(
+                    type=NodeType.UNION, subject=fr.subject, children=fr.children
+                )
+                if not stack:
+                    return tree
+                stack[-1].children.append(tree)
+                continue
+            idx = fr.i
+            fr.i += 1
+            child_nid = fr.successors[idx]
+            k = key_of[child_nid]
+            if len(k) == 1:
+                budget[0] -= 1
+                fr.children.append(
+                    Tree(type=NodeType.LEAF, subject=SubjectID(id=k[0]))
+                )
+                continue
+            child_subject = SubjectSet(namespace=k[0], object=k[1], relation=k[2])
+            if budget[0] <= 0:
+                # page budget spent: a placeholder Leaf now, the expansion
+                # on a later page (whose _enter re-checks visited)
+                fr.children.append(Tree(type=NodeType.LEAF, subject=child_subject))
+                deferred.append((fr.path + [idx], child_nid, fr.rest - 1))
+                continue
+            res = self._enter(
+                snap, child_subject, child_nid, fr.rest - 1, fr.path + [idx],
+                visited, budget,
+            )
+            if isinstance(res, _SnapFrame):
+                stack.append(res)
+            else:
+                # a nil child (visited, or a set with no tuples) renders as
+                # a Leaf for that subject, never dropped (engine.go:80-86)
+                fr.children.append(
+                    res
+                    if res is not None
+                    else Tree(type=NodeType.LEAF, subject=child_subject)
+                )
+
+    @staticmethod
+    def _union_of_leaves(
+        snap: GraphSnapshot,
+        subject: SubjectSet,
+        successors: np.ndarray,
+        visited: np.ndarray,
+    ) -> Tree:
+        """The tree's bottom level: with one depth step left every child
+        renders as a Leaf whatever its own edges, so the child loop becomes
+        bulk Leaf construction. The one side effect to keep is the visited
+        bookkeeping: the walk would have marked each not-yet-visited SET
+        child before its depth check."""
+        is_set = snap.vocab.is_set_array()
+        set_ids = successors[is_set[successors]]
+        if set_ids.size:
+            visited[set_ids] = True
+        leaf = NodeType.LEAF
+        key_of = snap.vocab.keys()
+        children = [
+            Tree(type=leaf, subject=SubjectID(id=k[0]))
+            if len(k) == 1
+            else Tree(
+                type=leaf,
+                subject=SubjectSet(namespace=k[0], object=k[1], relation=k[2]),
+            )
+            for k in map(key_of.__getitem__, successors.tolist())
+        ]
+        return Tree(type=NodeType.UNION, subject=subject, children=children)

@@ -26,9 +26,11 @@ D lives on the engine's device. A patch never writes into the tensor a
 query may be gathering from: the relaxation returns a new tensor, and row,
 column and diagonal stores ``clone()`` D before ``index_put_``; the new
 tensor is swapped into ``art.d`` (a reference swap, atomic under the
-interpreter lock). The host copy of D, its ``closure_insert_edge_host``
-patch and the ``d_rev`` mirror of the reference belong to host query mode
-and the reverse index, which this package does not have yet.
+interpreter lock). The swap drops the list path's ``D^T`` (``art.d_rev``)
+under ``art.rev_lock``, as the reference does for a device-resident D^T:
+it is rebuilt from the patched D when a list query next needs it. The host
+copy of D, its ``closure_insert_edge_host`` patch and the host ``d_rev``
+mirror belong to host query mode, which this package does not have yet.
 
 Concurrency: deltas arrive on writer threads into a pending deque; query
 threads drain it under the overlay lock before serving. Point dict reads
@@ -172,16 +174,22 @@ class WriteOverlay:
             self.art.d.device
         )
 
+    def _swap_d(self, d: torch.Tensor) -> None:
+        art = self.art
+        with art.rev_lock:
+            art.d = d
+            art.d_rev = None  # the transpose of the old D
+
     def _d_set_diag(self, idx: int) -> None:
         d = self.art.d.clone()
         d[idx, idx] = 0
-        self.art.d = d
+        self._swap_d(d)
 
     def _d_insert_edge(self, u: int, v: int) -> None:
         # record for the delete re-close's current-adjacency view
         self._note_int_edge_added(u, v)
         art = self.art
-        art.d = closure_insert_edge(art.d, u, v, art.k_max)
+        self._swap_d(closure_insert_edge(art.d, u, v, art.k_max))
 
     def _d_min(self, rows: np.ndarray, cols: np.ndarray) -> int:
         # one tiny device gather per affected row; affected rows are few
@@ -201,12 +209,12 @@ class WriteOverlay:
     def _d_set_rows(self, rows: np.ndarray, vals: np.ndarray) -> None:
         d = self.art.d.clone()
         d[self._index(rows)] = torch.from_numpy(vals).to(d.device)
-        self.art.d = d
+        self._swap_d(d)
 
     def _d_set_cols(self, cols: np.ndarray, vals: np.ndarray) -> None:
         d = self.art.d.clone()
         d[:, self._index(cols)] = torch.from_numpy(vals).to(d.device)
-        self.art.d = d
+        self._swap_d(d)
 
     # -- current interior adjacency (for the delete re-close) ------------------
 

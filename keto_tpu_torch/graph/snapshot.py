@@ -13,6 +13,11 @@ A snapshot is an immutable value:
 Inserts that arrive in version order and fit spare capacity are appended
 to the previous snapshot (the closure engine's incremental path relies on
 the unchanged prefix); anything else rebuilds on the next read.
+
+The forward CSR (``csr``/``out_neighbors``, successors in insertion order)
+is derived lazily for Expand and the list path. An append carries the
+derived CSR forward with the appended successors beside it, so an Expand
+after a write does not re-sort every edge.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
@@ -50,6 +55,14 @@ class GraphSnapshot:
     padded_nodes: int  # dummy node = padded_nodes - 1
     padded_edges: int
     version: int  # store version at encode time == snaptoken
+    _csr: Optional[tuple[np.ndarray, np.ndarray]] = field(
+        default=None, repr=False, compare=False
+    )
+    # edges covered by _csr: deriving sets it to num_edges; an append
+    # carries the previous CSR forward with a smaller coverage and the
+    # appended successors in _csr_extra (node id -> [successor ids])
+    _csr_edges: int = field(default=0, repr=False, compare=False)
+    _csr_extra: Optional[dict] = field(default=None, repr=False, compare=False)
 
     @property
     def dummy_node(self) -> int:
@@ -95,6 +108,45 @@ class GraphSnapshot:
         out_start[:n] = s
         out_target[:n] = t
         return out_start, out_target
+
+    def csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """(indptr int32[padded_nodes+1], indices int32[padded_edges]) sorted
+        by source (stable: insertion order within a source) over all live
+        edges; derived on demand and cached. A carried partial CSR is
+        replaced by a full derive here; out_neighbors() prefers the carried
+        CSR plus the appended successors and never forces this."""
+        if self._csr is None or self._csr_edges != self.num_edges:
+            s = self.src[: self.num_edges]
+            d = self.dst[: self.num_edges]
+            order = np.argsort(s, kind="stable")
+            counts = np.bincount(s, minlength=self.padded_nodes)
+            indptr = np.zeros(self.padded_nodes + 1, dtype=np.int32)
+            indptr[1:] = np.cumsum(counts).astype(np.int32)
+            indices = np.full(self.padded_edges, self.dummy_node, dtype=np.int32)
+            indices[: self.num_edges] = d[order]
+            self._csr = (indptr, indices)
+            self._csr_edges = self.num_edges
+            self._csr_extra = None
+        return self._csr
+
+    def out_neighbors(self, nid: int) -> np.ndarray:
+        """Successor node ids of `nid`, in insertion order."""
+        if nid >= self.padded_nodes:
+            return np.empty(0, dtype=np.int32)
+        if (
+            self._csr is not None
+            and self._csr_edges < self.num_edges
+            and self._csr_extra is not None
+        ):
+            # carried CSR + appended successors: no re-derive
+            indptr, indices = self._csr
+            base = indices[indptr[nid] : indptr[nid + 1]]
+            extra = self._csr_extra.get(nid)
+            if extra:
+                return np.concatenate([base, np.asarray(extra, dtype=np.int32)])
+            return base
+        indptr, indices = self.csr()
+        return indices[indptr[nid] : indptr[nid + 1]]
 
 
 class SnapshotBuilder:
@@ -252,6 +304,21 @@ class SnapshotManager:
             dst = snap.dst.copy()
             src[snap.num_edges : e_new] = src_ids
             dst[snap.num_edges : e_new] = dst_ids
+            # carry a derived CSR forward with the appended successors;
+            # past 4096 touched sources the carry is dropped and the next
+            # reader re-derives
+            csr = csr_extra = None
+            csr_edges = 0
+            if snap._csr is not None:
+                prev_extra = snap._csr_extra
+                if snap._csr_edges == snap.num_edges:
+                    prev_extra = {}  # fully covered CSR: a fresh delta
+                if prev_extra is not None and len(prev_extra) < 4096:
+                    csr = snap._csr
+                    csr_edges = min(snap._csr_edges, snap.num_edges)
+                    csr_extra = {k: list(v) for k, v in prev_extra.items()}
+                    for s_id, d_id in zip(src_ids, dst_ids):
+                        csr_extra.setdefault(int(s_id), []).append(int(d_id))
             self._snap = GraphSnapshot(
                 vocab=vocab,
                 src=src,
@@ -261,4 +328,7 @@ class SnapshotManager:
                 padded_nodes=snap.padded_nodes,
                 padded_edges=snap.padded_edges,
                 version=version,
+                _csr=csr,
+                _csr_edges=csr_edges,
+                _csr_extra=csr_extra,
             )

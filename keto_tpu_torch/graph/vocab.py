@@ -206,6 +206,12 @@ class NodeVocab:
             return SubjectID(id=k[0])
         return SubjectSet(namespace=k[0], object=k[1], relation=k[2])
 
+    def intern_subject(self, subject: Subject) -> int:
+        return self.intern(subject_node_key(subject))
+
+    def lookup_subject(self, subject: Subject) -> Optional[int]:
+        return self.lookup(subject_node_key(subject))
+
 
 def _insert_hashes(mask, slots, slot_ids, collisions, hashes, ids) -> None:
     idx = (mix64(hashes) & np.uint64(mask)).astype(np.int64)

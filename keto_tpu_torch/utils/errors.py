@@ -1,7 +1,7 @@
 """Herodot-style rich errors (counterpart of ``keto_tpu/utils/errors.py``).
 
-Only the errors the Check path, its stores and the REST plane raise are
-kept. Each carries its HTTP status and gRPC code, and renders the herodot
+Only the errors the Check, Expand and list paths, their stores and the REST
+plane raise are kept. Each carries its HTTP status and gRPC code, and renders the herodot
 JSON envelope ``{"error": {code, status, message}}`` the transports send.
 """
 
@@ -65,6 +65,22 @@ class ErrMalformedInput(KetoError):
 class ErrMalformedPageToken(ErrMalformedInput):
     def default_message(self) -> str:
         return "The provided page token is malformed."
+
+
+class ErrStalePageToken(ErrMalformedPageToken):
+    """A well-formed continuation token whose pinned data version has been
+    superseded (the store moved between pages). The client raced a write,
+    so the wire mapping is 409 (restart the listing), not 400."""
+
+    status_code = 409
+    status = "Conflict"
+    grpc_code = "FAILED_PRECONDITION"
+
+    def default_message(self) -> str:
+        return (
+            "The page token was issued against a superseded data version; "
+            "restart the listing."
+        )
 
 
 class ErrInvalidTuple(ErrMalformedInput):

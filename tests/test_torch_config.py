@@ -73,6 +73,11 @@ def test_keys_match_the_reference(values):
         {"serve": {"write": {"host": 7}}},
         {"dsn": 5},
         {"namespaces": [{"id": 1}]},
+        {"serve": {"read": {"list": "yes"}}},
+        {"engine": {"reverse_index": 1}},
+        {"engine": {"expand_page_size": -1}},
+        {"engine": {"fallback_threshold": 0}},
+        {"engine": {"fallback_cooldown_ms": -5}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):

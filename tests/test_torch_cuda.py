@@ -1,6 +1,7 @@
 """keto_tpu_torch on a CUDA card: the masked-SpMV and packed-propagate
-kernels against their plain versions, and the closure and packed engines on
-the card against the same engines on the CPU.
+kernels against their plain versions, the closure and packed engines on
+the card against the same engines on the CPU, and the list path's D^T and
+row gathers on the card against the CPU build.
 
 Marked ``cuda``; each test skips when no card is present (decided inside
 the fixture, never at import). Run on a card with
@@ -283,3 +284,56 @@ def test_registry_on_card_serves_cat_videos_over_rest(cuda):
         assert reg.check_engine()._state.d.is_cuda
     finally:
         reg.stop_all()
+
+
+def _random_store(rng, n_objects=20, n_users=12, n_edges=200):
+    store = InMemoryTupleStore()
+    tuples = {
+        f"n:o{rng.integers(n_objects)}#r{rng.integers(3)}@"
+        + (
+            f"(n:o{rng.integers(n_objects)}#r{rng.integers(3)})"
+            if rng.random() < 0.45
+            else f"u{rng.integers(n_users)}"
+        ): None
+        for _ in range(n_edges)
+    }
+    store.write_relation_tuples(*(RelationTuple.from_string(s) for s in tuples))
+    return store
+
+
+def test_reverse_residency_on_card_matches_cpu(cuda):
+    from keto_tpu_torch.engine.listing import ListEngine
+    from keto_tpu_torch.relationtuple import SubjectID
+
+    store = _random_store(np.random.default_rng(5))
+    on_card = ClosureCheckEngine(SnapshotManager(store), device=cuda)
+    on_cpu = ClosureCheckEngine(SnapshotManager(store), device="cpu")
+    card_view, cpu_view = on_card.reverse_artifacts(), on_cpu.reverse_artifacts()
+    assert card_view.d_rev.is_cuda and card_view.d_rev.is_contiguous()
+    assert torch.equal(card_view.d_rev.cpu(), cpu_view.d.t())
+    assert torch.equal(card_view.d.cpu(), cpu_view.d)
+    lists = [ListEngine(on_card), ListEngine(on_cpu)]
+    for rel in ("r0", "r1", "r2"):
+        for i in range(12):
+            pages = [le.list_objects(SubjectID(f"u{i}"), rel, "n") for le in lists]
+            assert pages[0].items == pages[1].items
+            assert pages[0].source == pages[1].source == "reverse"
+        for o in range(20):
+            pages = [le.list_subjects("n", f"o{o}", rel) for le in lists]
+            assert pages[0].items == pages[1].items
+
+
+def test_rows_min_on_card_matches_numpy(cuda):
+    from keto_tpu_torch.engine.listing import _rows_min
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    d = torch.randint(0, 256, (1280, 1280), generator=gen, device=cuda,
+                      dtype=torch.uint8)
+    host = d.cpu().numpy()
+    rng = np.random.default_rng(9)
+    for k in (1, 3, 64, 1280):
+        rows = rng.choice(1280, size=k, replace=False).astype(np.int64)
+        got = _rows_min(d, rows)
+        assert got.dtype == np.uint8
+        assert np.array_equal(got, host[rows].min(axis=0))
+        assert np.array_equal(got, _rows_min(d.cpu(), rows))

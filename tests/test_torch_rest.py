@@ -5,8 +5,9 @@ One JAX ``Registry`` (closure engine in device query mode) and one port
 config. Each request script below goes to both servers, step by step, and
 every response must agree: status code, JSON body (snaptokens included),
 and the ``Location`` and ``Retry-After`` headers. The scripts follow
-``tests/test_api_server.py`` without gRPC and Expand: the cat-videos
-drive, malformed input (400), unknown namespaces (404), a garbage page
+``tests/test_api_server.py`` without gRPC: the cat-videos drive (Expand
+included; more Expand and the list routes in test_torch_rest_read.py),
+malformed input (400), unknown namespaces (404), a garbage page
 token, pagination, PATCH and DELETE, snaptokens, and the depth boundary at
 max-depth 5. Each script first deletes every tuple through the write
 plane, so the scripts are independent while both stores keep the same
@@ -174,6 +175,8 @@ SCRIPTS = {
              "subject_id": "cat lady"}], "max_depth": 2}),
         ("read", "GET", "/relation-tuples", {"namespace": "videos"}),
         ("read", "GET", "/relation-tuples", {"namespace": "videos", "object": "/cats"}),
+        ("read", "GET", "/expand", {
+            "namespace": "videos", "object": "/cats/1.mp4", "relation": "view"}),
     ],
     "snaptokens": [
         clear(),
@@ -298,9 +301,24 @@ def test_script(servers, name):
 
 
 def test_cat_videos_answers(servers):
-    """The cat-videos drive of the verify recipe, minus Expand."""
-    got = run_script(servers, [clear()] + cat_videos_tuples() + CAT_CHECKS)
-    assert [s for s, _ in got[-len(CAT_CHECKS):]] == [200, 200, 200, 200, 403, 403]
+    """The cat-videos drive of the verify recipe: the checks, then the
+    Expand of videos:/cats/1.mp4#view, a union holding the owner chain and
+    the * leaf."""
+    got = run_script(servers, [clear()] + cat_videos_tuples() + CAT_CHECKS + [
+        ("read", "GET", "/expand", {
+            "namespace": "videos", "object": "/cats/1.mp4", "relation": "view"}),
+    ])
+    assert [s for s, _ in got[-len(CAT_CHECKS) - 1 : -1]] == [
+        200, 200, 200, 200, 403, 403
+    ]
+    status, tree = got[-1]
+    assert status == 200 and tree["type"] == "union"
+    owner, star = tree["children"]
+    assert star == {"type": "leaf", "subject_id": "*"}
+    assert owner["subject_set"] == {
+        "namespace": "videos", "object": "/cats/1.mp4", "relation": "owner"}
+    assert owner["children"][0]["children"] == [
+        {"type": "leaf", "subject_id": "cat lady"}]
 
 
 def test_port_checks_went_through_the_batcher_and_the_overlay(servers):
