@@ -46,7 +46,14 @@ Phases, in order; any failure exits non-zero:
             count against the loop's iterations, one write and a re-check;
             B2 against its plain version on the real edges; B2 numbers:
             time per launch beside its bound and the plain version, packed
-            batch p50 and rate, peak device memory
+            batch p50 and rate, peak device memory; then the packed
+            engine behind the check batcher: the sample as single checks
+            from 512 submitter threads through the pipelined batcher
+            (pipeline_depth 2, encode_workers 2, the encoded cache on) and
+            the serial one, answers equal to the phase's, checks/s, mean
+            batch, most batches in flight, B2 launches, peak memory; one
+            check_batch_encoded of the sample's ids twice, the second
+            answered by the encoded cache with no B2 launch
 6. serve    the serving seam at rbac1m: Registry(Config(...)) on the card
             with a columnar store, start_all (one closure build: 135 B1
             launches), then over HTTP (urllib, a thread pool): the
@@ -61,6 +68,12 @@ Phases, in order; any failure exits non-zero:
             and rate at 64 clients, /check/batch p50 and rate, the mean
             batch the batcher formed, write-to-visible and overlay apply
             time per write class, bulk load to swap, peak device memory;
+            on the same server, after the single checks (engine.cache_size
+            0, as before the cache existed): the sample as a columnar
+            /check/batch and as /check/batch-encoded frames from a VocabCache
+            bootstrapped over /vocab/snapshot, answers equal to the oracle,
+            p50 and rate; a write that interns a key, the stale frame's 409,
+            sync over /vocab/deltas and the resend against the oracle;
             [serve:expand+list], on the same server after the mixed writes:
             the first list query (it rebuilds the closure: its B1 launches,
             its phases, the D^T transpose and the reverse CSRs), 64
@@ -72,7 +85,10 @@ Phases, in order; any failure exits non-zero:
             node against the host ExpandEngine, 4 paged and stitched);
             every list answered by the reverse path. Numbers: list and
             expand p50/p99, items and tree nodes, the first list's split,
-            peak device memory with D^T
+            peak device memory with D^T; last, a server with the default
+            engine.cache_size: the sample as GET /check from 64 clients
+            twice (hit share and p50 of each pass), then a write that flips
+            a sampled answer and its delete, each seen by the next GET
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -82,6 +98,7 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import subprocess
 import sys
@@ -103,6 +120,22 @@ def require(cond, what: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def port(module: str, *names: str):
+    """Names from a module of the port package, keto_tpu_torch.<module>:
+    one object for one name, else a tuple. The package is imported late,
+    inside the phases, so the script fails cleanly (and prints no result)
+    where the package is missing."""
+    base = f"keto_tpu_torch.{module}" if module else "keto_tpu_torch"
+    mod = importlib.import_module(base)
+    out = []
+    for name in names:
+        try:
+            out.append(getattr(mod, name))
+        except AttributeError:  # a submodule not yet imported
+            out.append(importlib.import_module(f"{base}.{name}"))
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -218,11 +251,10 @@ class IndexedTuples:
             self._version = version
 
     def get_relation_tuples(self, query, pagination=None):
-        from keto_tpu_torch.relationtuple import RelationTuple
-        from keto_tpu_torch.utils.pagination import (
-            PaginationOptions,
-            decode_page_token,
-            encode_page_token,
+        RelationTuple = port("relationtuple", "RelationTuple")
+        (PaginationOptions, decode_page_token, encode_page_token) = (
+            port("utils.pagination", "PaginationOptions", "decode_page_token",
+                 "encode_page_token")
         )
 
         self._index()
@@ -262,7 +294,7 @@ def gen_rbac(n_tuples: int, rng: np.random.Generator, store=None):
     gen_rbac's pool sizes and edge mix, bulk-loaded into `store` (a new
     columnar store when None). Returns the store, the key pools and the
     edges of each stage."""
-    from keto_tpu_torch.store import ColumnarTupleStore
+    ColumnarTupleStore = port("store", "ColumnarTupleStore")
 
     n_users = max(n_tuples // 10, 100)
     n_groups = min(max(n_tuples // 100, 20), 20_000)
@@ -311,7 +343,7 @@ def gen_github(n_tuples: int, rng: np.random.Generator):
     gh:repoN#{pull,triage,push,admin}. A grant's repo#perm key is built
     only for the index drawn, from the same 4 * n_repos pool. Returns the
     store, the key pools and the edges of each stage."""
-    from keto_tpu_torch.store import ColumnarTupleStore
+    ColumnarTupleStore = port("store", "ColumnarTupleStore")
 
     n_users = max(n_tuples // 8, 100)
     n_teams = min(max(n_tuples // 400, 20), 25_000)
@@ -351,7 +383,9 @@ def gen_github(n_tuples: int, rng: np.random.Generator):
 
 
 def to_tuple(src_key, dst_key):
-    from keto_tpu_torch.relationtuple import RelationTuple, SubjectID, SubjectSet
+    (RelationTuple, SubjectID, SubjectSet) = (
+        port("relationtuple", "RelationTuple", "SubjectID", "SubjectSet")
+    )
 
     subject = (
         SubjectID(id=dst_key[0]) if len(dst_key) == 1 else SubjectSet(*dst_key)
@@ -361,7 +395,7 @@ def to_tuple(src_key, dst_key):
 
 def check_b2_small(rng, gen, dev) -> float:
     """B2 against its plain version at W in {128, 256} and at N_pad 2^20."""
-    from keto_tpu_torch.ops import packed
+    packed = port("ops", "packed")
 
     for n_pad, w, m, hub in (
         (4096, 128, 60_000, 5000),
@@ -379,10 +413,12 @@ def check_b2_small(rng, gen, dev) -> float:
 
 def run_example(repo: Path, dev) -> None:
     """cat-videos and the depth boundary through every check engine."""
-    from keto_tpu_torch.engine import ClosureCheckEngine, DeviceCheckEngine
-    from keto_tpu_torch.graph import SnapshotManager
-    from keto_tpu_torch.relationtuple import RelationTuple
-    from keto_tpu_torch.store import InMemoryTupleStore
+    (ClosureCheckEngine, DeviceCheckEngine) = (
+        port("engine", "ClosureCheckEngine", "DeviceCheckEngine")
+    )
+    SnapshotManager = port("graph", "SnapshotManager")
+    RelationTuple = port("relationtuple", "RelationTuple")
+    InMemoryTupleStore = port("store", "InMemoryTupleStore")
 
     cat = InMemoryTupleStore()
     for path in sorted((repo / "contrib/cat-videos-example/relation-tuples").glob("*.json")):
@@ -420,9 +456,9 @@ def run_example(repo: Path, dev) -> None:
              RelationTuple.from_string("n:c0#m@alice")]
         )
         require(got == [True, False], f"{name}: depth boundary 5/6 answers {got}")
-    from keto_tpu_torch.engine.device import SnapshotExpandEngine
-    from keto_tpu_torch.engine.expand import ExpandEngine
-    from keto_tpu_torch.relationtuple import SubjectSet
+    SnapshotExpandEngine = port("engine.device", "SnapshotExpandEngine")
+    ExpandEngine = port("engine.expand", "ExpandEngine")
+    SubjectSet = port("relationtuple", "SubjectSet")
 
     view = SubjectSet("videos", "/cats/1.mp4", "view")
     tree = SnapshotExpandEngine(SnapshotManager(cat)).build_tree(view)
@@ -455,12 +491,16 @@ def cat_videos_expand_ok(tree: dict) -> bool:
 
 def run_rbac(args, rng, dev, card) -> dict:
     """The closure path at rbac1m, and B1's numbers."""
-    from keto_tpu_torch.engine import CheckEngine, ClosureCheckEngine
-    from keto_tpu_torch.engine import masked_spmv
-    from keto_tpu_torch.graph import SnapshotManager
-    from keto_tpu_torch.graph.interior import build_interior
-    from keto_tpu_torch.ops import packed as packed_ops
-    from keto_tpu_torch.ops.closure import pack_adjacency, unpack_adjacency
+    (CheckEngine, ClosureCheckEngine) = (
+        port("engine", "CheckEngine", "ClosureCheckEngine")
+    )
+    masked_spmv = port("engine", "masked_spmv")
+    SnapshotManager = port("graph", "SnapshotManager")
+    build_interior = port("graph.interior", "build_interior")
+    packed_ops = port("ops", "packed")
+    (pack_adjacency, unpack_adjacency) = (
+        port("ops.closure", "pack_adjacency", "unpack_adjacency")
+    )
 
     step = masked_spmv.masked_step
     t0 = time.perf_counter()
@@ -653,7 +693,7 @@ def run_rbac(args, rng, dev, card) -> dict:
 def plain_check(eng, requests, depths=None):
     """The packed engine's answers for `requests` through the same loop
     with the plain propagate, and the number of passes the loop ran."""
-    from keto_tpu_torch.ops import packed
+    packed = port("ops", "packed")
 
     passes = []
 
@@ -679,11 +719,11 @@ def plain_check(eng, requests, depths=None):
 
 def run_github(args, rng, dev) -> dict:
     """The packed path at github10m, and B2's numbers."""
-    from keto_tpu_torch.engine import CheckEngine, DeviceCheckEngine
-    from keto_tpu_torch.engine import masked_spmv
-    from keto_tpu_torch.graph import SnapshotManager
-    from keto_tpu_torch.graph.interior import build_interior
-    from keto_tpu_torch.ops import packed
+    CheckEngine, DeviceCheckEngine = port("engine", "CheckEngine", "DeviceCheckEngine")
+    masked_spmv = port("engine", "masked_spmv")
+    SnapshotManager = port("graph", "SnapshotManager")
+    build_interior = port("graph.interior", "build_interior")
+    packed = port("ops", "packed")
 
     t0 = time.perf_counter()
     store, pools, edges = gen_github(args.gh_tuples, rng)
@@ -795,6 +835,8 @@ def run_github(args, rng, dev) -> dict:
     say(f"[numbers] packed batch under the profiler: "
         f"{profile_batch(lambda: eng.batch_check(sample))}")
 
+    pipe = packed_pipeline(eng, store, sample, allowed)
+
     # B2 on the real edges at github10m's shape: bitwise, then timed
     dg = eng._cached
     n_pad = dg.padded_nodes
@@ -843,18 +885,103 @@ def run_github(args, rng, dev) -> dict:
         f"+ {m_edges} x 8 B), plain {plain_ms:.4f} ms, library none")
     say(f"[numbers] packed batch_check {k}: p50 {p50_ms:.3f} ms, "
         f"{rate:.0f} checks/s; peak device memory {peak_gib:.3f} GiB")
+    say(f"[numbers] packed single checks from {pipe['threads']} submitter "
+        f"threads, {k} checks: pipelined (pipeline_depth 2, encode_workers 2) "
+        f"{pipe['pipelined']['rate']:.0f} checks/s, mean batch "
+        f"{pipe['pipelined']['mean_batch']:.1f}, at most "
+        f"{pipe['max_in_pipeline']} batches in the pipeline, "
+        f"{pipe['pipelined']['launches']} B2 launches, peak device memory "
+        f"{pipe['pipelined']['peak_gib']:.3f} GiB; serial "
+        f"{pipe['serial']['rate']:.0f} checks/s, mean batch "
+        f"{pipe['serial']['mean_batch']:.1f}, {pipe['serial']['launches']} B2 "
+        f"launches, peak {pipe['serial']['peak_gib']:.3f} GiB; "
+        f"check_batch_encoded of {k} ids: {pipe['encoded_launches']} B2 "
+        f"launches, then {pipe['encoded_again_launches']} (all "
+        f"{pipe['encoded_hits']} from the encoded cache)")
     return {
         "name": "packed_propagate",
         "route": "cuda",
         "source": "keto_tpu_torch/csrc/packed_propagate.cu",
         "replaces": "keto_tpu/ops/packed.py:60",
-        "launches": launches,
+        "launches": launches + pipe["launches"],
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
     }
+
+
+def packed_pipeline(eng, store, sample, want, threads: int = 512) -> dict:
+    """The packed engine behind the check batcher, in both shapes: the
+    sample as single checks from `threads` submitter threads (each waits
+    for its answer, so batches of up to `threads` checks form), through the
+    pipelined batcher (pipeline_depth 2, encode_workers 2, the encoded
+    cache on) and through the serial one. Then one check_batch_encoded of
+    the sample's ids, twice: the second is answered by the encoded cache
+    with no B2 launch. Answers equal `want` (the phase's checked answers)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    CheckBatcher = port("engine.batcher", "CheckBatcher")
+    packed = port("ops", "packed")
+    out = {"threads": threads, "launches": 0}
+    shapes = (
+        ("serial", dict(pipeline_depth=0)),
+        ("pipelined", dict(pipeline_depth=2, encode_workers=2,
+                           encoded_cache_size=65536,
+                           version_fn=lambda: store.version)),
+    )
+    for name, kw in shapes:
+        batcher = CheckBatcher(eng, **kw)
+        try:
+            with ThreadPoolExecutor(threads) as pool:
+                list(pool.map(batcher.check, sample[:threads]))  # warm threads
+                batcher.n_batches = batcher.n_dispatched = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                packed.packed_propagate.launches = 0  # this drive starts here
+                t0 = time.perf_counter()
+                got = list(pool.map(batcher.check, sample))
+                wall = time.perf_counter() - t0
+            launches = packed.packed_propagate.launches  # ... and ends here
+            out["launches"] += launches
+            require(got == want, f"{name} batcher answers differ from the engine's")
+            require(launches > 0, f"{name}: no B2 launch")
+            out[name] = {
+                "rate": len(sample) / wall,
+                "mean_batch": batcher.mean_batch_size(),
+                "launches": launches,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            }
+            if name == "pipelined":
+                stats = batcher.pipeline_stats()
+                out["max_in_pipeline"] = stats["max_batches_in_pipeline"]
+                require(stats["pipelined"] and stats["batches_in_pipeline"] == 0,
+                        f"pipeline stats {stats}")
+                s_ids, t_ids = eng.snapshots.snapshot().encode_requests(sample)
+                # a fresh encoded cache, so the first call launches
+                batcher.encoded_cache.clear()
+                packed.packed_propagate.launches = 0
+                first = batcher.check_batch_encoded(s_ids, t_ids)
+                out["encoded_launches"] = packed.packed_propagate.launches
+                h0 = batcher.encoded_cache.hits
+                again = batcher.check_batch_encoded(s_ids, t_ids)
+                out["encoded_again_launches"] = (
+                    packed.packed_propagate.launches - out["encoded_launches"]
+                )
+                out["encoded_hits"] = batcher.encoded_cache.hits - h0
+                out["launches"] += packed.packed_propagate.launches
+                require(first == again == want, "check_batch_encoded answers differ")
+                require(out["encoded_launches"] > 0
+                        and out["encoded_again_launches"] == 0
+                        and out["encoded_hits"] == len(sample),
+                        f"encoded cache: {out}")
+        finally:
+            batcher.close()
+    say(f"[main:packed] pipelined and serial batchers: {len(sample)} single "
+        f"checks from {threads} threads each equal the phase's answers; "
+        f"check_batch_encoded x2, the second from the encoded cache alone")
+    return out
 
 
 class SetGraphOracle:
@@ -867,7 +994,7 @@ class SetGraphOracle:
     on a sample before using it. Built at one store version."""
 
     def __init__(self, store):
-        from keto_tpu_torch.graph.vocab import subject_node_key
+        subject_node_key = port("graph.vocab", "subject_node_key")
 
         self._key = subject_node_key
         src, dst, vocab, version = store.snapshot_ids()
@@ -1005,14 +1132,31 @@ def pct(values, q: float) -> float:
     return float(np.percentile(np.asarray(values) * 1e3, q))
 
 
-def serve_config(freshness: str) -> dict:
+def serve_config(freshness: str, **engine) -> dict:
     return {
         "dsn": "columnar",
         "namespaces": [{"id": 1, "name": "rbac"}, {"id": 2, "name": "videos"}],
         "serve": {"read": {"host": "127.0.0.1", "port": 0, "max-depth": 5},
                   "write": {"host": "127.0.0.1", "port": 0}},
-        "engine": {"freshness": freshness},
+        "engine": {"freshness": freshness, **engine},
     }
+
+
+def columnar_body(tuples) -> dict:
+    """The columnar /check/batch body of `tuples`: parallel string arrays."""
+    CheckColumns = port("relationtuple.columns", "CheckColumns")
+    cols = CheckColumns.from_tuples(tuples)
+    return {c: getattr(cols, c) for c in CheckColumns.__slots__}
+
+
+def post_encoded(read: str, frame: bytes):
+    """One /check/batch-encoded call: (status, answers or the error body)."""
+    wirecodec = port("api", "wirecodec")
+    post_frame = port("client.vocabcache", "post_frame")
+    status, body = post_frame(read, frame, timeout=120.0)
+    if status == 200:
+        return status, wirecodec.decode_check_response(body)[0].tolist()
+    return status, json.loads(body)
 
 
 def chain_sample(rng, pools, edges, k: int):
@@ -1045,10 +1189,10 @@ def run_serve(args, dev, card) -> dict:
     ClosureCheckEngine on the card, driven over HTTP."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from keto_tpu_torch.driver import Config, Registry
-    from keto_tpu_torch.engine import CheckEngine, masked_spmv
-    from keto_tpu_torch.ops import packed as packed_ops
-    from keto_tpu_torch.relationtuple import RelationTuple
+    Config, Registry = port("driver", "Config", "Registry")
+    CheckEngine, masked_spmv = port("engine", "CheckEngine", "masked_spmv")
+    packed_ops = port("ops", "packed")
+    RelationTuple = port("relationtuple", "RelationTuple")
 
     torch.cuda.reset_peak_memory_stats()
     t_serve = time.perf_counter()
@@ -1057,7 +1201,9 @@ def run_serve(args, dev, card) -> dict:
         return f"+{time.perf_counter() - t_serve:.1f}s"
 
     numbers = {}
-    reg = Registry(Config(values=serve_config("auto")))
+    # the result cache off, so the single-check drive stays comparable with
+    # the runs before the cache existed; the cache has its own server below
+    reg = Registry(Config(values=serve_config("auto", cache_size=0)))
     t0 = time.perf_counter()
     store, pools, edges = gen_rbac(
         args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
@@ -1151,6 +1297,10 @@ def run_serve(args, dev, card) -> dict:
         say(f"[serve {at()}] {k} checks as /check/batch x{len(lat)} and as {k} GET "
             f"/check from 64 client threads of a second process: all equal the "
             f"oracle")
+
+        # 2b. the same sample as a columnar body, then as encoded frames
+        numbers.update(serve_columnar_encoded(
+            store, edges, sample, want, read, write, at))
 
         # 3. writes over REST, each class followed by a check that must
         # reflect it: the drain (overlay apply + D patch) is timed apart
@@ -1334,6 +1484,9 @@ def run_serve(args, dev, card) -> dict:
             f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}")
     finally:
         reg.stop_all()
+
+    # 7. the result cache at its default size, on a server of its own
+    numbers["cache"] = serve_cache(args, at)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     classes = "; ".join(
         f"{c} {v:.3f} ms visible, {a:.3f} ms apply"
@@ -1350,7 +1503,153 @@ def run_serve(args, dev, card) -> dict:
     say(f"[numbers] serve ({card}): bounded freshness, bulk load to swap "
         f"{numbers['swap_s']:.3f} s; B1 launches on the serve path {launches}; "
         f"peak device memory {peak_gib:.3f} GiB")
-    return {"launches": launches, "list_launches": numbers["list"]["launches"]}
+    say(f"[numbers] serve ({card}): columnar /check/batch of {k}: p50 "
+        f"{numbers['columnar_p50_ms']:.3f} ms, {numbers['columnar_rate']:.0f} "
+        f"checks/s (the tuple body: p50 {numbers['batch_p50_ms']:.3f} ms)")
+    say(f"[numbers] serve ({card}): encoded /check/batch-encoded of {k}: p50 "
+        f"{numbers['encoded_p50_ms']:.3f} ms, {numbers['encoded_rate']:.0f} "
+        f"checks/s; VocabCache bootstrap {numbers['bootstrap_s']:.3f} s "
+        f"({numbers['vocab_keys']} keys), encode of {k} tuples "
+        f"{numbers['encode_ms']:.3f} ms, sync after one write "
+        f"{numbers['sync_ms']:.3f} ms")
+    c = numbers["cache"]
+    say(f"[numbers] serve ({card}): result cache (engine.cache_size 65536), "
+        f"{k} GET /check at 64 clients: pass 1 hit share {c['hit1']:.4f}, p50 "
+        f"{c['p50_1']:.3f} ms, {c['rate1']:.0f} checks/s; pass 2 hit share "
+        f"{c['hit2']:.4f}, p50 {c['p50_2']:.3f} ms, {c['rate2']:.0f} checks/s; "
+        f"mean batch {c['mean_batch1']:.2f} / {c['mean_batch2']:.2f}")
+    return {"launches": launches, "list_launches": numbers["list"]["launches"],
+            "cache_launches": c["launches"]}
+
+
+def serve_columnar_encoded(store, edges, sample, want, read, write, at) -> dict:
+    """The columnar and the encoded batch forms on the running server: the
+    sample's answers equal the tuple body's and the oracle's; the encoded
+    tier's 409 after a write that interns a key, then sync and resend."""
+    VocabCache = port("client", "VocabCache")
+    k = len(sample)
+    out = {}
+    body = columnar_body(sample)
+    lat = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        status, doc = http("POST", f"{read}/check/batch", body)
+        lat.append(time.perf_counter() - t0)
+        require(status == 200 and doc["allowed"] == want,
+                "columnar /check/batch answers differ from the oracle")
+    out["columnar_p50_ms"] = pct(lat[1:], 50)
+    out["columnar_rate"] = k * len(lat[1:]) / sum(lat[1:])
+
+    t0 = time.perf_counter()
+    cache = VocabCache(read, timeout=120.0).bootstrap()
+    out["bootstrap_s"] = time.perf_counter() - t0
+    out["vocab_keys"] = len(cache)
+    require(cache.epoch == len(store.vocab), f"epoch {cache.epoch}")
+    t0 = time.perf_counter()
+    frame = cache.frame(sample)
+    out["encode_ms"] = (time.perf_counter() - t0) * 1e3
+    lat = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        status, got = post_encoded(read, frame)
+        lat.append(time.perf_counter() - t0)
+        require(status == 200 and got == want,
+                f"/check/batch-encoded answers differ from the oracle: {status}")
+    out["encoded_p50_ms"] = pct(lat[1:], 50)
+    out["encoded_rate"] = k * len(lat[1:]) / sum(lat[1:])
+    say(f"[serve {at()}] {k} checks as a columnar /check/batch x6 and as "
+        f"encoded frames x6 (VocabCache of {len(cache)} keys over "
+        f"/vocab/snapshot): all equal the oracle")
+
+    # one write that interns a key moves the epoch: the next frame is a 409
+    res, grp = next((r, d) for r, d in zip(*edges["grant"]) if d[1].startswith("g"))
+    user = ("encoded-user",)
+    status, _ = http("PUT", f"{write}/relation-tuples", to_tuple(grp, user).to_dict())
+    require(status == 201, f"PUT {status}")
+    probes = sample + [to_tuple(res, user)]
+    status, doc = post_encoded(read, cache.frame(probes))
+    details = doc.get("error", {}).get("details", {}) if status != 200 else {}
+    require(status == 409 and details.get("reason") == "vocab_epoch_mismatch"
+            and details.get("server_epoch") == cache.epoch + 1,
+            f"a stale frame after the write: {status} {doc}")
+    t0 = time.perf_counter()
+    cache.sync()
+    out["sync_ms"] = (time.perf_counter() - t0) * 1e3
+    status, got = post_encoded(read, cache.frame(probes))
+    require(status == 200 and got == SetGraphOracle(store).batch(probes)
+            and got[-1], "answers after the write and sync differ from the oracle")
+    # take the write back: the list phase holds list-subjects against the
+    # users of the generated pool, which this user is not one of
+    status, _ = http("DELETE", f"{write}/relation-tuples?"
+                     + tuple_query(to_tuple(grp, user)))
+    require(status == 204, f"DELETE {status}")
+    say(f"[serve {at()}] after a write: the stale frame 409 "
+        f"(vocab_epoch_mismatch), sync over /vocab/deltas to epoch "
+        f"{cache.epoch}, the resend equals the oracle ({to_tuple(res, user)} "
+        f"allowed); the write taken back")
+    return out
+
+
+def serve_cache(args, at) -> dict:
+    """A server with the default engine.cache_size: the sample as GET /check
+    from 64 clients twice (the hit share and p50 of each pass), then writes
+    that flip a sampled answer and back, each seen by the next GET /check:
+    the cache's stamp is the answering version."""
+    Config, Registry = port("driver", "Config", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    reg = Registry(Config(values=serve_config("auto")))
+    store, pools, edges = gen_rbac(
+        args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
+    )
+    masked_spmv.masked_step.launches = 0  # this server's path starts here
+    read_port, write_port = reg.start_all()
+    read = f"http://127.0.0.1:{read_port}"
+    write = f"http://127.0.0.1:{write_port}"
+    eng, batcher = reg.check_engine(), reg.checker()
+    cache = batcher.cache
+    require(cache is not None and cache.capacity == 65536, "the default cache")
+    out = {}
+    try:
+        sample, _ = chain_sample(np.random.default_rng(args.seed + 3), pools,
+                                 edges, args.checks)
+        want = SetGraphOracle(store).batch(sample)
+        urls = [f"{read}/check?{tuple_query(t)}" for t in sample]
+        for rep in (1, 2):
+            h0, m0 = cache.hits, cache.misses
+            batcher.n_batches = batcher.n_dispatched = 0
+            singles, wall = http_clients(urls, 64)
+            require([status == 200 for status, _ in singles] == want
+                    and all(status in (200, 403) for status, _ in singles),
+                    f"GET /check pass {rep} answers differ from the oracle")
+            hits, misses = cache.hits - h0, cache.misses - m0
+            out[f"hit{rep}"] = hits / max(1, hits + misses)
+            out[f"p50_{rep}"] = pct([sec for _, sec in singles], 50)
+            out[f"rate{rep}"] = len(urls) / wall
+            out[f"mean_batch{rep}"] = batcher.mean_batch_size()
+        require(out["hit2"] > 0.99, f"pass 2 hit share {out['hit2']}")
+        # a write that flips a sampled answer, then its delete: the next GET
+        # /check shows each (a stale cached answer would not)
+        i = want.index(False)
+        flip = sample[i]
+        for method, expect in (("PUT", True), ("DELETE", False)):
+            url = f"{write}/relation-tuples"
+            if method == "PUT":
+                status, _ = http("PUT", url, flip.to_dict())
+            else:
+                status, _ = http("DELETE", url + "?" + tuple_query(flip))
+            require(status in (201, 204), f"{method} {status}")
+            require(rest_check(read, flip) == expect,
+                    f"GET /check after the {method} of {flip} is not {expect}")
+        require(eng.n_full_builds == 1 and not eng._overlay.broken,
+                f"cache server builds full={eng.n_full_builds}")
+        out["launches"] = masked_spmv.masked_step.launches  # ends here
+        say(f"[serve {at()}] cache server: {len(urls)} GET /check x2 equal the "
+            f"oracle, pass 2 hit share {out['hit2']:.4f}; {flip} flipped by a "
+            f"write and back by its delete, each seen by the next GET /check; "
+            f"{out['launches']} B1 launches")
+    finally:
+        reg.stop_all()
+    return out
 
 
 def tree_nodes(doc: dict) -> int:
@@ -1368,11 +1667,11 @@ def serve_expand_list(reg, store, pools, edges, rng, read, write, at, card) -> d
     running server, after the mixed writes. Returns the phase's numbers."""
     from urllib.parse import urlencode
 
-    from keto_tpu_torch.engine import CheckEngine, masked_spmv
-    from keto_tpu_torch.engine.expand import ExpandEngine
-    from keto_tpu_torch.engine.listing import _rows_min
-    from keto_tpu_torch.engine.tree import Tree, apply_expand_patches
-    from keto_tpu_torch.relationtuple import SubjectID, SubjectSet
+    CheckEngine, masked_spmv = port("engine", "CheckEngine", "masked_spmv")
+    ExpandEngine = port("engine.expand", "ExpandEngine")
+    _rows_min = port("engine.listing", "_rows_min")
+    Tree, apply_expand_patches = port("engine.tree", "Tree", "apply_expand_patches")
+    SubjectID, SubjectSet = port("relationtuple", "SubjectID", "SubjectSet")
 
     tag = "serve:expand+list"
     eng, le, xe = reg.check_engine(), reg.list_engine(), reg.expand_engine()
@@ -1656,10 +1955,10 @@ def main() -> int:
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
-    from keto_tpu_torch.engine import masked_spmv
-    from keto_tpu_torch.engine.closure import _m_pad_for
-    from keto_tpu_torch.ops.closure import pack_adjacency
-    from keto_tpu_torch.utils import kernels
+    masked_spmv = port("engine", "masked_spmv")
+    _m_pad_for = port("engine.closure", "_m_pad_for")
+    pack_adjacency = port("ops.closure", "pack_adjacency")
+    kernels = port("utils", "kernels")
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
@@ -1759,7 +2058,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(f"[numbers] B1 launches: main:closure {b1['launches']}, serve "
-        f"{serve['launches']}, the list path's rebuild {serve['list_launches']}")
+        f"{serve['launches']}, the list path's rebuild {serve['list_launches']}, "
+        f"the cache server {serve['cache_launches']}; B2 launches: main:packed "
+        f"with its batcher drives {b2['launches']}")
+    # the kernels line counts each kernel's launches over every phase's
+    # drive of the main path
+    b1["launches"] += serve["launches"] + serve["list_launches"] + serve["cache_launches"]
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

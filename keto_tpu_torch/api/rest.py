@@ -5,8 +5,20 @@ bodies, served by ``http.server.ThreadingHTTPServer`` (``api/daemon.py``).
 Read port:
 - GET  /relation-tuples   paginated query, ``snaptoken`` validated
 - GET  /check, POST /check          200 {"allowed":true} / 403 {"allowed":false}
-- POST /check/batch       a json array of tuples, or {"tuples": [...],
-                          "max_depth": n} -> {"allowed": [...], "snaptoken"}
+- POST /check/batch       a json array of tuples, {"tuples": [...],
+                          "max_depth": n}, or the columnar form
+                          {"namespaces": [...], "objects": [...], ...} ->
+                          {"allowed": [...], "snaptoken"}
+- POST /check/batch-encoded   a ``wirecodec`` KTE1 frame of vocab ids
+                          (application/octet-stream) -> a KTR1 bitset frame;
+                          a vocab (lineage, epoch) mismatch is a 409 whose
+                          details carry the resync hint
+- GET  /vocab/snapshot    one page (``offset``/``limit``) of the vocab keys
+                          with the server's (lineage, epoch)
+- GET  /vocab/deltas      keys interned since ``from`` on ``lineage``; the
+                          encoded and vocab routes are registered only with
+                          an encoded front (``serve.read.encoded``)
+- GET  /pipeline          the check batcher's queue and stage occupancy
 - GET  /expand            the subject tree, or null (200) for a set with no
                           tuples; with ``page_size`` or ``page_token``
                           {"tree"|"patches", "next_page_token"?}
@@ -21,16 +33,16 @@ Write port:
 
 Both ports: /health/alive, /health/ready, /version. Errors use the
 herodot envelope {"error": {code, status, message}}: unknown namespaces are
-404, malformed input 400, a shed request 429, an unavailable snapshot 503,
-a passed deadline 504, a list page token from before a write 409,
-anything else 500. Subjects arrive either as ``subject_id`` or dotted
+404, malformed input 400, a shed or throttled request 429 (with
+Retry-After), an unavailable snapshot 503, a passed deadline 504, a list
+page token from before a write or a stale encoded vocab 409, anything else
+500. Subjects arrive either as ``subject_id`` or dotted
 ``subject_set.*`` query params; supplying both (or neither, where one is
 required) is a 400.
 
 Each request runs on its connection's thread, so concurrent single checks
 meet in the check batcher. Not ported yet, and so not registered: the
-columnar and encoded batch forms, the vocab, pipeline, metrics, debug,
-replication and cluster routes, and CORS.
+metrics, debug, replication and cluster routes, and CORS.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 from urllib.parse import parse_qsl, urlencode, urlsplit
 
+from ..graph import vocabsync
+from ..relationtuple.columns import CheckColumns
 from ..relationtuple.definitions import (
     RelationQuery,
     RelationTuple,
@@ -52,10 +66,17 @@ from ..relationtuple.definitions import (
 )
 from ..utils.errors import DeadlineExceeded, ErrMalformedInput, KetoError
 from ..utils.pagination import PaginationOptions
+from . import wirecodec
 
 ROUTE_TUPLES = "/relation-tuples"
 ROUTE_CHECK = "/check"
 ROUTE_CHECK_BATCH = "/check/batch"
+# the id-native wire tier: pre-encoded int32 batches as raw wirecodec
+# frames, and the vocab feed trusted clients keep their encode cache with
+ROUTE_CHECK_BATCH_ENCODED = "/check/batch-encoded"
+ROUTE_VOCAB_SNAPSHOT = "/vocab/snapshot"
+ROUTE_VOCAB_DELTAS = "/vocab/deltas"
+ROUTE_PIPELINE = "/pipeline"
 ROUTE_EXPAND = "/expand"
 ROUTE_LIST_OBJECTS = "/relation-tuples/list-objects"
 ROUTE_LIST_SUBJECTS = "/relation-tuples/list-subjects"
@@ -275,8 +296,12 @@ class ReadAPI:
         list_engine=None,
         version_waiter=None,
         max_freshness_wait_s: float = 30.0,
+        encoded_front=None,
     ):
         self.manager = manager
+        # the id-native wire tier (api/encoded.EncodedCheckFront); None when
+        # serve.read.encoded is off, and then its routes are not registered
+        self.encoded_front = encoded_front
         self.checker = checker
         self.snaptoken_fn = snaptoken_fn
         self.expand_engine = expand_engine
@@ -292,6 +317,11 @@ class ReadAPI:
         router.add("GET", ROUTE_CHECK, self.get_check)
         router.add("POST", ROUTE_CHECK, self.post_check)
         router.add("POST", ROUTE_CHECK_BATCH, self.post_check_batch)
+        if self.encoded_front is not None:
+            router.add("POST", ROUTE_CHECK_BATCH_ENCODED, self.post_check_batch_encoded)
+            router.add("GET", ROUTE_VOCAB_SNAPSHOT, self.get_vocab_snapshot)
+            router.add("GET", ROUTE_VOCAB_DELTAS, self.get_vocab_deltas)
+        router.add("GET", ROUTE_PIPELINE, self.get_pipeline)
         if self.expand_engine is not None:
             router.add("GET", ROUTE_EXPAND, self.get_expand)
         if self.list_engine is not None:
@@ -430,15 +460,32 @@ class ReadAPI:
         )
 
     def post_check_batch(self, req: Request) -> Response:
-        """Many checks per request: a bare json array of relation tuples, or
-        {"tuples": [...], "max_depth": n}. Always 200, answers in request
-        order with the snaptoken they were answered at."""
+        """Many checks per request: a bare json array of relation tuples,
+        {"tuples": [...], "max_depth": n}, or the columnar form
+        {"namespaces": [...], "objects": [...], "relations": [...],
+        "subject_ids": [...], "subject_set_namespaces": [...], ...} of
+        parallel string arrays (no per-tuple objects on the hot path).
+        Always 200, answers in request order with the snaptoken they were
+        answered at."""
         body = _json_body(req)
         p = req.query
         max_depth = max_depth_from_query(p)
         min_version = _min_version_from_query(p)
         deadline = deadline_from_headers(req)
         _dead_on_arrival(deadline)
+        if isinstance(body, dict) and "namespaces" in body:
+            cols = CheckColumns.from_rest_body(body)
+            max_depth = int(body.get("max_depth", max_depth) or max_depth)
+            run = getattr(self.checker, "check_batch_columnar", None)
+            if run is None:
+                allowed = self.checker.check_batch(
+                    cols.materialize(), max_depth, min_version=min_version
+                )
+            else:
+                allowed = run(cols, max_depth, min_version=min_version)
+            return json_response(
+                {"allowed": allowed, "snaptoken": self.snaptoken_fn()}
+            )
         if isinstance(body, dict):
             items = body.get("tuples")
             max_depth = int(body.get("max_depth", max_depth) or max_depth)
@@ -451,6 +498,57 @@ class ReadAPI:
             tuples, max_depth, min_version=min_version, deadline=deadline
         )
         return json_response({"allowed": allowed, "snaptoken": self.snaptoken_fn()})
+
+    def post_check_batch_encoded(self, req: Request) -> Response:
+        """The id-native wire tier: the body is a raw ``wirecodec`` frame of
+        pre-encoded int32 (start, target) columns tagged with the client's
+        vocab lineage and epoch; the answer is the codec's bitset frame. An
+        epoch mismatch is a typed 409 with the resync hint in the JSON
+        error envelope."""
+        frame = wirecodec.decode_check_request(req.body)
+        deadline = deadline_from_headers(req)
+        _dead_on_arrival(deadline)
+        timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
+        allowed = self.encoded_front.check(frame, timeout=timeout)
+        return Response(
+            200,
+            wirecodec.encode_check_response(allowed, self.snaptoken_fn()),
+            "application/octet-stream",
+        )
+
+    def get_vocab_snapshot(self, req: Request) -> Response:
+        """Vocab bootstrap for encoded-wire clients: one page of the
+        append-only key list plus the (lineage, epoch) it was read at.
+        Clients page with offset/limit, then follow ``/vocab/deltas``."""
+        p = req.query
+        try:
+            offset = int(p.get("offset", "0"))
+            limit = int(p.get("limit", "200000"))
+        except ValueError:
+            raise ErrMalformedInput("offset/limit must be integers") from None
+        page = vocabsync.snapshot_page(self.encoded_front.vocab(), offset, limit)
+        page["snaptoken"] = self.snaptoken_fn()
+        return json_response(page)
+
+    def get_vocab_deltas(self, req: Request) -> Response:
+        """Incremental vocab catch-up: keys interned since ``from`` on
+        lineage ``lineage``. A lineage mismatch is the same typed 409 the
+        encoded check uses: the client re-bootstraps."""
+        p = req.query
+        try:
+            from_epoch = int(p.get("from", "0"))
+        except ValueError:
+            raise ErrMalformedInput("from must be an integer") from None
+        page = vocabsync.delta_page(
+            self.encoded_front.vocab(), p.get("lineage", ""), from_epoch
+        )
+        page["snaptoken"] = self.snaptoken_fn()
+        return json_response(page)
+
+    def get_pipeline(self, req: Request) -> Response:
+        """The check batcher's queue and stage occupancy as one object."""
+        stats_fn = getattr(self.checker, "pipeline_stats", None)
+        return json_response(stats_fn() if callable(stats_fn) else {"pipelined": False})
 
     def _check_response(
         self, req: Request, tup: RelationTuple, max_depth: int, min_version: int

@@ -1,9 +1,10 @@
 """Config provider (counterpart of ``keto_tpu/driver/config.py``, trimmed).
 
 The same key tree as the reference — ``dsn``, ``serve.read.{host,port,
-max-depth,max_freshness_wait_s,workers,list}``, ``serve.write.{host,port}``,
-``namespaces`` (an inline array of ``{id, name}``) and the ``engine``
-subtree — from a JSON or TOML file (YAML where PyYAML is installed) merged
+max-depth,max_freshness_wait_s,workers,list,encoded}``,
+``serve.write.{host,port}``, ``namespaces`` (an inline array of ``{id,
+name}``), the ``engine`` subtree and ``qos.{enabled,rate,burst,overrides}``
+— from a JSON or TOML file (YAML where PyYAML is installed) merged
 with ``values``. Only the keys this package reads are validated, by hand
 and with the reference's messages (no jsonschema); other keys are carried
 and ignored. Environment overrides, hot reload and namespace file
@@ -36,6 +37,7 @@ DEFAULTS = {
     "serve.read.workers": 1,
     "serve.read.max_freshness_wait_s": 30.0,
     "serve.read.list": True,
+    "serve.read.encoded": True,
     "serve.write.port": 4467,
     "serve.write.host": "",
     "namespaces": [],
@@ -51,6 +53,14 @@ DEFAULTS = {
     "engine.expand_page_size": 0,
     "engine.fallback_threshold": 3,
     "engine.fallback_cooldown_ms": 1000,
+    "engine.cache_size": 65536,
+    "engine.encoded_cache_size": 65536,
+    "engine.pipeline_depth": 2,
+    "engine.encode_workers": 2,
+    "qos.enabled": False,
+    "qos.rate": 0.0,
+    "qos.burst": 100.0,
+    "qos.overrides": {},
 }
 
 _ENGINE_MODES = [
@@ -66,6 +76,7 @@ _RULES: dict[str, tuple[str, Any]] = {
     "serve.read.workers": ("integer", 1),
     "serve.read.max_freshness_wait_s": ("number", 0),
     "serve.read.list": ("boolean", None),
+    "serve.read.encoded": ("boolean", None),
     "serve.write.port": ("integer", None),
     "serve.write.host": ("string", None),
     "engine.mode": ("enum", _ENGINE_MODES),
@@ -80,7 +91,18 @@ _RULES: dict[str, tuple[str, Any]] = {
     "engine.expand_page_size": ("integer", 0),
     "engine.fallback_threshold": ("integer", 1),
     "engine.fallback_cooldown_ms": ("number", 0),
+    "engine.cache_size": ("integer", 0),
+    "engine.encoded_cache_size": ("integer", 0),
+    "engine.pipeline_depth": ("integer", 0),
+    "engine.encode_workers": ("integer", 1),
+    "qos.enabled": ("boolean", None),
+    "qos.rate": ("number", None),
+    "qos.burst": ("number", 1),
+    "qos.overrides": ("object", None),
 }
+
+# the properties each per-namespace qos override may carry
+_QOS_OVERRIDE_RULES = {"rate": None, "burst": 1}
 
 _MISSING = object()
 
@@ -90,6 +112,8 @@ def _is_type(value: Any, kind: str) -> bool:
         return isinstance(value, str)
     if kind == "boolean":
         return isinstance(value, bool)
+    if kind == "object":
+        return isinstance(value, dict)
     if isinstance(value, bool):
         return False  # JSON Schema: a boolean is neither integer nor number
     if kind == "integer":
@@ -128,6 +152,7 @@ def validate(data: dict) -> None:
             raise _invalid(f"{value!r} is not of type {kind!r}", path)
         if rule is not None and value < rule:
             raise _invalid(f"{value!r} is less than the minimum of {rule!r}", path)
+    _validate_qos_overrides(_dig(data, "qos.overrides"))
     spec = data.get(KEY_NAMESPACES, _MISSING)
     if spec is _MISSING:
         return
@@ -145,6 +170,36 @@ def validate(data: dict) -> None:
             raise _invalid(f"{ns['name']!r} is not of type 'string'", path + "/name")
         if "id" in ns and not _is_type(ns["id"], "integer"):
             raise _invalid(f"{ns['id']!r} is not of type 'integer'", path + "/id")
+
+
+def _validate_qos_overrides(overrides) -> None:
+    """``qos.overrides``: namespace -> {"rate": number, "burst": number >=
+    1}, nothing else (the reference's schema)."""
+    if not isinstance(overrides, dict):
+        return  # absent, or already rejected as not an object
+    for ns, o in overrides.items():
+        path = f"qos/overrides/{ns}"
+        if not isinstance(o, dict):
+            raise _invalid(f"{o!r} is not of type 'object'", path)
+        extra = [k for k in o if k not in _QOS_OVERRIDE_RULES]
+        if extra:
+            names = ", ".join(repr(k) for k in extra)
+            verb = "was" if len(extra) == 1 else "were"
+            raise _invalid(
+                f"Additional properties are not allowed ({names} {verb} unexpected)",
+                path,
+            )
+        for key, minimum in _QOS_OVERRIDE_RULES.items():
+            if key not in o:
+                continue
+            value = o[key]
+            if not _is_type(value, "number"):
+                raise _invalid(f"{value!r} is not of type 'number'", f"{path}/{key}")
+            if minimum is not None and value < minimum:
+                raise _invalid(
+                    f"{value!r} is less than the minimum of {minimum!r}",
+                    f"{path}/{key}",
+                )
 
 
 def load_config_file(path: str) -> dict:

@@ -1,6 +1,7 @@
 """Service registry (counterpart of ``keto_tpu/driver/registry.py``,
 trimmed): lazily built, memoized providers for the namespace manager, the
-store, the snapshot manager, the check engine and the check batcher, the
+store, the snapshot manager, the check engine and the check batcher (with
+its result caches and per-namespace qos), the id-native encoded front, the
 expand and list engines, the snaptokens, and the two REST planes that
 ``start_all`` brings up.
 
@@ -21,6 +22,7 @@ from .. import __version__
 from ..api.daemon import PlaneServer
 from ..api.rest import build_read_router, build_write_router
 from ..engine.batcher import CheckBatcher, DirectChecker
+from ..engine.cache import CheckResultCache
 from ..engine.check import CheckEngine
 from ..graph.snapshot import SnapshotManager
 from ..store.columnar import ColumnarTupleStore
@@ -50,6 +52,8 @@ class Registry:
         self._snapshots: Optional[SnapshotManager] = None
         self._check_engine = None
         self._checker = None
+        self._qos = None
+        self._encoded_front = None
         self._expand_engine = None
         self._list_engine = None
         self._read_plane: Optional[PlaneServer] = None
@@ -144,14 +148,56 @@ class Registry:
                 if isinstance(engine, CheckEngine):
                     self._checker = DirectChecker(engine, max_batch=max_batch)
                 else:
+                    cfg = self.config
+                    cache_size = int(cfg.get("engine.cache_size"))
                     self._checker = CheckBatcher(
                         engine,
                         max_batch=max_batch,
                         max_freshness_wait_s=float(
-                            self.config.get("serve.read.max_freshness_wait_s")
+                            cfg.get("serve.read.max_freshness_wait_s")
                         ),
+                        cache=(
+                            CheckResultCache(cache_size) if cache_size > 0 else None
+                        ),
+                        version_fn=self._answering_version,
+                        pipeline_depth=int(cfg.get("engine.pipeline_depth")),
+                        encode_workers=int(cfg.get("engine.encode_workers")),
+                        encoded_cache_size=int(cfg.get("engine.encoded_cache_size")),
+                        qos=self.qos(),
                     )
             return self._checker
+
+    def qos(self):
+        """Per-namespace token-bucket admission (engine/qos.py), handed to
+        the CheckBatcher's entry points; None unless qos.enabled."""
+        with self._lock:
+            if self._qos is None and bool(self.config.get("qos.enabled")):
+                from ..engine.qos import NamespaceQos
+
+                self._qos = NamespaceQos(
+                    rate=float(self.config.get("qos.rate")),
+                    burst=float(self.config.get("qos.burst")),
+                    overrides=dict(self.config.get("qos.overrides") or {}),
+                )
+            return self._qos
+
+    def encoded_front(self):
+        """The id-native check tier (api/encoded.py): the epoch gate, the id
+        clamp and the qos bucketing in front of ``check_batch_encoded``.
+        None when serve.read.encoded is off or the checker has no encoded
+        path (the host oracle's DirectChecker); the encoded and vocab
+        routes are then not registered."""
+        with self._lock:
+            if self._encoded_front is None:
+                if not bool(self.config.get("serve.read.encoded")):
+                    return None
+                checker = self.checker()
+                if not hasattr(checker, "check_batch_encoded"):
+                    return None
+                from ..api.encoded import EncodedCheckFront
+
+                self._encoded_front = EncodedCheckFront(self.snapshots(), checker)
+            return self._encoded_front
 
     def expand_engine(self):
         """Expand over the snapshot's CSR for every engine mode but
@@ -216,6 +262,15 @@ class Registry:
             return served()
         return self.store().version
 
+    def _answering_version(self) -> int:
+        """The version the NEXT check will answer at: the caches' stamp.
+        Never served_version, which lags writes under strong freshness and
+        would keep a stale answer alive past a delete."""
+        answering = getattr(self.check_engine(), "answering_version", None)
+        if answering is not None:
+            return answering()
+        return self.store().version
+
     def read_snaptoken(self) -> str:
         """Read-plane snaptoken: the version checks are answered at. Under
         bounded freshness the engine may serve an older snapshot while a
@@ -235,6 +290,7 @@ class Registry:
                     self.version, healthy_fn=self.is_serving,
                     expand_engine=self.expand_engine(),
                     list_engine=self.list_engine(),
+                    encoded_front=self.encoded_front(),
                     # the list routes' snaptoken gate (the check routes
                     # reach the same wait through the batcher)
                     version_waiter=getattr(

@@ -1,16 +1,43 @@
 """Check-request batching: concurrent requests -> device-wide batches
-(counterpart of ``keto_tpu/engine/batcher.py``, serial shape only).
+(counterpart of ``keto_tpu/engine/batcher.py``).
 
-Callers block on ``check()``; one dispatcher thread drains the queue into
-``engine.batch_check(requests, depths=...)`` batches of up to ``max_batch``
-— taking whatever accumulated while the previous batch ran (the natural
-batching window), plus a short fixed window when only one request waits.
+Callers block on ``check()``, and the dispatch machinery drains the queue
+into engine batches of up to ``max_batch`` — taking whatever accumulated
+while the previous batch ran (the natural batching window), plus a short
+fixed window when only one request waits. Two dispatch shapes share the
+class:
 
-The dispatcher is supervised:
+- **serial** (``pipeline_depth=0``, or an engine without the split
+  encode/launch/decode API, such as the closure engine): one dispatcher
+  thread runs ``engine.batch_check`` strictly in order, one batch in
+  flight.
+- **pipelined** (``pipeline_depth >= 1`` and an engine with
+  ``encode_batch``, i.e. ``DeviceCheckEngine``): encode workers drain the
+  queue and vocab-encode on host threads; a launch thread copies each
+  batch to the card and runs its steps; a decode thread copies the answers
+  back and resolves the callers' futures. Bounded queues between the
+  stages cap the batches in flight at about ``pipeline_depth`` past the
+  encoders. All stages share the current CUDA stream. The packed loop
+  reads ``done.all()`` every step, so the launch thread waits on the card
+  for most of a batch: what overlaps is the host encode and decode of the
+  neighbouring batches, not two device batches. A snapshot-versioned
+  encoded-request cache sits in front of the device stage: rows whose
+  (start, target, depth) triple was answered at this snapshot version skip
+  the kernel, and the batch is compacted before launch.
 
-- **watchdog**: a dispatcher death fails exactly the batch it held with
-  :class:`DispatcherCrashed` (typed, retryable) and restarts the loop;
-  queued requests survive for the replacement.
+Caller-assembled batches skip the queue and dispatch on the caller's
+thread: ``check_batch`` (tuples), ``check_batch_columnar`` (a
+``CheckColumns``, no tuple objects) and ``check_batch_encoded`` (vocab ids,
+the id-native wire tier). ``cache`` (a ``CheckResultCache`` stamped with
+``version_fn``, the engine's ANSWERING version) answers repeated single
+checks and tuple batches without the engine; ``qos`` (a ``NamespaceQos``)
+admits per namespace before anything else.
+
+Every stage is supervised:
+
+- **watchdog**: a stage thread death fails exactly the batch that stage
+  held with :class:`DispatcherCrashed` (typed, retryable) and restarts the
+  stage; queued requests and batches held by other stages survive.
 - **bounded queue**: past ``max_queue`` waiting requests the batcher sheds
   load with :class:`BatcherOverloaded` (HTTP 429) instead of growing the
   queue, and everyone's latency, without bound.
@@ -19,18 +46,20 @@ The dispatcher is supervised:
   :class:`BatcherClosed`.
 
 ``min_version`` (the snaptoken) makes the engine catch up first through
-``engine.wait_for_version``. The reference's pipelined shape, its result
-and encoded-request caches, and its qos, overload, HBM-admission,
-telemetry and scrub hooks are not ported yet.
+``engine.wait_for_version``. Not ported yet: ``reconfigure``, HBM
+admission, the overload plane, tracing, metrics and the scrub hooks.
 """
 
 from __future__ import annotations
 
+import queue as _queue_mod
 import threading
 import time
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutTimeout
 from typing import Optional, Sequence
+
+import numpy as np
 
 from ..relationtuple.definitions import RelationTuple
 from ..utils.errors import (
@@ -39,6 +68,7 @@ from ..utils.errors import (
     ErrResourceExhausted,
     ErrUnavailable,
 )
+from .cache import CheckResultCache
 
 
 class BatcherClosed(ErrUnavailable):
@@ -56,11 +86,15 @@ class BatcherOverloaded(ErrResourceExhausted):
 
 
 class DispatcherCrashed(ErrInternal):
-    """The dispatcher thread died while this request was in flight; the
+    """A dispatch stage thread died while this request was in flight; the
     watchdog restarted it. The request was NOT answered — retryable."""
 
     def default_message(self) -> str:
         return "The check dispatcher crashed mid-batch and was restarted."
+
+
+# close()/clean-shutdown marker passed down the stage queues
+_SENTINEL = object()
 
 
 def dispatch_batched(
@@ -77,6 +111,39 @@ def dispatch_batched(
     return out
 
 
+def _merge(cached: list, miss: list, res) -> list[bool]:
+    """Cached answers with the misses' fresh answers filled in."""
+    out = [None if v is None else bool(v) for v in cached]
+    for i, v in zip(miss, res):
+        out[i] = bool(v)
+    return out
+
+
+class _PBatch:
+    """One batch moving through the pipeline: queue items plus per-stage
+    artifacts."""
+
+    __slots__ = ("items", "enc", "launched", "keys")
+
+    def __init__(self, items):
+        # [(request, depth, Future, t_enqueued, deadline), ...]
+        self.items = items
+        self.enc = None  # EncodedBatch after the encode stage
+        self.launched = None  # LaunchedBatch after the launch stage
+        self.keys = None  # encoded-cache keys (when the cache is on)
+
+
+class _Holder:
+    """The batch a stage loop currently owns — what its watchdog fails on a
+    crash. Ownership passes to the next queue the moment the loop clears
+    the holder, so exactly one owner exists at any time."""
+
+    __slots__ = ("batch",)
+
+    def __init__(self):
+        self.batch = None
+
+
 class CheckBatcher:
     def __init__(
         self,
@@ -85,37 +152,112 @@ class CheckBatcher:
         window_s: float = 0.0002,
         max_queue: int = 0,  # 0 -> 8 * max_batch
         max_freshness_wait_s: float = 30.0,  # snaptoken catch-up cap
+        cache: Optional[CheckResultCache] = None,  # None disables
+        version_fn=None,  # ANSWERING-version supplier for cache stamping
+        pipeline_depth: int = 0,  # 0 -> serial dispatch (one batch in flight)
+        encode_workers: int = 2,
+        encoded_cache_size: int = 0,  # 0 disables the encoded-request cache
+        qos=None,  # NamespaceQos: per-namespace token-bucket admission
     ):
         self.engine = engine
         self.max_batch = max_batch
         self.window_s = window_s
         self.max_queue = max_queue if max_queue > 0 else 8 * max_batch
         self.max_freshness_wait_s = max_freshness_wait_s
+        self.cache = cache
+        self.version_fn = version_fn
+        self.qos = qos
+        self.pipeline_depth = pipeline_depth
+        self.encode_workers = max(1, encode_workers)
+        # pipelining needs the engine's split encode/launch/decode API;
+        # engines without it (host oracle, closure) keep the serial loop
+        capable = callable(getattr(engine, "encode_batch", None))
+        self.pipelined = pipeline_depth >= 1 and capable
+        # the encoded-request cache serves the pipelined single-check path,
+        # the columnar batches and the encoded batches, so it only needs a
+        # capable engine, not the pipeline threads
+        self.encoded_cache = (
+            CheckResultCache(encoded_cache_size, name="encoded")
+            if capable and encoded_cache_size > 0
+            else None
+        )
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         # (request, depth, Future, t_enqueued, deadline)
         self._queue: list[tuple] = []
-        # the batch the dispatcher popped but has not answered yet — the
-        # watchdog fails exactly these on a dispatcher death, and close()
-        # fails them after the join budget
+        # serial mode: the batch the dispatcher popped but has not answered
+        # yet — the watchdog fails exactly these on a dispatcher death, and
+        # close() fails them after the join budget
         self._inflight: list[tuple] = []
+        # pipelined mode: every batch admitted to the pipeline and not yet
+        # resolved, whichever stage or queue owns it
+        self._pipe_batches: dict[int, _PBatch] = {}
         self._closed = False
-        # close() lets the dispatcher drain for this long before failing
-        # the leftovers typed; only a wedged engine ever exhausts it
+        # close() lets the stages drain for this long before failing the
+        # leftovers typed; only a wedged engine ever exhausts it
         self.close_join_s = 5.0
-        # dispatch telemetry: queued requests answered, batches formed,
-        # watchdog restarts (read by the smoke run and the tests)
+        # dispatch telemetry (read by the smoke run, /pipeline and the
+        # tests): queued requests answered, batches formed, watchdog
+        # restarts, the most batches in the pipeline at once, and the
+        # callers each stage dropped because their deadline had passed
         self.n_dispatched = 0
         self.n_batches = 0
         self.n_restarts = 0
-        self._thread = threading.Thread(
-            target=self._run_guard, name="check-batcher", daemon=True
+        self.max_in_pipeline = 0
+        self._expired: dict[str, int] = {}
+        if self.pipelined:
+            # launch_q admits roughly one encoded batch per encode worker;
+            # decode_q is the in-flight bound: the launch thread blocks
+            # putting batch N+pipeline_depth until batch N is decoded
+            self._launch_q: _queue_mod.Queue = _queue_mod.Queue(
+                maxsize=max(2, self.encode_workers)
+            )
+            self._decode_q: _queue_mod.Queue = _queue_mod.Queue(
+                maxsize=max(1, pipeline_depth)
+            )
+            self._encoders_live = self.encode_workers
+            self._threads = self._spawn_pipeline()
+        else:
+            self._threads = [
+                threading.Thread(
+                    target=self._run_guard, name="check-batcher", daemon=True
+                )
+            ]
+            self._threads[0].start()
+
+    def _spawn_pipeline(self) -> list[threading.Thread]:
+        threads = [
+            threading.Thread(
+                target=self._encode_guard, name=f"check-encode-{i}", daemon=True
+            )
+            for i in range(self.encode_workers)
+        ]
+        threads.append(
+            threading.Thread(
+                target=self._stage_guard,
+                args=(self._launch_loop,),
+                name="check-launch",
+                daemon=True,
+            )
         )
-        self._thread.start()
+        threads.append(
+            threading.Thread(
+                target=self._stage_guard,
+                args=(self._decode_loop,),
+                name="check-decode",
+                daemon=True,
+            )
+        )
+        for t in threads:
+            t.start()
+        return threads
+
+    # -- admission -------------------------------------------------------------
 
     def _wait_fresh(self, min_version: int, timeout: Optional[float]) -> None:
         """At-least-as-fresh consistency (the snaptoken): make the serving
-        snapshot catch up before answering."""
+        snapshot catch up before answering. The caches stay safe afterward:
+        their stamp is the answering version."""
         wait = getattr(self.engine, "wait_for_version", None)
         if wait is not None:
             wait(
@@ -123,14 +265,35 @@ class CheckBatcher:
                 timeout_s=timeout if timeout is not None else self.max_freshness_wait_s,
             )
 
-    @staticmethod
-    def _timeout_for(deadline: Optional[float], timeout: Optional[float]):
+    def _timeout_for(self, deadline: Optional[float], timeout: Optional[float]):
         if deadline is None:
             return timeout
         remaining = deadline - time.monotonic()
         if remaining <= 0:
+            self._note_expired("admission", 1)
             raise DeadlineExceeded()  # dead on arrival: touch nothing
         return remaining if timeout is None else min(timeout, remaining)
+
+    def _admit(
+        self, min_version: int, timeout: Optional[float], deadline: Optional[float]
+    ) -> Optional[float]:
+        """Deadline and freshness admission shared by every entry point;
+        returns the timeout left for the caller's wait."""
+        timeout = self._timeout_for(deadline, timeout)
+        if min_version > 0:
+            self._wait_fresh(min_version, timeout)
+            if deadline is not None and time.monotonic() >= deadline:
+                self._note_expired("admission", 1)
+                raise DeadlineExceeded()  # the wait consumed the budget
+        return timeout
+
+    def _admit_counts(self, namespaces) -> None:
+        counts: dict[str, int] = {}
+        for ns in namespaces:
+            counts[ns] = counts.get(ns, 0) + 1
+        self.qos.admit_counts(counts)
+
+    # -- entry points ----------------------------------------------------------
 
     def check(
         self,
@@ -142,11 +305,18 @@ class CheckBatcher:
     ) -> bool:
         if self._closed:
             raise BatcherClosed()
-        timeout = self._timeout_for(deadline, timeout)
-        if min_version > 0:
-            self._wait_fresh(min_version, timeout)
-            if deadline is not None and time.monotonic() >= deadline:
-                raise DeadlineExceeded()  # the wait consumed the budget
+        if self.qos is not None:
+            # per-namespace admission precedes everything: a throttled
+            # tenant must not consume queue slots, cache probes or a
+            # freshness wait
+            self.qos.admit(request.namespace)
+        timeout = self._admit(min_version, timeout, deadline)
+        if self.cache is not None:
+            version = self.version_fn()
+            key = (request, max_depth)
+            cached = self.cache.get(version, key)
+            if cached is not None:
+                return cached
         f: Future = Future()
         with self._cv:
             if self._closed:
@@ -161,14 +331,17 @@ class CheckBatcher:
             )
             self._cv.notify()
         try:
-            return f.result(timeout=timeout)
+            result = f.result(timeout=timeout)
         except _FutTimeout:
             if deadline is not None and time.monotonic() >= deadline:
                 # the caller's budget ran out while the entry was queued:
-                # cancel it so the dispatcher skips it
+                # cancel it so the next stage skips it
                 f.cancel()
                 raise DeadlineExceeded() from None
             raise
+        if self.cache is not None:
+            self.cache.put(version, key, result)
+        return result
 
     def check_batch(
         self,
@@ -180,28 +353,214 @@ class CheckBatcher:
     ) -> list[bool]:
         """A caller-assembled batch: already amortized, so it skips the
         queue and dispatches directly on the caller's thread, in max_batch
-        slices. `min_version` applies to the whole batch first."""
+        slices. `min_version` applies to the whole batch first. The result
+        cache is probed in bulk with the stamp the single path uses."""
         if self._closed:
             raise BatcherClosed()
-        timeout = self._timeout_for(deadline, timeout)
-        if min_version > 0:
-            self._wait_fresh(min_version, timeout)
-            if deadline is not None and time.monotonic() >= deadline:
-                raise DeadlineExceeded()
-        return dispatch_batched(self.engine, requests, max_depth, self.max_batch)
+        if self.qos is not None:
+            self._admit_counts(r.namespace for r in requests)
+        self._admit(min_version, timeout, deadline)
+        if self.cache is None:
+            return dispatch_batched(self.engine, requests, max_depth, self.max_batch)
+        version = self.version_fn()
+        keys = [(r, max_depth) for r in requests]
+        cached = self.cache.get_many(version, keys)
+        miss = [i for i, v in enumerate(cached) if v is None]
+        if not miss:
+            return [bool(v) for v in cached]
+        res = dispatch_batched(
+            self.engine, [requests[i] for i in miss], max_depth, self.max_batch
+        )
+        self.cache.put_many(version, [keys[i] for i in miss], res)
+        return _merge(cached, miss, res)
+
+    def check_batch_columnar(
+        self,
+        cols,
+        max_depth: int = 0,
+        min_version: int = 0,
+        timeout: Optional[float] = None,
+    ) -> list[bool]:
+        """Columnar twin of ``check_batch``: the batch arrives as a
+        ``CheckColumns`` and stays columnar through vocab encode and the
+        engine. Engines with the columnar split API probe the encoded
+        cache on the (start, target, depth) id triples; the others probe
+        the result cache on flat string row keys. No ``RelationTuple``
+        objects are built on either path."""
+        if self._closed:
+            raise BatcherClosed()
+        n = len(cols)
+        if n == 0:
+            return []
+        if self.qos is not None:
+            self._admit_counts(cols.namespaces)
+        self._admit(min_version, timeout, None)
+        if getattr(self.engine, "encode_columns", None) is None:
+            return self._columns_via_engine(cols, max_depth)
+        out: list[bool] = []
+        for i in range(0, n, self.max_batch):
+            chunk = (
+                cols if n <= self.max_batch
+                else cols.select(range(i, min(i + self.max_batch, n)))
+            )
+            out.extend(self._dispatch_columns(chunk, max_depth))
+        return out
+
+    def _dispatch_columns(self, cols, max_depth: int) -> list[bool]:
+        """One encoded columnar dispatch: encode into staging, resolve cache
+        hits, launch only the misses."""
+        enc = self.engine.encode_columns(cols, max_depth)
+        cache = self.encoded_cache
+        if cache is None:
+            return [
+                bool(v)
+                for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
+            ]
+        keys = enc.keys()
+        cached = cache.get_many(enc.version, keys)
+        miss = [i for i, v in enumerate(cached) if v is None]
+        if not miss:
+            enc.release()
+            return [bool(v) for v in cached]
+        if len(miss) < len(keys):
+            enc.compact(miss)
+        res = self.engine.decode_launched(self.engine.launch_encoded(enc))
+        cache.put_many(enc.version, [keys[i] for i in miss], [bool(v) for v in res])
+        return _merge(cached, miss, res)
+
+    def _columns_via_engine(self, cols, max_depth: int) -> list[bool]:
+        """Engines without the columnar split API (closure, host oracle):
+        their ``batch_check_columns`` when present, else materialized
+        tuples — with the result cache probed in bulk on flat string row
+        keys, not request objects."""
+        if self.cache is None:
+            return self._run_columns(cols, max_depth)
+        version = self.version_fn()
+        keys = cols.row_keys(max_depth)
+        cached = self.cache.get_many(version, keys)
+        miss = [i for i, v in enumerate(cached) if v is None]
+        if not miss:
+            return [bool(v) for v in cached]
+        sub = cols.select(miss) if len(miss) < len(cols) else cols
+        res = self._run_columns(sub, max_depth)
+        self.cache.put_many(version, [keys[i] for i in miss], res)
+        return _merge(cached, miss, res)
+
+    def _run_columns(self, cols, max_depth: int) -> list[bool]:
+        run = getattr(self.engine, "batch_check_columns", None)
+        out: list[bool] = []
+        n = len(cols)
+        for i in range(0, n, self.max_batch):
+            chunk = (
+                cols if n <= self.max_batch
+                else cols.select(range(i, min(i + self.max_batch, n)))
+            )
+            if run is not None:
+                out.extend(bool(v) for v in run(chunk, max_depth))
+            else:
+                out.extend(
+                    bool(v)
+                    for v in self.engine.batch_check(chunk.materialize(), max_depth)
+                )
+        return out
+
+    def check_batch_encoded(
+        self,
+        start_ids,
+        target_ids,
+        depths=None,
+        min_version: int = 0,
+        timeout: Optional[float] = None,
+        ns_counts: Optional[dict] = None,
+    ) -> list[bool]:
+        """Pre-encoded id batches (the id-native wire tier): probe the
+        encoded cache on (start, target, depth) triples and dispatch only
+        the misses through the engine's array path — no per-item Python
+        objects end to end. ``ns_counts`` (per-namespace row counts the wire
+        front derived from the namespace-id column) is charged against the
+        same QoS buckets the string paths use."""
+        if self._closed:
+            raise BatcherClosed()
+        n = len(start_ids)
+        if n == 0:
+            return []
+        if ns_counts and self.qos is not None:
+            self.qos.admit_counts(ns_counts)
+        self._admit(min_version, timeout, None)
+        s = np.asarray(start_ids, dtype=np.int64)
+        t = np.asarray(target_ids, dtype=np.int64)
+        gmax = int(getattr(self.engine, "global_max_depth", 0) or 0)
+        if depths is not None:
+            want = np.asarray(depths, dtype=np.int32)
+        else:
+            want = np.zeros(n, dtype=np.int32)
+        d = np.where((want <= 0) | (want > gmax), gmax, want) if gmax > 0 else want
+        out: list[bool] = []
+        for i in range(0, n, self.max_batch):
+            j = i + self.max_batch
+            out.extend(self._dispatch_encoded(s[i:j], t[i:j], d[i:j]))
+        return out
+
+    def _dispatch_encoded(self, s, t, d) -> list[bool]:
+        cache = self.encoded_cache
+        if cache is None or self.version_fn is None:
+            return self._run_encoded(s, t, d)
+        version = self.version_fn()
+        keys = list(zip(s.tolist(), t.tolist(), d.tolist()))
+        cached = cache.get_many(version, keys)
+        miss = [i for i, v in enumerate(cached) if v is None]
+        if not miss:
+            return [bool(v) for v in cached]
+        if len(miss) < len(keys):
+            s, t, d = s[miss], t[miss], d[miss]
+        res = self._run_encoded(s, t, d)
+        cache.put_many(version, [keys[i] for i in miss], res)
+        return _merge(cached, miss, res)
+
+    def _run_encoded(self, s, t, d) -> list[bool]:
+        encode_ids = getattr(self.engine, "encode_ids", None)
+        if encode_ids is not None:
+            enc = encode_ids(s, t, d)
+            return [
+                bool(v)
+                for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
+            ]
+        check_ids = getattr(self.engine, "check_ids", None)
+        if check_ids is None:
+            raise ErrInternal(
+                "engine has no array-native check path "
+                "(check_batch_encoded needs check_ids or encode_ids)"
+            )
+        # the closure engine's array path wants per-row subject kinds;
+        # derive them from the vocab (ids past it read as sets — they clamp
+        # to the inert dummy downstream anyway)
+        is_id = np.zeros(len(t), dtype=bool)
+        snaps = getattr(self.engine, "snapshots", None)
+        if snaps is not None:
+            is_set = snaps.snapshot().vocab.is_set_array()
+            safe = (t >= 0) & (t < len(is_set))
+            is_id[safe] = ~is_set[t[safe]]
+        return [bool(v) for v in check_ids(s, t, is_id, d)]
+
+    # -- lifecycle -------------------------------------------------------------
 
     def close(self) -> None:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
-        # the dispatcher drains the queue before exiting; the join budget
-        # only runs out when the engine itself is wedged — then every
-        # waiter is failed typed instead of hanging past shutdown
-        self._thread.join(timeout=self.close_join_s)
+        # the stages drain the queue before exiting; the join budget only
+        # runs out when the engine itself is wedged — then every waiter is
+        # failed typed instead of hanging past shutdown
+        deadline = time.monotonic() + self.close_join_s
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
         with self._cv:
             leftovers = self._queue + self._inflight
             self._queue = []
             self._inflight = []
+            for b in self._pipe_batches.values():
+                leftovers.extend(b.items)
+            self._pipe_batches = {}
         for item in leftovers:
             f = item[2]
             if not f.done():
@@ -211,7 +570,38 @@ class CheckBatcher:
         """Queued requests answered per dispatched batch (0 before any)."""
         return self.n_dispatched / self.n_batches if self.n_batches else 0.0
 
-    # -- dispatcher ------------------------------------------------------------
+    def pipeline_stats(self) -> dict:
+        """Queue and stage occupancy (the read plane's ``GET /pipeline``)."""
+        with self._lock:
+            out = {
+                "pipelined": self.pipelined,
+                "queue_depth": len(self._queue),
+                "max_queue": self.max_queue,
+                "max_batch": self.max_batch,
+                "batches": self.n_batches,
+                "mean_batch": self.mean_batch_size(),
+                "restarts": self.n_restarts,
+                "deadline_expired": dict(self._expired),
+            }
+            if self.pipelined:
+                out.update(
+                    {
+                        "pipeline_depth": self.pipeline_depth,
+                        "encode_workers": self.encode_workers,
+                        "launch_queue_depth": self._launch_q.qsize(),
+                        "decode_queue_depth": self._decode_q.qsize(),
+                        "batches_in_pipeline": len(self._pipe_batches),
+                        "max_batches_in_pipeline": self.max_in_pipeline,
+                        "encoded_cache_entries": (
+                            len(self.encoded_cache)
+                            if self.encoded_cache is not None
+                            else 0
+                        ),
+                    }
+                )
+        return out
+
+    # -- shared plumbing -------------------------------------------------------
 
     def _await_work(self) -> Optional[list[tuple]]:
         """Block for queued requests; None on clean shutdown with an empty
@@ -232,22 +622,35 @@ class CheckBatcher:
             del self._queue[: len(batch)]
             return batch
 
-    @staticmethod
-    def _cull(items: list) -> list:
-        """Drop entries whose caller gave up: deadline passed (their
-        future fails typed) or future cancelled."""
+    def _note_expired(self, stage: str, n: int) -> None:
+        with self._lock:
+            self._expired[stage] = self._expired.get(stage, 0) + n
+
+    def _cull(self, items: list, stage: str) -> tuple[list, list[int]]:
+        """Drop entries whose caller gave up — deadline passed (their future
+        fails typed) or future cancelled — so the stage ahead never pays for
+        them. Returns (kept entries, their indices in ``items``): the index
+        list lets the launch stage compact the staged buffers."""
         now = time.monotonic()
-        kept = []
-        for it in items:
+        kept: list = []
+        keep_idx: list[int] = []
+        expired = 0
+        for i, it in enumerate(items):
             f, dl = it[2], it[4]
             if f.cancelled():
                 continue
             if dl is not None and now >= dl:
                 if not f.done():
                     f.set_exception(DeadlineExceeded())
+                expired += 1
                 continue
             kept.append(it)
-        return kept
+            keep_idx.append(i)
+        if expired:
+            self._note_expired(stage, expired)
+        return kept, keep_idx
+
+    # -- serial dispatcher -----------------------------------------------------
 
     def _run_guard(self) -> None:
         """Watchdog shell around the dispatch loop: a dispatcher death must
@@ -276,7 +679,7 @@ class CheckBatcher:
             batch = self._await_work()
             if batch is None:
                 return
-            batch = self._cull(batch)
+            batch, _ = self._cull(batch, "dispatch")
             if not batch:
                 continue
             with self._cv:
@@ -301,6 +704,180 @@ class CheckBatcher:
                     f.set_result(bool(allowed))
             with self._cv:
                 self._inflight = []
+
+    # -- pipelined stages ------------------------------------------------------
+
+    def _register(self, batch: _PBatch) -> None:
+        with self._lock:
+            self._pipe_batches[id(batch)] = batch
+            self.max_in_pipeline = max(self.max_in_pipeline, len(self._pipe_batches))
+
+    def _complete(self, batch: _PBatch) -> None:
+        with self._lock:
+            self._pipe_batches.pop(id(batch), None)
+
+    def _fail_batch(self, batch: _PBatch, exc: BaseException) -> None:
+        self._complete(batch)
+        if batch.enc is not None:
+            batch.enc.release()
+        for item in batch.items:
+            f = item[2]
+            if not f.done():
+                f.set_exception(exc)
+
+    def _stage_guard(self, loop_fn) -> None:
+        """Watchdog shell shared by the stages: a stage death fails exactly
+        the batch that stage held, typed and retryable, then restarts the
+        stage. Batches owned by the queues or by other stages are
+        untouched."""
+        while True:
+            holder = _Holder()
+            try:
+                loop_fn(holder)
+                return  # clean close
+            except BaseException:
+                batch, holder.batch = holder.batch, None
+                if batch is not None:
+                    self._fail_batch(batch, DispatcherCrashed())
+                self.n_restarts += 1
+                if self._closed:
+                    return
+
+    def _encode_guard(self) -> None:
+        self._stage_guard(self._encode_loop)
+        # clean exit: the LAST encode worker out sends the shutdown sentinel
+        # downstream so launch and decode drain and exit in order
+        with self._lock:
+            self._encoders_live -= 1
+            last = self._encoders_live == 0
+        if last:
+            self._launch_q.put(_SENTINEL)
+
+    def _encode_loop(self, holder: _Holder) -> None:
+        while True:
+            items = self._await_work()
+            if items is None:
+                return
+            items, _ = self._cull(items, "encode")
+            if items:
+                self._encode_step(items, holder)
+
+    def _encode_step(self, items: list, holder: _Holder) -> None:
+        batch = _PBatch(items)
+        holder.batch = batch
+        self._register(batch)
+        with self._lock:
+            self.n_batches += 1
+            self.n_dispatched += len(items)
+        requests = [it[0] for it in items]
+        depths = [it[1] for it in items]
+        try:
+            enc = self.engine.encode_batch(requests, depths=depths)
+        except Exception as e:
+            self._fail_batch(batch, e)
+            holder.batch = None
+            return
+        batch.enc = enc
+        if self.encoded_cache is not None:
+            # rows answered at this snapshot version resolve here; only the
+            # misses ride the kernel
+            keys = enc.keys()
+            cached = self.encoded_cache.get_many(enc.version, keys)
+            miss = [i for i, v in enumerate(cached) if v is None]
+            if len(miss) < len(items):
+                for it, v in zip(items, cached):
+                    if v is not None and not it[2].done():
+                        it[2].set_result(bool(v))
+                if not miss:
+                    enc.release()
+                    self._complete(batch)
+                    holder.batch = None
+                    return
+                enc.compact(miss)
+                batch.items = [items[i] for i in miss]
+                batch.keys = [keys[i] for i in miss]
+            else:
+                batch.keys = keys
+        enc.deadlines = [it[4] for it in batch.items]
+        # ownership passes to the launch queue; the bounded put is the
+        # encode stage's backpressure
+        holder.batch = None
+        self._launch_q.put(batch)
+
+    def _launch_loop(self, holder: _Holder) -> None:
+        while True:
+            batch = self._launch_q.get()
+            if batch is _SENTINEL:
+                self._decode_q.put(_SENTINEL)
+                return
+            self._launch_step(batch, holder)
+
+    def _launch_step(self, batch: _PBatch, holder: _Holder) -> None:
+        holder.batch = batch
+        # cull rows that died waiting in the launch queue BEFORE the device
+        # stage: compacting the staged buffers here is the last chance not
+        # to pay device time for them
+        kept, keep_idx = self._cull(batch.items, "launch")
+        if not kept:
+            batch.enc.release()
+            self._complete(batch)
+            holder.batch = None
+            return
+        if len(kept) < len(batch.items):
+            batch.enc.compact(keep_idx)
+            batch.items = kept
+            if batch.keys is not None:
+                batch.keys = [batch.keys[i] for i in keep_idx]
+        try:
+            batch.launched = self.engine.launch_encoded(batch.enc)
+        except Exception as e:
+            # a launch that raises fails its batch typed; it is never
+            # re-answered on the CPU
+            self._fail_batch(batch, e)
+            holder.batch = None
+            return
+        holder.batch = None
+        # bounded put: blocks once pipeline_depth batches await decode,
+        # which is what caps the batches in flight
+        self._decode_q.put(batch)
+
+    def _decode_loop(self, holder: _Holder) -> None:
+        while True:
+            batch = self._decode_q.get()
+            if batch is _SENTINEL:
+                return
+            self._decode_step(batch, holder)
+
+    def _decode_step(self, batch: _PBatch, holder: _Holder) -> None:
+        holder.batch = batch
+        # rows that died on the device still decode (decoding frees the
+        # staging buffers) but their callers fail typed now; items stay in
+        # place so the results align
+        now = time.monotonic()
+        n_expired = 0
+        for item in batch.items:
+            f, dl = item[2], item[4]
+            if dl is not None and now >= dl and not f.done():
+                f.set_exception(DeadlineExceeded())
+                n_expired += 1
+        if n_expired:
+            self._note_expired("decode", n_expired)
+        try:
+            results = self.engine.decode_launched(batch.launched)
+        except Exception as e:
+            self._fail_batch(batch, e)
+            holder.batch = None
+            return
+        for item, allowed in zip(batch.items, results):
+            f = item[2]
+            if not f.done():
+                f.set_result(bool(allowed))
+        if self.encoded_cache is not None and batch.keys is not None:
+            self.encoded_cache.put_many(
+                batch.enc.version, batch.keys, [bool(v) for v in results]
+            )
+        self._complete(batch)
+        holder.batch = None
 
 
 class DirectChecker:

@@ -41,6 +41,10 @@ boundary CSRs (``graph/reverse.py``), both built lazily on the first list
 query against a snapshot (``reverse_artifacts``). A write the overlay has
 absorbed forces a rebuild there, since the reverse CSRs are snapshot-time.
 
+A ``CheckColumns`` batch (``batch_check_columns``) takes the same path with
+no tuple objects, and ``check_ids`` takes pre-encoded vocab ids (the
+id-native wire tier).
+
 Left to later slices: host query mode and the semiring dirty-row rebuild
 (host ``D``, which would carry ``D^T`` forward), scrubbing, metrics and
 tracing.
@@ -163,6 +167,19 @@ class _TooBig:
 
 
 _State = Union[_ClosureArtifacts, _TooBig]
+
+
+class _ColumnRows:
+    """A ``CheckColumns`` batch indexed like a list of requests: the
+    overflow rows of a columnar batch materialize one tuple each."""
+
+    __slots__ = ("cols",)
+
+    def __init__(self, cols):
+        self.cols = cols
+
+    def __getitem__(self, i) -> RelationTuple:
+        return self.cols.tuple_at(int(i))
 
 
 class ClosureCheckEngine:
@@ -626,6 +643,40 @@ class ClosureCheckEngine:
         depth = self._depths(n, max_depth, depths)
         allowed = self._check_arrays(
             state, s_ids, t_ids, is_id, depth, pinned, requests
+        )
+        return allowed.tolist()
+
+    def batch_check_columns(
+        self,
+        cols,
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> list[bool]:
+        """Columnar batch check: the ``CheckColumns`` string lists are
+        vocab-encoded directly (zipped key tuples -> lookup_bulk) with no
+        ``RelationTuple``/``Subject`` objects on the answer path. Tuples
+        materialize only on the oversized-interior fallback and, one row at
+        a time, for the overflow rows ``_check_arrays`` hands the exact
+        fallback."""
+        n = len(cols)
+        if not n:
+            return []
+        state, pinned = self._serving_pinned()
+        if not isinstance(state, _ClosureArtifacts):
+            # interior too large for a closure: the exact fallback, the only
+            # path that needs every row as a tuple object
+            return self.fallback_engine().batch_check(
+                cols.materialize(), max_depth,
+                None if depths is None else list(depths),
+            )
+        vocab = state.snap.vocab
+        tkeys = cols.target_keys()
+        s_ids = vocab.lookup_bulk(cols.start_keys())
+        t_ids = vocab.lookup_bulk(tkeys)
+        is_id = np.fromiter((len(k) == 1 for k in tkeys), dtype=bool, count=n)
+        depth = self._depths(n, max_depth, depths)
+        allowed = self._check_arrays(
+            state, s_ids, t_ids, is_id, depth, pinned, _ColumnRows(cols)
         )
         return allowed.tolist()
 

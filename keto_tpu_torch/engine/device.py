@@ -21,13 +21,19 @@ Unknown subjects and sets map to the snapshot's dummy node, which nothing
 reaches. The engine reads through a ``SnapshotManager``, so every answer is
 at least as fresh as the store version at call time.
 
+The check runs in three stages (``encode_batch``/``encode_columns``/
+``encode_ids`` -> ``launch_encoded`` -> ``decode_launched``) so the
+pipelined ``CheckBatcher`` can overlap the host encode and decode of
+neighbouring batches with the device stage. Every stage uses the current
+CUDA stream. The host-to-device copy in ``launch_encoded`` is synchronous
+(pageable numpy source), so the staging buffers may go back to the pool as
+soon as ``decode_launched`` has copied the result back.
+
 ``SnapshotExpandEngine`` builds Expand trees from a snapshot's forward
 CSR (host work: no kernel runs), for every engine mode but ``host``.
 
-Left to later slices of the port: the columnar encode path
-(``encode_columns``/``batch_check_columns``) and the batcher's hooks on
-``EncodedBatch`` (its requests and fallback depths, ``keys``, ``compact``),
-the fault-injection sites and device telemetry hooks.
+Left to later slices of the port: the fault-injection sites, the
+garbage-batch path and the device telemetry hooks (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -74,13 +80,47 @@ def _batch_size(mode: str, n: int) -> int:
     return _bucket_batch(n)
 
 
+def _decode_ids(snap, start, target) -> list:
+    """Vocab-decode id pairs back to RelationTuples (the lazy ``requests``
+    of a pre-encoded batch; the hot path never runs this)."""
+    vocab = snap.vocab
+    n_live = len(vocab)
+    out = []
+    for s, t in zip(start, target):
+        if int(s) < n_live:
+            ns, obj, rel = vocab.key(int(s))
+        else:  # dummy/unknown start: resolves to no tuples downstream
+            ns = obj = rel = ""
+        subject = vocab.subject_of(int(t)) if int(t) < n_live else SubjectID(id="")
+        out.append(
+            RelationTuple(namespace=ns, object=obj, relation=rel, subject=subject)
+        )
+    return out
+
+
 class EncodedBatch:
     """A vocab-encoded batch parked between pipeline stages: staging
-    buffers filled, kernel not yet dispatched."""
+    buffers filled, kernel not yet dispatched. Keeps the original requests
+    (or, on the columnar path, the raw columns) so the exact requests of
+    this batch can be recovered; columnar and id batches materialize their
+    ``RelationTuple`` objects lazily, only if asked."""
 
-    __slots__ = ("n", "b", "snap", "dg", "start", "target", "depth")
+    __slots__ = (
+        "_requests", "_cols", "depths", "deadlines", "n", "b", "snap", "dg",
+        "start", "target", "depth",
+    )
 
-    def __init__(self, n, b, snap, dg, start, target, depth):
+    def __init__(
+        self, requests, depths, n, b, snap, dg, start, target, depth, cols=None
+    ):
+        self._requests = requests
+        self._cols = cols
+        # the clamped per-request depths, before the packed mode's
+        # unknown-node override (what a host oracle would be asked)
+        self.depths = depths
+        # per-row absolute caller deadlines (monotonic seconds), stamped by
+        # the batcher after encode
+        self.deadlines = None
         self.n = n
         self.b = b
         self.snap = snap
@@ -88,6 +128,61 @@ class EncodedBatch:
         self.start = start
         self.target = target
         self.depth = depth
+
+    @property
+    def requests(self) -> list:
+        """Per-item RelationTuples. Columnar batches build them here on
+        first access; pure-id batches decode through the snapshot vocab."""
+        if self._requests is None:
+            if self._cols is not None:
+                self._requests = self._cols.materialize()
+            else:
+                self._requests = _decode_ids(
+                    self.snap, self.start[: self.n], self.target[: self.n]
+                )
+        return self._requests
+
+    @property
+    def version(self) -> int:
+        return self.snap.version
+
+    def keys(self) -> list[tuple[int, int, int]]:
+        """Per-request (start, target, depth) id triples — the
+        snapshot-versioned encoded-request cache key."""
+        n = self.n
+        return list(
+            zip(
+                self.start[:n].tolist(),
+                self.target[:n].tolist(),
+                self.depth[:n].tolist(),
+            )
+        )
+
+    def compact(self, keep: Sequence[int]) -> None:
+        """Shrink to the `keep` rows (increasing indices) in place — cache
+        hits drop out before the kernel ever sees them. Freed tail rows are
+        reset to the inert padding state (the dummy node; depth 0 in packed
+        mode, else 1)."""
+        m = len(keep)
+        if m == self.n:
+            return
+        idx = np.asarray(keep, dtype=np.int64)
+        self.start[:m] = self.start[idx]
+        self.target[:m] = self.target[idx]
+        self.depth[:m] = self.depth[idx]
+        dummy = self.dg.dummy
+        self.start[m : self.n] = dummy
+        self.target[m : self.n] = dummy
+        self.depth[m : self.n] = 0 if self.dg.mode == "packed" else 1
+        if self._requests is not None:
+            self._requests = [self._requests[i] for i in keep]
+        if self._cols is not None:
+            self._cols = self._cols.select(keep)
+        if self.depths is not None:
+            self.depths = [self.depths[i] for i in keep]
+        if self.deadlines is not None:
+            self.deadlines = [self.deadlines[i] for i in keep]
+        self.n = m
 
     def release(self) -> None:
         """Return the staging buffers to the per-bucket free-list (idempotent)."""
@@ -273,10 +368,12 @@ class DeviceCheckEngine:
 
     # -- pipelined dispatch: encode -> launch -> decode ----------------------
 
-    def _fill_depths(self, dg, n, start, target, depth, want) -> None:
-        """Clamp the requested depths into `depth`."""
+    def _fill_depths(self, dg, n, start, target, depth, want) -> list:
+        """Clamp the requested depths into `depth`; returns the clamped
+        depths before the packed mode's unknown-node override."""
         gmax = self.global_max_depth
         depth[:n] = np.where((want <= 0) | (want > gmax), gmax, want)
+        clamped = depth[:n].tolist()
         if dg.mode == "packed":
             # unknown-node contract: a dummy start must not "reach" the
             # dummy target through the shared dummy row — force depth 0,
@@ -286,6 +383,12 @@ class DeviceCheckEngine:
                 (start[:n] == dummy) | (target[:n] == dummy), 0, depth[:n]
             )
             depth[n:] = 0
+        return clamped
+
+    def _want(self, n, max_depth, depths) -> np.ndarray:
+        if depths is not None:
+            return np.asarray(depths, dtype=np.int32)
+        return np.full(n, max_depth, dtype=np.int32)
 
     def encode_batch(
         self,
@@ -301,12 +404,45 @@ class DeviceCheckEngine:
         b = _batch_size(dg.mode, n)
         start, target, depth = dg.checkout_staging(b)
         snap.encode_requests(requests, out_start=start, out_target=target)
-        if depths is not None:
-            want = np.asarray(depths, dtype=np.int32)
-        else:
-            want = np.full(n, max_depth, dtype=np.int32)
-        self._fill_depths(dg, n, start, target, depth, want)
-        return EncodedBatch(n, b, snap, dg, start, target, depth)
+        fb = self._fill_depths(
+            dg, n, start, target, depth, self._want(n, max_depth, depths)
+        )
+        return EncodedBatch(list(requests), fb, n, b, snap, dg, start, target, depth)
+
+    def encode_columns(
+        self,
+        cols,
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> EncodedBatch:
+        """Columnar stage 1: a ``CheckColumns`` batch vocab-encodes straight
+        from its parallel string lists into the staging buffers — no
+        ``RelationTuple``/``Subject`` objects on the hot path."""
+        snap = self.snapshots.snapshot()
+        dg = self._device_graph(snap)
+        n = len(cols)
+        b = _batch_size(dg.mode, n)
+        start, target, depth = dg.checkout_staging(b)
+        snap.encode_requests_columnar(cols, out_start=start, out_target=target)
+        fb = self._fill_depths(
+            dg, n, start, target, depth, self._want(n, max_depth, depths)
+        )
+        return EncodedBatch(
+            None, fb, n, b, snap, dg, start, target, depth, cols=cols
+        )
+
+    def batch_check_columns(
+        self,
+        cols,
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> list[bool]:
+        """Serial columnar dispatch — the zero-object twin of batch_check."""
+        if not len(cols):
+            return []
+        return self.decode_launched(
+            self.launch_encoded(self.encode_columns(cols, max_depth, depths))
+        )
 
     def check_ids(
         self,
@@ -361,12 +497,8 @@ class DeviceCheckEngine:
         t = np.asarray(target, dtype=np.int64)
         st[:n] = np.where((s < 0) | (s >= pn), dummy, s)
         tg[:n] = np.where((t < 0) | (t >= pn), dummy, t)
-        if depths is not None:
-            want = np.asarray(depths, dtype=np.int32)
-        else:
-            want = np.full(n, 0, dtype=np.int32)
-        self._fill_depths(dg, n, st, tg, dp, want)
-        return EncodedBatch(n, b, snap, dg, st, tg, dp)
+        fb = self._fill_depths(dg, n, st, tg, dp, self._want(n, 0, depths))
+        return EncodedBatch(None, fb, n, b, snap, dg, st, tg, dp)
 
     def launch_encoded(self, enc: EncodedBatch) -> LaunchedBatch:
         """Stage 2 (the device stage): copy the batch to the device and

@@ -433,10 +433,15 @@ class WriteOverlay:
                 self._d_set_rows(chunk, self._sweep_rows(chunk))
 
     def _base_out_neighbors(self, nid: int) -> np.ndarray:
-        """One node's base successors in insertion order: an O(E) masked
-        scan of the snapshot's COO arrays (this package's snapshot keeps no
-        CSR), bounded and lock-friendly inside the drain."""
+        """One node's base successors in insertion order. Uses the
+        snapshot's CSR only when it is ALREADY derived (an Expand or a list
+        query derived it, or an append carried it forward): promotion runs
+        inside the locked drain, and forcing the full O(E log E) CSR sort
+        there would stall every query thread behind one routine write. An
+        O(E) masked scan of the COO arrays is bounded and lock-friendly."""
         snap = self.art.snap
+        if snap._csr is not None:
+            return snap.out_neighbors(nid)
         e = snap.num_edges
         return snap.dst[:e][snap.src[:e] == nid]
 

@@ -1,0 +1,113 @@
+"""Per-tenant QoS: token-bucket admission per namespace (counterpart of
+``keto_tpu/engine/qos.py``, without its metrics, stats and the fleet
+scale).
+
+The batcher's own load shedding is *global* — a bounded queue that rejects
+everyone equally once full. That protects the process but not the tenants:
+one namespace issuing checks at line rate fills the queue and starves every
+other tenant long before the global bound trips. This module adds the
+per-tenant layer in front of it: each namespace draws from its own token
+bucket (``qos.rate`` tokens/s, ``qos.burst`` cap, per-namespace
+``qos.overrides``), and a drained bucket rejects with the same retryable
+429 contract the global shed uses, plus a ``Retry-After`` sized to the
+bucket's actual refill time.
+
+Admission happens at the batcher's entry points before any queueing or
+engine work, one debit per check row (a batch debits its per-namespace row
+counts). The id-native wire tier carries no per-row namespace strings:
+encoded requests ship a namespace-id column, the wire front maps the unique
+ids back to names through the vocab-synced ``NamespaceTable``
+(O(tenants), not O(rows)), and the per-namespace counts are debited from
+these same buckets.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from ..utils.errors import ErrResourceExhausted
+
+
+class QosThrottled(ErrResourceExhausted):
+    """A namespace exhausted its admission budget. Retryable: carries the
+    seconds until the bucket holds the rejected demand again."""
+
+    def __init__(self, namespace: str, retry_after_s: float):
+        self.namespace = namespace
+        self.retry_after_s = max(1, round(retry_after_s))
+        super().__init__(
+            f"namespace {namespace!r} is over its admission rate; "
+            f"retry in ~{self.retry_after_s}s"
+        )
+
+
+class _Bucket:
+    __slots__ = ("rate", "burst", "tokens", "stamp")
+
+    def __init__(self, rate: float, burst: float, now: float):
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.tokens = float(burst)
+        self.stamp = now
+
+
+class NamespaceQos:
+    """Token buckets keyed by namespace.
+
+    ``rate`` <= 0 admits everything for that namespace (per-namespace
+    overrides may still throttle, and vice versa). Buckets materialize
+    lazily on first use; the map is bounded by the live namespace set.
+    """
+
+    def __init__(
+        self,
+        rate: float = 0.0,
+        burst: float = 100.0,
+        overrides: dict | None = None,
+        *,
+        clock=time.monotonic,
+    ):
+        self.rate = float(rate)
+        self.burst = max(1.0, float(burst))
+        self.overrides = {
+            str(ns): (
+                float(o.get("rate", rate)),
+                max(1.0, float(o.get("burst", burst))),
+            )
+            for ns, o in (overrides or {}).items()
+        }
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._buckets: dict[str, _Bucket] = {}
+
+    def _limits(self, namespace: str) -> tuple[float, float]:
+        return self.overrides.get(namespace, (self.rate, self.burst))
+
+    def admit(self, namespace: str, n: int = 1) -> None:
+        """Debit ``n`` check rows from ``namespace``'s bucket; raises
+        :class:`QosThrottled` when the bucket cannot cover them."""
+        rate, burst = self._limits(namespace)
+        if rate <= 0:
+            return
+        now = self._clock()
+        with self._lock:
+            b = self._buckets.get(namespace)
+            if b is None:
+                b = _Bucket(rate, burst, now)
+                self._buckets[namespace] = b
+            b.tokens = min(b.burst, b.tokens + (now - b.stamp) * b.rate)
+            b.stamp = now
+            if b.tokens >= n:
+                b.tokens -= n
+                return
+            deficit = n - b.tokens
+        raise QosThrottled(namespace, retry_after_s=deficit / rate)
+
+    def admit_counts(self, counts: dict[str, int]) -> None:
+        """Admit a batch's per-namespace row counts — all-or-nothing per
+        namespace; the first drained namespace rejects the batch (the client
+        retries the whole request after backoff, matching the global shed's
+        batch semantics)."""
+        for namespace, n in counts.items():
+            self.admit(namespace, n)

@@ -109,6 +109,30 @@ class GraphSnapshot:
         out_target[:n] = t
         return out_start, out_target
 
+    def encode_requests_columnar(
+        self,
+        cols,
+        out_start: Optional[np.ndarray] = None,
+        out_target: Optional[np.ndarray] = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Columnar twin of ``encode_requests``: a ``CheckColumns`` batch
+        goes straight from its parallel string lists to vocab ids (the key
+        tuples feeding ``lookup_bulk`` are zipped from the columns, never
+        built through ``RelationTuple``/``Subject`` objects). Same clamp and
+        staging-buffer contract as ``encode_requests``."""
+        n = len(cols)
+        s_ids = self.vocab.lookup_bulk(cols.start_keys())
+        t_ids = self.vocab.lookup_bulk(cols.target_keys())
+        pn = self.padded_nodes
+        dummy = self.dummy_node
+        s = np.where((s_ids < 0) | (s_ids >= pn), dummy, s_ids)
+        t = np.where((t_ids < 0) | (t_ids >= pn), dummy, t_ids)
+        if out_start is None or out_target is None:
+            return s.astype(np.int32), t.astype(np.int32)
+        out_start[:n] = s
+        out_target[:n] = t
+        return out_start, out_target
+
     def csr(self) -> tuple[np.ndarray, np.ndarray]:
         """(indptr int32[padded_nodes+1], indices int32[padded_edges]) sorted
         by source (stable: insertion order within a source) over all live

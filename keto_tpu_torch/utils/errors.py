@@ -88,6 +88,67 @@ class ErrInvalidTuple(ErrMalformedInput):
         return "The provided relation tuple is invalid."
 
 
+class ErrVocabEpochMismatch(KetoError):
+    """An id-native (pre-encoded) check arrived tagged with a vocab
+    ``(lineage, epoch)`` that is not the serving vocab. Ids are only
+    meaningful against the exact vocab instance the client encoded with:
+    a rebuild swaps lineage (ids reassigned), a write advances the epoch
+    (new ids the client has not seen). The envelope carries the server's
+    current coordinates so the client can resync from the vocab delta
+    feed and retry."""
+
+    status_code = 409
+    status = "Conflict"
+    grpc_code = "FAILED_PRECONDITION"
+
+    def __init__(
+        self,
+        message: str | None = None,
+        *,
+        server_lineage: str = "",
+        server_epoch: int = 0,
+        client_lineage: str = "",
+        client_epoch: int = 0,
+    ):
+        self.server_lineage = str(server_lineage)
+        self.server_epoch = int(server_epoch)
+        self.client_lineage = str(client_lineage)
+        self.client_epoch = int(client_epoch)
+        super().__init__(message)
+
+    def default_message(self) -> str:
+        return (
+            "The encoded request's vocab epoch does not match the serving "
+            f"vocab (client {self.client_lineage}@{self.client_epoch}, "
+            f"server {self.server_lineage}@{self.server_epoch}); resync "
+            "from the vocab delta feed and retry."
+        )
+
+    def envelope(self) -> dict:
+        doc = super().envelope()
+        same_lineage = (
+            bool(self.client_lineage)
+            and self.client_lineage == self.server_lineage
+        )
+        doc["error"]["details"] = {
+            "reason": "vocab_epoch_mismatch",
+            "server_lineage": self.server_lineage,
+            "server_epoch": self.server_epoch,
+            "client_lineage": self.client_lineage,
+            "client_epoch": self.client_epoch,
+            # delta catch-up only works within one lineage; a lineage
+            # change means ids were reassigned and the cache must
+            # re-bootstrap from /vocab/snapshot
+            "resync": (
+                f"/vocab/deltas?lineage={self.server_lineage}"
+                f"&from={self.client_epoch}"
+                if same_lineage
+                else "/vocab/snapshot"
+            ),
+        }
+        return doc
+
+
 class ErrUnavailable(KetoError):
     """A freshness/availability condition, not a server bug."""
 

@@ -78,6 +78,18 @@ def test_keys_match_the_reference(values):
         {"engine": {"expand_page_size": -1}},
         {"engine": {"fallback_threshold": 0}},
         {"engine": {"fallback_cooldown_ms": -5}},
+        {"engine": {"cache_size": -1}},
+        {"engine": {"encoded_cache_size": "big"}},
+        {"engine": {"pipeline_depth": -1}},
+        {"engine": {"encode_workers": 0}},
+        {"serve": {"read": {"encoded": 1}}},
+        {"qos": {"enabled": "yes"}},
+        {"qos": {"rate": "fast"}},
+        {"qos": {"burst": 0.5}},
+        {"qos": {"overrides": 3}},
+        {"qos": {"overrides": {"n": {"rate": 1, "ceiling": 2}}}},
+        {"qos": {"overrides": {"n": {"burst": 0}}}},
+        {"qos": {"overrides": {"n": {"rate": "x"}}}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):
@@ -201,3 +213,46 @@ def test_cli_module_needs_a_card_or_says_so():
     )
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
+
+
+def test_registry_wires_the_batch_tiers():
+    """The reference's defaults: both caches on, the cache stamped with the
+    answering version, the pipeline only for DeviceCheckEngine, the encoded
+    front on, qos off; each key turns its tier off or on."""
+    from keto_tpu_torch.api.encoded import EncodedCheckFront
+    from keto_tpu_torch.engine.qos import NamespaceQos
+
+    reg = Registry(TConfig(values={}), device="cpu")
+    b = reg.checker()
+    try:
+        assert b.cache.capacity == 65536 and b.version_fn == reg._answering_version
+        assert not b.pipelined and b.encoded_cache is None and b.qos is None
+        assert isinstance(reg.encoded_front(), EncodedCheckFront)
+        assert reg._answering_version() == reg.check_engine().answering_version()
+    finally:
+        b.close()
+    reg = Registry(TConfig(values={"engine": {"mode": "packed"}}), device="cpu")
+    b = reg.checker()
+    try:
+        assert b.pipelined and (b.pipeline_depth, b.encode_workers) == (2, 2)
+        assert b.encoded_cache.capacity == 65536 and b.encoded_cache.name == "encoded"
+        assert reg._answering_version() == reg.store().version
+    finally:
+        b.close()
+    reg = Registry(TConfig(values={
+        "engine": {"mode": "packed", "cache_size": 0, "pipeline_depth": 0,
+                   "encoded_cache_size": 0},
+        "serve": {"read": {"encoded": False}},
+        "qos": {"enabled": True, "rate": 5, "burst": 7,
+                "overrides": {"hot": {"rate": 1}}},
+    }), device="cpu")
+    b = reg.checker()
+    try:
+        assert b.cache is None and not b.pipelined and b.encoded_cache is None
+        assert reg.encoded_front() is None
+        assert isinstance(b.qos, NamespaceQos) and b.qos is reg.qos()
+        assert (b.qos.rate, b.qos.burst, b.qos.overrides) == (5.0, 7.0, {"hot": (1.0, 7.0)})
+    finally:
+        b.close()
+    reg = Registry(TConfig(values={"engine": {"mode": "host"}}), device="cpu")
+    assert reg.encoded_front() is None  # the host oracle has no id path

@@ -337,3 +337,57 @@ def test_rows_min_on_card_matches_numpy(cuda):
         assert got.dtype == np.uint8
         assert np.array_equal(got, host[rows].min(axis=0))
         assert np.array_equal(got, _rows_min(d.cpu(), rows))
+
+
+def test_pipelined_packed_batcher_on_card_matches_cpu(cuda):
+    """The pipelined CheckBatcher over the packed engine on the card: the
+    answers of the CPU engine, B2 launched, and a repeated id batch answered
+    by the encoded cache alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keto_tpu_torch.engine.batcher import CheckBatcher
+
+    rng = np.random.default_rng(8)
+    store = _random_store(rng, n_objects=30, n_users=20, n_edges=300)
+    reqs = [
+        RelationTuple.from_string(
+            f"n:o{rng.integers(32)}#r{rng.integers(3)}@u{rng.integers(22)}"
+        )
+        for _ in range(200)
+    ]
+    eng = DeviceCheckEngine(SnapshotManager(store), mode="packed", device=cuda)
+    want = DeviceCheckEngine(
+        SnapshotManager(store), mode="packed", device="cpu"
+    ).batch_check(reqs)
+    b = CheckBatcher(eng, pipeline_depth=2, encode_workers=2,
+                     encoded_cache_size=4096, version_fn=lambda: store.version,
+                     window_s=0.002)
+    try:
+        before = packed.packed_propagate.launches
+        with ThreadPoolExecutor(16) as pool:
+            got = list(pool.map(b.check, reqs))
+        assert got == want and packed.packed_propagate.launches > before
+        s, t = eng.snapshots.snapshot().encode_requests(reqs)
+        assert b.check_batch_encoded(s, t) == want
+        before = packed.packed_propagate.launches
+        assert b.check_batch_encoded(s, t) == want
+        assert packed.packed_propagate.launches == before
+    finally:
+        b.close()
+
+
+def test_columnar_batch_on_card_matches_cpu(cuda):
+    from keto_tpu_torch.relationtuple.columns import CheckColumns
+
+    rng = np.random.default_rng(9)
+    store = _random_store(rng)
+    reqs = [
+        RelationTuple.from_string(f"n:o{rng.integers(20)}#r{rng.integers(3)}@u{i % 14}")
+        for i in range(128)
+    ]
+    cols = CheckColumns.from_tuples(reqs)
+    on_card = ClosureCheckEngine(SnapshotManager(store), device=cuda)
+    on_cpu = ClosureCheckEngine(SnapshotManager(store), device="cpu")
+    assert on_card.batch_check_columns(cols) == on_cpu.batch_check(reqs)
+    packed_card = DeviceCheckEngine(SnapshotManager(store), mode="packed", device=cuda)
+    assert packed_card.batch_check_columns(cols) == on_cpu.batch_check(reqs)

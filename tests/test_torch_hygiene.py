@@ -1,6 +1,8 @@
-"""The port's boundaries: no JAX, no keto_tpu, no quiet CPU fallback."""
+"""The port's boundaries: no JAX, no keto_tpu, none of the reference's
+serving libraries (httpx, aiohttp, grpc), no quiet CPU fallback."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -65,6 +67,20 @@ def test_no_serving_library_imports(path):
             f"{path}: {mod}"
         )
     assert "yaml" not in set(module_level_imports(path)), path
+
+
+# the port's rule as a text search over every line, so an import the AST
+# walk above cannot see (inside a string handed to exec) is caught too; the
+# port imports its own package relatively, and the smoke through port()
+_FORBIDDEN_IMPORT = re.compile(
+    r"import (jax|keto_tpu|httpx|aiohttp|grpc)|from (jax|keto_tpu|httpx|aiohttp|grpc)"
+)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_forbidden_import_text(path):
+    hits = [line for line in path.read_text().splitlines() if _FORBIDDEN_IMPORT.search(line)]
+    assert not hits, f"{path}: {hits}"
 
 
 def test_registry_without_device_raises_when_cuda_is_missing(monkeypatch):

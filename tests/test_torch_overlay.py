@@ -393,3 +393,45 @@ def test_bulk_load_breaks_the_overlay_then_rebuilds():
     assert t_ov.broken and t_ov.broken_reason == j_ov.broken_reason
     assert pair.check(reqs) == [True, True]
     assert pair.builds(pair.teng) in ((2, 0), (1, 1))
+
+
+def test_promotion_reads_the_derived_csr_and_the_coo_scan_alike():
+    """A set node gaining its first in-edge is promoted to interior, and
+    the overlay reads its base successors: from ``snap.out_neighbors`` once
+    an Expand has derived the snapshot's CSR, by a masked scan of the COO
+    arrays before that (never forcing the sort inside the drain). Both
+    engines end with the same D and the oracle's answers, with no
+    rebuild."""
+    from keto_tpu_torch.engine.device import SnapshotExpandEngine
+    from keto_tpu_torch.relationtuple import SubjectSet
+
+    tuples = ["n:top#r@(n:mid#m)", "n:mid#m@(n:leaf#m)", "n:leaf#m@alice",
+              "n:s#m@bob", "n:s#m@(n:leaf#m)", "n:s#m@(n:mid#m)", "n:s#m@carol"]
+    reqs = ["n:top#r@bob", "n:top#r@carol", "n:top#r@alice", "n:top#r@(n:s#m)",
+            "n:s#m@alice", "n:top#r@dave"]
+    engines, calls = [], []
+    for expand_first in (True, False):
+        store = TStore()
+        store.write_relation_tuples(*(TTuple.from_string(s) for s in tuples))
+        mgr = TManager(store)
+        eng = TClosure(mgr, freshness="strong", device="cpu")
+        eng.batch_check([TTuple.from_string(reqs[0])])
+        snap = eng._state.snap
+        if expand_first:
+            SnapshotExpandEngine(mgr).build_tree(SubjectSet("n", "top", "r"))
+        assert (snap._csr is not None) is expand_first
+        seen = []
+        base = snap.out_neighbors
+        snap.out_neighbors = lambda nid, _base=base, _seen=seen: (
+            _seen.append(nid), _base(nid))[1]
+        store.write_relation_tuples(TTuple.from_string("n:top#r@(n:s#m)"))
+        got = eng.batch_check([TTuple.from_string(r) for r in reqs])
+        assert got == TCheck(store).batch_check([TTuple.from_string(r) for r in reqs])
+        assert got[:2] == [True, True]
+        assert eng.n_full_builds == 1 and not eng._overlay.broken
+        engines.append(eng)
+        calls.append(seen)
+    s_id = engines[0]._state.snap.vocab.lookup(("n", "s", "m"))
+    assert calls[0] and set(calls[0]) == {s_id}  # the CSR, once derived
+    assert calls[1] == []  # the COO scan before that
+    assert torch.equal(engines[0]._state.d, engines[1]._state.d)
