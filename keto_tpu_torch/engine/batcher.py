@@ -398,13 +398,18 @@ class CheckBatcher:
         if getattr(self.engine, "encode_columns", None) is None:
             return self._columns_via_engine(cols, max_depth)
         out: list[bool] = []
+        for chunk in self._column_chunks(cols):
+            out.extend(self._dispatch_columns(chunk, max_depth))
+        return out
+
+    def _column_chunks(self, cols):
+        """``cols`` in max_batch slices (the batch itself when it fits)."""
+        n = len(cols)
         for i in range(0, n, self.max_batch):
-            chunk = (
+            yield (
                 cols if n <= self.max_batch
                 else cols.select(range(i, min(i + self.max_batch, n)))
             )
-            out.extend(self._dispatch_columns(chunk, max_depth))
-        return out
 
     def _dispatch_columns(self, cols, max_depth: int) -> list[bool]:
         """One encoded columnar dispatch: encode into staging, resolve cache
@@ -412,10 +417,7 @@ class CheckBatcher:
         enc = self.engine.encode_columns(cols, max_depth)
         cache = self.encoded_cache
         if cache is None:
-            return [
-                bool(v)
-                for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
-            ]
+            return self._launch_decode(enc)
         keys = enc.keys()
         cached = cache.get_many(enc.version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
@@ -424,9 +426,17 @@ class CheckBatcher:
             return [bool(v) for v in cached]
         if len(miss) < len(keys):
             enc.compact(miss)
-        res = self.engine.decode_launched(self.engine.launch_encoded(enc))
-        cache.put_many(enc.version, [keys[i] for i in miss], [bool(v) for v in res])
+        res = self._launch_decode(enc)
+        cache.put_many(enc.version, [keys[i] for i in miss], res)
         return _merge(cached, miss, res)
+
+    def _launch_decode(self, enc) -> list[bool]:
+        """The device stage and the decode of one encoded batch, on the
+        caller's thread."""
+        return [
+            bool(v)
+            for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
+        ]
 
     def _columns_via_engine(self, cols, max_depth: int) -> list[bool]:
         """Engines without the columnar split API (closure, host oracle):
@@ -449,12 +459,7 @@ class CheckBatcher:
     def _run_columns(self, cols, max_depth: int) -> list[bool]:
         run = getattr(self.engine, "batch_check_columns", None)
         out: list[bool] = []
-        n = len(cols)
-        for i in range(0, n, self.max_batch):
-            chunk = (
-                cols if n <= self.max_batch
-                else cols.select(range(i, min(i + self.max_batch, n)))
-            )
+        for chunk in self._column_chunks(cols):
             if run is not None:
                 out.extend(bool(v) for v in run(chunk, max_depth))
             else:
@@ -520,11 +525,7 @@ class CheckBatcher:
     def _run_encoded(self, s, t, d) -> list[bool]:
         encode_ids = getattr(self.engine, "encode_ids", None)
         if encode_ids is not None:
-            enc = encode_ids(s, t, d)
-            return [
-                bool(v)
-                for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
-            ]
+            return self._launch_decode(encode_ids(s, t, d))
         check_ids = getattr(self.engine, "check_ids", None)
         if check_ids is None:
             raise ErrInternal(
