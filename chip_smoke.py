@@ -88,7 +88,22 @@ Phases, in order; any failure exits non-zero:
             peak device memory with D^T; last, a server with the default
             engine.cache_size: the sample as GET /check from 64 clients
             twice (hit share and p50 of each pass), then a write that flips
-            a sampled answer and its delete, each seen by the next GET
+            a sampled answer and its delete, each seen by the next GET;
+            [grpc], after the cat-videos drive: Check and Expand over gRPC
+            on the muxed read port against the REST answers where grpc and
+            protobuf import, else a line saying the plane is off and REST
+            served alone
+7. serve:overload  a fourth rbac1m server (engine.cache_size 0,
+            overload.enabled, the OVERLOAD settings below): the serve
+            phase's sample as GET /check from 256 clients of another
+            process, request i with X-Request-Criticality critical, default
+            or sheddable by i mod 3; every 200/403 equals the oracle, every
+            429 carries Retry-After, critical gets no 429, sheddable is shed
+            at least as often as default, the ladder reaches a shedding
+            rung; after four quiet hysteresis windows it reads rung 0 and
+            64 checks from one client get no 429. Numbers: the 429 share
+            and accepted p50/p99 per class, accepted checks/s, transitions,
+            the highest rung, the limiter's final limit, B1 launches
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -1089,17 +1104,20 @@ def rest_check(read: str, t, depth: int = 0) -> bool:
     return status == 200
 
 
-def http_clients(urls: list[str], clients: int) -> tuple[list, float]:
+def http_clients(
+    urls: list[str], clients: int, headers: list[dict] | None = None
+) -> tuple[list, float]:
     """GET every url from `clients` threads of a separate process, so the
     clients do not share the server's interpreter lock. Returns (status,
-    seconds) per url and the wall time of the whole run."""
+    seconds) per url, or with `headers` (one dict per url) (status,
+    seconds, Retry-After or None), and the wall time of the whole run."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1]); "
         "import chip_smoke; chip_smoke.client_main()"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
-        input=json.dumps({"urls": urls, "clients": clients}),
+        input=json.dumps({"urls": urls, "clients": clients, "headers": headers}),
         capture_output=True, text=True, timeout=600, check=True,
     )
     doc = json.loads(proc.stdout)
@@ -1108,6 +1126,7 @@ def http_clients(urls: list[str], clients: int) -> tuple[list, float]:
 
 def client_main() -> None:
     """The client side of http_clients: urls on stdin, results on stdout."""
+    import urllib.error
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1121,9 +1140,26 @@ def client_main() -> None:
         status, _ = http("GET", url)
         return status, time.perf_counter() - t0
 
+    def one_with(args):
+        url, hdrs = args
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(
+                urllib.request.Request(url, headers=hdrs), timeout=120
+            ) as resp:
+                status, retry = resp.status, resp.headers.get("Retry-After")
+                resp.read()
+        except urllib.error.HTTPError as e:
+            status, retry = e.code, e.headers.get("Retry-After")
+            e.read()
+        return status, time.perf_counter() - t0, retry
+
     with ThreadPoolExecutor(req["clients"]) as pool:
         t0 = time.perf_counter()
-        results = list(pool.map(one, req["urls"]))
+        if req.get("headers") is None:
+            results = list(pool.map(one, req["urls"]))
+        else:
+            results = list(pool.map(one_with, zip(req["urls"], req["headers"])))
         wall = time.perf_counter() - t0
     json.dump({"results": results, "wall": wall}, sys.stdout)
 
@@ -1251,6 +1287,7 @@ def run_serve(args, dev, card) -> dict:
                 f"GET /expand cat-videos: {status} {doc}")
         say(f"[serve {at()}] cat-videos over REST: 5/5, POST /check 200, "
             f"GET /expand a union of the owner chain and the * leaf")
+        serve_grpc(reg, read_port, expect, doc)
 
         # 2. 4096 sampled checks: POST /check/batch, then single GET /check
         # from 64 concurrent clients; every answer equals the host oracle
@@ -1519,7 +1556,159 @@ def run_serve(args, dev, card) -> dict:
         f"{c['hit2']:.4f}, p50 {c['p50_2']:.3f} ms, {c['rate2']:.0f} checks/s; "
         f"mean batch {c['mean_batch1']:.2f} / {c['mean_batch2']:.2f}")
     return {"launches": launches, "list_launches": numbers["list"]["launches"],
-            "cache_launches": c["launches"]}
+            "cache_launches": c["launches"], "sample": sample, "want": want,
+            "single_p50_ms": numbers["single_p50_ms"],
+            "single_p99_ms": numbers["single_p99_ms"]}
+
+
+# [serve:overload] settings. The plane sees only the batcher's queue delay
+# and the engine's service time, not the HTTP handling around them (most of
+# the ~100 ms p50 at 64 clients), so the CoDel target sits at 5 ms, under
+# one batch period at 256 clients; a dwell of 200 ms between ladder steps up
+# and a 2 s throttle window keep the quiet spell's first checks (whose
+# limiter still remembers the storm) off the shedding rungs
+OVERLOAD = {
+    "enabled": True,
+    "target_delay_ms": 5.0,
+    "interval_ms": 100.0,
+    "dwell_ms": 200.0,
+    "hysteresis_ms": 1000.0,
+    "throttle_window_s": 2.0,
+}
+OVERLOAD_CLIENTS = 256
+CLASSES = ("critical", "default", "sheddable")
+
+
+def serve_overload(args, serve: dict, card: str) -> dict:
+    """[serve:overload]: a fourth rbac1m server with the result cache off
+    and the overload plane on; the sample as GET /check from 256 clients,
+    request i of class CLASSES[i % 3] in X-Request-Criticality. Every 200 or
+    403 equals the oracle, every 429 carries Retry-After, critical gets no
+    429, sheddable is shed at least as often as default, and the ladder
+    reaches a shedding rung; after four quiet hysteresis windows it reads
+    rung 0 and one client's checks get no 429."""
+    Config, Registry = port("driver", "Config", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    values = serve_config("auto", cache_size=0)
+    values["overload"] = OVERLOAD
+    reg = Registry(Config(values=values))
+    store, _, _ = gen_rbac(
+        args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
+    )
+    masked_spmv.masked_step.launches = 0  # this server's path starts here
+    read_port, _ = reg.start_all()
+    read = f"http://127.0.0.1:{read_port}"
+    eng, batcher, ov = reg.check_engine(), reg.checker(), reg.overload()
+    require(ov is not None and batcher.overload is ov, "the overload plane is wired")
+    # the fresh server holds the serve phase's initial store: its sample and
+    # oracle answers apply unchanged
+    sample, want = serve["sample"], serve["want"]
+    require(len(store) > 0 and len(sample) == len(want), "the overload sample")
+    out = {"settings": dict(OVERLOAD, clients=OVERLOAD_CLIENTS)}
+    try:
+        urls = [f"{read}/check?{tuple_query(t)}" for t in sample]
+        headers = [{"X-Request-Criticality": CLASSES[i % 3]} for i in range(len(urls))]
+        batcher.n_batches = batcher.n_dispatched = 0
+        results, wall = http_clients(urls, OVERLOAD_CLIENTS, headers)
+        shed = {c: 0 for c in CLASSES}
+        sent = {c: 0 for c in CLASSES}
+        lat = {c: [] for c in CLASSES}
+        for i, (status, sec, retry) in enumerate(results):
+            c = CLASSES[i % 3]
+            sent[c] += 1
+            if status == 429:
+                require(retry is not None and int(retry) >= 1,
+                        f"429 without Retry-After ({c}, request {i})")
+                shed[c] += 1
+            else:
+                require(status in (200, 403) and (status == 200) == want[i],
+                        f"GET /check {i} ({c}): {status}, oracle {want[i]}")
+                lat[c].append(sec)
+        snap, history = ov.snapshot(), ov.history()
+        highest = max([e["state"] for e in history] + [snap["state"]])
+        share = {c: shed[c] / sent[c] for c in CLASSES}
+        require(shed["critical"] == 0, f"{shed['critical']} critical checks got a 429")
+        require(share["sheddable"] >= share["default"],
+                f"429 share sheddable {share['sheddable']} < default {share['default']}")
+        require(highest >= 3, f"the ladder peaked at rung {highest}, not shedding; "
+                f"{wall:.2f} s, snapshot {snap}")
+        accepted = sum(len(v) for v in lat.values())
+        out.update({
+            "share": share,
+            "p50": {c: pct(lat[c], 50) for c in CLASSES},
+            "p99": {c: pct(lat[c], 99) for c in CLASSES},
+            "p99_all": pct([x for v in lat.values() for x in v], 99),
+            "p50_all": pct([x for v in lat.values() for x in v], 50),
+            "accepted_rate": accepted / wall,
+            "accepted": accepted,
+            "highest": highest,
+            "limit": snap["limiter"]["limit"],
+            "culled": snap["culled"],
+            "throttled": snap["throttle_rejects"],
+            "mean_batch": batcher.mean_batch_size(),
+        })
+        say(f"[serve:overload {at()}] {len(urls)} GET /check from "
+            f"{OVERLOAD_CLIENTS} clients: every 200/403 equals the oracle, "
+            f"every 429 has Retry-After; 429s critical/default/sheddable "
+            f"{shed['critical']}/{shed['default']}/{shed['sheddable']}; ladder "
+            f"peaked at rung {highest}, {snap['brownout']['transitions_up']} steps "
+            f"up")
+        # the quiet spell: one rung down per hysteresis window
+        time.sleep(4 * OVERLOAD["hysteresis_ms"] / 1e3 + 0.5)
+        quiet = ov.snapshot()
+        require(quiet["state"] == 0, f"after four quiet windows: rung {quiet['state']}")
+        out["up"] = quiet["brownout"]["transitions_up"]
+        out["down"] = quiet["brownout"]["transitions_down"]
+        got = [rest_check(read, t) for t in sample[:64]]  # one client
+        require(got == want[:64], "quiet-spell checks differ from the oracle")
+        out["launches"] = masked_spmv.masked_step.launches  # ends here
+        require(eng.n_full_builds == 1, f"overload server builds {eng.n_full_builds}")
+        say(f"[serve:overload {at()}] after {4 * OVERLOAD['hysteresis_ms'] / 1e3:.1f} s "
+            f"quiet the ladder reads rung 0; 64 checks from one client: no 429, "
+            f"equal the oracle; {out['launches']} B1 launches")
+    finally:
+        reg.stop_all()
+    return out
+
+
+def serve_grpc(reg, read_port: int, expect: dict, expand_doc: dict) -> None:
+    """[grpc]: the cat-videos Check and Expand over gRPC on the muxed read
+    port, against the REST answers; where grpc or protobuf do not import,
+    the line says that the plane is off and REST served alone."""
+    if not reg.grpc_enabled:
+        say(f"[grpc] the gRPC plane is off on this machine ({reg.grpc_off_reason}); "
+            f"start_all served REST without it on the same ports")
+        return
+    services, convert = port("api", "services", "convert")
+    check_pb2, expand_pb2 = port(
+        "api.gen.ory.keto.acl.v1alpha1", "check_service_pb2", "expand_service_pb2"
+    )
+    RelationTuple, SubjectSet = port("relationtuple", "RelationTuple", "SubjectSet")
+    channel = services.grpc.insecure_channel(f"127.0.0.1:{read_port}")
+    try:
+        stub = services.CheckServiceStub(channel)
+        for q, allowed in expect.items():
+            p = convert.tuple_to_proto(RelationTuple.from_string(q))
+            resp = stub.Check(check_pb2.CheckRequest(
+                namespace=p.namespace, object=p.object, relation=p.relation,
+                subject=p.subject), timeout=60)
+            require(resp.allowed == allowed, f"gRPC Check {q}: {resp.allowed}")
+        root = convert.subject_to_proto(SubjectSet("videos", "/cats/1.mp4", "view"))
+        resp = services.ExpandServiceStub(channel).Expand(
+            expand_pb2.ExpandRequest(subject=root), timeout=60)
+        require(convert.tree_from_proto(resp.tree).to_dict() == expand_doc,
+                "gRPC Expand differs from GET /expand")
+    finally:
+        channel.close()
+    say(f"[grpc] cat-videos over gRPC on the muxed read port :{read_port}: "
+        f"{len(expect)}/{len(expect)} Check equal REST, Expand equal GET /expand "
+        f"(grpcio {services.grpc.__version__}, protobuf "
+        f"{sys.modules['google.protobuf'].__version__})")
 
 
 def serve_columnar_encoded(store, edges, sample, want, read, write, at) -> dict:
@@ -2051,6 +2240,22 @@ def main() -> int:
     serve = run_serve(args, dev, card)
     walls["serve"] = time.perf_counter() - t0
 
+    # -- 7. the overload plane at saturation ---------------------------------------
+    t0 = time.perf_counter()
+    ov = serve_overload(args, serve, card)
+    walls["serve:overload"] = time.perf_counter() - t0
+    shares = ", ".join(f"{c} {ov['share'][c]:.4f}" for c in CLASSES)
+    lats = ", ".join(f"{c} {ov['p50'][c]:.3f}/{ov['p99'][c]:.3f}" for c in CLASSES)
+    say(f"[numbers] serve:overload ({card}; {ov['settings']}): 429 share {shares}; "
+        f"accepted p50/p99 ms {lats}; all accepted p50 {ov['p50_all']:.3f} p99 "
+        f"{ov['p99_all']:.3f} ms (the cache-off drive at 64 clients: p50 "
+        f"{serve['single_p50_ms']:.3f} p99 {serve['single_p99_ms']:.3f} ms); "
+        f"{ov['accepted']} accepted, {ov['accepted_rate']:.0f} accepted checks/s; "
+        f"transitions (drive and quiet spell) {ov['up']} up / {ov['down']} down, highest rung "
+        f"{ov['highest']}; final limit {ov['limit']}; culled {ov['culled']}, "
+        f"throttled {ov['throttled']}; mean batch {ov['mean_batch']:.2f}; "
+        f"B1 launches {ov['launches']}")
+
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")
     say("[numbers] phase wall seconds: "
@@ -2059,11 +2264,13 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(f"[numbers] B1 launches: main:closure {b1['launches']}, serve "
         f"{serve['launches']}, the list path's rebuild {serve['list_launches']}, "
-        f"the cache server {serve['cache_launches']}; B2 launches: main:packed "
-        f"with its batcher drives {b2['launches']}")
+        f"the cache server {serve['cache_launches']}, the overload server "
+        f"{ov['launches']}; B2 launches: main:packed with its batcher drives "
+        f"{b2['launches']}")
     # the kernels line counts each kernel's launches over every phase's
     # drive of the main path
-    b1["launches"] += serve["launches"] + serve["list_launches"] + serve["cache_launches"]
+    b1["launches"] += (serve["launches"] + serve["list_launches"]
+                       + serve["cache_launches"] + ov["launches"])
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -40,6 +40,11 @@ page token from before a write or a stale encoded vocab 409, anything else
 ``subject_set.*`` query params; supplying both (or neither, where one is
 required) is a 400.
 
+A single check and a tuple batch carry a criticality class for the
+overload plane in ``X-Request-Criticality`` (``critical``, ``default`` or
+``sheddable``; absent or unknown means ``overload.default_criticality``);
+a shed check is a 429 with ``Retry-After``.
+
 Each request runs on its connection's thread, so concurrent single checks
 meet in the check batcher. Not ported yet, and so not registered: the
 metrics, debug, replication and cluster routes, and CORS.
@@ -55,6 +60,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 from urllib.parse import parse_qsl, urlencode, urlsplit
 
+from ..engine.overload import parse_criticality
 from ..graph import vocabsync
 from ..relationtuple.columns import CheckColumns
 from ..relationtuple.definitions import (
@@ -84,6 +90,11 @@ ROUTE_LIST_SUBJECTS = "/relation-tuples/list-subjects"
 #: the REST spelling of a deadline: milliseconds of budget the caller grants
 #: this request, measured from when the header is parsed
 DEADLINE_HEADER = "X-Request-Deadline-Ms"
+
+#: criticality class for the overload brownout ladder: ``critical`` |
+#: ``default`` | ``sheddable``. Unknown values fall back to the default
+#: (a typo must not change the answer, only the shed priority)
+CRITICALITY_HEADER = "X-Request-Criticality"
 
 #: min_version for `latest=true`: far above any real store version
 LATEST_SENTINEL = 1 << 62
@@ -193,6 +204,12 @@ def deadline_from_headers(req: Request) -> Optional[float]:
     return time.monotonic() + ms / 1000.0
 
 
+def criticality_from_headers(req: Request, default: str = "default") -> str:
+    return parse_criticality(
+        req.headers.get(CRITICALITY_HEADER.lower()), default=default
+    )
+
+
 def min_version_from(snaptoken: str, latest) -> int:
     """`snaptoken` (a structured ``z<version>.<segment>.<offset>`` token or
     a bare version) and `latest` -> the minimum version a read must be
@@ -297,6 +314,7 @@ class ReadAPI:
         version_waiter=None,
         max_freshness_wait_s: float = 30.0,
         encoded_front=None,
+        default_criticality: str = "default",
     ):
         self.manager = manager
         # the id-native wire tier (api/encoded.EncodedCheckFront); None when
@@ -311,6 +329,9 @@ class ReadAPI:
         # the list routes' snaptoken gate: engine.wait_for_version
         self.version_waiter = version_waiter
         self.max_freshness_wait_s = max_freshness_wait_s
+        # the class of requests that carry no X-Request-Criticality header
+        # (overload.default_criticality)
+        self.default_criticality = default_criticality
 
     def register(self, router: Router) -> None:
         router.add("GET", ROUTE_TUPLES, self.get_relations)
@@ -495,7 +516,8 @@ class ReadAPI:
             raise ErrMalformedInput("expected a json array of relation tuples")
         tuples = [RelationTuple.from_dict(d) for d in items]
         allowed = self.checker.check_batch(
-            tuples, max_depth, min_version=min_version, deadline=deadline
+            tuples, max_depth, min_version=min_version, deadline=deadline,
+            criticality=criticality_from_headers(req, self.default_criticality),
         )
         return json_response({"allowed": allowed, "snaptoken": self.snaptoken_fn()})
 
@@ -556,6 +578,7 @@ class ReadAPI:
         allowed = self.checker.check(
             tup, max_depth, min_version=min_version,
             deadline=deadline_from_headers(req),
+            criticality=criticality_from_headers(req, self.default_criticality),
         )
         # 200 when allowed, 403 when denied — both carry the body
         return json_response({"allowed": allowed}, 200 if allowed else 403)

@@ -1,14 +1,16 @@
 """Config provider (counterpart of ``keto_tpu/driver/config.py``, trimmed).
 
 The same key tree as the reference — ``dsn``, ``serve.read.{host,port,
-max-depth,max_freshness_wait_s,workers,list,encoded}``,
-``serve.write.{host,port}``, ``namespaces`` (an inline array of ``{id,
-name}``), the ``engine`` subtree and ``qos.{enabled,rate,burst,overrides}``
-— from a JSON or TOML file (YAML where PyYAML is installed) merged
-with ``values``. Only the keys this package reads are validated, by hand
-and with the reference's messages (no jsonschema); other keys are carried
-and ignored. Environment overrides, hot reload and namespace file
-watchers are not ported yet.
+max-depth,max_freshness_wait_s,workers,list,encoded,grpc-max-message-size}``,
+``serve.write.{host,port,grpc-max-message-size}``, ``namespaces`` (an
+inline array of ``{id, name}``), the ``engine`` subtree,
+``qos.{enabled,rate,burst,overrides}`` and the ``overload`` subtree —
+from a JSON or TOML file (YAML where PyYAML is installed) merged with
+``values``. Only the keys this package reads are validated, by hand and
+with the reference's messages (no jsonschema); the ``overload`` object is
+closed, as in the reference's schema, so a misspelt key is an error; other
+keys are carried and ignored. Environment overrides, hot reload and
+namespace file watchers are not ported yet (ROADMAP 14.4).
 """
 
 from __future__ import annotations
@@ -38,11 +40,14 @@ DEFAULTS = {
     "serve.read.max_freshness_wait_s": 30.0,
     "serve.read.list": True,
     "serve.read.encoded": True,
+    "serve.read.grpc-max-message-size": 64 << 20,
     "serve.write.port": 4467,
     "serve.write.host": "",
+    "serve.write.grpc-max-message-size": 64 << 20,
     "namespaces": [],
     "engine.mode": "closure",
     "engine.max_batch": 4096,
+    "engine.max_queue": 0,
     "engine.interior_limit": 16384,
     "engine.query_mode": "auto",
     "engine.freshness": "auto",
@@ -61,13 +66,27 @@ DEFAULTS = {
     "qos.rate": 0.0,
     "qos.burst": 100.0,
     "qos.overrides": {},
+    "overload.enabled": False,
+    "overload.target_delay_ms": 100.0,
+    "overload.interval_ms": 100.0,
+    "overload.min_limit": 8,
+    "overload.tolerance": 2.0,
+    "overload.decrease": 0.9,
+    "overload.additive": 1.0,
+    "overload.hysteresis_ms": 1000.0,
+    "overload.dwell_ms": 50.0,
+    "overload.throttle_window_s": 30.0,
+    "overload.throttle_k": 2.0,
+    "overload.history": 256,
+    "overload.default_criticality": "default",
 }
 
 _ENGINE_MODES = [
     "device", "host", "auto", "dense", "scatter", "packed", "closure", "sharded",
 ]
 
-# dotted key -> (type, constraint): "enum" with its values, or a minimum
+# dotted key -> (type, constraint): "enum" with its values, a minimum, or
+# ("exclusive", bound) for an exclusive minimum
 _RULES: dict[str, tuple[str, Any]] = {
     "dsn": ("string", None),
     "serve.read.port": ("integer", None),
@@ -77,10 +96,13 @@ _RULES: dict[str, tuple[str, Any]] = {
     "serve.read.max_freshness_wait_s": ("number", 0),
     "serve.read.list": ("boolean", None),
     "serve.read.encoded": ("boolean", None),
+    "serve.read.grpc-max-message-size": ("integer", 0),
     "serve.write.port": ("integer", None),
     "serve.write.host": ("string", None),
+    "serve.write.grpc-max-message-size": ("integer", 0),
     "engine.mode": ("enum", _ENGINE_MODES),
     "engine.max_batch": ("integer", 1),
+    "engine.max_queue": ("integer", 0),
     "engine.interior_limit": ("integer", 2),
     "engine.query_mode": ("enum", ["auto", "host", "device"]),
     "engine.freshness": ("enum", ["auto", "strong", "bounded"]),
@@ -99,6 +121,27 @@ _RULES: dict[str, tuple[str, Any]] = {
     "qos.rate": ("number", None),
     "qos.burst": ("number", 1),
     "qos.overrides": ("object", None),
+    "overload.enabled": ("boolean", None),
+    "overload.target_delay_ms": ("number", ("exclusive", 0)),
+    "overload.interval_ms": ("number", ("exclusive", 0)),
+    "overload.min_limit": ("integer", 1),
+    "overload.tolerance": ("number", 1),
+    "overload.decrease": ("number", ("exclusive", 0)),
+    "overload.additive": ("number", ("exclusive", 0)),
+    "overload.hysteresis_ms": ("number", ("exclusive", 0)),
+    "overload.dwell_ms": ("number", 0),
+    "overload.throttle_window_s": ("number", ("exclusive", 0)),
+    "overload.throttle_k": ("number", 1),
+    "overload.history": ("integer", 1),
+    "overload.default_criticality": ("enum", ["default", "sheddable"]),
+}
+
+# upper bounds, checked after the lower ones (the reference's keyword order)
+_MAXIMA = {"overload.decrease": 1}
+
+# objects whose schema admits no other property
+_CLOSED = {
+    "overload": {key.split(".", 1)[1] for key in _RULES if key.startswith("overload.")}
 }
 
 # the properties each per-namespace qos override may carry
@@ -150,8 +193,22 @@ def validate(data: dict) -> None:
             continue
         if not _is_type(value, kind):
             raise _invalid(f"{value!r} is not of type {kind!r}", path)
-        if rule is not None and value < rule:
+        if isinstance(rule, tuple):
+            if value <= rule[1]:
+                raise _invalid(
+                    f"{value!r} is less than or equal to the minimum of {rule[1]!r}",
+                    path,
+                )
+        elif rule is not None and value < rule:
             raise _invalid(f"{value!r} is less than the minimum of {rule!r}", path)
+        if key in _MAXIMA and value > _MAXIMA[key]:
+            raise _invalid(
+                f"{value!r} is greater than the maximum of {_MAXIMA[key]!r}", path
+            )
+    for key, allowed in _CLOSED.items():
+        node = _dig(data, key)
+        if isinstance(node, dict):
+            _no_extra(node, allowed, key.replace(".", "/"))
     _validate_qos_overrides(_dig(data, "qos.overrides"))
     spec = data.get(KEY_NAMESPACES, _MISSING)
     if spec is _MISSING:
@@ -181,14 +238,7 @@ def _validate_qos_overrides(overrides) -> None:
         path = f"qos/overrides/{ns}"
         if not isinstance(o, dict):
             raise _invalid(f"{o!r} is not of type 'object'", path)
-        extra = [k for k in o if k not in _QOS_OVERRIDE_RULES]
-        if extra:
-            names = ", ".join(repr(k) for k in extra)
-            verb = "was" if len(extra) == 1 else "were"
-            raise _invalid(
-                f"Additional properties are not allowed ({names} {verb} unexpected)",
-                path,
-            )
+        _no_extra(o, _QOS_OVERRIDE_RULES, path)
         for key, minimum in _QOS_OVERRIDE_RULES.items():
             if key not in o:
                 continue
@@ -200,6 +250,18 @@ def _validate_qos_overrides(overrides) -> None:
                     f"{value!r} is less than the minimum of {minimum!r}",
                     f"{path}/{key}",
                 )
+
+
+def _no_extra(obj: dict, allowed, path: str) -> None:
+    """jsonschema's ``additionalProperties: false``, with its message."""
+    extra = [k for k in obj if k not in allowed]
+    if extra:
+        names = ", ".join(repr(k) for k in extra)
+        verb = "was" if len(extra) == 1 else "were"
+        raise _invalid(
+            f"Additional properties are not allowed ({names} {verb} unexpected)",
+            path,
+        )
 
 
 def load_config_file(path: str) -> dict:
@@ -235,6 +297,10 @@ class Config:
         if default is not _UNSET:
             return default
         return DEFAULTS.get(key)
+
+    def is_set(self, key: str) -> bool:
+        """Whether the file or the values name ``key`` (a default does not)."""
+        return _dig(self._data, key) is not _MISSING
 
     # -- typed accessors (reference provider.go) ------------------------------
 

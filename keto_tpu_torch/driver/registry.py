@@ -1,9 +1,12 @@
 """Service registry (counterpart of ``keto_tpu/driver/registry.py``,
 trimmed): lazily built, memoized providers for the namespace manager, the
 store, the snapshot manager, the check engine and the check batcher (with
-its result caches and per-namespace qos), the id-native encoded front, the
-expand and list engines, the snaptokens, and the two REST planes that
-``start_all`` brings up.
+its result caches, per-namespace qos and the overload plane), the
+id-native encoded front, the expand and list engines, the snaptokens, and
+the two planes that ``start_all`` brings up. Each plane's public port
+answers REST and, when ``grpc`` and ``google.protobuf`` import, gRPC too;
+without them the planes serve REST alone, ``start_all`` logs one line
+saying why, and ``grpc_enabled`` stays False.
 
 ``Registry(config, device=None)`` runs its engines on the CUDA card unless
 the caller passes ``device="cpu"``; without CUDA it raises. Engines and
@@ -15,6 +18,7 @@ the forked read replicas it serves (6).
 from __future__ import annotations
 
 import gc
+import logging
 import threading
 from typing import Optional
 
@@ -35,6 +39,13 @@ _SHARDED_MSG = (
     "sharded serving (engine.mode sharded, engine.sharding.enabled) is not "
     "ported to keto_tpu_torch yet: ROADMAP item 12, the multi-device tiers"
 )
+_GRPC_SIZE_KEYS = (
+    "serve.read.grpc-max-message-size",
+    "serve.write.grpc-max-message-size",
+)
+
+_log = logging.getLogger("keto_tpu_torch")
+
 _HOST_QUERY_MSG = (
     "host query mode ({what}) is not ported to keto_tpu_torch yet: ROADMAP "
     "item 6; serve with engine.query_mode auto or device and one read worker"
@@ -53,12 +64,20 @@ class Registry:
         self._check_engine = None
         self._checker = None
         self._qos = None
+        self._overload = None
         self._encoded_front = None
         self._expand_engine = None
         self._list_engine = None
         self._read_plane: Optional[PlaneServer] = None
         self._write_plane: Optional[PlaneServer] = None
         self._serving = False  # readiness: flips only after bring-up
+        # the gRPC plane: its builders module once probed (None when grpc or
+        # google.protobuf do not import), why it is off, and the health
+        # service both planes share
+        self._grpc_probed = False
+        self._grpc_api = None
+        self.grpc_off_reason = ""
+        self._health = None
 
     # -- providers -------------------------------------------------------------
 
@@ -153,6 +172,7 @@ class Registry:
                     self._checker = CheckBatcher(
                         engine,
                         max_batch=max_batch,
+                        max_queue=int(cfg.get("engine.max_queue")),
                         max_freshness_wait_s=float(
                             cfg.get("serve.read.max_freshness_wait_s")
                         ),
@@ -164,6 +184,7 @@ class Registry:
                         encode_workers=int(cfg.get("engine.encode_workers")),
                         encoded_cache_size=int(cfg.get("engine.encoded_cache_size")),
                         qos=self.qos(),
+                        overload=self.overload(),
                     )
             return self._checker
 
@@ -180,6 +201,59 @@ class Registry:
                     overrides=dict(self.config.get("qos.overrides") or {}),
                 )
             return self._qos
+
+    def overload(self):
+        """The overload-control plane (engine/overload.py): the AIMD limit
+        and CoDel discipline at the batcher's admission, the criticality
+        brownout ladder and the accepts/requests throttle. None unless
+        overload.enabled (the reference's live kill switch waits for hot
+        reload, ROADMAP 14.4)."""
+        with self._lock:
+            if self._overload is None and bool(self.config.get("overload.enabled")):
+                from ..engine.overload import (
+                    AdaptiveLimiter,
+                    AdaptiveThrottle,
+                    BrownoutController,
+                    OverloadController,
+                )
+
+                cfg = self.config
+                max_queue = int(cfg.get("engine.max_queue"))
+                if max_queue <= 0:
+                    # the batcher's own backstop default
+                    max_queue = 8 * int(cfg.get("engine.max_batch"))
+                limiter = AdaptiveLimiter(
+                    initial=max_queue,
+                    min_limit=int(cfg.get("overload.min_limit")),
+                    max_limit=max_queue,
+                    additive=float(cfg.get("overload.additive")),
+                    decrease=float(cfg.get("overload.decrease")),
+                    target_delay_s=float(cfg.get("overload.target_delay_ms")) / 1e3,
+                    interval_s=float(cfg.get("overload.interval_ms")) / 1e3,
+                    tolerance=float(cfg.get("overload.tolerance")),
+                )
+                # the flight recorder and the logger wait for ROADMAP 14.5
+                brownout = BrownoutController(
+                    hysteresis_s=float(cfg.get("overload.hysteresis_ms")) / 1e3,
+                    min_dwell_s=float(cfg.get("overload.dwell_ms")) / 1e3,
+                    history=int(cfg.get("overload.history")),
+                )
+                throttle = AdaptiveThrottle(
+                    window_s=float(cfg.get("overload.throttle_window_s")),
+                    k=float(cfg.get("overload.throttle_k")),
+                )
+                self._overload = OverloadController(
+                    max_queue=max_queue,
+                    limiter=limiter,
+                    brownout=brownout,
+                    throttle=throttle,
+                )
+            return self._overload
+
+    def default_criticality(self) -> str:
+        """The criticality class of requests that carry no header or
+        metadata (overload.default_criticality)."""
+        return str(self.config.get("overload.default_criticality"))
 
     def encoded_front(self):
         """The id-native check tier (api/encoded.py): the epoch gate, the id
@@ -282,6 +356,47 @@ class Registry:
     def is_serving(self) -> bool:
         return self._serving
 
+    @property
+    def grpc_enabled(self) -> bool:
+        """Whether the planes serve gRPC (False until probed)."""
+        return self._grpc_api is not None
+
+    def _grpc(self):
+        """The gRPC plane's builders (api/grpc_servers.py), imported here
+        and nowhere else; None when grpc or google.protobuf do not import,
+        with the reason kept. A grpc-max-message-size set in the config
+        then raises instead of being ignored."""
+        with self._lock:
+            if not self._grpc_probed:
+                self._grpc_probed = True
+                try:
+                    from ..api import grpc_servers
+                except ImportError as e:
+                    missing = (e.name or "").split(".")[0]
+                    if missing not in ("grpc", "google"):
+                        raise
+                    self.grpc_off_reason = (
+                        f"gRPC is off: {e.name} does not import ({e}); the "
+                        "planes serve REST only"
+                    )
+                    for key in _GRPC_SIZE_KEYS:
+                        if self.config.is_set(key):
+                            raise ErrMalformedInput(
+                                f"{key} is set, but the gRPC plane needs the "
+                                f"{e.name} package, which does not import"
+                            ) from e
+                else:
+                    self._grpc_api = grpc_servers
+            return self._grpc_api
+
+    def _health_servicer(self):
+        with self._lock:
+            if self._health is None:
+                from ..api.services import HealthServicer
+
+                self._health = HealthServicer()
+            return self._health
+
     def read_plane(self) -> PlaneServer:
         with self._lock:
             if self._read_plane is None:
@@ -299,9 +414,35 @@ class Registry:
                     max_freshness_wait_s=float(
                         self.config.get("serve.read.max_freshness_wait_s")
                     ),
+                    default_criticality=self.default_criticality(),
                 )
+                api = self._grpc()
+                grpc_server = None
+                if api is not None:
+                    grpc_server = api.build_read_grpc_server(
+                        self.checker(),
+                        self.expand_engine(),
+                        self.store(),
+                        self.read_snaptoken,
+                        self.version,
+                        self._health_servicer(),
+                        max_workers=self._grpc_workers(),
+                        max_message_bytes=int(
+                            self.config.get("serve.read.grpc-max-message-size")
+                        ),
+                        max_freshness_wait_s=float(
+                            self.config.get("serve.read.max_freshness_wait_s")
+                        ),
+                        encoded_front=self.encoded_front(),
+                        list_engine=self.list_engine(),
+                        list_version_waiter=getattr(
+                            self.check_engine(), "wait_for_version", None
+                        ),
+                        default_criticality=self.default_criticality(),
+                    )
                 self._read_plane = PlaneServer(
-                    router, self.config.read_api_host(), self.config.read_api_port()
+                    router, self.config.read_api_host(),
+                    self.config.read_api_port(), grpc_server,
                 )
             return self._read_plane
 
@@ -311,10 +452,31 @@ class Registry:
                 router = build_write_router(
                     self.store(), self.version, healthy_fn=self.is_serving
                 )
+                api = self._grpc()
+                grpc_server = None
+                if api is not None:
+                    grpc_server = api.build_write_grpc_server(
+                        self.store(),
+                        self.snaptoken,
+                        self.version,
+                        self._health_servicer(),
+                        max_message_bytes=int(
+                            self.config.get("serve.write.grpc-max-message-size")
+                        ),
+                    )
                 self._write_plane = PlaneServer(
-                    router, self.config.write_api_host(), self.config.write_api_port()
+                    router, self.config.write_api_host(),
+                    self.config.write_api_port(), grpc_server,
                 )
             return self._write_plane
+
+    def _grpc_workers(self) -> int:
+        # every in-flight check holds a worker: size the pool so a batch
+        # can fill, capped (as the reference)
+        import os
+
+        cap = max(64, 32 * (os.cpu_count() or 1))
+        return min(int(self.config.get("engine.max_batch")), cap, 512)
 
     def start_all(self) -> tuple[int, int]:
         """Warm the check engine up (the closure build, the query path at
@@ -330,11 +492,17 @@ class Registry:
         gc.freeze()
         read_port = self.read_plane().start()
         write_port = self.write_plane().start()
+        if self.grpc_enabled:
+            self._health_servicer().set_serving(True)
+        else:
+            _log.warning(self.grpc_off_reason)
         self._serving = True
         return read_port, write_port
 
     def stop_all(self) -> None:
         self._serving = False  # readiness first, so balancers stop routing
+        if self._health is not None:
+            self._health.set_serving(False)
         if self._read_plane is not None:
             self._read_plane.stop()
         if self._write_plane is not None:

@@ -31,7 +31,13 @@ thread: ``check_batch`` (tuples), ``check_batch_columnar`` (a
 the id-native wire tier). ``cache`` (a ``CheckResultCache`` stamped with
 ``version_fn``, the engine's ANSWERING version) answers repeated single
 checks and tuple batches without the engine; ``qos`` (a ``NamespaceQos``)
-admits per namespace before anything else.
+admits per namespace before anything else; ``overload`` (an
+``OverloadController``, ``engine/overload.py``) sheds single checks and
+tuple batches by criticality class (``critical``, ``default``,
+``sheddable``) before they queue, culls queued entries past the CoDel
+target, serves newest-first while the standing queue lasts, and relaxes a
+snaptoken wait to the current snapshot on its bounded-stale rung. It
+learns from each dispatched batch's queue delay.
 
 Every stage is supervised:
 
@@ -40,14 +46,16 @@ Every stage is supervised:
   stage; queued requests and batches held by other stages survive.
 - **bounded queue**: past ``max_queue`` waiting requests the batcher sheds
   load with :class:`BatcherOverloaded` (HTTP 429) instead of growing the
-  queue, and everyone's latency, without bound.
+  queue, and everyone's latency, without bound. Behind the overload plane
+  it is the hard backstop, the only bound that refuses ``critical``.
 - **typed shutdown**: after ``close()`` no caller hangs past the join
   budget; anything still queued or in flight fails with
   :class:`BatcherClosed`.
 
 ``min_version`` (the snaptoken) makes the engine catch up first through
 ``engine.wait_for_version``. Not ported yet: ``reconfigure``, HBM
-admission, the overload plane, tracing, metrics and the scrub hooks.
+admission and the scrub hooks (ROADMAP 10), tracing and metrics (ROADMAP
+14.5).
 """
 
 from __future__ import annotations
@@ -126,7 +134,7 @@ class _PBatch:
     __slots__ = ("items", "enc", "launched", "keys")
 
     def __init__(self, items):
-        # [(request, depth, Future, t_enqueued, deadline), ...]
+        # [(request, depth, Future, t_enqueued, deadline, criticality), ...]
         self.items = items
         self.enc = None  # EncodedBatch after the encode stage
         self.launched = None  # LaunchedBatch after the launch stage
@@ -158,6 +166,7 @@ class CheckBatcher:
         encode_workers: int = 2,
         encoded_cache_size: int = 0,  # 0 disables the encoded-request cache
         qos=None,  # NamespaceQos: per-namespace token-bucket admission
+        overload=None,  # OverloadController: adaptive admission + brownout
     ):
         self.engine = engine
         self.max_batch = max_batch
@@ -167,6 +176,7 @@ class CheckBatcher:
         self.cache = cache
         self.version_fn = version_fn
         self.qos = qos
+        self.overload = overload
         self.pipeline_depth = pipeline_depth
         self.encode_workers = max(1, encode_workers)
         # pipelining needs the engine's split encode/launch/decode API;
@@ -183,7 +193,7 @@ class CheckBatcher:
         )
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        # (request, depth, Future, t_enqueued, deadline)
+        # (request, depth, Future, t_enqueued, deadline, criticality)
         self._queue: list[tuple] = []
         # serial mode: the batch the dispatcher popped but has not answered
         # yet — the watchdog fails exactly these on a dispatcher death, and
@@ -254,10 +264,20 @@ class CheckBatcher:
 
     # -- admission -------------------------------------------------------------
 
-    def _wait_fresh(self, min_version: int, timeout: Optional[float]) -> None:
+    def _wait_fresh(
+        self, min_version: int, timeout: Optional[float], relax: bool = False
+    ) -> None:
         """At-least-as-fresh consistency (the snaptoken): make the serving
         snapshot catch up before answering. The caches stay safe afterward:
-        their stamp is the answering version."""
+        their stamp is the answering version. With ``relax`` (the single
+        check and the tuple batch, as in the reference), the overload
+        ladder's bounded-stale rung answers at the current snapshot
+        instead: the freshness wait is the cheapest latency to refuse under
+        pressure, after hedges."""
+        ov = self.overload
+        if relax and ov is not None and ov.stale_ok():
+            ov.note_stale_served()
+            return
         wait = getattr(self.engine, "wait_for_version", None)
         if wait is not None:
             wait(
@@ -275,13 +295,17 @@ class CheckBatcher:
         return remaining if timeout is None else min(timeout, remaining)
 
     def _admit(
-        self, min_version: int, timeout: Optional[float], deadline: Optional[float]
+        self,
+        min_version: int,
+        timeout: Optional[float],
+        deadline: Optional[float],
+        relax: bool = False,
     ) -> Optional[float]:
         """Deadline and freshness admission shared by every entry point;
         returns the timeout left for the caller's wait."""
         timeout = self._timeout_for(deadline, timeout)
         if min_version > 0:
-            self._wait_fresh(min_version, timeout)
+            self._wait_fresh(min_version, timeout, relax)
             if deadline is not None and time.monotonic() >= deadline:
                 self._note_expired("admission", 1)
                 raise DeadlineExceeded()  # the wait consumed the budget
@@ -293,6 +317,17 @@ class CheckBatcher:
             counts[ns] = counts.get(ns, 0) + 1
         self.qos.admit_counts(counts)
 
+    def _admit_overload(self, criticality: str) -> None:
+        """The adaptive overload plane's decision: brownout by criticality
+        class, then the accepts/requests throttle once the ladder sheds; a
+        shed is the typed 429 naming its reason."""
+        reason = self.overload.admit(len(self._queue), criticality)
+        if reason is not None:
+            raise BatcherOverloaded(
+                f"The server is overloaded ({reason}, "
+                f"criticality={criticality}); retry with backoff."
+            )
+
     # -- entry points ----------------------------------------------------------
 
     def check(
@@ -302,6 +337,9 @@ class CheckBatcher:
         timeout: Optional[float] = None,
         min_version: int = 0,
         deadline: Optional[float] = None,  # absolute time.monotonic() secs
+        entry_hook=None,  # called with the entry's Future once it is queued:
+        # a transport holds it to cancel the entry when its caller goes away
+        criticality: str = "default",  # critical | default | sheddable
     ) -> bool:
         if self._closed:
             raise BatcherClosed()
@@ -310,7 +348,7 @@ class CheckBatcher:
             # tenant must not consume queue slots, cache probes or a
             # freshness wait
             self.qos.admit(request.namespace)
-        timeout = self._admit(min_version, timeout, deadline)
+        timeout = self._admit(min_version, timeout, deadline, relax=True)
         if self.cache is not None:
             version = self.version_fn()
             key = (request, max_depth)
@@ -321,15 +359,24 @@ class CheckBatcher:
         with self._cv:
             if self._closed:
                 raise BatcherClosed()
+            if self.overload is not None:
+                # the adaptive plane is the primary shed signal; a cache
+                # hit above never reaches it
+                self._admit_overload(criticality)
             if len(self._queue) >= self.max_queue:
                 # a full queue means the engine is already saturated
                 # max_queue/max_batch dispatches deep: queueing further
-                # only converts overload into latency for every caller
+                # only converts overload into latency for every caller.
+                # The hard backstop: it sheds even critical traffic, which
+                # the overload ladder never does
                 raise BatcherOverloaded()
             self._queue.append(
-                (request, max_depth, f, time.perf_counter(), deadline)
+                (request, max_depth, f, time.perf_counter(), deadline,
+                 criticality)
             )
             self._cv.notify()
+        if entry_hook is not None:
+            entry_hook(f)
         try:
             result = f.result(timeout=timeout)
         except _FutTimeout:
@@ -350,6 +397,7 @@ class CheckBatcher:
         min_version: int = 0,
         timeout: Optional[float] = None,
         deadline: Optional[float] = None,
+        criticality: str = "default",
     ) -> list[bool]:
         """A caller-assembled batch: already amortized, so it skips the
         queue and dispatches directly on the caller's thread, in max_batch
@@ -359,7 +407,11 @@ class CheckBatcher:
             raise BatcherClosed()
         if self.qos is not None:
             self._admit_counts(r.namespace for r in requests)
-        self._admit(min_version, timeout, deadline)
+        if self.overload is not None:
+            # one decision for the whole batch: it skips the queue but
+            # competes with it for engine time, so the same ladder sheds it
+            self._admit_overload(criticality)
+        self._admit(min_version, timeout, deadline, relax=True)
         if self.cache is None:
             return dispatch_batched(self.engine, requests, max_depth, self.max_batch)
         version = self.version_fn()
@@ -584,6 +636,8 @@ class CheckBatcher:
                 "restarts": self.n_restarts,
                 "deadline_expired": dict(self._expired),
             }
+            if self.overload is not None:
+                out["overload"] = self.overload.snapshot()
             if self.pipelined:
                 out.update(
                     {
@@ -619,9 +673,48 @@ class CheckBatcher:
             # provides the window and this never triggers
             time.sleep(self.window_s)
         with self._cv:
-            batch = self._queue[: self.max_batch]
-            del self._queue[: len(batch)]
-            return batch
+            return self._drain()
+
+    def _drain(self) -> list[tuple]:
+        """Pop the next batch (under the queue lock). Under sustained
+        pressure the overload plane culls entries queued past its CoDel
+        target, typed 429, and serves the newest entries first."""
+        ov = self.overload
+        if ov is not None and self._queue:
+            cutoff = ov.cull_age_s()
+            if cutoff is not None:
+                now = time.perf_counter()
+                kept: list[tuple] = []
+                culled = 0
+                for it in self._queue:
+                    # critical entries are exempt: only the max_queue
+                    # backstop ever drops critical work (LIFO may still
+                    # serve it late)
+                    if now - it[3] > cutoff and it[5] != "critical":
+                        f = it[2]
+                        if not f.done():
+                            f.set_exception(
+                                BatcherOverloaded(
+                                    "The check queued past the standing-"
+                                    "queue delay target and was culled; "
+                                    "retry with backoff."
+                                )
+                            )
+                        culled += 1
+                    else:
+                        kept.append(it)
+                if culled:
+                    self._queue[:] = kept
+                    ov.note_culled(culled)
+            if ov.lifo() and self._queue:
+                # adaptive LIFO: the newest entries are the ones most
+                # likely to still meet their deadlines
+                batch = self._queue[-self.max_batch :]
+                del self._queue[-len(batch) :]
+                return batch
+        batch = self._queue[: self.max_batch]
+        del self._queue[: len(batch)]
+        return batch
 
     def _note_expired(self, stage: str, n: int) -> None:
         with self._lock:
@@ -689,6 +782,7 @@ class CheckBatcher:
             self.n_dispatched += len(batch)
             requests = [b[0] for b in batch]
             depths = [b[1] for b in batch]
+            t_dispatch = time.perf_counter()
             try:
                 results = self.engine.batch_check(requests, depths=depths)
             except Exception as e:  # propagate to every caller in the batch
@@ -699,6 +793,13 @@ class CheckBatcher:
                 with self._cv:
                     self._inflight = []
                 continue
+            if self.overload is not None:
+                # the oldest entry's queue delay and the engine's service
+                # time feed the limiter's AIMD/CoDel signal
+                self.overload.observe(
+                    t_dispatch - min(it[3] for it in batch),
+                    time.perf_counter() - t_dispatch,
+                )
             for item, allowed in zip(batch, results):
                 f = item[2]
                 if not f.done():
@@ -770,6 +871,11 @@ class CheckBatcher:
         with self._lock:
             self.n_batches += 1
             self.n_dispatched += len(items)
+        if self.overload is not None:
+            # pipelined shape: the queue delay alone is the limiter signal
+            self.overload.observe(
+                time.perf_counter() - min(it[3] for it in items)
+            )
         requests = [it[0] for it in items]
         depths = [it[1] for it in items]
         try:
@@ -898,8 +1004,11 @@ class DirectChecker:
         timeout: Optional[float] = None,
         min_version: int = 0,
         deadline: Optional[float] = None,
+        entry_hook=None,
+        criticality: str = "default",
     ) -> bool:
-        del timeout, min_version
+        # no queue: nothing to cancel, nothing to shed
+        del timeout, min_version, entry_hook, criticality
         if deadline is not None and time.monotonic() >= deadline:
             raise DeadlineExceeded()
         return self.engine.subject_is_allowed(request, max_depth)
@@ -911,8 +1020,9 @@ class DirectChecker:
         min_version: int = 0,
         timeout: Optional[float] = None,
         deadline: Optional[float] = None,
+        criticality: str = "default",
     ) -> list:
-        del min_version, timeout
+        del min_version, timeout, criticality
         if deadline is not None and time.monotonic() >= deadline:
             raise DeadlineExceeded()
         return dispatch_batched(self.engine, requests, max_depth, self.max_batch)

@@ -2,16 +2,14 @@
 per-item ``RelationTuple``/``Subject`` objects (counterpart of
 ``keto_tpu/relationtuple/columns.py``).
 
-The REST ``/check/batch`` columnar body decodes straight into a
+The REST ``/check/batch`` columnar body and the gRPC ``BatchCheck``
+columnar fields (``from_proto``) decode straight into a
 ``CheckColumns`` — seven parallel string lists — and the engine path
 vocab-encodes the columns in bulk
 (``GraphSnapshot.encode_requests_columnar``). Tuples are materialized
 lazily ONLY where a host oracle needs real objects (the closure engine's
 oversized-interior fallback and its overflow rows), so hot-path answers
 never touch per-item Python objects.
-
-The gRPC decoder ``from_proto`` waits for the gRPC plane (ROADMAP item
-7b); ``proto_has_columns`` is kept for it.
 
 Row semantics: row ``i`` is a subject-ID row when ``subject_ids[i]`` is
 non-empty, a subject-set row when any of the three ``subject_set_*``
@@ -209,6 +207,20 @@ class CheckColumns:
         )
 
     # -- constructors --------------------------------------------------------
+
+    @classmethod
+    def from_proto(cls, request) -> "CheckColumns":
+        """Decode the columnar repeated fields of a gRPC
+        ``BatchCheckRequest`` (fields 5..11) straight into columns."""
+        return cls(
+            list(request.namespaces),
+            list(request.objects),
+            list(request.relations),
+            list(request.subject_ids),
+            list(request.subject_set_namespaces),
+            list(request.subject_set_objects),
+            list(request.subject_set_relations),
+        ).validate()
 
     @classmethod
     def from_rest_body(cls, body: dict) -> "CheckColumns":

@@ -38,7 +38,10 @@ VALUES = {
         "write": {"port": 0, "host": "127.0.0.1"},
     },
     "engine": {"mode": "closure", "freshness": "bounded", "max_batch": 128,
-               "rebuild_debounce_ms": 5, "strong_freshness_edges": 1000},
+               "rebuild_debounce_ms": 5, "strong_freshness_edges": 1000,
+               "max_queue": 512},
+    "overload": {"enabled": True, "target_delay_ms": 5.0, "dwell_ms": 200,
+                 "throttle_window_s": 2.0, "default_criticality": "sheddable"},
     "log": {"level": "error"},
 }
 
@@ -90,6 +93,24 @@ def test_keys_match_the_reference(values):
         {"qos": {"overrides": {"n": {"rate": 1, "ceiling": 2}}}},
         {"qos": {"overrides": {"n": {"burst": 0}}}},
         {"qos": {"overrides": {"n": {"rate": "x"}}}},
+        {"overload": {"enabled": "yes"}},
+        {"overload": {"target_delay_ms": 0}},
+        {"overload": {"interval_ms": -1}},
+        {"overload": {"min_limit": 0}},
+        {"overload": {"tolerance": 0.5}},
+        {"overload": {"decrease": 1.5}},
+        {"overload": {"decrease": 0}},
+        {"overload": {"additive": 0}},
+        {"overload": {"hysteresis_ms": 0}},
+        {"overload": {"dwell_ms": -1}},
+        {"overload": {"throttle_window_s": 0}},
+        {"overload": {"throttle_k": 0.5}},
+        {"overload": {"history": 0}},
+        {"overload": {"default_criticality": "critical"}},
+        {"overload": {"target": 5}},
+        {"engine": {"max_queue": -1}},
+        {"serve": {"read": {"grpc-max-message-size": -1}}},
+        {"serve": {"write": {"grpc-max-message-size": "big"}}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):
@@ -166,6 +187,12 @@ def test_registry_engines_by_mode():
         "bounded", 7, 0.005
     )
     assert reg.checker().max_freshness_wait_s == 2.5
+    # the overload keys reach the plane, and the plane the batcher
+    ov = reg.overload()
+    assert reg.checker().overload is ov and reg.checker().max_queue == 512
+    assert (ov.max_queue, ov.limiter.limit, ov.limiter.target_delay_s) == (512, 512, 0.005)
+    assert (ov.brownout.min_dwell_s, ov.throttle.window_s) == (0.2, 2.0)
+    assert reg.default_criticality() == "sheddable"
     reg.checker().close()  # no dispatcher thread may outlive the test
 
 

@@ -1,5 +1,6 @@
 """The port's boundaries: no JAX, no keto_tpu, none of the reference's
-serving libraries (httpx, aiohttp, grpc), no quiet CPU fallback."""
+serving libraries (httpx, aiohttp; grpc and protobuf only in the gRPC
+plane, which only the registry imports, lazily), no quiet CPU fallback."""
 
 import ast
 import re
@@ -20,6 +21,14 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "keto_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
+# the gRPC plane: the only port modules that may import grpc and protobuf
+API = REPO / "keto_tpu_torch" / "api"
+GEN_FILES = sorted((API / "gen").rglob("*.py"))
+GRPC_PLANE = {
+    API / name
+    for name in ("services.py", "interceptors.py", "reflection.py", "convert.py",
+                 "grpc_servers.py")
+} | set(GEN_FILES)
 
 
 def imported_modules(path):
@@ -58,28 +67,89 @@ def module_level_imports(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_serving_library_imports(path):
-    """The card's machine has none of the reference's serving libraries:
-    the port's server, CLI and smoke run on the standard library. PyYAML
-    is optional, imported only inside the YAML loader."""
+    """The port's server, CLI and smoke run on the standard library, so
+    they run where the reference's serving libraries are missing. grpc and
+    protobuf are admitted in the gRPC plane's modules only. PyYAML is
+    optional, imported only inside the YAML loader."""
+    forbidden = {"aiohttp", "click", "jsonschema", "httpx"}
+    if path not in GRPC_PLANE:
+        forbidden |= {"grpc", "google"}
     for mod in imported_modules(path):
         root = mod.split(".")[0]
-        assert root not in ("aiohttp", "grpc", "click", "jsonschema", "httpx"), (
+        assert root not in forbidden, f"{path}: {mod}"
+    assert "yaml" not in set(module_level_imports(path)), path
+
+
+def module_level_relative_targets(path):
+    """The port modules a file imports relatively outside any function or
+    class, as paths (a package, or a module of it)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            for child in ast.walk(node):
+                child._nested = True
+    for node in ast.walk(tree):
+        if getattr(node, "_nested", False) or not isinstance(node, ast.ImportFrom):
+            continue
+        if node.level == 0:
+            continue
+        base = path.parent
+        for _ in range(node.level - 1):
+            base = base.parent
+        for part in (node.module or "").split("."):
+            if part:
+                base = base / part
+        yield base
+        for alias in node.names:
+            yield base / alias.name
+
+
+def _in_grpc_plane(target: Path) -> bool:
+    return (
+        target.with_suffix(".py") in GRPC_PLANE
+        or target == API / "gen"
+        or API / "gen" in target.parents
+    )
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in PORT_FILES if p not in GRPC_PLANE], ids=lambda p: p.name
+)
+def test_only_the_grpc_plane_imports_it_at_module_level(path):
+    """Outside the gRPC plane no module imports the plane when it is
+    imported: the registry reaches it inside the function that builds it,
+    so the package imports where grpc and protobuf do not."""
+    hits = [t for t in module_level_relative_targets(path) if _in_grpc_plane(t)]
+    assert not hits, f"{path}: {hits}"
+
+
+@pytest.mark.parametrize("path", GEN_FILES, ids=lambda p: str(p.relative_to(API)))
+def test_generated_modules_import_relatively_and_leave_sys_path(path):
+    """An absolute ``ory`` import would resolve to keto_tpu's copy in a
+    process that loaded it; ``sys.path`` stays untouched."""
+    for mod in imported_modules(path):
+        assert mod.split(".")[0] not in ("sys", "ory", "health", "reflection"), (
             f"{path}: {mod}"
         )
-    assert "yaml" not in set(module_level_imports(path)), path
 
 
 # the port's rule as a text search over every line, so an import the AST
 # walk above cannot see (inside a string handed to exec) is caught too; the
 # port imports its own package relatively, and the smoke through port()
 _FORBIDDEN_IMPORT = re.compile(
-    r"import (jax|keto_tpu|httpx|aiohttp|grpc)|from (jax|keto_tpu|httpx|aiohttp|grpc)"
+    r"import (jax|keto_tpu|httpx|aiohttp)|from (jax|keto_tpu|httpx|aiohttp)"
 )
+# grpc and protobuf, outside the gRPC plane (``grpc_servers`` is a module
+# of the plane, which the registry may name)
+_FORBIDDEN_GRPC = re.compile(r"(import|from) (grpc|google)\b")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_forbidden_import_text(path):
-    hits = [line for line in path.read_text().splitlines() if _FORBIDDEN_IMPORT.search(line)]
+    lines = path.read_text().splitlines()
+    hits = [line for line in lines if _FORBIDDEN_IMPORT.search(line)]
+    if path not in GRPC_PLANE:
+        hits += [line for line in lines if _FORBIDDEN_GRPC.search(line)]
     assert not hits, f"{path}: {hits}"
 
 
