@@ -36,7 +36,16 @@ Phases, in order; any failure exits non-zero:
             bound (TFLOP/s and share of the bound), the plain version and
             torch.matmul plus the mask (a yardstick only); full-build time,
             and the same build with the wave step an identity (the unpack
-            and distance fills alone); batch-check p50 and rate
+            and distance fills alone); batch-check p50 and rate;
+            [main:closure host], on the same store: the closure engine in
+            host query mode (the numpy semiring build, no card) with D
+            byte-equal to a B1 build of the same snapshot, host batches
+            beside the device path's, device_view() answers, the matmul
+            builder in host mode (built on the card, downloaded once), the
+            placement probe's round trip and auto's choice (device), and a
+            role -> role delete absorbed by the overlay and folded by the
+            dirty-row rebuild, D and the carried D^T equal to a full host
+            build; no B1 or B2 launch on this path
 5. main     (packed) a github10m store (10M tuples, the pools and edge mix
             of bench.py gen_github; BASELINE.json "GitHub-style
             org/team/repo ACL: 10M tuples"), whose interior is above the
@@ -104,6 +113,26 @@ Phases, in order; any failure exits non-zero:
             64 checks from one client get no 429. Numbers: the 429 share
             and accepted p50/p99 per class, accepted checks/s, transitions,
             the highest rung, the limiter's final limit, B1 launches
+8. serve:pool  the read port from POOL_WORKERS processes: this script
+            re-run with --pool-server in a fresh interpreter (the fork must
+            not start from this process's threads) generates the serve
+            phase's rbac1m store and calls start_all with
+            serve.read.workers 4 and engine.cache_size 0 (host query mode,
+            forked read replicas on one SO_REUSEPORT port); the serve
+            phase's sample as GET /check from 64 clients in one client
+            process (as the single-process drive) and in four, and from 256
+            clients in four, every answer the oracle's; one list-objects
+            and one Expand, 8 times each over fresh connections, equal to
+            the server's check_ids over every resource and its host
+            ExpandEngine; one replica SIGKILLed, respawned from the zygote,
+            1024 answers after it the oracle's; a leaf insert and a role ->
+            role delete on the write port, each followed by 24 consecutive
+            agreeing fresh-connection checks; stop_all leaves no process.
+            Numbers: p50/p99 and checks/s per drive beside the
+            single-process drive's, host build and start_all, respawn
+            time, write-to-visible over the pool, RSS and PSS per process
+            after the writes, os.cpu_count(); 0 B1 and 0 B2 launches in the
+            server
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -115,6 +144,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -691,6 +721,10 @@ def run_rbac(args, rng, dev, card) -> dict:
     say(f"[numbers] full build ({expected} launches + unpack) {build_ms:.3f} ms,"
         f" with an identity wave step (unpack and fills) {fills_ms:.3f} ms;"
         f" closure batch_check {k}: p50 {p50_ms:.3f} ms, {rate:.0f} checks/s")
+    del adj, f, r
+    torch.cuda.empty_cache()
+    closure_host(args, store, mgr, edges, sample, oracle,
+                 p50_ms, rate, dev, card)
     return {
         "name": "masked_spmv",
         "route": "cuda",
@@ -703,6 +737,158 @@ def run_rbac(args, rng, dev, card) -> dict:
         "bound_by": bound_by,
         "library_ms": lib_ms,
     }
+
+
+def closure_host(args, store, mgr, edges, sample, oracle,
+                 device_p50_ms, device_rate, dev, card) -> None:
+    """[main:closure host]: host query mode on the rbac1m store of
+    [main:closure]. The host semiring build (numpy, no card) against the
+    card's B1-built D; host batches beside the device path's; device_view()
+    answers; the matmul builder in host mode (built on the card, downloaded
+    once); the placement probe's round trip and what auto chose; last, a
+    role -> role delete absorbed by the overlay and folded by the dirty-row
+    rebuild, D and D^T against a full host build. No B1 or B2 launch."""
+    import logging
+
+    ClosureCheckEngine = port("engine", "ClosureCheckEngine")
+    masked_spmv = port("engine", "masked_spmv")
+    packed_ops = port("ops", "packed")
+    build_closure_bitset = port("engine.semiring", "build_closure_bitset")
+    build_interior = port("graph.interior", "build_interior")
+    _m_pad_for = port("engine.closure", "_m_pad_for")
+    pack_adjacency = port("ops.closure", "pack_adjacency")
+
+    tag = "main:closure host"
+    k = len(sample)
+    n_or = min(args.oracle, k)
+    # the card's B1-built D of the snapshot the host engine will build (its
+    # launches are the comparison's, not the host path's)
+    ig = build_interior(mgr.snapshot())
+    m_pad = _m_pad_for(ig.m)
+    d_card = masked_spmv.build_closure_semiring(
+        pack_adjacency(ig.ii_src, ig.ii_dst, m_pad), ig.m, m_pad=m_pad, k_max=4,
+        device=dev,
+    ).cpu().numpy()
+    masked_spmv.masked_step.launches = 0  # the host path starts here
+    packed_ops.packed_propagate.launches = 0
+    heng = ClosureCheckEngine(mgr, max_depth=5, query_mode="host", device=dev)
+    t0 = time.perf_counter()
+    host_allowed = heng.batch_check(sample)
+    first_s = time.perf_counter() - t0
+    phases = {n: round(v, 4) for n, v in heng.last_build_phases.items()}
+    workers = heng._build_workers()
+    require(host_allowed[:n_or] == oracle.batch_check(sample[:n_or]),
+            "host-mode answers differ from the oracle")
+    require(np.array_equal(heng._state.d_host, d_card),
+            "host-built D != the card's B1-built D")
+    say(f"[{tag}] first batch (host build + {k} checks) {first_s:.3f}s, phases "
+        f"{phases}, {workers} build threads; D byte-equal to the card's "
+        f"B1-built D; {n_or} answers equal the oracle")
+    lat = []
+    reps = 16
+    for i in range(reps):
+        batch = sample[i * 97 % k:] + sample[: i * 97 % k]
+        t0 = time.perf_counter()
+        heng.batch_check(batch)
+        lat.append(time.perf_counter() - t0)
+    host_p50 = float(np.median(lat)) * 1e3
+    host_rate = k * reps / sum(lat)
+
+    view = heng.device_view()
+    require(view.batch_check(sample) == host_allowed, "device_view answers differ")
+    lat = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        view.batch_check(sample)
+        lat.append(time.perf_counter() - t0)
+    view_p50 = float(np.median(lat)) * 1e3
+    del view
+
+    meng = ClosureCheckEngine(mgr, max_depth=5, query_mode="host",
+                              builder="matmul", device=dev)
+    require(meng.batch_check(sample[:n_or]) == host_allowed[:n_or],
+            "matmul-builder answers differ")
+    matmul_s = meng.last_build_phases["matmul"]
+    require(np.array_equal(meng._state.d_host, d_card),
+            "matmul-built host D != the card's B1-built D")
+    del meng
+    torch.cuda.empty_cache()
+
+    probe_ms = []
+
+    class _Probe(logging.Handler):
+        def emit(self, record):
+            if "query placement probe" in record.msg:
+                probe_ms.append(float(record.args[0]))
+
+    handler = _Probe()
+    logger = logging.getLogger("keto_tpu_torch.engine")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        chose_host = ClosureCheckEngine(mgr, max_depth=5, device=dev).host_queries()
+    finally:
+        logger.removeHandler(handler)
+    require(len(probe_ms) == 1 and not chose_host,
+            f"auto on the card chose host ({probe_ms} ms round trip)")
+    say(f"[{tag}] device_view() answers equal; the matmul builder in host mode: "
+        f"D byte-equal, build on the card + download {matmul_s:.3f}s; auto "
+        f"placement: median round trip {probe_ms[0]:.3f} ms -> device")
+
+    # a role -> role delete: the overlay re-closes D on the host (and its
+    # D^T mirror), then the fold takes the dirty-row rebuild
+    t0 = time.perf_counter()
+    heng.reverse_artifacts()  # the host D^T, carried by the rebuild below
+    rev_s = time.perf_counter() - t0
+    rr_s, rr_d = edges["role_role"]
+    edge = next(to_tuple(a, b) for a, b in zip(rr_s, rr_d) if a != b)
+    store.delete_relation_tuples(edge)
+    t0 = time.perf_counter()
+    got = heng.batch_check(sample[:n_or])
+    absorb_s = time.perf_counter() - t0
+    require(got == oracle.batch_check(sample[:n_or]),
+            "host answers after the role delete differ from the oracle")
+    ov = heng._overlay
+    require(ov.n_interior_deletes == 1 and not ov.broken,
+            f"the overlay did not absorb the delete ({ov.broken_reason!r})")
+    t0 = time.perf_counter()
+    heng._build_sync()
+    fold_s = time.perf_counter() - t0
+    inc = {n: round(v, 4) for n, v in heng.last_build_phases.items()}
+    state = heng._state
+    require(heng.n_full_builds == 1 and heng.n_incremental_builds == 1,
+            f"the fold: full={heng.n_full_builds} incr={heng.n_incremental_builds}")
+    ig = build_interior(mgr.snapshot())
+    t0 = time.perf_counter()
+    d_full = build_closure_bitset(ig.ii_src, ig.ii_dst, ig.m, state.m_pad, 4,
+                                  workers=workers)
+    full_s = time.perf_counter() - t0
+    require(np.array_equal(state.d_host, d_full),
+            "dirty-row D != a full host build of the written snapshot")
+    require(state.d_rev is not None and np.array_equal(state.d_rev, d_full.T),
+            "the carried D^T != the full build's transpose")
+    require(heng.batch_check(sample[:n_or]) == oracle.batch_check(sample[:n_or]),
+            "answers after the fold differ from the oracle")
+    del d_full
+    store.write_relation_tuples(edge)  # the store as [main:closure] left it
+    b1 = masked_spmv.masked_step.launches  # the host path ends here
+    b2 = packed_ops.packed_propagate.launches
+    require(b1 == 0 and b2 == 0, f"host mode launched B1 {b1}, B2 {b2} times")
+    say(f"[{tag}] role -> role delete {edge}: absorbed by the overlay in "
+        f"{absorb_s:.3f}s (with {n_or} checks); folded by the dirty-row rebuild "
+        f"in {fold_s:.3f}s ({heng.last_dirty_rows} of {ig.m} rows, phases {inc}); "
+        f"D and the carried D^T equal a full host build ({full_s:.3f}s); "
+        f"0 B1 and 0 B2 launches")
+    say(f"[numbers] closure host ({card}; host os.cpu_count() {os.cpu_count()}): "
+        f"host build {phases.get('kernel', 0):.3f}s (blocks "
+        f"{phases.get('blocks', 0):.3f}s, interior {phases.get('interior', 0):.3f}s, "
+        f"{workers} threads); batch_check {k}: host p50 {host_p50:.3f} ms, "
+        f"{host_rate:.0f} checks/s against the device path's p50 "
+        f"{device_p50_ms:.3f} ms, {device_rate:.0f} checks/s; device_view p50 "
+        f"{view_p50:.3f} ms; matmul build on the card + download {matmul_s:.3f}s; "
+        f"probe round trip {probe_ms[0]:.3f} ms; host D^T {rev_s:.3f}s; "
+        f"role -> role delete: {heng.last_dirty_rows} dirty rows, fold "
+        f"{fold_s:.3f}s")
 
 
 def plain_check(eng, requests, depths=None):
@@ -1105,23 +1291,37 @@ def rest_check(read: str, t, depth: int = 0) -> bool:
 
 
 def http_clients(
-    urls: list[str], clients: int, headers: list[dict] | None = None
+    urls: list[str], clients: int, headers: list[dict] | None = None,
+    procs: int = 1,
 ) -> tuple[list, float]:
-    """GET every url from `clients` threads of a separate process, so the
-    clients do not share the server's interpreter lock. Returns (status,
-    seconds) per url, or with `headers` (one dict per url) (status,
-    seconds, Retry-After or None), and the wall time of the whole run."""
+    """GET every url from `clients` threads of `procs` separate processes,
+    so the clients do not share the server's interpreter lock (nor, with
+    procs > 1, one client interpreter's). Returns (status, seconds) per url,
+    or with `headers` (one dict per url) (status, seconds, Retry-After or
+    None), and the wall time of the run (the slowest process's)."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1]); "
         "import chip_smoke; chip_smoke.client_main()"
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
-        input=json.dumps({"urls": urls, "clients": clients, "headers": headers}),
-        capture_output=True, text=True, timeout=600, check=True,
-    )
-    doc = json.loads(proc.stdout)
-    return doc["results"], doc["wall"]
+    runs = []
+    for i in range(procs):  # url j goes to process j % procs
+        part = {"urls": urls[i::procs], "clients": max(1, clients // procs),
+                "headers": None if headers is None else headers[i::procs]}
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        runs.append((proc, json.dumps(part)))
+    docs = []
+    for proc, part in runs:
+        out, err = proc.communicate(part, timeout=600)
+        require(proc.returncode == 0, f"client process: rc {proc.returncode} {err[-2000:]}")
+        docs.append(json.loads(out))
+    results = [None] * len(urls)
+    for i, doc in enumerate(docs):
+        results[i::procs] = doc["results"]
+    return results, max(doc["wall"] for doc in docs)
 
 
 def client_main() -> None:
@@ -1558,7 +1758,8 @@ def run_serve(args, dev, card) -> dict:
     return {"launches": launches, "list_launches": numbers["list"]["launches"],
             "cache_launches": c["launches"], "sample": sample, "want": want,
             "single_p50_ms": numbers["single_p50_ms"],
-            "single_p99_ms": numbers["single_p99_ms"]}
+            "single_p99_ms": numbers["single_p99_ms"],
+            "single_rate": numbers["single_rate"]}
 
 
 # [serve:overload] settings. The plane sees only the batcher's queue delay
@@ -1673,6 +1874,391 @@ def serve_overload(args, serve: dict, card: str) -> dict:
             f"equal the oracle; {out['launches']} B1 launches")
     finally:
         reg.stop_all()
+    return out
+
+
+# [serve:pool]: read replicas serving the rbac1m read port
+POOL_WORKERS = 4
+
+
+def _emit(doc: dict) -> None:
+    print("POOL " + json.dumps(doc), flush=True)
+
+
+def _memory_mb(pid: int) -> dict:
+    """RSS and PSS (shared pages split among their sharers) of a process in
+    MB, from /proc/<pid>/smaps_rollup, else RSS alone from /proc/<pid>/status;
+    empty where neither can be read."""
+    for path, names in ((f"/proc/{pid}/smaps_rollup", ("Rss", "Pss")),
+                        (f"/proc/{pid}/status", ("VmRSS",))):
+        out = {}
+        try:
+            with open(path) as f:
+                for line in f:
+                    name, _, rest = line.partition(":")
+                    if name in names:
+                        out["rss" if name == "VmRSS" else name.lower()] = (
+                            int(rest.split()[0]) / 1024)
+        except OSError:
+            continue
+        if out:
+            return out
+    return {}
+
+
+def _live(pids) -> list[int]:
+    """The pids that name a live process: os.kill(pid, 0) finds it, and
+    /proc, where it can be read, does not call it a zombie."""
+    out = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X"):
+                    continue
+        except OSError:
+            pass  # nothing to read: os.kill found the process
+        out.append(pid)
+    return out
+
+
+def pool_server_main(args) -> int:
+    """The [serve:pool] server, run in a fresh interpreter (this script with
+    --pool-server), so the fork starts from a process that holds only this
+    server: a columnar rbac1m store from the serve phase's seed, the result
+    cache off and serve.read.workers POOL_WORKERS (the closure engine in
+    host query mode), brought up by start_all. It prints a POOL line with
+    its ports, build phases and pool, then answers commands on stdin, one
+    POOL line each: pool, plan, expect <json>, listref <user>, expandref
+    <resource>, stop."""
+    from collections import defaultdict
+
+    Config, Registry = port("driver", "Config", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    packed_ops = port("ops", "packed")
+    ExpandEngine = port("engine.expand", "ExpandEngine")
+    RelationTuple, SubjectSet = port("relationtuple", "RelationTuple", "SubjectSet")
+
+    values = serve_config("auto", cache_size=0)
+    values["serve"]["read"]["workers"] = POOL_WORKERS
+    reg = Registry(Config(values=values))
+    t0 = time.perf_counter()
+    store, pools, edges = gen_rbac(
+        args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
+    )
+    load_s = time.perf_counter() - t0
+    masked_spmv.masked_step.launches = 0  # the pool server's path starts here
+    packed_ops.packed_propagate.launches = 0
+    t0 = time.perf_counter()
+    read_port, write_port = reg.start_all()
+    start_s = time.perf_counter() - t0
+    eng, pool = reg.check_engine(), reg._replica_pool
+    require(pool is not None, "start_all forked no read replicas")
+    phases = {n: round(v, 4) for n, v in eng.last_build_phases.items()}
+
+    def info() -> dict:
+        pids = [os.getpid(), pool._zygote_pid] + pool.child_pids()
+        return {
+            "read": read_port, "write": write_port, "load_s": load_s,
+            "start_s": start_s, "phases": phases, "m": eng._state.ig.m,
+            "workers": eng._build_workers(), "host": eng.host_queries(),
+            "alive": pool.alive(), "children": pool.child_pids(),
+            "zygote": pool._zygote_pid, "respawns": pool.n_respawns,
+            "memory_mb": {str(p): _memory_mb(p) for p in _live(pids)},
+            "b1": masked_spmv.masked_step.launches,
+            "b2": packed_ops.packed_propagate.launches,
+            "cpus": os.cpu_count(),
+        }
+
+    def plan() -> dict:
+        """A leaf insert whose probe it flips (a group granted alone to a
+        resource gains a user) and a role -> role delete whose probe it
+        flips (a resource granted only to role a, probed against role b's
+        set at max-depth 2)."""
+        grants = defaultdict(set)
+        for r_key, d_key in zip(*edges["grant"]):
+            grants[r_key].add(d_key)
+        only = {}
+        for r_key, targets in grants.items():
+            if len(targets) == 1:
+                only.setdefault(next(iter(targets)), r_key)
+        g_key = next(d for d in only if d[1].startswith("g"))
+        role_edge = next(
+            (a, b) for a, b in zip(*edges["role_role"]) if a != b and a in only
+        )
+        return {
+            "leaf": to_tuple(g_key, ("pool-user",)).to_dict(),
+            "leaf_probe": to_tuple(only[g_key], ("pool-user",)).to_dict(),
+            "edge": to_tuple(*role_edge).to_dict(),
+            "edge_probe": to_tuple(only[role_edge[0]], role_edge[1]).to_dict(),
+        }
+
+    users, resources = pools["users"], pools["resources"]
+    _emit(info())
+    for line in sys.stdin:
+        cmd, _, arg = line.strip().partition(" ")
+        if cmd == "pool":
+            _emit(info())
+        elif cmd == "plan":
+            _emit(plan())
+        elif cmd == "expect":  # [[tuple dict, max-depth], ...] at the live version
+            so = SetGraphOracle(store)
+            _emit({"expect": [so.check(RelationTuple.from_dict(t), d)
+                              for t, d in json.loads(arg)]})
+        elif cmd == "listref":  # list-objects by check_ids over every resource
+            snap = eng.snapshots.snapshot()
+            ids = snap.vocab.lookup_bulk(list(resources))
+            ids = np.where(ids < 0, snap.dummy_node, ids)
+            target = snap.vocab.lookup((arg,))
+            allowed = eng.check_ids(
+                ids, np.full(len(ids), snap.dummy_node if target is None else target),
+                np.ones(len(ids), dtype=bool),
+            )
+            _emit({"objects": sorted(resources[i][1] for i in np.nonzero(allowed)[0])})
+        elif cmd == "expandref":  # the host ExpandEngine over the live store
+            tree = ExpandEngine(IndexedTuples(store), max_depth=5).build_tree(
+                SubjectSet("rbac", arg, "view"), 5
+            )
+            _emit({"tree": tree and tree.to_dict()})
+        elif cmd == "stop":
+            pids = pool.child_pids() + [pool._zygote_pid]
+            reg.stop_all()
+            deadline = time.monotonic() + 30
+            while _live(pids) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            _emit({"stopped": True, "left": _live(pids),
+                   "b1": masked_spmv.masked_step.launches,
+                   "b2": packed_ops.packed_propagate.launches})
+            return 0
+    return 1
+
+
+class PoolServer:
+    """The smoke's side of the [serve:pool] server process."""
+
+    def __init__(self, args):
+        import queue
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--pool-server",
+             "--seed", str(args.seed), "--tuples", str(args.tuples)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True,
+        )
+        self.docs = queue.Queue()
+        self.log: list[str] = []  # the server's stderr (its log lines)
+        threading.Thread(target=self._read_docs, daemon=True).start()
+        threading.Thread(target=self._read_log, daemon=True).start()
+        self.stopped = False
+
+    def _read_docs(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("POOL "):
+                self.docs.put(json.loads(line[5:]))
+
+    def _read_log(self) -> None:
+        for line in self.proc.stderr:
+            self.log.append(line)
+
+    def next_doc(self, timeout: float) -> dict:
+        import queue
+
+        try:
+            return self.docs.get(timeout=timeout)
+        except queue.Empty:
+            raise RuntimeError(
+                f"smoke check failed: the pool server said nothing in {timeout}s "
+                f"(rc {self.proc.poll()}): {''.join(self.log[-30:])}"
+            ) from None
+
+    def ask(self, cmd: str, timeout: float = 120.0) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return self.next_doc(timeout)
+
+    def close(self) -> None:
+        """Stop every process of the server's group (after a failure)."""
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        self.proc.wait(timeout=60)
+
+
+def converges(read: str, t, want: bool, depth: int = 0, tries: int = 24,
+              timeout: float = 60.0) -> tuple[float, float]:
+    """GET /check of `t` on a fresh connection each time until `tries`
+    consecutive answers equal `want` (SO_REUSEPORT spreads the connections
+    over the replicas). Returns the seconds from the call to the first
+    answer of that streak and to its last."""
+    extra = f"&max-depth={depth}" if depth else ""
+    url = f"{read}/check?{tuple_query(t)}{extra}"
+    t0 = time.perf_counter()
+    streak, start = 0, 0.0
+    while streak < tries:
+        require(time.perf_counter() - t0 < timeout,
+                f"{t} did not converge to {want} over the pool in {timeout}s")
+        status, _ = http("GET", url)
+        require(status in (200, 403), f"GET /check {t}: {status}")
+        if (status == 200) == want:
+            if streak == 0:
+                start = time.perf_counter() - t0
+            streak += 1
+        else:
+            streak = 0
+            time.sleep(0.01)
+    return start, time.perf_counter() - t0
+
+
+def serve_pool(args, serve: dict, card: str) -> dict:
+    """[serve:pool]: a server subprocess at rbac1m with serve.read.workers
+    POOL_WORKERS, the result cache off and a columnar store. The serve
+    phase's sample as GET /check from 64 clients (one client process, as
+    the single-process drive, then four) and from 256 clients, every answer
+    the oracle's; one list-objects and one Expand, each asked 8 times over
+    fresh connections, equal to the server's check_ids over every resource
+    and its host ExpandEngine; one replica SIGKILLed and respawned from the
+    zygote, answers still the oracle's; a leaf insert and a role -> role
+    delete on the write port, each followed by 24 consecutive
+    fresh-connection checks that agree; stop_all leaves no child; no B1 or
+    B2 launch in the server."""
+    import signal
+    from urllib.parse import urlencode
+
+    RelationTuple = port("relationtuple", "RelationTuple")
+    tag = "serve:pool"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    sample, want = serve["sample"], serve["want"]
+    server = PoolServer(args)
+    out = {}
+    try:
+        info = server.next_doc(900)
+        require(info["alive"] == POOL_WORKERS and info["host"] and info["b1"] == 0,
+                f"pool server: {info}")
+        read = f"http://127.0.0.1:{info['read']}"
+        write = f"http://127.0.0.1:{info['write']}"
+        out.update(start_s=info["start_s"], load_s=info["load_s"],
+                   phases=info["phases"], cpus=info["cpus"], workers=info["workers"])
+        say(f"[{tag} {at()}] server: store {info['load_s']:.3f}s, start_all "
+            f"{info['start_s']:.3f}s (host build phases {info['phases']}, "
+            f"m={info['m']}, {info['workers']} build threads), {info['alive']} "
+            f"processes on read :{info['read']} (children {info['children']}, "
+            f"zygote {info['zygote']}); host os.cpu_count() {info['cpus']}")
+
+        urls = [f"{read}/check?{tuple_query(t)}" for t in sample]
+        for name, clients, procs in (("64x1", 64, 1), ("64x4", 64, 4), ("256x4", 256, 4)):
+            results, wall = http_clients(urls, clients, procs=procs)
+            require([status == 200 for status, _ in results] == want
+                    and all(status in (200, 403) for status, _ in results),
+                    f"pool GET /check ({clients} clients, {procs} processes) "
+                    f"differ from the oracle")
+            lat = [sec for _, sec in results]
+            out[name] = (pct(lat, 50), pct(lat, 99), len(urls) / wall)
+        say(f"[{tag} {at()}] {len(urls)} GET /check from 64 clients (1 and 4 "
+            f"client processes) and 256 clients (4): all equal the oracle")
+
+        i = want.index(True)
+        user, res = sample[i].subject.id, sample[i].object
+        ref = server.ask(f"listref {user}")["objects"]
+        tree = server.ask(f"expandref {res}")["tree"]
+        q_list = urlencode({"namespace": "rbac", "relation": "view", "subject_id": user})
+        q_tree = urlencode({"namespace": "rbac", "object": res, "relation": "view",
+                            "max-depth": 5})
+        for _ in range(8):
+            status, doc = http("GET", f"{read}/relation-tuples/list-objects?{q_list}")
+            require(status == 200 and doc["objects"] == ref,
+                    f"pool list-objects {user}: {status}, {len(doc.get('objects', []))} "
+                    f"objects, check_ids {len(ref)}")
+            status, doc = http("GET", f"{read}/expand?{q_tree}")
+            require(status == 200 and doc == tree, f"pool expand {res}: {status}")
+        say(f"[{tag} {at()}] list-objects {user} ({len(ref)} objects) and GET "
+            f"/expand {res} ({tree_nodes(tree) if tree else 0} nodes), 8 each over "
+            f"fresh connections: equal check_ids over every resource and the "
+            f"host ExpandEngine")
+
+        victim = info["children"][0]
+        t0 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        while True:
+            doc = server.ask("pool")
+            kids = doc["children"]
+            if (doc["alive"] == POOL_WORKERS and victim not in kids
+                    and all(p > 0 for p in kids)):
+                break
+            require(time.perf_counter() - t0 < 60, f"no respawn after 60 s: {doc}")
+            time.sleep(0.05)
+        out["respawn_s"] = time.perf_counter() - t0
+        results, _ = http_clients(urls[:1024], 64, procs=4)
+        require([status == 200 for status, _ in results] == want[:1024],
+                "answers after the respawn differ from the oracle")
+        require(any("read replica died; respawning" in line for line in server.log),
+                "the supervisor logged no death")
+        say(f"[{tag} {at()}] replica {victim} SIGKILLed: respawned from the zygote "
+            f"in {out['respawn_s']:.3f}s (alive {doc['alive']}, children {kids}, "
+            f"respawns {doc['respawns']}); "
+            f"1024 checks after it equal the oracle")
+
+        plan = server.ask("plan")
+        leaf, leaf_probe = (RelationTuple.from_dict(plan[k])
+                            for k in ("leaf", "leaf_probe"))
+        edge, edge_probe = (RelationTuple.from_dict(plan[k])
+                            for k in ("edge", "edge_probe"))
+        require(server.ask("expect " + json.dumps(
+            [[plan["leaf_probe"], 5], [plan["edge_probe"], 2]]))["expect"] == [False, True],
+            "the write plan's probes do not start at (denied, allowed)")
+        status, _ = http("PUT", f"{write}/relation-tuples", leaf.to_dict())
+        require(status == 201, f"PUT {status}")
+        out["leaf"] = converges(read, leaf_probe, True)
+        status, _ = http("DELETE", f"{write}/relation-tuples?{tuple_query(edge)}")
+        require(status == 204, f"DELETE {status}")
+        out["delete"] = converges(read, edge_probe, False, depth=2)
+        require(server.ask("expect " + json.dumps(
+            [[plan["leaf_probe"], 5], [plan["edge_probe"], 2]]))["expect"] == [True, False],
+            "the oracle disagrees with the converged answers")
+        after = sample[:256]
+        expect = server.ask("expect " + json.dumps([[t.to_dict(), 5] for t in after]))["expect"]
+        results, _ = http_clients(urls[:256], 64, procs=4)
+        require([status == 200 for status, _ in results] == expect,
+                "256 checks after the writes differ from the oracle")
+        doc = server.ask("pool")
+        fell_back = [line.strip() for line in server.log if "past its write overlay" in line]
+        for line in server.log:  # the server's log: deaths, respawns, fallbacks
+            say(f"[{tag}] server log: {line.rstrip()}")
+        out["memory_mb"] = doc["memory_mb"]
+        say(f"[{tag} {at()}] leaf insert {leaf}: the first of 24 agreeing "
+            f"fresh-connection answers {out['leaf'][0]:.3f}s after the write "
+            f"returned, the last {out['leaf'][1]:.3f}s; role -> role delete {edge}: "
+            f"{out['delete'][0]:.3f}s and {out['delete'][1]:.3f}s; 256 checks after "
+            f"both equal the oracle; "
+            f"replicas answering from the live store: {fell_back or 'none'}")
+
+        pids = doc["children"] + [doc["zygote"]]
+        doc = server.ask("stop", timeout=120)
+        server.proc.wait(timeout=60)
+        require(doc["stopped"] and doc["left"] == [] and _live(pids) == [],
+                f"processes left after stop_all: {doc['left']} {_live(pids)}")
+        require(doc["b1"] == 0 and doc["b2"] == 0,
+                f"the pool server launched B1 {doc['b1']}, B2 {doc['b2']} times")
+        require(server.proc.returncode == 0, f"pool server rc {server.proc.returncode}")
+        server.stopped = True
+        say(f"[{tag} {at()}] stop_all: no child left; 0 B1 and 0 B2 launches in "
+            f"the server; memory after the writes (MB, rss/pss by pid): "
+            + ", ".join(f"{p} {m.get('rss', 'not measured')}/{m.get('pss', 'not measured')}"
+                        for p, m in out["memory_mb"].items()))
+    finally:
+        if not server.stopped:
+            server.close()
     return out
 
 
@@ -2137,6 +2723,8 @@ def main() -> int:
     ap.add_argument("--gh-tuples", type=int, default=10_000_000)
     ap.add_argument("--checks", type=int, default=4096)
     ap.add_argument("--oracle", type=int, default=256)
+    ap.add_argument("--pool-server", action="store_true",
+                    help="run the [serve:pool] server (the smoke starts it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2144,6 +2732,8 @@ def main() -> int:
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    if args.pool_server:
+        return pool_server_main(args)
     masked_spmv = port("engine", "masked_spmv")
     _m_pad_for = port("engine.closure", "_m_pad_for")
     pack_adjacency = port("ops.closure", "pack_adjacency")
@@ -2255,6 +2845,26 @@ def main() -> int:
         f"{ov['highest']}; final limit {ov['limit']}; culled {ov['culled']}, "
         f"throttled {ov['throttled']}; mean batch {ov['mean_batch']:.2f}; "
         f"B1 launches {ov['launches']}")
+
+    # -- 8. read replicas: the rbac1m read port from POOL_WORKERS processes ------
+    t0 = time.perf_counter()
+    pool_numbers = serve_pool(args, serve, card)
+    walls["serve:pool"] = time.perf_counter() - t0
+    pn = pool_numbers
+    say(f"[numbers] serve:pool ({card}; host os.cpu_count() {pn['cpus']}, "
+        f"{POOL_WORKERS} server processes, cache off): GET /check p50/p99 ms and "
+        f"checks/s: 64 clients in 1 process {pn['64x1'][0]:.3f}/{pn['64x1'][1]:.3f}, "
+        f"{pn['64x1'][2]:.0f}; 64 clients in 4 processes {pn['64x4'][0]:.3f}/"
+        f"{pn['64x4'][1]:.3f}, {pn['64x4'][2]:.0f}; 256 clients in 4 processes "
+        f"{pn['256x4'][0]:.3f}/{pn['256x4'][1]:.3f}, {pn['256x4'][2]:.0f} (the "
+        f"single-process cache-off drive at 64 clients in 1 process: "
+        f"{serve['single_p50_ms']:.3f}/{serve['single_p99_ms']:.3f}, "
+        f"{serve['single_rate']:.0f}); host build {pn['phases'].get('kernel', 0):.3f}s "
+        f"({pn['workers']} threads), start_all {pn['start_s']:.3f}s; respawn "
+        f"{pn['respawn_s']:.3f}s; write-to-visible over the pool (the first / last "
+        f"of 24 agreeing answers after the write returned): leaf insert {pn['leaf'][0]:.3f}/{pn['leaf'][1]:.3f}s, "
+        f"role -> role delete {pn['delete'][0]:.3f}/{pn['delete'][1]:.3f}s; "
+        f"B1 0, B2 0")
 
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")

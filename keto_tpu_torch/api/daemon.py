@@ -13,6 +13,12 @@ its direct port is exposed as ``grpc_port`` for clients that want to skip
 the pipe. A port of 0 binds a free port, and ``start()`` reports the real
 one.
 
+The read-replica pool (``driver/replicas.py``) runs one read plane per
+process, every one bound to the same fixed public and gRPC ports with
+``SO_REUSEPORT`` (``reuse_port``), so the kernel spreads accepted
+connections over the processes; the HTTP/2 pipe reaches whichever
+process's gRPC listener the kernel picks, and any replica may answer.
+
 The gRPC server is any object with ``add_insecure_port``, ``start`` and
 ``stop`` (``api/grpc_servers.py`` builds them); this module imports no
 grpc. TLS on the public port is not ported.
@@ -124,27 +130,47 @@ class _Server(ThreadingHTTPServer):
         super().finish_request(request, client_address)
 
 
+class _ReusePortServer(_Server):
+    allow_reuse_port = True  # one listener per replica process, one port
+
+
 class PlaneServer:
     """One plane: bind, serve on a thread, stop. With ``grpc_server`` the
     public port answers gRPC too."""
 
-    def __init__(self, router: Router, host: str, port: int, grpc_server=None):
+    def __init__(
+        self,
+        router: Router,
+        host: str,
+        port: int,
+        grpc_server=None,
+        grpc_port: int = 0,
+        reuse_port: bool = False,
+    ):
         self.router = router
         self.host = host
         self.port = port
         self.grpc_server = grpc_server
-        self.grpc_port = 0  # the direct (loopback) gRPC port once started
+        # the direct (loopback) gRPC port: fixed for a replica pool, else
+        # bound free at start
+        self.grpc_port = grpc_port
+        self.reuse_port = reuse_port
         self._server: Optional[_Server] = None
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> int:
         if self.grpc_server is not None:
-            self.grpc_port = self.grpc_server.add_insecure_port("127.0.0.1:0")
+            # grpcio sets SO_REUSEPORT on its listeners by default, so a
+            # fixed port is all a replica needs to share it
+            self.grpc_port = self.grpc_server.add_insecure_port(
+                f"127.0.0.1:{self.grpc_port}"
+            )
             if self.grpc_port == 0:
                 raise OSError("gRPC backend port bind failed")
             self.grpc_server.start()
         handler = type("PlaneHandler", (_Handler,), {"router": self.router})
-        self._server = _Server((self.host, self.port), handler)
+        server_cls = _ReusePortServer if self.reuse_port else _Server
+        self._server = server_cls((self.host, self.port), handler)
         self._server.grpc_port = self.grpc_port
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(

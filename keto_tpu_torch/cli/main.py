@@ -1,12 +1,15 @@
 """The keto_tpu_torch command line (counterpart of ``keto_tpu/cli/main.py``,
 on ``argparse``).
 
-    python -m keto_tpu_torch.cli serve -c config.json
+    python -m keto_tpu_torch.cli serve -c config.json [--workers N]
 
 ``serve`` builds a Registry from the config file (JSON or TOML), warms the
-check engine up on the CUDA card, starts the read and write REST planes,
-and stops them gracefully on SIGINT or SIGTERM. The gRPC client commands
-of the reference wait for the gRPC plane.
+check engine up on the CUDA card, starts the read and write planes, and
+stops them gracefully on SIGINT or SIGTERM. ``--workers N`` serves the read
+port from N processes (forked read replicas sharing it through
+SO_REUSEPORT, the closure engine in host query mode); 0 keeps the config's
+``serve.read.workers``. The gRPC client commands of the reference wait for
+ROADMAP 14.3.
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ import threading
 from typing import Optional, Sequence
 
 
-def serve(config_file: Optional[str]) -> int:
+def serve(config_file: Optional[str], workers: int = 0) -> int:
     """Start the read (:4466) and write (:4467) servers."""
     from ..driver import Config, Registry
 
-    registry = Registry(Config(config_file=config_file))
+    values = {"serve": {"read": {"workers": workers}}} if workers > 0 else None
+    registry = Registry(Config(values=values, config_file=config_file))
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda _signum, _frame: stop.set())
@@ -45,9 +49,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "serve", help="start the read (:4466) and write (:4467) REST servers"
     )
     p_serve.add_argument("--config", "-c", dest="config_file", default=None)
+    p_serve.add_argument(
+        "--workers", type=int, default=0,
+        help="read-replica processes sharing the read port via SO_REUSEPORT "
+        "(0 = use serve.read.workers from the config)",
+    )
     args = ap.parse_args(argv)
     if args.command == "serve":
-        return serve(args.config_file)
+        return serve(args.config_file, args.workers)
     return 2
 
 

@@ -55,6 +55,8 @@ DEFAULTS = {
     "engine.rebuild_debounce_ms": 50,
     "engine.sharding.enabled": False,
     "engine.reverse_index": True,
+    "engine.closure_builder": "auto",
+    "engine.closure_block_workers": 0,
     "engine.expand_page_size": 0,
     "engine.fallback_threshold": 3,
     "engine.fallback_cooldown_ms": 1000,
@@ -110,6 +112,8 @@ _RULES: dict[str, tuple[str, Any]] = {
     "engine.rebuild_debounce_ms": ("number", 0),
     "engine.sharding.enabled": ("boolean", None),
     "engine.reverse_index": ("boolean", None),
+    "engine.closure_builder": ("enum", ["auto", "matmul", "semiring"]),
+    "engine.closure_block_workers": ("integer", 0),
     "engine.expand_page_size": ("integer", 0),
     "engine.fallback_threshold": ("integer", 1),
     "engine.fallback_cooldown_ms": ("number", 0),

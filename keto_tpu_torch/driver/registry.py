@@ -9,10 +9,17 @@ without them the planes serve REST alone, ``start_all`` logs one line
 saying why, and ``grpc_enabled`` stays False.
 
 ``Registry(config, device=None)`` runs its engines on the CUDA card unless
-the caller passes ``device="cpu"``; without CUDA it raises. Engines and
-paths this package does not have yet fail with an error that names the
-roadmap item that brings them: the sharded tiers (12), host query mode and
-the forked read replicas it serves (6).
+the caller passes ``device="cpu"``; without CUDA it raises. The sharded
+tiers, which this package does not have yet, fail with an error that names
+their roadmap item (12).
+
+``serve.read.workers`` N > 1 serves the read port from N processes: after
+the warmup ``start_all`` forks N - 1 read replicas (``driver/replicas.py``)
+that share the read port through ``SO_REUSEPORT``, then binds its own
+planes. A forked child must not touch CUDA, so with ``engine.query_mode:
+auto`` the closure engine is built in host query mode; any other engine
+(a device query mode, the frontier engines, the host oracle) serves from
+one process, and ``start_all`` logs one line saying so.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import gc
 import logging
 import threading
+import time
 from typing import Optional
 
 from .. import __version__
@@ -46,10 +54,11 @@ _GRPC_SIZE_KEYS = (
 
 _log = logging.getLogger("keto_tpu_torch")
 
-_HOST_QUERY_MSG = (
-    "host query mode ({what}) is not ported to keto_tpu_torch yet: ROADMAP "
-    "item 6; serve with engine.query_mode auto or device and one read worker"
-)
+# how long start_all waits for transient threads (a closure rebuild, the
+# overlay's groupings warm) to end before forking read replicas, and how
+# long one unchanged offender may persist before it gives up early
+_FORK_QUIESCE_S = 180.0
+_FORK_STABLE_S = 2.0
 
 
 class Registry:
@@ -70,6 +79,10 @@ class Registry:
         self._list_engine = None
         self._read_plane: Optional[PlaneServer] = None
         self._write_plane: Optional[PlaneServer] = None
+        # the read-replica pool and the fixed (read, gRPC) ports every pool
+        # process binds with SO_REUSEPORT; None / (0, 0) when single-process
+        self._replica_pool = None
+        self._shared_read_ports: tuple[int, int] = (0, 0)
         self._serving = False  # readiness: flips only after bring-up
         # the gRPC plane: its builders module once probed (None when grpc or
         # google.protobuf do not import), why it is off, and the health
@@ -126,22 +139,21 @@ class Registry:
         if mode == "host":
             return CheckEngine(self.store(), max_depth=max_depth)
         if mode in ("closure", "auto"):
-            if str(cfg.get("engine.query_mode")) == "host":
-                raise ErrMalformedInput(
-                    _HOST_QUERY_MSG.format(what="engine.query_mode: host")
-                )
-            if int(cfg.get("serve.read.workers")) > 1:
-                # forked read replicas need host query mode: a forked child
-                # cannot re-initialise CUDA
-                raise ErrMalformedInput(
-                    _HOST_QUERY_MSG.format(what="serve.read.workers > 1")
-                )
+            query_mode = str(cfg.get("engine.query_mode"))
+            if query_mode == "auto" and int(cfg.get("serve.read.workers")) > 1:
+                # the replica pool forks children that must never touch
+                # CUDA: the host copy of D is the only residency they can
+                # serve from
+                query_mode = "host"
             from ..engine.closure import ClosureCheckEngine
 
             return ClosureCheckEngine(
                 self.snapshots(),
                 max_depth=max_depth,
                 interior_limit=int(cfg.get("engine.interior_limit")),
+                query_mode=query_mode,
+                builder=str(cfg.get("engine.closure_builder")),
+                block_workers=int(cfg.get("engine.closure_block_workers")),
                 freshness=str(cfg.get("engine.freshness")),
                 strong_freshness_edges=int(cfg.get("engine.strong_freshness_edges")),
                 rebuild_debounce_s=float(cfg.get("engine.rebuild_debounce_ms")) / 1e3,
@@ -440,11 +452,21 @@ class Registry:
                         ),
                         default_criticality=self.default_criticality(),
                     )
+                read_port, grpc_port = self._shared_read_ports
                 self._read_plane = PlaneServer(
                     router, self.config.read_api_host(),
-                    self.config.read_api_port(), grpc_server,
+                    read_port or self.config.read_api_port(), grpc_server,
+                    grpc_port=grpc_port, reuse_port=read_port != 0,
                 )
             return self._read_plane
+
+    def build_read_plane_shared(self, read_port: int, grpc_port: int) -> PlaneServer:
+        """The read plane bound to the fixed ports every pool process shares
+        with SO_REUSEPORT (driver/replicas.py)."""
+        with self._lock:
+            self._shared_read_ports = (read_port, grpc_port)
+            self._read_plane = None  # rebuilt against the fixed ports
+            return self.read_plane()
 
     def write_plane(self) -> PlaneServer:
         with self._lock:
@@ -480,8 +502,9 @@ class Registry:
 
     def start_all(self) -> tuple[int, int]:
         """Warm the check engine up (the closure build, the query path at
-        max_batch), then start both planes; returns (read_port,
-        write_port). Readiness flips only after bring-up."""
+        max_batch), fork the read replicas when serve.read.workers > 1, then
+        start both planes; returns (read_port, write_port). Readiness flips
+        only after bring-up."""
         engine = self.check_engine()
         if hasattr(engine, "warmup"):
             engine.warmup(int(self.config.get("engine.max_batch")))
@@ -490,19 +513,84 @@ class Registry:
         # millions of immortal objects would land inside random requests
         # as tail latency
         gc.freeze()
+        # before checker(), the planes and the gRPC server start threads
+        self._start_replicas(engine)
         read_port = self.read_plane().start()
         write_port = self.write_plane().start()
+        if not self.grpc_enabled:
+            _log.warning(self.grpc_off_reason)
+        self.mark_serving()
+        return read_port, write_port
+
+    def mark_serving(self) -> None:
+        """Readiness on: /health and the gRPC health service say SERVING."""
         if self.grpc_enabled:
             self._health_servicer().set_serving(True)
-        else:
-            _log.warning(self.grpc_off_reason)
         self._serving = True
-        return read_port, write_port
+
+    def _start_replicas(self, engine) -> None:
+        """Fork serve.read.workers - 1 read replicas of this process, which
+        then binds the shared read port as replica 0. Only the closure
+        engine in host query mode qualifies (a forked child must not touch
+        CUDA); anything else serves from one process with one log line, as
+        does a fork the thread inventory refuses."""
+        n_workers = int(self.config.get("serve.read.workers"))
+        if n_workers <= 1:
+            return
+        if not (hasattr(engine, "host_queries") and engine.host_queries()):
+            _log.warning(
+                "read workers require the closure engine in host query mode; "
+                "serving single-process (engine %s)", type(engine).__name__,
+            )
+            return
+        from ..graph import vocabsync
+        from .replicas import ReplicaPool, resolve_free_ports
+
+        host = self.config.read_api_host() or "0.0.0.0"
+        read_port, grpc_port = resolve_free_ports(
+            [(host, self.config.read_api_port()), ("127.0.0.1", 0)]
+        )
+        # mint the vocab wire lineage before forking, so every pool process
+        # answers the encoded and vocab routes with the same identity
+        vocabsync.lineage_of(self.snapshots().snapshot().vocab)
+        pool = ReplicaPool(self, n_workers)
+        # wait out transient threads (a rebuild, the overlay's warm), but
+        # give up early on an offender that stays the same
+        t0 = time.monotonic()
+        offender, since = None, t0
+        while time.monotonic() - t0 < _FORK_QUIESCE_S:
+            now = time.monotonic()
+            if engine._rebuilding:
+                offender, since = None, now
+            else:
+                try:
+                    pool._enforce_fork_inventory()
+                    break
+                except RuntimeError as e:
+                    if str(e) != offender:
+                        offender, since = str(e), now
+                    elif now - since >= _FORK_STABLE_S:
+                        break
+            time.sleep(0.05)
+        try:
+            pool.fork_replicas(read_port, grpc_port)
+        except RuntimeError as e:
+            _log.warning("cannot fork read replicas; serving single-process: %s", e)
+        else:
+            self._replica_pool = pool
+            _log.info(
+                "read replicas forked: %d processes on read port %d",
+                n_workers, read_port,
+            )
+        self._shared_read_ports = (read_port, grpc_port)
 
     def stop_all(self) -> None:
         self._serving = False  # readiness first, so balancers stop routing
         if self._health is not None:
             self._health.set_serving(False)
+        if self._replica_pool is not None:
+            self._replica_pool.stop()
+            self._replica_pool = None
         if self._read_plane is not None:
             self._read_plane.stop()
         if self._write_plane is not None:

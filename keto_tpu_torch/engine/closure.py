@@ -1,6 +1,5 @@
-"""Closure check engine: a snapshot-time closure on the GPU, gather-only
-queries (counterpart of ``keto_tpu/engine/closure.py``, trimmed to its
-device query path).
+"""Closure check engine: a snapshot-time closure, gather-only queries
+(counterpart of ``keto_tpu/engine/closure.py``).
 
 The engine pays the graph traversal ONCE per snapshot — a bounded
 all-pairs-distance closure ``D`` over the small interior subgraph
@@ -14,6 +13,18 @@ lifetime with gathers:
 
 Correctness contract is identical to the host oracle (CheckEngine): allowed
 iff a tuple path of length <= depth exists.
+
+Query placement (``query_mode``): ``device`` keeps D on the engine's device
+and answers each batch with one gather there; ``host`` keeps D as a
+writable numpy array and answers from it with no device work at all, which
+is what a forked read replica needs (``driver/replicas.py``: a forked
+child cannot touch CUDA). ``auto`` probes the card's round trip on a CUDA
+device (``_probe_roundtrip_slow``) and picks; on a CPU torch device it
+resolves to ``device``, so the plain versions of the device path run
+there. Placement changes where D lives, never an answer. In host mode the
+default ``semiring`` builder builds D on the host (``engine/semiring.py``)
+and the ``matmul`` builder builds it on the device
+(``ops.closure.build_closure_packed``) and downloads it once.
 
 Writes are absorbed by the write overlay (``engine/overlay.py``), which
 subscribes to the store's delta feed and keeps answers exact at the live
@@ -30,7 +41,11 @@ cannot absorb a write (a budget, a bulk load), ``freshness`` decides:
 
 An append-only delta whose new interior edges (at most 8) connect existing
 interior nodes rebuilds incrementally, in O(M^2) per edge
-(``ops.closure.closure_insert_edge``). The background rebuild runs on the
+(``ops.closure.closure_insert_edge``, or its host twin with the D^T carry).
+In host mode a larger delta over the same interior node set, deletes
+included, takes the dirty-row rebuild (``_semiring_incremental``), which
+re-runs the BFS of only the rows the delta can reach. The background
+rebuild runs on the
 same CUDA stream as the queries, so a query never reads a ``D`` whose
 build has not finished on the card; queries issued meanwhile queue behind
 the build's launches.
@@ -45,9 +60,8 @@ A ``CheckColumns`` batch (``batch_check_columns``) takes the same path with
 no tuple objects, and ``check_ids`` takes pre-encoded vocab ids (the
 id-native wire tier).
 
-Left to later slices: host query mode and the semiring dirty-row rebuild
-(host ``D``, which would carry ``D^T`` forward), scrubbing, metrics and
-tracing.
+Left to later slices: the native host tier (ROADMAP 11), scrubbing,
+metrics and tracing.
 
 Rows whose F0/L fan-out overflows the padded width, and snapshots whose
 interior exceeds ``interior_limit`` (D is O(M^2) bytes), are answered by an
@@ -56,6 +70,8 @@ exact fallback engine — by default the host BFS oracle over the same store.
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 import weakref
@@ -65,12 +81,19 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..graph.interior import InteriorGraph, build_interior, gather_padded_rows
+from ..graph.interior import (
+    InteriorGraph,
+    build_interior,
+    gather_padded_rows,
+    interior_blocks,
+)
 from ..graph.reverse import ReverseIndex, build_reverse
 from ..graph.snapshot import GraphSnapshot, SnapshotManager
 from ..ops.closure import (
     INF_DIST,
+    build_closure_packed,
     closure_insert_edge,
+    closure_insert_edge_host,
     closure_query,
     pack_adjacency,
 )
@@ -80,6 +103,12 @@ from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, CheckEngine
 from .masked_spmv import build_closure_semiring
 from .overlay import WriteOverlay
+from .semiring import (
+    build_closure_bitset,
+    transpose_closure,
+    update_closure_bitset_ex,
+    update_transpose,
+)
 
 # the closure stores distances in uint8 with INF_DIST=255 reserved, so the
 # deepest resolvable path is 254 interior steps
@@ -97,6 +126,16 @@ _NARROW_WIDTH = 8
 # gaining their first in-edge) between rebuilds
 _GROW_RESERVE = 512
 
+# a host-to-device-to-host round trip slower than this puts queries on the
+# host
+_PROBE_SLOW_S = 0.005
+
+# how long a check waits for a write's delta to reach the overlay once the
+# store has made the write's version visible (normally microseconds)
+_DELIVERY_WAIT_S = 5.0
+
+_log = logging.getLogger("keto_tpu_torch.engine")
+
 
 def _m_pad_for(m: int) -> int:
     """Padded closure width for a live interior of m nodes: at least one
@@ -105,17 +144,46 @@ def _m_pad_for(m: int) -> int:
     return ((n + 255) // 256) * 256
 
 
+def _probe_roundtrip_slow(device: torch.device) -> bool:
+    """Tiny host-to-device-to-host round trips on `device`; True when the
+    link is latency-bound and per-batch device queries would drown in it.
+    The median of several probes, so one scheduling hiccup at first use
+    does not pin a local card to host mode for the process's lifetime. The
+    decision is logged."""
+    (torch.zeros(8).to(device) + 1).cpu()  # warm any lazy initialisation
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        (torch.ones(8).to(device) + 1).cpu()
+        samples.append(time.perf_counter() - t0)
+    rt = float(np.median(samples))
+    slow = rt > _PROBE_SLOW_S
+    _log.info(
+        "query placement probe: median roundtrip %.2fms over %d samples "
+        "(threshold %.0fms) -> query_mode=%s",
+        1000 * rt,
+        len(samples),
+        1000 * _PROBE_SLOW_S,
+        "host" if slow else "device",
+    )
+    return slow
+
+
 class _ClosureArtifacts:
     """Per-snapshot residency: the snapshot, its interior decomposition, the
-    closure matrix D on the device and, once a list query asks, the reverse
-    residency (D^T beside D, the reverse boundary CSRs)."""
+    closure matrix D (``d`` on the device, or ``d_host``, a writable numpy
+    array, in host query mode) and, once a list query asks or an
+    incremental build carries it, the reverse residency (D^T beside D, the
+    reverse boundary CSRs)."""
 
     def __init__(
         self,
         snap: GraphSnapshot,
         ig: InteriorGraph,
         k_max: int,
-        d: torch.Tensor,
+        d: Optional[torch.Tensor] = None,
+        d_host: Optional[np.ndarray] = None,
+        d_rev: Optional[np.ndarray] = None,
     ):
         self.snap = snap
         self.ig = ig
@@ -123,10 +191,13 @@ class _ClosureArtifacts:
         self.m_pad = _m_pad_for(ig.m)
         self.pad = self.m_pad - 1
         self.d = d
-        # reverse residency, built by ClosureCheckEngine._ensure_reverse.
-        # rev_lock pairs d with d_rev: an overlay patch swaps d and drops
-        # d_rev under it, so a D^T is always the transpose of the current d
-        self.d_rev: Optional[torch.Tensor] = None
+        self.d_host = d_host
+        # reverse residency, built by ClosureCheckEngine._ensure_reverse (or
+        # carried by a host incremental build). rev_lock pairs D with d_rev:
+        # a device patch swaps d and drops d_rev under it, a host patch
+        # writes d_host and mirrors onto d_rev under it, so a D^T is always
+        # the transpose of the current D
+        self.d_rev = d_rev
         self.rev: Optional[ReverseIndex] = None
         self.rev_lock = threading.Lock()
 
@@ -148,8 +219,8 @@ class ReverseView:
     snap: GraphSnapshot
     ig: InteriorGraph
     rev: ReverseIndex
-    d: torch.Tensor
-    d_rev: torch.Tensor
+    d: Union[torch.Tensor, np.ndarray]  # numpy in host query mode
+    d_rev: Union[torch.Tensor, np.ndarray]
 
     @property
     def version(self) -> int:
@@ -190,16 +261,38 @@ class ClosureCheckEngine:
         interior_limit: int = 16384,
         f0_max: int = 32,
         l_max: int = 32,
+        query_mode: str = "auto",  # auto | host | device
         freshness: str = "auto",  # auto | strong | bounded
+        builder: str = "auto",  # auto | matmul | semiring
+        block_workers: int = 0,  # host semiring build threads (0 = auto)
         strong_freshness_edges: int = 1 << 21,
         rebuild_debounce_s: float = 0.05,
         rebuild_gate=None,  # zero-arg callable run before each background
         # rebuild (blocks until the device has room for one)
         device=None,
     ):
+        if query_mode not in ("auto", "host", "device"):
+            raise ValueError(f"unknown query_mode {query_mode!r}")
         if freshness not in ("auto", "strong", "bounded"):
             raise ValueError(f"unknown freshness {freshness!r}")
+        if builder not in ("auto", "matmul", "semiring"):
+            raise ValueError(f"unknown builder {builder!r}")
         self.device = resolve_device(device)
+        self.query_mode = query_mode
+        self._host_queries: Optional[bool] = (
+            None if query_mode == "auto" else query_mode == "host"
+        )
+        # the closure build: "semiring" = the masked-SpMV BFS (kernel B1 on
+        # the device, engine/semiring.py on the host), "matmul" = the dense
+        # product ladder on the device (downloaded once in host mode);
+        # "auto" = semiring
+        self.builder = "semiring" if builder == "auto" else builder
+        self.block_workers = block_workers
+        # forked read replicas clear this: a replica past its overlay serves
+        # from the live-store oracle instead of building (a forked child
+        # must not touch CUDA, and it owns no build worth sharing)
+        self.allow_device_builds = True
+        self._fallback_logged = False
         self.snapshots = snapshots
         self.global_max_depth = max_depth
         self.interior_limit = interior_limit
@@ -240,8 +333,9 @@ class ClosureCheckEngine:
         self.n_full_builds = 0
         self.n_incremental_builds = 0
         # seconds of the most recent build: snapshot_encode / interior /
-        # kernel or incremental / total
+        # blocks / kernel, matmul or incremental / total
         self.last_build_phases: dict[str, float] = {}
+        self.last_dirty_rows = 0  # rows the last dirty-row rebuild re-ran
 
     @classmethod
     def from_closure(
@@ -263,15 +357,27 @@ class ClosureCheckEngine:
             )
         if ig.m > eng.interior_limit or eng.global_max_depth > _MAX_CLOSURE_DEPTH:
             raise ValueError("this snapshot is served by the fallback engine")
-        art = _ClosureArtifacts(
-            snap,
-            ig,
-            eng.global_max_depth - 1,
-            torch.from_numpy(np.array(d, copy=True)).to(eng.device),
-        )
+        k_max = eng.global_max_depth - 1
+        if eng.host_queries():
+            art = _ClosureArtifacts(snap, ig, k_max, d_host=np.array(d, copy=True))
+        else:
+            art = _ClosureArtifacts(
+                snap, ig, k_max, torch.from_numpy(np.array(d, copy=True)).to(eng.device)
+            )
         eng._overlay = WriteOverlay(art)
         eng._state = art
         return eng
+
+    def host_queries(self) -> bool:
+        """Whether queries read a host D. ``auto`` resolves once: on a CUDA
+        device by the round-trip probe, on a CPU torch device to the device
+        path (a placement choice; the answers are the same either way)."""
+        if self._host_queries is None:
+            if self.device.type == "cuda":
+                self._host_queries = _probe_roundtrip_slow(self.device)
+            else:
+                self._host_queries = False
+        return self._host_queries
 
     def fallback_engine(self) -> CheckEngine:
         """The exact engine for rows and snapshots D cannot answer: the
@@ -289,6 +395,8 @@ class ClosureCheckEngine:
         state = self._serving()
         if not isinstance(state, _ClosureArtifacts):
             return None
+        if state.d_host is not None:
+            return state.d_host.copy()
         return state.d.cpu().numpy()
 
     # -- reverse residency (list serving) --------------------------------------
@@ -316,19 +424,24 @@ class ClosureCheckEngine:
     def _ensure_reverse(self, art: _ClosureArtifacts) -> ReverseView:
         """Build (or finish) `art`'s reverse residency, on the first list
         query against the snapshot, so closure builds pay nothing where no
-        one lists: D^T on the card as one materialized transpose of the
-        current D, and the reverse CSRs on the host."""
+        one lists: D^T next to D (one materialized transpose of the current
+        D, on the card or in host memory; an incremental host build may have
+        carried it already), and the reverse CSRs on the host."""
         with art.rev_lock:
             if art.rev is None or art.d_rev is None:
                 t0 = time.perf_counter()
                 if art.rev is None:
                     art.rev = build_reverse(art.snap, art.ig)
                 if art.d_rev is None:
-                    art.d_rev = art.d.t().contiguous()
-                    if art.d_rev.is_cuda:
-                        torch.cuda.synchronize(art.d_rev.device)
+                    if art.d_host is not None:
+                        art.d_rev = transpose_closure(art.d_host)
+                    else:
+                        art.d_rev = art.d.t().contiguous()
+                        if art.d_rev.is_cuda:
+                            torch.cuda.synchronize(art.d_rev.device)
                 self.last_reverse_build_s = time.perf_counter() - t0
-            return ReverseView(art.snap, art.ig, art.rev, art.d, art.d_rev)
+            d = art.d_host if art.d_host is not None else art.d
+            return ReverseView(art.snap, art.ig, art.rev, d, art.d_rev)
 
     # -- write overlay ---------------------------------------------------------
 
@@ -428,11 +541,23 @@ class ClosureCheckEngine:
                     # a fresh closure in the background while it serves
                     self._kick_rebuild()
                 return state, pinned
+            if ov is not None and not ov.broken and self._wait_delivered(store_version):
+                continue  # the write's delta has reached the overlay: drain it
             if self._bounded(state):
                 self._kick_rebuild()
                 return state, pinned
             self._build_sync()
             # loop: re-read state AND overlay together for the fresh pin
+
+    def _wait_delivered(self, version: int) -> bool:
+        """The store bumps its version under its lock and hands the write's
+        delta to its listeners (the overlay among them) after releasing it,
+        so a check can see a version the overlay has not been given yet.
+        Wait for that delivery instead of rebuilding (a forked replica,
+        which may not build, would otherwise answer from the live store
+        for good); False when no delivery is in flight."""
+        wait = getattr(self.snapshots.store, "wait_delivered", None)
+        return wait is not None and wait(version, _DELIVERY_WAIT_S)
 
     def _build_sync(self) -> _State:
         with self._build_lock:
@@ -493,6 +618,18 @@ class ClosureCheckEngine:
         t_build = time.perf_counter()
         phases: dict[str, float] = {}
         self.last_build_phases = phases
+        if not self.allow_device_builds:
+            # a forked replica past its overlay: no build, exact answers from
+            # the live store. Checked before build_interior: the O(E) scan
+            # would be discarded, and rebuild kicks recur per write
+            if not self._fallback_logged:
+                self._fallback_logged = True
+                _log.warning(
+                    "read replica pid %d is past its write overlay and may not "
+                    "build: answering from the live store", os.getpid(),
+                )
+            phases["total"] = time.perf_counter() - t_build
+            return _TooBig(version=snap.version, num_edges=snap.num_edges)
         t0 = time.perf_counter()
         ig = build_interior(snap)
         phases["interior"] = time.perf_counter() - t0
@@ -502,27 +639,114 @@ class ClosureCheckEngine:
             phases["total"] = time.perf_counter() - t_build
             return _TooBig(version=snap.version, num_edges=snap.num_edges)
         k_max = self.global_max_depth - 1
-        t0 = time.perf_counter()
+        host = self.host_queries()
         if isinstance(prev, _ClosureArtifacts):
             new_ii = self._appended_interior_edges(prev, snap, ig)
             if new_ii is not None and len(new_ii) <= _MAX_INCR_EDGES:
                 self.n_incremental_builds += 1
-                d = prev.d
-                for u, v in new_ii:
-                    d = closure_insert_edge(d, int(u), int(v), k_max)
-                art = _ClosureArtifacts(snap, ig, k_max, d)
+                t0 = time.perf_counter()
+                art = self._incremental_artifacts(prev, snap, ig, k_max, new_ii)
                 phases["incremental"] = time.perf_counter() - t0
+                phases["total"] = time.perf_counter() - t_build
+                return art
+            if (
+                self.builder != "matmul"
+                and host
+                and prev.d_host is not None
+                and self._same_interior(prev, snap, ig)
+            ):
+                # a larger delta (or deletes) over an unchanged interior node
+                # set: the dirty-row rebuild, bounded by the delta's reach
+                art = self._semiring_incremental(prev, snap, ig, k_max, phases)
                 phases["total"] = time.perf_counter() - t_build
                 return art
         self.n_full_builds += 1
         m_pad = _m_pad_for(ig.m)
-        packed = pack_adjacency(ig.ii_src, ig.ii_dst, m_pad)
-        d = build_closure_semiring(
-            packed, ig.m, m_pad=m_pad, k_max=k_max, device=self.device
-        )
-        phases["kernel"] = time.perf_counter() - t0
+        if self.builder == "semiring" and host:
+            t0 = time.perf_counter()
+            blocks = interior_blocks(ig)
+            phases["blocks"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            d_host = build_closure_bitset(
+                ig.ii_src, ig.ii_dst, ig.m, m_pad, k_max,
+                workers=self._build_workers(), blocks=blocks,
+            )
+            phases["kernel"] = time.perf_counter() - t0
+            art = _ClosureArtifacts(snap, ig, k_max, d_host=d_host)
+        else:
+            t0 = time.perf_counter()
+            packed = pack_adjacency(ig.ii_src, ig.ii_dst, m_pad)
+            build = (
+                build_closure_semiring if self.builder == "semiring"
+                else build_closure_packed
+            )
+            d = build(packed, ig.m, m_pad=m_pad, k_max=k_max, device=self.device)
+            if host:
+                # the matmul builder in host mode: one download, then the
+                # device copy is dropped (the host copy is writable: the
+                # overlay patches it in place)
+                art = _ClosureArtifacts(snap, ig, k_max, d_host=d.cpu().numpy())
+            else:
+                art = _ClosureArtifacts(snap, ig, k_max, d)
+            phases["kernel" if self.builder == "semiring" else "matmul"] = (
+                time.perf_counter() - t0
+            )
         phases["total"] = time.perf_counter() - t_build
-        return _ClosureArtifacts(snap, ig, k_max, d)
+        return art
+
+    def _build_workers(self) -> int:
+        if self.block_workers > 0:
+            return self.block_workers
+        return min(8, max(1, (os.cpu_count() or 1) // 2))
+
+    @staticmethod
+    def _same_interior(
+        prev: _ClosureArtifacts, snap: GraphSnapshot, ig: InteriorGraph
+    ) -> bool:
+        """D depends only on the interior adjacency over a stable interior
+        index space: the same vocab object (interning is append-only), the
+        same padded width, the same interior node set. Any edge delta over
+        it is then updatable row by row."""
+        old = prev.snap
+        return (
+            snap.vocab is old.vocab
+            and snap.padded_nodes == old.padded_nodes
+            and np.array_equal(ig.interior_ids, prev.ig.interior_ids)
+        )
+
+    def _semiring_incremental(
+        self,
+        prev: _ClosureArtifacts,
+        snap: GraphSnapshot,
+        ig: InteriorGraph,
+        k_max: int,
+        phases: dict,
+    ) -> _ClosureArtifacts:
+        """The dirty-row closure update for any interior edge delta
+        (engine/semiring.py): a reverse BFS finds the rows the delta can
+        reach, and only those are re-run on the new adjacency."""
+        t0 = time.perf_counter()
+        blocks = interior_blocks(prev.ig)
+        phases["blocks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d_host, rows = update_closure_bitset_ex(
+            prev.d_host, prev.ig.ii_src, prev.ig.ii_dst, ig.ii_src, ig.ii_dst,
+            ig.m, prev.m_pad, k_max,
+            workers=self._build_workers(), blocks=blocks,
+        )
+        phases["kernel"] = phases["incremental"] = time.perf_counter() - t0
+        self.last_dirty_rows = int(rows.size)
+        self.n_incremental_builds += 1
+        # carry D^T: the dirty rows of D are the dirty columns of D^T. Sound
+        # because prev.d_rev is always prev.d_host's transpose: the overlay
+        # mirrors every in-place patch of D onto it
+        d_rev = None
+        with prev.rev_lock:
+            if prev.d_rev is not None:
+                t0 = time.perf_counter()
+                d_rev = update_transpose(prev.d_rev, d_host, rows)
+                phases["reverse_incremental"] = time.perf_counter() - t0
+        return _ClosureArtifacts(snap, ig, k_max, d_host=d_host, d_rev=d_rev)
 
     @staticmethod
     def _appended_interior_edges(
@@ -549,6 +773,35 @@ class ClosureCheckEngine:
         both = (si >= 0) & (di >= 0)
         return np.stack([si[both], di[both]], axis=1)
 
+    def _incremental_artifacts(
+        self,
+        prev: _ClosureArtifacts,
+        snap: GraphSnapshot,
+        ig: InteriorGraph,
+        k_max: int,
+        new_ii: np.ndarray,
+    ) -> _ClosureArtifacts:
+        """Reuse the resident closure: one exact O(M^2) relax per appended
+        interior edge instead of a build. build_interior has already
+        rebuilt the CSRs; only D (and, on the host, D^T) carries over."""
+        if prev.d_host is None:
+            d = prev.d
+            for u, v in new_ii:
+                d = closure_insert_edge(d, int(u), int(v), k_max)
+            return _ClosureArtifacts(snap, ig, k_max, d)
+        # inserting (u, v) into D is the same relax as inserting (v, u)
+        # into D^T, so the transpose is carried with no re-transpose
+        with prev.rev_lock:
+            d_host, d_rev = prev.d_host, prev.d_rev
+            if len(new_ii):
+                d_host = d_host.copy()
+                d_rev = d_rev.copy() if d_rev is not None else None
+        for u, v in new_ii:
+            closure_insert_edge_host(d_host, int(u), int(v), k_max)
+            if d_rev is not None:
+                closure_insert_edge_host(d_rev, int(v), int(u), k_max)
+        return _ClosureArtifacts(snap, ig, k_max, d_host=d_host, d_rev=d_rev)
+
     def warmup(self, batch: int = 1) -> None:
         """Build the closure for the current snapshot and run the query path
         once at one row and once at `batch` rows (serve paths call this at
@@ -559,8 +812,37 @@ class ClosureCheckEngine:
             subject=SubjectSet(namespace="", object="", relation=""),
         )
         self.batch_check([dummy])
-        if batch > 1 and isinstance(self._state, _ClosureArtifacts):
+        if (
+            batch > 1
+            and isinstance(self._state, _ClosureArtifacts)
+            and not self.host_queries()
+        ):
             self.batch_check([dummy] * batch)
+
+    def device_view(self) -> "ClosureCheckEngine":
+        """A second engine over the same snapshots that serves the same
+        resident closure with ``query_mode="device"``: one upload of D
+        instead of a second build. It measures the device query path beside
+        the host one; the serving registry keeps the engine it built."""
+        if self._state is None:
+            self._serving_pinned()  # the first build
+        state = self._state
+        if not isinstance(state, _ClosureArtifacts):
+            raise RuntimeError("no resident closure to view (fallback state)")
+        eng = ClosureCheckEngine(
+            self.snapshots,
+            max_depth=self.global_max_depth,
+            interior_limit=self.interior_limit,
+            f0_max=self.f0_max,
+            l_max=self.l_max,
+            query_mode="device",
+            freshness=self.freshness,
+            device=self.device,
+        )
+        # a copy even on the CPU: the overlay patches d_host in place
+        d = state.d if state.d is not None else torch.tensor(state.d_host, device=self.device)
+        eng._state = _ClosureArtifacts(state.snap, state.ig, state.k_max, d)
+        return eng
 
     # -- public API -----------------------------------------------------------
 
@@ -846,6 +1128,15 @@ class ClosureCheckEngine:
             l[set_rows] = art.pad
             l[set_rows, 0] = np.where(t_int >= 0, t_int, art.pad)
         l_over &= is_id  # set-target rows never overflow
+        if art.d_host is not None:
+            # the host twin of ops.closure.closure_query: the same math with
+            # no device work (a forked replica never touches the card)
+            sub = art.d_host[f0[:, :, None], l[:, None, :]]
+            best = sub.min(axis=(1, 2)).astype(np.int32)
+            best[best >= INF_DIST] = 1 << 30  # INF never satisfies a budget
+            total = 1 + best + is_id.astype(np.int32)
+            allowed = (direct & (depth >= 1)) | (total <= depth)
+            return allowed, f0_over | l_over
         dev = self.device
         allowed = closure_query(
             art.d,

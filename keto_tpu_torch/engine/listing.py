@@ -29,7 +29,9 @@ so fixing the target and asking "which starts?" is one masked row gather:
   direct id successors.
 
 ``_rows_min`` is the device work: ``index_select`` + ``amin`` on the card,
-one [m_pad] row back to the host. The rest is host numpy.
+one [m_pad] row back to the host. In host query mode D and D^T are numpy
+arrays and it is a numpy gather-min, with no torch op at all (a forked
+read replica lists from them). The rest is host numpy.
 
 The serving shape is the check path's: encode (resolve the residency) ->
 gather -> decode (ids -> sorted strings, page slice), with the caller's
@@ -109,10 +111,13 @@ def _csr_rows_concat(
     return out
 
 
-def _rows_min(mat: torch.Tensor, rows: np.ndarray) -> np.ndarray:
+def _rows_min(mat, rows: np.ndarray) -> np.ndarray:
     """Elementwise min over a set of rows of a closure matrix (uint8
-    [m_pad, m_pad]) -> numpy uint8[m_pad]. On the card: one index_select
-    and one amin, one row back to the host; a CPU tensor takes numpy."""
+    [m_pad, m_pad], a tensor or a host-mode numpy array) -> numpy
+    uint8[m_pad]. On the card: one index_select and one amin, one row back
+    to the host; a numpy array or a CPU tensor takes numpy."""
+    if isinstance(mat, np.ndarray):
+        return mat[rows].min(axis=0)
     if mat.device.type == "cpu":
         return mat.numpy()[rows].min(axis=0)
     idx = torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(mat.device)

@@ -1,5 +1,5 @@
 """Write overlay: exact serving-time deltas over a resident closure
-(counterpart of ``keto_tpu/engine/overlay.py``, device-resident D only).
+(counterpart of ``keto_tpu/engine/overlay.py``).
 
 Rebuilding the closure residency (interior decomposition + the all-pairs
 distance matrix D) costs a host decomposition and a device build, yet most
@@ -22,15 +22,18 @@ write is decomposed by where its edge sits (``graph/interior.py``):
   are rejected whole (two-phase apply), so a broken overlay still exactly
   describes its last covered version.
 
-D lives on the engine's device. A patch never writes into the tensor a
-query may be gathering from: the relaxation returns a new tensor, and row,
-column and diagonal stores ``clone()`` D before ``index_put_``; the new
-tensor is swapped into ``art.d`` (a reference swap, atomic under the
-interpreter lock). The swap drops the list path's ``D^T`` (``art.d_rev``)
-under ``art.rev_lock``, as the reference does for a device-resident D^T:
-it is rebuilt from the patched D when a list query next needs it. The host
-copy of D, its ``closure_insert_edge_host`` patch and the host ``d_rev``
-mirror belong to host query mode, which this package does not have yet.
+Both D residencies are supported. A device-resident D is never written
+while a query may be gathering from it: the relaxation returns a new
+tensor, and row, column and diagonal stores ``clone()`` D before
+``index_put_``; the new tensor is swapped into ``art.d`` (a reference swap,
+atomic under the interpreter lock). The swap drops the list path's ``D^T``
+(``art.d_rev``) under ``art.rev_lock``: it is rebuilt from the patched D
+when a list query next needs it. The host D of host query mode
+(``art.d_host``, numpy) is patched in place (``closure_insert_edge_host``
+and uint8 row, column and diagonal stores, each entry atomic), and every
+patch is mirrored onto a host ``d_rev`` under ``art.rev_lock``, so D^T stays
+D's transpose and an incremental rebuild can carry it forward. The host
+branch runs numpy only: a forked read replica serves from it.
 
 Concurrency: deltas arrive on writer threads into a pending deque; query
 threads drain it under the overlay lock before serving. Point dict reads
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 
 from ..graph.vocab import set_key, subject_node_key
-from ..ops.closure import INF_DIST, closure_insert_edge
+from ..ops.closure import INF_DIST, closure_insert_edge, closure_insert_edge_host
 from ..relationtuple.definitions import RelationTuple, SubjectSet
 
 _PAIR_SHIFT = 32  # ids < 2^31: (s << 32) | t packs a direct-edge pair
@@ -167,7 +170,9 @@ class WriteOverlay:
                 return base
         return self.new_interior.get(nid, -1)
 
-    # -- D access: each patch builds a new tensor and swaps art.d ---------------
+    # -- D access: the host copy is patched in place and mirrored onto the
+    # host D^T; a device D is replaced by a new tensor (swapped into art.d)
+    # and its D^T dropped ----------------------------------------------------
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(
@@ -181,7 +186,14 @@ class WriteOverlay:
             art.d_rev = None  # the transpose of the old D
 
     def _d_set_diag(self, idx: int) -> None:
-        d = self.art.d.clone()
+        art = self.art
+        if art.d_host is not None:
+            with art.rev_lock:
+                art.d_host[idx, idx] = 0
+                if art.d_rev is not None:
+                    art.d_rev[idx, idx] = 0
+            return
+        d = art.d.clone()
         d[idx, idx] = 0
         self._swap_d(d)
 
@@ -189,30 +201,72 @@ class WriteOverlay:
         # record for the delete re-close's current-adjacency view
         self._note_int_edge_added(u, v)
         art = self.art
+        if art.d_host is not None:
+            # inserting (u, v) into D is inserting (v, u) into D^T
+            with art.rev_lock:
+                closure_insert_edge_host(art.d_host, u, v, art.k_max)
+                if art.d_rev is not None:
+                    closure_insert_edge_host(art.d_rev, v, u, art.k_max)
+            return
         self._swap_d(closure_insert_edge(art.d, u, v, art.k_max))
 
     def _d_min(self, rows: np.ndarray, cols: np.ndarray) -> int:
+        art = self.art
+        if art.d_host is not None:
+            return int(
+                art.d_host[
+                    rows.astype(np.int64)[:, None], cols.astype(np.int64)[None, :]
+                ].min()
+            )
         # one tiny device gather per affected row; affected rows are few
         # by construction
-        d = self.art.d
+        d = art.d
         return int(d[self._index(rows)[:, None], self._index(cols)[None, :]].min())
 
     def _d_col(self, u: int) -> np.ndarray:
-        return self.art.d[:, u].cpu().numpy()
+        art = self.art
+        if art.d_host is not None:
+            return art.d_host[:, u]
+        return art.d[:, u].cpu().numpy()
 
     def _d_row_vec(self, v: int) -> np.ndarray:
-        return self.art.d[v, :].cpu().numpy()
+        art = self.art
+        if art.d_host is not None:
+            return art.d_host[v, :]
+        return art.d[v, :].cpu().numpy()
 
     def _d_full_rows(self, rows: np.ndarray) -> np.ndarray:
-        return self.art.d[self._index(rows)].cpu().numpy()
+        art = self.art
+        if art.d_host is not None:
+            return art.d_host[rows.astype(np.int64)]
+        return art.d[self._index(rows)].cpu().numpy()
 
     def _d_set_rows(self, rows: np.ndarray, vals: np.ndarray) -> None:
-        d = self.art.d.clone()
+        art = self.art
+        if art.d_host is not None:
+            # uint8 stores are per-entry atomic: a concurrent reader sees
+            # each entry before or after the delete, the same between-versions
+            # guarantee the monotone insert gives
+            r = rows.astype(np.int64)
+            with art.rev_lock:
+                art.d_host[r] = vals
+                if art.d_rev is not None:
+                    art.d_rev[:, r] = vals.T
+            return
+        d = art.d.clone()
         d[self._index(rows)] = torch.from_numpy(vals).to(d.device)
         self._swap_d(d)
 
     def _d_set_cols(self, cols: np.ndarray, vals: np.ndarray) -> None:
-        d = self.art.d.clone()
+        art = self.art
+        if art.d_host is not None:
+            c = cols.astype(np.int64)
+            with art.rev_lock:
+                art.d_host[:, c] = vals
+                if art.d_rev is not None:
+                    art.d_rev[c, :] = vals.T
+            return
+        d = art.d.clone()
         d[:, self._index(cols)] = torch.from_numpy(vals).to(d.device)
         self._swap_d(d)
 

@@ -168,6 +168,101 @@ def build_interior(snap: GraphSnapshot) -> InteriorGraph:
     )
 
 
+@dataclass
+class InteriorBlocks:
+    """SCC/level block structure of the interior adjacency (counterpart of
+    ``keto_tpu/graph/interior.py InteriorBlocks``).
+
+    Strongly-connected components condense the interior digraph into a DAG;
+    each component gets the topological *level*: the longest condensed path
+    from any source component. Two uses (``engine/semiring.py``):
+
+    - build scheduling: closure rows grouped by (level, component) walk the
+      adjacency in dependency order, so concurrent row-group workers hit
+      warm frontier pages;
+    - incremental invalidation: after an interior edge change only rows in
+      blocks that can reach a changed block (condensation ancestors) can see
+      different bounded distances.
+    """
+
+    m: int
+    n_blocks: int
+    comp: np.ndarray  # int32[m]: interior index -> component id
+    level: np.ndarray  # int32[n_blocks]: topological level per component
+    n_levels: int
+    # row order sorted by (level, comp): the block-coherent build schedule
+    build_order: np.ndarray  # int32[m]
+
+    def block_sizes(self) -> np.ndarray:
+        return np.bincount(self.comp, minlength=self.n_blocks)
+
+
+def interior_blocks(ig: InteriorGraph) -> InteriorBlocks:
+    """SCC condensation and topological levels of ig's interior adjacency,
+    cached on the InteriorGraph (one decomposition per snapshot)."""
+    cached = getattr(ig, "_blocks", None)
+    if cached is not None:
+        return cached
+    m = ig.m
+    if m == 0:
+        blocks = InteriorBlocks(
+            m=0,
+            n_blocks=0,
+            comp=np.zeros(0, dtype=np.int32),
+            level=np.zeros(0, dtype=np.int32),
+            n_levels=0,
+            build_order=np.zeros(0, dtype=np.int32),
+        )
+        ig._blocks = blocks
+        return blocks
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    adj = coo_matrix(
+        (np.ones(len(ig.ii_src), dtype=np.int8), (ig.ii_src, ig.ii_dst)),
+        shape=(m, m),
+    )
+    n_comp, comp = connected_components(adj, directed=True, connection="strong")
+    comp = comp.astype(np.int32)
+    # condensation edges (cross-component only), deduplicated
+    cs = comp[ig.ii_src]
+    cd = comp[ig.ii_dst]
+    cross = cs != cd
+    ckeys = np.unique(
+        cs[cross].astype(np.int64) * n_comp + cd[cross].astype(np.int64)
+    )
+    e_src = (ckeys // n_comp).astype(np.int32)
+    e_dst = (ckeys % n_comp).astype(np.int32)
+    # Kahn longest-path levels over the condensation DAG
+    level = np.zeros(n_comp, dtype=np.int32)
+    indeg = np.bincount(e_dst, minlength=n_comp)
+    order = np.argsort(e_src, kind="stable")
+    e_src_s, e_dst_s = e_src[order], e_dst[order]
+    indptr = np.zeros(n_comp + 1, dtype=np.int64)
+    np.cumsum(np.bincount(e_src_s, minlength=n_comp), out=indptr[1:])
+    ready = list(np.nonzero(indeg == 0)[0])
+    while ready:
+        c = ready.pop()
+        for d in e_dst_s[indptr[c] : indptr[c + 1]]:
+            if level[d] < level[c] + 1:
+                level[d] = level[c] + 1
+            indeg[d] -= 1
+            if indeg[d] == 0:
+                ready.append(int(d))
+    n_levels = int(level.max()) + 1 if n_comp else 0
+    build_order = np.lexsort((comp, level[comp])).astype(np.int32)
+    blocks = InteriorBlocks(
+        m=m,
+        n_blocks=int(n_comp),
+        comp=comp,
+        level=level,
+        n_levels=n_levels,
+        build_order=build_order,
+    )
+    ig._blocks = blocks
+    return blocks
+
+
 def gather_padded_rows(
     indptr: np.ndarray,
     vals: np.ndarray,

@@ -95,6 +95,30 @@ def closure_insert_edge(d: torch.Tensor, u: int, v: int, k_max: int):
     return torch.minimum(d, cand.to(torch.uint8))
 
 
+def closure_insert_edge_host(d: np.ndarray, u: int, v: int, k_max: int):
+    """Numpy twin of closure_insert_edge for host query mode, in place.
+
+    Restricted to the rows that reach u and the columns reachable from v:
+    everything else gets a candidate above k_max and cannot improve, so the
+    relax touches |reach(u)| x |reach(v)| entries, not M^2. Each store is a
+    per-entry monotone uint8 write, so a concurrent reader sees every entry
+    either before or after the edge."""
+    du = d[:, u].astype(np.int16)
+    dv = d[v, :].astype(np.int16)
+    # du + 1 + dv <= k_max needs both legs <= k_max - 1
+    rows = np.nonzero(du <= k_max - 1)[0]
+    if rows.size == 0:
+        return d
+    cols = np.nonzero(dv <= k_max - 1)[0]
+    if cols.size == 0:
+        return d
+    cand = du[rows][:, None] + np.int16(1) + dv[cols][None, :]
+    cand = np.where(cand > k_max, np.int16(INF_DIST), cand).astype(np.uint8)
+    ix = np.ix_(rows, cols)
+    d[ix] = np.minimum(d[ix], cand)
+    return d
+
+
 def closure_query(d, f0, l, extra, depth, direct) -> torch.Tensor:
     """allowed: bool[B].
 

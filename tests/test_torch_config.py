@@ -111,6 +111,9 @@ def test_keys_match_the_reference(values):
         {"engine": {"max_queue": -1}},
         {"serve": {"read": {"grpc-max-message-size": -1}}},
         {"serve": {"write": {"grpc-max-message-size": "big"}}},
+        {"engine": {"closure_builder": "dense"}},
+        {"engine": {"closure_block_workers": -1}},
+        {"engine": {"closure_block_workers": "all"}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):
@@ -153,8 +156,6 @@ def test_config_files(tmp_path, monkeypatch):
     [
         ({"engine": {"mode": "sharded"}}, "item 12"),
         ({"engine": {"sharding": {"enabled": True}}}, "item 12"),
-        ({"engine": {"query_mode": "host"}}, "item 6"),
-        ({"serve": {"read": {"workers": 2}}}, "item 6"),
         ({"dsn": "postgres://db"}, "supports 'memory' and 'columnar'"),
     ],
 )
@@ -163,6 +164,27 @@ def test_unported_paths_name_their_roadmap_item(values, item):
     with pytest.raises(TMalformed, match=item):
         reg.store()
         reg.check_engine()
+
+
+@pytest.mark.parametrize(
+    "values",
+    [
+        {"engine": {"query_mode": "host"}},
+        {"serve": {"read": {"workers": 2}}},
+    ],
+)
+def test_host_query_mode_configs_build_a_host_mode_closure_engine(values):
+    # ROADMAP item 6, ported: these two configurations were refused before
+    from keto_tpu_torch.engine import ClosureCheckEngine
+
+    cfg = TConfig(values={**values, "engine": {
+        **values.get("engine", {}), "closure_builder": "semiring",
+        "closure_block_workers": 3,
+    }})
+    engine = Registry(cfg, device="cpu").check_engine()
+    assert type(engine) is ClosureCheckEngine
+    assert engine.query_mode == "host" and engine.host_queries()
+    assert engine.builder == "semiring" and engine._build_workers() == 3
 
 
 def test_registry_engines_by_mode():
