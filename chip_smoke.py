@@ -1531,9 +1531,21 @@ def run_serve(args, dev, card) -> dict:
         numbers["single_p99_ms"] = pct(single_lat, 99)
         numbers["single_rate"] = k / wall
         numbers["mean_batch"] = batcher.mean_batch_size()
+        # the same 64 clients split over 4 processes: the client setup of the
+        # pool's drives, so the pool's rate is compared like for like
+        singles, wall = http_clients(
+            [f"{read}/check?{tuple_query(t)}" for t in sample], 64, procs=4
+        )
+        require([status == 200 for status, _ in singles] == want
+                and all(status in (200, 403) for status, _ in singles),
+                "GET /check answers (4 client processes) differ from oracle")
+        single_lat = [s for _, s in singles]
+        numbers["single4_p50_ms"] = pct(single_lat, 50)
+        numbers["single4_p99_ms"] = pct(single_lat, 99)
+        numbers["single4_rate"] = k / wall
         say(f"[serve {at()}] {k} checks as /check/batch x{len(lat)} and as {k} GET "
-            f"/check from 64 client threads of a second process: all equal the "
-            f"oracle")
+            f"/check from 64 client threads of a second process, then of 4 "
+            f"processes: all equal the oracle")
 
         # 2b. the same sample as a columnar body, then as encoded frames
         numbers.update(serve_columnar_encoded(
@@ -1732,7 +1744,9 @@ def run_serve(args, dev, card) -> dict:
     say(f"[numbers] serve ({card}): GET /check at 64 clients (another process) p50 "
         f"{numbers['single_p50_ms']:.3f} ms, p99 {numbers['single_p99_ms']:.3f} "
         f"ms, {numbers['single_rate']:.0f} checks/s; mean batch formed "
-        f"{numbers['mean_batch']:.2f}")
+        f"{numbers['mean_batch']:.2f}; the same 64 clients in 4 processes: p50 "
+        f"{numbers['single4_p50_ms']:.3f} ms, p99 {numbers['single4_p99_ms']:.3f} "
+        f"ms, {numbers['single4_rate']:.0f} checks/s")
     say(f"[numbers] serve ({card}): /check/batch of {k}: p50 "
         f"{numbers['batch_p50_ms']:.3f} ms, {numbers['batch_rate']:.0f} checks/s")
     say(f"[numbers] serve ({card}): write-to-visible and overlay apply "
@@ -1759,7 +1773,10 @@ def run_serve(args, dev, card) -> dict:
             "cache_launches": c["launches"], "sample": sample, "want": want,
             "single_p50_ms": numbers["single_p50_ms"],
             "single_p99_ms": numbers["single_p99_ms"],
-            "single_rate": numbers["single_rate"]}
+            "single_rate": numbers["single_rate"],
+            "single4_p50_ms": numbers["single4_p50_ms"],
+            "single4_p99_ms": numbers["single4_p99_ms"],
+            "single4_rate": numbers["single4_rate"]}
 
 
 # [serve:overload] settings. The plane sees only the batcher's queue delay
@@ -1881,10 +1898,6 @@ def serve_overload(args, serve: dict, card: str) -> dict:
 POOL_WORKERS = 4
 
 
-def _emit(doc: dict) -> None:
-    print("POOL " + json.dumps(doc), flush=True)
-
-
 def _memory_mb(pid: int) -> dict:
     """RSS and PSS (shared pages split among their sharers) of a process in
     MB, from /proc/<pid>/smaps_rollup, else RSS alone from /proc/<pid>/status;
@@ -1906,25 +1919,6 @@ def _memory_mb(pid: int) -> dict:
     return {}
 
 
-def _live(pids) -> list[int]:
-    """The pids that name a live process: os.kill(pid, 0) finds it, and
-    /proc, where it can be read, does not call it a zombie."""
-    out = []
-    for pid in pids:
-        try:
-            os.kill(pid, 0)
-        except ProcessLookupError:
-            continue
-        try:
-            with open(f"/proc/{pid}/stat") as f:
-                if f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X"):
-                    continue
-        except OSError:
-            pass  # nothing to read: os.kill found the process
-        out.append(pid)
-    return out
-
-
 def pool_server_main(args) -> int:
     """The [serve:pool] server, run in a fresh interpreter (this script with
     --pool-server), so the fork starts from a process that holds only this
@@ -1941,6 +1935,7 @@ def pool_server_main(args) -> int:
     packed_ops = port("ops", "packed")
     ExpandEngine = port("engine.expand", "ExpandEngine")
     RelationTuple, SubjectSet = port("relationtuple", "RelationTuple", "SubjectSet")
+    harness = port("", "poolharness")
 
     values = serve_config("auto", cache_size=0)
     values["serve"]["read"]["workers"] = POOL_WORKERS
@@ -1959,7 +1954,7 @@ def pool_server_main(args) -> int:
     require(pool is not None, "start_all forked no read replicas")
     phases = {n: round(v, 4) for n, v in eng.last_build_phases.items()}
 
-    def info() -> dict:
+    def info(_arg: str = "") -> dict:
         pids = [os.getpid(), pool._zygote_pid] + pool.child_pids()
         return {
             "read": read_port, "write": write_port, "load_s": load_s,
@@ -1967,13 +1962,13 @@ def pool_server_main(args) -> int:
             "workers": eng._build_workers(), "host": eng.host_queries(),
             "alive": pool.alive(), "children": pool.child_pids(),
             "zygote": pool._zygote_pid, "respawns": pool.n_respawns,
-            "memory_mb": {str(p): _memory_mb(p) for p in _live(pids)},
+            "memory_mb": {str(p): _memory_mb(p) for p in harness.live_pids(pids)},
             "b1": masked_spmv.masked_step.launches,
             "b2": packed_ops.packed_propagate.launches,
             "cpus": os.cpu_count(),
         }
 
-    def plan() -> dict:
+    def plan(_arg: str) -> dict:
         """A leaf insert whose probe it flips (a group granted alone to a
         resource gains a user) and a role -> role delete whose probe it
         flips (a resource granted only to role a, probed against role b's
@@ -1996,100 +1991,45 @@ def pool_server_main(args) -> int:
             "edge_probe": to_tuple(only[role_edge[0]], role_edge[1]).to_dict(),
         }
 
-    users, resources = pools["users"], pools["resources"]
-    _emit(info())
-    for line in sys.stdin:
-        cmd, _, arg = line.strip().partition(" ")
-        if cmd == "pool":
-            _emit(info())
-        elif cmd == "plan":
-            _emit(plan())
-        elif cmd == "expect":  # [[tuple dict, max-depth], ...] at the live version
-            so = SetGraphOracle(store)
-            _emit({"expect": [so.check(RelationTuple.from_dict(t), d)
-                              for t, d in json.loads(arg)]})
-        elif cmd == "listref":  # list-objects by check_ids over every resource
-            snap = eng.snapshots.snapshot()
-            ids = snap.vocab.lookup_bulk(list(resources))
-            ids = np.where(ids < 0, snap.dummy_node, ids)
-            target = snap.vocab.lookup((arg,))
-            allowed = eng.check_ids(
-                ids, np.full(len(ids), snap.dummy_node if target is None else target),
-                np.ones(len(ids), dtype=bool),
-            )
-            _emit({"objects": sorted(resources[i][1] for i in np.nonzero(allowed)[0])})
-        elif cmd == "expandref":  # the host ExpandEngine over the live store
-            tree = ExpandEngine(IndexedTuples(store), max_depth=5).build_tree(
-                SubjectSet("rbac", arg, "view"), 5
-            )
-            _emit({"tree": tree and tree.to_dict()})
-        elif cmd == "stop":
-            pids = pool.child_pids() + [pool._zygote_pid]
-            reg.stop_all()
-            deadline = time.monotonic() + 30
-            while _live(pids) and time.monotonic() < deadline:
-                time.sleep(0.05)
-            _emit({"stopped": True, "left": _live(pids),
-                   "b1": masked_spmv.masked_step.launches,
-                   "b2": packed_ops.packed_propagate.launches})
-            return 0
-    return 1
+    def expect(arg: str) -> dict:  # [[tuple dict, max-depth], ...] at the live version
+        so = SetGraphOracle(store)
+        return {"expect": [so.check(RelationTuple.from_dict(t), d)
+                           for t, d in json.loads(arg)]}
 
-
-class PoolServer:
-    """The smoke's side of the [serve:pool] server process."""
-
-    def __init__(self, args):
-        import queue
-        import threading
-
-        self.proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--pool-server",
-             "--seed", str(args.seed), "--tuples", str(args.tuples)],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, start_new_session=True,
+    def listref(user: str) -> dict:  # list-objects by check_ids over every resource
+        snap = eng.snapshots.snapshot()
+        ids = snap.vocab.lookup_bulk(list(resources))
+        ids = np.where(ids < 0, snap.dummy_node, ids)
+        target = snap.vocab.lookup((user,))
+        allowed = eng.check_ids(
+            ids, np.full(len(ids), snap.dummy_node if target is None else target),
+            np.ones(len(ids), dtype=bool),
         )
-        self.docs = queue.Queue()
-        self.log: list[str] = []  # the server's stderr (its log lines)
-        threading.Thread(target=self._read_docs, daemon=True).start()
-        threading.Thread(target=self._read_log, daemon=True).start()
-        self.stopped = False
+        return {"objects": sorted(resources[i][1] for i in np.nonzero(allowed)[0])}
 
-    def _read_docs(self) -> None:
-        for line in self.proc.stdout:
-            if line.startswith("POOL "):
-                self.docs.put(json.loads(line[5:]))
+    def expandref(res: str) -> dict:  # the host ExpandEngine over the live store
+        tree = ExpandEngine(IndexedTuples(store), max_depth=5).build_tree(
+            SubjectSet("rbac", res, "view"), 5
+        )
+        return {"tree": tree and tree.to_dict()}
 
-    def _read_log(self) -> None:
-        for line in self.proc.stderr:
-            self.log.append(line)
+    def stop() -> dict:
+        pids = pool.child_pids() + [pool._zygote_pid]
+        reg.stop_all()
+        deadline = time.monotonic() + 30
+        while harness.live_pids(pids) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return {"stopped": True, "left": harness.live_pids(pids),
+                "b1": masked_spmv.masked_step.launches,
+                "b2": packed_ops.packed_propagate.launches}
 
-    def next_doc(self, timeout: float) -> dict:
-        import queue
-
-        try:
-            return self.docs.get(timeout=timeout)
-        except queue.Empty:
-            raise RuntimeError(
-                f"smoke check failed: the pool server said nothing in {timeout}s "
-                f"(rc {self.proc.poll()}): {''.join(self.log[-30:])}"
-            ) from None
-
-    def ask(self, cmd: str, timeout: float = 120.0) -> dict:
-        self.proc.stdin.write(cmd + "\n")
-        self.proc.stdin.flush()
-        return self.next_doc(timeout)
-
-    def close(self) -> None:
-        """Stop every process of the server's group (after a failure)."""
-        import signal
-
-        if self.proc.poll() is None:
-            try:
-                os.killpg(self.proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-        self.proc.wait(timeout=60)
+    resources = pools["resources"]
+    harness.emit(info())
+    return harness.serve_commands(
+        {"pool": info, "plan": plan, "expect": expect, "listref": listref,
+         "expandref": expandref},
+        stop,
+    )
 
 
 def converges(read: str, t, want: bool, depth: int = 0, tries: int = 24,
@@ -2140,7 +2080,15 @@ def serve_pool(args, serve: dict, card: str) -> dict:
         return f"+{time.perf_counter() - t_phase:.1f}s"
 
     sample, want = serve["sample"], serve["want"]
-    server = PoolServer(args)
+    harness = port("", "poolharness")
+    server = harness.PoolProcess(
+        [sys.executable, str(Path(__file__).resolve()), "--pool-server",
+         "--seed", str(args.seed), "--tuples", str(args.tuples)],
+    )
+
+    def server_log() -> list[str]:  # its log lines, not its POOL documents
+        return [line for line in server.lines if not line.startswith("POOL ")]
+
     out = {}
     try:
         info = server.next_doc(900)
@@ -2202,7 +2150,7 @@ def serve_pool(args, serve: dict, card: str) -> dict:
         results, _ = http_clients(urls[:1024], 64, procs=4)
         require([status == 200 for status, _ in results] == want[:1024],
                 "answers after the respawn differ from the oracle")
-        require(any("read replica died; respawning" in line for line in server.log),
+        require(any("read replica died; respawning" in line for line in server_log()),
                 "the supervisor logged no death")
         say(f"[{tag} {at()}] replica {victim} SIGKILLed: respawned from the zygote "
             f"in {out['respawn_s']:.3f}s (alive {doc['alive']}, children {kids}, "
@@ -2232,8 +2180,8 @@ def serve_pool(args, serve: dict, card: str) -> dict:
         require([status == 200 for status, _ in results] == expect,
                 "256 checks after the writes differ from the oracle")
         doc = server.ask("pool")
-        fell_back = [line.strip() for line in server.log if "past its write overlay" in line]
-        for line in server.log:  # the server's log: deaths, respawns, fallbacks
+        fell_back = [line.strip() for line in server_log() if "past its write overlay" in line]
+        for line in server_log():  # the server's log: deaths, respawns, fallbacks
             say(f"[{tag}] server log: {line.rstrip()}")
         out["memory_mb"] = doc["memory_mb"]
         say(f"[{tag} {at()}] leaf insert {leaf}: the first of 24 agreeing "
@@ -2244,21 +2192,19 @@ def serve_pool(args, serve: dict, card: str) -> dict:
             f"replicas answering from the live store: {fell_back or 'none'}")
 
         pids = doc["children"] + [doc["zygote"]]
-        doc = server.ask("stop", timeout=120)
-        server.proc.wait(timeout=60)
-        require(doc["stopped"] and doc["left"] == [] and _live(pids) == [],
-                f"processes left after stop_all: {doc['left']} {_live(pids)}")
+        doc = server.stop(120.0)
+        left = harness.live_pids(pids)
+        require(doc["stopped"] and doc["left"] == [] and left == [],
+                f"processes left after stop_all: {doc['left']} {left}")
         require(doc["b1"] == 0 and doc["b2"] == 0,
                 f"the pool server launched B1 {doc['b1']}, B2 {doc['b2']} times")
         require(server.proc.returncode == 0, f"pool server rc {server.proc.returncode}")
-        server.stopped = True
         say(f"[{tag} {at()}] stop_all: no child left; 0 B1 and 0 B2 launches in "
             f"the server; memory after the writes (MB, rss/pss by pid): "
             + ", ".join(f"{p} {m.get('rss', 'not measured')}/{m.get('pss', 'not measured')}"
                         for p, m in out["memory_mb"].items()))
     finally:
-        if not server.stopped:
-            server.close()
+        server.kill_group()  # a failure's backstop: the group is empty after stop
     return out
 
 
@@ -2857,9 +2803,13 @@ def main() -> int:
         f"{pn['64x1'][2]:.0f}; 64 clients in 4 processes {pn['64x4'][0]:.3f}/"
         f"{pn['64x4'][1]:.3f}, {pn['64x4'][2]:.0f}; 256 clients in 4 processes "
         f"{pn['256x4'][0]:.3f}/{pn['256x4'][1]:.3f}, {pn['256x4'][2]:.0f} (the "
-        f"single-process cache-off drive at 64 clients in 1 process: "
+        f"single-process cache-off server, 64 clients in 1 process: "
         f"{serve['single_p50_ms']:.3f}/{serve['single_p99_ms']:.3f}, "
-        f"{serve['single_rate']:.0f}); host build {pn['phases'].get('kernel', 0):.3f}s "
+        f"{serve['single_rate']:.0f}; in 4 processes: "
+        f"{serve['single4_p50_ms']:.3f}/{serve['single4_p99_ms']:.3f}, "
+        f"{serve['single4_rate']:.0f}; pool/single at 64x1 "
+        f"{pn['64x1'][2] / serve['single_rate']:.2f}, at 64x4 "
+        f"{pn['64x4'][2] / serve['single4_rate']:.2f}); host build {pn['phases'].get('kernel', 0):.3f}s "
         f"({pn['workers']} threads), start_all {pn['start_s']:.3f}s; respawn "
         f"{pn['respawn_s']:.3f}s; write-to-visible over the pool (the first / last "
         f"of 24 agreeing answers after the write returned): leaf insert {pn['leaf'][0]:.3f}/{pn['leaf'][1]:.3f}s, "

@@ -130,7 +130,7 @@ _GROW_RESERVE = 512
 # host
 _PROBE_SLOW_S = 0.005
 
-# how long a check waits for a write's delta to reach the overlay once the
+# how long a check waits for a write's delta to reach the engine once the
 # store has made the write's version visible (normally microseconds)
 _DELIVERY_WAIT_S = 5.0
 
@@ -306,6 +306,9 @@ class ClosureCheckEngine:
         self._lock = threading.Lock()  # guards _rebuilding
         self._build_lock = threading.Lock()  # serializes state builds
         self._state_cv = threading.Condition()  # notified on state swap
+        # the newest version the store's delta feed has handed this engine
+        # (to whichever overlay was live), guarded by _state_cv
+        self._handed_upto = 0
         self._state: Optional[_State] = None
         self._rebuilding = False
         # write overlay: exact serving-time deltas over the resident
@@ -453,6 +456,7 @@ class ClosureCheckEngine:
         if ov is not None:
             ov.enqueue(version, inserted, deleted)
         with self._state_cv:
+            self._handed_upto = max(self._handed_upto, version)
             self._state_cv.notify_all()  # freshness waiters re-check
 
     # -- residency ------------------------------------------------------------
@@ -518,6 +522,9 @@ class ClosureCheckEngine:
         references: re-reading self._overlay later would race the
         rebuild's generation swap and drop the corrections promised here."""
         while True:
+            # read before the drain: every delta up to here was enqueued on
+            # the overlay that was live when it was handed over
+            handed = self._handed_upto
             state = self._state
             ov = self._overlay
             if not (
@@ -541,23 +548,37 @@ class ClosureCheckEngine:
                     # a fresh closure in the background while it serves
                     self._kick_rebuild()
                 return state, pinned
-            if ov is not None and not ov.broken and self._wait_delivered(store_version):
-                continue  # the write's delta has reached the overlay: drain it
+            if (
+                ov is not None
+                and not ov.broken
+                and handed < store_version
+                and self._await_delta(store_version)
+            ):
+                continue  # the write's delta was handed over since: drain it
             if self._bounded(state):
                 self._kick_rebuild()
                 return state, pinned
             self._build_sync()
             # loop: re-read state AND overlay together for the fresh pin
 
-    def _wait_delivered(self, version: int) -> bool:
+    def _await_delta(self, version: int) -> bool:
         """The store bumps its version under its lock and hands the write's
-        delta to its listeners (the overlay among them) after releasing it,
-        so a check can see a version the overlay has not been given yet.
-        Wait for that delivery instead of rebuilding (a forked replica,
-        which may not build, would otherwise answer from the live store
-        for good); False when no delivery is in flight."""
-        wait = getattr(self.snapshots.store, "wait_delivered", None)
-        return wait is not None and wait(version, _DELIVERY_WAIT_S)
+        delta to its listeners (this engine among them) after releasing it,
+        so a check can see a version whose delta has not reached the engine
+        yet. Wait for that hand-over instead of rebuilding (a forked
+        replica, which may not build, would otherwise answer from the live
+        store for good); False at the deadline. Called only while the
+        version is ahead of every delta handed over, so a delta that went
+        to an overlay swapped out since (_build_sync) rebuilds instead of
+        waiting again."""
+        deadline = time.monotonic() + _DELIVERY_WAIT_S
+        with self._state_cv:
+            while self._handed_upto < version:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._state_cv.wait(timeout=remaining)
+        return True
 
     def _build_sync(self) -> _State:
         with self._build_lock:

@@ -1,0 +1,123 @@
+"""A read-replica pool server run in an interpreter of its own, and the
+side that drives it.
+
+``ReplicaPool`` (``driver/replicas.py``) forks its replicas from the process
+that calls ``start_all``, and its fork inventory refuses a process that
+holds other threads. A test or a smoke run that drives a pool therefore
+starts the server in a fresh interpreter. The server prints one JSON
+document per line, each prefixed ``POOL ``, and answers commands read from
+its stdin, one per line (``serve_commands``); ``PoolProcess`` is the side
+that starts it and asks. The server, its zygote and its replicas share one
+process group, so ``PoolProcess.kill_group`` ends all of them.
+
+Standard library only, so that a ``keto_tpu`` pool server (the reference
+in the parity tests) can use it without importing torch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import signal
+import subprocess
+import sys
+import threading
+from typing import Callable, Optional, Sequence
+
+PREFIX = "POOL "
+
+
+def emit(doc: dict) -> None:
+    """Print `doc` as one POOL line."""
+    print(PREFIX + json.dumps(doc), flush=True)
+
+
+def live_pids(pids) -> list[int]:
+    """The pids that name a live process: os.kill(pid, 0) finds it, and
+    /proc, where it can be read, does not call it a zombie."""
+    out = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X"):
+                    continue
+        except OSError:
+            pass  # nothing to read: os.kill found the process
+        out.append(pid)
+    return out
+
+
+def serve_commands(
+    handlers: dict[str, Callable[[str], dict]], stop: Callable[[], dict]
+) -> int:
+    """Answer stdin's commands, ``<name> [<argument>]`` one per line, with
+    one POOL line each: ``handlers[name](argument)``'s document, or an
+    ``error`` document for an unknown name. ``stop`` ends the loop: its
+    document is printed and 0 returned. 1 when stdin closes first."""
+    for line in sys.stdin:
+        name, _, arg = line.strip().partition(" ")
+        if name == "stop":
+            emit(stop())
+            return 0
+        handler = handlers.get(name)
+        emit(handler(arg) if handler else {"error": f"unknown command {name!r}"})
+    return 1
+
+
+class PoolProcess:
+    """One pool server process: its stdout and stderr as ``lines``, its
+    POOL documents in order, and commands written to its stdin."""
+
+    def __init__(self, argv: Sequence[str], cwd: Optional[str] = None,
+                 name: str = "pool server"):
+        self.name = name
+        self.proc = subprocess.Popen(
+            list(argv), cwd=cwd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+        )
+        self.lines: list[str] = []
+        self._docs: queue.Queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+        self.stopped = False
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith(PREFIX):
+                self._docs.put(json.loads(line[len(PREFIX):]))
+
+    def next_doc(self, timeout: float) -> dict:
+        """The next POOL document; RuntimeError with the server's last lines
+        when none comes within `timeout` seconds."""
+        try:
+            return self._docs.get(timeout=timeout)
+        except queue.Empty:
+            raise RuntimeError(
+                f"{self.name} said nothing in {timeout}s (rc {self.proc.poll()}): "
+                + "".join(self.lines[-40:])
+            ) from None
+
+    def ask(self, cmd: str, timeout: float = 120.0) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return self.next_doc(timeout)
+
+    def stop(self, timeout: float = 120.0) -> dict:
+        """Ask the server to stop and wait for it to exit; its last document."""
+        self.stopped = True
+        doc = self.ask("stop", timeout)
+        self.proc.wait(timeout=timeout)
+        return doc
+
+    def kill_group(self) -> None:
+        """SIGKILL the server's process group (a failure's backstop)."""
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=60)

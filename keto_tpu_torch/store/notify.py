@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import logging
 import threading
-import time
 from collections import deque
 from typing import Callable, Optional
 
@@ -99,26 +98,6 @@ class OrderedNotifier:
             with self._deliver_cv:
                 while self._delivered_upto < upto:
                     self._deliver_cv.wait(timeout=1.0)
-
-
-    def wait_delivered(self, version: int, timeout: float) -> bool:
-        """Wait until the listeners have been handed every delta up to
-        ``version`` that is queued or being delivered; True once delivery
-        has passed ``version``. A version bumped with no queued delta (a
-        bulk load) returns False at once, and so does the timeout."""
-        deadline = time.monotonic() + timeout
-        with self._deliver_cv:
-            while self._delivered_upto < version:
-                in_flight = (
-                    self._pending_notifications
-                    or self._deliver_owner is not None
-                    or self._deliver_lock.locked()
-                )
-                remaining = deadline - time.monotonic()
-                if not in_flight or remaining <= 0:
-                    return False
-                self._deliver_cv.wait(timeout=min(remaining, 0.05))
-        return True
 
 
 def _log_listener_failure(version: int) -> None:

@@ -305,3 +305,44 @@ def test_a_check_racing_a_writes_delivery_waits_for_the_overlay():
     assert got == oracle.batch_check(reqs + [probe])
     assert eng._state is state and eng.n_full_builds == 1
     assert eng._overlay.version == store.version and not eng._overlay.broken
+
+
+def test_a_write_landing_during_a_build_is_rebuilt_not_waited_for():
+    # a write committed between _build_sync's snapshot and its overlay swap
+    # is handed to the outgoing overlay; the next strong check must rebuild,
+    # not wait for a delta that has already been handed over
+    import threading
+
+    rng = np.random.default_rng(761)
+    store = ColumnarTupleStore()
+    store.write_relation_tuples(*(RelationTuple.from_string(s) for s in rbac_tuples(rng)))
+    eng = ClosureCheckEngine(
+        SnapshotManager(store), max_depth=DEPTH, query_mode="host",
+        freshness="strong", device="cpu",
+    )
+    oracle = CheckEngine(store, max_depth=DEPTH)
+    reqs = [RelationTuple.from_string(s) for s in sample(rng)]
+    eng.batch_check(reqs)
+    store.write_relation_tuples(RelationTuple.from_string("rbac:g1#member@u-first"))
+    build_state = eng._build_state
+    late = RelationTuple.from_string("rbac:g0#member@u-late")
+
+    def build_then_write(snap, prev=None):
+        state = build_state(snap, prev=prev)
+        store.write_relation_tuples(late)  # delivered to the outgoing overlay
+        return state
+
+    eng._build_state = build_then_write
+    eng._build_sync()
+    eng._build_state = build_state
+    assert store.version == eng._state.version + 1
+    builds = eng.n_full_builds + eng.n_incremental_builds
+    probe = reqs + [RelationTuple.from_string("rbac:res1#view@u-late")]
+    got = []
+    checker = threading.Thread(target=lambda: got.append(eng.batch_check(probe)), daemon=True)
+    checker.start()
+    checker.join(timeout=30)
+    assert not checker.is_alive(), "the check spun instead of rebuilding"
+    assert got[0] == oracle.batch_check(probe)
+    assert eng._state.version == store.version
+    assert eng.n_full_builds + eng.n_incremental_builds == builds + 1

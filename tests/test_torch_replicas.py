@@ -7,7 +7,8 @@ process that holds only its server and never from a test worker. The port
 runs ``Registry(config, device="cpu")`` (the closure engine forced into
 host query mode), keto_tpu its own ``Registry`` (host query mode on the
 CPU backend). Each harness prints its ports and pool on a ``POOL`` line
-and answers ``pool`` and ``stop`` on stdin.
+and answers ``pool`` and ``stop`` on stdin (``keto_tpu_torch/poolharness.py``,
+shared with ``chip_smoke.py``'s pool server).
 
 The same tuples go to both write ports; every probe opens a fresh
 connection, so SO_REUSEPORT spreads the probes over the replicas and 24
@@ -24,9 +25,7 @@ with one log line, and ``serve --workers``. Every wait has a deadline.
 import json
 import logging
 import os
-import queue
 import signal
-import subprocess
 import sys
 import threading
 import time
@@ -38,6 +37,14 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))  # run as a script, the harness imports from here
+
+from keto_tpu_torch.poolharness import (  # noqa: E402
+    PoolProcess,
+    emit,
+    live_pids,
+    serve_commands,
+)
 
 POOL_VALUES = {
     "namespaces": [{"id": 1, "name": "n"}],
@@ -54,40 +61,16 @@ BOOT_S = 120.0
 # -- the harness: one pool server per fresh interpreter ---------------------------
 
 
-def _emit(doc: dict) -> None:
-    print("POOL " + json.dumps(doc), flush=True)
-
-
-def _alive(pids) -> list[int]:
-    """The pids that name a live process: os.kill(pid, 0) finds it, and
-    /proc, where it can be read, does not call it a zombie."""
-    out = []
-    for pid in pids:
-        try:
-            os.kill(pid, 0)
-        except ProcessLookupError:
-            continue
-        try:
-            with open(f"/proc/{pid}/stat") as f:
-                if f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X"):
-                    continue
-        except OSError:
-            pass  # nothing to read: os.kill found the process
-        out.append(pid)
-    return out
-
-
 def harness(package: str) -> None:
     """Serve a 3-worker pool of `package` ("torch" or "jax") until stdin
     says stop."""
-    sys.path.insert(0, str(REPO))
     if package == "torch":
         from keto_tpu_torch.driver import Config, Registry
 
         logging.basicConfig(level=logging.INFO)
         reg = Registry(Config(values=POOL_VALUES), device="cpu")
         read_port, write_port = reg.start_all()
-        stop = reg.stop_all
+        stop_all = reg.stop_all
     else:
         import asyncio
 
@@ -100,87 +83,45 @@ def harness(package: str) -> None:
             reg.start_all(), loop
         ).result(timeout=BOOT_S)
 
-        def stop():
+        def stop_all():
             asyncio.run_coroutine_threadsafe(reg.stop_all(), loop).result(timeout=30)
 
     pool = reg._replica_pool
 
-    def describe() -> dict:
+    def describe(_arg: str = "") -> dict:
         children = [link.pid for link in pool._children] if pool is not None else []
         return {
             "read": read_port,
             "write": write_port,
             "children": children,
-            "alive": 1 + len(_alive(p for p in children if p > 0)),
+            "alive": 1 + len(live_pids(p for p in children if p > 0)),
             "zygote": pool._zygote_pid if pool is not None else -1,
             "host": bool(reg.check_engine().host_queries()),
         }
 
-    _emit(describe())
-    for line in sys.stdin:
-        if line.strip() == "pool":
-            _emit(describe())
-        elif line.strip() == "stop":
-            stop()
-            _emit({"stopped": True})
-            return
+    def stop() -> dict:
+        stop_all()
+        return {"stopped": True}
+
+    emit(describe())
+    serve_commands({"pool": describe}, stop)
 
 
-class PoolServer:
+class PoolServer(PoolProcess):
     """The test side of one harness process."""
 
     def __init__(self, package: str):
         self.package = package
-        self.proc = subprocess.Popen(
+        super().__init__(
             [sys.executable, str(Path(__file__).resolve()), package],
-            cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            cwd=str(REPO), name=f"{package} harness",
         )
-        self.lines: list[str] = []
-        self._docs: queue.Queue = queue.Queue()
-        threading.Thread(target=self._read, daemon=True).start()
-        self.stopped = False
 
     def boot(self) -> None:
         """Wait for the harness's first POOL line: the pool is serving."""
         self.info = self.next_doc(BOOT_S)
         self.read = f"http://127.0.0.1:{self.info['read']}"
         self.write = f"http://127.0.0.1:{self.info['write']}"
-
-    def _read(self) -> None:
-        for line in self.proc.stdout:
-            self.lines.append(line)
-            if line.startswith("POOL "):
-                self._docs.put(json.loads(line[5:]))
-
-    def next_doc(self, timeout: float) -> dict:
-        try:
-            return self._docs.get(timeout=timeout)
-        except queue.Empty:
-            raise AssertionError(
-                f"{self.package} harness said nothing in {timeout}s: "
-                + "".join(self.lines[-40:])
-            ) from None
-
-    def ask(self, cmd: str, timeout: float = 30.0) -> dict:
-        self.proc.stdin.write(cmd + "\n")
-        self.proc.stdin.flush()
-        return self.next_doc(timeout)
-
-    def stop(self) -> dict:
-        self.stopped = True
-        doc = self.ask("stop", timeout=60.0)
-        self.proc.wait(timeout=30)
-        return doc
-
-    def kill_group(self) -> None:
-        """The teardown's backstop: the harness, its zygote and replicas
-        share one process group."""
-        try:
-            os.killpg(self.proc.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        self.proc.wait(timeout=30)
 
 
 @pytest.fixture(scope="module")
@@ -196,7 +137,7 @@ def pools():
         for server in servers.values():
             if not server.stopped:
                 try:
-                    server.stop()
+                    server.stop(60.0)
                 except Exception:
                     pass
             server.kill_group()
@@ -350,11 +291,11 @@ def test_answers_equal_between_the_packages(pools):
 
 def test_a_killed_child_is_respawned_from_the_zygote(pools):
     for server in pools.values():
-        victim = server.ask("pool")["children"][0]
+        victim = server.ask("pool", 30.0)["children"][0]
         os.kill(victim, signal.SIGKILL)
         deadline = time.monotonic() + 60
         while time.monotonic() < deadline:
-            doc = server.ask("pool")
+            doc = server.ask("pool", 30.0)
             kids = doc["children"]
             if (doc["alive"] == 3 and victim not in kids and len(kids) == 2
                     and all(p > 0 for p in kids)):
@@ -374,14 +315,14 @@ def test_a_killed_child_is_respawned_from_the_zygote(pools):
 
 def test_stop_all_leaves_no_process(pools):
     for server in pools.values():
-        doc = server.ask("pool")
+        doc = server.ask("pool", 30.0)
         pids = [p for p in doc["children"] if p > 0] + [doc["zygote"]]
-        assert server.stop() == {"stopped": True}
+        assert server.stop(60.0) == {"stopped": True}
         assert server.proc.returncode == 0
         deadline = time.monotonic() + 30
-        while _alive(pids) and time.monotonic() < deadline:
+        while live_pids(pids) and time.monotonic() < deadline:
             time.sleep(0.05)
-        assert _alive(pids) == [], (server.package, pids)
+        assert live_pids(pids) == [], (server.package, pids)
 
 
 # -- in process, no fork ------------------------------------------------------------
