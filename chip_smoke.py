@@ -7,7 +7,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. build    compile every kernel in keto_tpu_torch/csrc with nvcc (sm_90a),
-            one nvcc per source, all started together
+            one nvcc per source, all started together; build the native
+            host tier (keto_tpu_torch/native/_hotpath.c) with gcc into
+            keto_tpu_torch/_build/ and fail unless it loads and its tuple
+            hash is this interpreter's
 2. kernels  hold the masked-SpMV kernel (B1) against its plain PyTorch
             version, bitwise, at G 256 and M in {256, 2048, 11520}, at
             G 128 and M in {128, 384} (ragged 96-column stripes, CTAs that
@@ -45,7 +48,15 @@ Phases, in order; any failure exits non-zero:
             placement probe's round trip and auto's choice (device), and a
             role -> role delete absorbed by the overlay and folded by the
             dirty-row rebuild, D and the carried D^T equal to a full host
-            build; no B1 or B2 launch on this path
+            build; no B1 or B2 launch on this path;
+            [native], after both: the native tier's call sites that took
+            the C path over the phase (request_hashes, probe_index,
+            closure_check must each have), then on the 4096 sample, the
+            encode and the whole batch in device and in host query mode,
+            each with the C tier and with its numpy twin (native.lib None
+            for the call), 20 of each in turns: p50 ms and the ratio;
+            every answer equal across the twins, the card's check_ids and
+            the set-graph oracle
 5. main     (packed) a github10m store (10M tuples, the pools and edge mix
             of bench.py gen_github; BASELINE.json "GitHub-style
             org/team/repo ACL: 10M tuples"), whose interior is above the
@@ -62,7 +73,9 @@ Phases, in order; any failure exits non-zero:
             the serial one, answers equal to the phase's, checks/s, mean
             batch, most batches in flight, B2 launches, peak memory; one
             check_batch_encoded of the sample's ids twice, the second
-            answered by the encoded cache with no B2 launch
+            answered by the encoded cache with no B2 launch; [native]: the
+            batch's encode (GraphSnapshot.encode_requests) with the C tier
+            and with numpy, p50 of 20 in turns, ids and answers equal
 6. serve    the serving seam at rbac1m: Registry(Config(...)) on the card
             with a columnar store, start_all (one closure build: 135 B1
             launches), then over HTTP (urllib, a thread pool): the
@@ -133,6 +146,23 @@ Phases, in order; any failure exits non-zero:
             time, write-to-visible over the pool, RSS and PSS per process
             after the writes, os.cpu_count(); 0 B1 and 0 B2 launches in the
             server
+9. serve:wire  two more --pool-server interpreters at rbac1m, host query
+            mode, cache off: serve.read.wire_workers WIRE_WORKERS with
+            workers 1 (WIRE_WORKERS accept processes whose encoded frames
+            reach the parent's one batcher over the shared-memory ring) and
+            a single-process server; the sample as encoded frames of
+            WIRE_ROWS rows from a VocabCache, WIRE_REPEATS times a drive,
+            WIRE_DRIVES drives of each server in turns, from 64 clients in
+            4 client processes started together, every answer the
+            oracle's and ring frames counted; on the wire server a leaf
+            insert, a frame from before it 409 from every process until
+            the client resyncs and the resent frame showing the insert, a
+            SIGKILLed wire worker retiring its lane alone and respawned,
+            the frames after it right and still crossing the ring; no
+            demotion to one process, stop_all leaves no process. Numbers:
+            frames/s (median and range over the drives, with the drive's
+            seconds), checks/s, p50/p99 of each server and the ratio,
+            respawn time, os.cpu_count(); 0 B1 and 0 B2 launches
 
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -567,6 +597,7 @@ def run_rbac(args, rng, dev, card) -> dict:
 
     masked_spmv.masked_step.launches = 0  # main path starts here
     packed_ops.packed_propagate.launches = 0
+    reset_native_calls()
     t0 = time.perf_counter()
     allowed = eng.batch_check(sample)
     torch.cuda.synchronize()
@@ -723,8 +754,14 @@ def run_rbac(args, rng, dev, card) -> dict:
         f" closure batch_check {k}: p50 {p50_ms:.3f} ms, {rate:.0f} checks/s")
     del adj, f, r
     torch.cuda.empty_cache()
-    closure_host(args, store, mgr, edges, sample, oracle,
-                 p50_ms, rate, dev, card)
+    heng = closure_host(args, store, mgr, edges, sample, oracle,
+                        p50_ms, rate, dev, card)
+    calls = native_calls()
+    require(all(calls[n] > 0 for n in ("request_hashes", "probe_index", "closure_check")),
+            f"the closure path did not take the native tier: {calls}")
+    say(f"[native] call sites that took the C path on the closure path (device "
+        f"and host query mode): {native_sites(calls)}")
+    native_rbac(eng, heng, store, sample, card)
     return {
         "name": "masked_spmv",
         "route": "cuda",
@@ -889,6 +926,95 @@ def closure_host(args, store, mgr, edges, sample, oracle,
         f"probe round trip {probe_ms[0]:.3f} ms; host D^T {rev_s:.3f}s; "
         f"role -> role delete: {heng.last_dirty_rows} dirty rows, fold "
         f"{fold_s:.3f}s")
+    return heng
+
+
+# the native host tier's wrappers, by the call site each serves
+NATIVE_SITES = {
+    "request_hashes": "NodeVocab.lookup_requests: the closure and snapshot encodes",
+    "probe_index": "NodeVocab.lookup_hashes",
+    "object_hashes": "NodeVocab.lookup_bulk",
+    "closure_check": "ClosureCheckEngine._check_arrays (host query mode)",
+    "gather_min_u8": "no caller, as in the reference",
+}
+
+
+def reset_native_calls() -> None:
+    for fn in port("", "native").WRAPPERS:
+        fn.calls = 0
+
+
+def native_calls() -> dict:
+    return {fn.__name__: fn.calls for fn in port("", "native").WRAPPERS}
+
+
+def native_sites(calls: dict) -> str:
+    return "; ".join(f"{name} x{n} ({NATIVE_SITES[name]})" for name, n in calls.items())
+
+
+def twin_p50(fns: dict, reps: int = 20) -> tuple[dict, dict]:
+    """Each fn with the native tier and with its numpy twin (native.lib None
+    for the call), in turns (native, numpy, numpy, native, ...): the p50 ms
+    of each and the last result of each."""
+    native = port("", "native")
+    lib = native.lib
+    times = {name: {"native": [], "numpy": []} for name in fns}
+    out = {name: {} for name in fns}
+    try:
+        for i in range(reps):
+            for name, fn in fns.items():
+                for tier in (("native", "numpy") if i % 2 == 0 else ("numpy", "native")):
+                    native.lib = lib if tier == "native" else None
+                    t0 = time.perf_counter()
+                    out[name][tier] = fn()
+                    times[name][tier].append(time.perf_counter() - t0)
+    finally:
+        native.lib = lib
+    p50 = {name: {tier: float(np.median(v)) * 1e3 for tier, v in t.items()}
+           for name, t in times.items()}
+    return p50, out
+
+
+def native_rbac(eng, heng, store, sample, card) -> None:
+    """[native] at rbac1m: the encode and the whole batch of the 4096 sample
+    in device query mode (eng, D on the card) and in host query mode (heng),
+    each with the C tier and with its numpy twin in the same call; every
+    answer equal across the twins, the card's check_ids and the oracle."""
+    native = port("", "native")
+    snap = eng.snapshots.snapshot()
+    vocab = snap.vocab
+    k = len(sample)
+    # both query modes encode through the same vocab (one code path, timed
+    # in each mode's turn)
+    p50, out = twin_p50({
+        "device encode": lambda: vocab.lookup_requests(sample),
+        "device batch": lambda: eng.batch_check(sample),
+        "host encode": lambda: heng.snapshots.snapshot().vocab.lookup_requests(sample),
+        "host batch": lambda: heng.batch_check(sample),
+    })
+    for stage in ("device encode", "host encode"):
+        for a, b in zip(out[stage]["native"], out[stage]["numpy"]):
+            require(np.array_equal(a, b), f"[native] {stage}: ids differ from numpy's")
+    s_ids, t_ids, is_id = out["device encode"]["native"]
+    dummy = snap.dummy_node
+    start = np.where((s_ids < 0) | (s_ids >= snap.padded_nodes), dummy, s_ids)
+    target = np.where((t_ids < 0) | (t_ids >= snap.padded_nodes), dummy, t_ids)
+    by_ids = eng.check_ids(start, target, is_id).tolist()
+    t0 = time.perf_counter()
+    want = SetGraphOracle(store).batch(sample)
+    oracle_s = time.perf_counter() - t0
+    for stage in ("device batch", "host batch"):
+        for tier in ("native", "numpy"):
+            require(out[stage][tier] == want,
+                    f"[native] {stage} ({tier}) differs from the oracle")
+    require(by_ids == want, "[native] the card's check_ids differ from the oracle")
+    say(f"[native] {k} rbac1m checks: device and host batches, native and numpy, "
+        f"the card's check_ids and the set-graph oracle ({oracle_s:.1f}s) all "
+        f"equal ({sum(want)} allowed); encoded ids equal across the twins")
+    say(f"[numbers] native ({card}; {native.so_path.name}, gcc {native.build_s:.3f}s; "
+        f"p50 of 20 in turns, ms, native / numpy = ratio): "
+        + "; ".join(f"{stage} {t['native']:.3f} / {t['numpy']:.3f} = "
+                    f"{t['native'] / t['numpy']:.3f}" for stage, t in p50.items()))
 
 
 def plain_check(eng, requests, depths=None):
@@ -1035,6 +1161,30 @@ def run_github(args, rng, dev) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     say(f"[numbers] packed batch under the profiler: "
         f"{profile_batch(lambda: eng.batch_check(sample))}")
+
+    # [native]: the packed batch's encode (GraphSnapshot.encode_requests)
+    # with the C tier and with its numpy twin, the answers equal
+    reset_native_calls()
+    snap = mgr.snapshot()
+    enc, enc_out = twin_p50({"encode": lambda: snap.encode_requests(sample)})
+    require(all(np.array_equal(a, b) for a, b in zip(enc_out["encode"]["native"],
+                                                     enc_out["encode"]["numpy"])),
+            "[native] packed encode: ids differ from numpy's")
+    calls = native_calls()
+    native_mod = port("", "native")
+    lib = native_mod.lib
+    native_mod.lib = None
+    try:
+        numpy_allowed = eng.batch_check(sample)
+    finally:
+        native_mod.lib = lib
+    require(numpy_allowed == allowed == eng.batch_check(sample),
+            "[native] packed answers differ between the twins")
+    require(calls["request_hashes"] > 0, f"the packed encode took no C path: {calls}")
+    say(f"[native] github10m packed batch of {k}: encode p50 native "
+        f"{enc['encode']['native']:.3f} ms / numpy {enc['encode']['numpy']:.3f} ms = "
+        f"{enc['encode']['native'] / enc['encode']['numpy']:.3f} (20 in turns); ids and "
+        f"answers equal; C call sites: {native_sites(calls)}")
 
     pipe = packed_pipeline(eng, store, sample, allowed)
 
@@ -1290,6 +1440,60 @@ def rest_check(read: str, t, depth: int = 0) -> bool:
     return status == 200
 
 
+def _run_clients(parts: list[dict]) -> tuple[list[dict], float]:
+    """One client process (client_main) per part, run at the same time:
+    each reads its part, sets up and says it is ready; once every process
+    is ready, one line to each starts them together. Their result documents
+    in order, and the drive's wall time, from the first process's start to
+    the last one's finish on the host's monotonic clock, which every
+    process reads alike."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1]); "
+        "import chip_smoke; chip_smoke.client_main()"
+    )
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        for _ in parts
+    ]
+    try:
+        for proc, part in zip(procs, parts):
+            proc.stdin.write(json.dumps(part) + "\n")
+            proc.stdin.flush()
+        for proc in procs:
+            line = proc.stdout.readline()
+            require(line == "ready\n", f"client process not ready: {line!r}")
+        for proc in procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        with ThreadPoolExecutor(len(procs)) as pool:
+            runs = list(pool.map(lambda proc: proc.communicate(timeout=600), procs))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    docs = []
+    for proc, (out, err) in zip(procs, runs):
+        require(proc.returncode == 0, f"client process: rc {proc.returncode} {err[-2000:]}")
+        docs.append(json.loads(out))
+    return docs, max(d["end"] for d in docs) - min(d["start"] for d in docs)
+
+
+def _merged(docs: list[dict], n: int) -> list:
+    """Item j of a drive went to process j % len(docs): its results back in
+    order."""
+    results = [None] * n
+    for i, doc in enumerate(docs):
+        results[i::len(docs)] = doc["results"]
+    return results
+
+
 def http_clients(
     urls: list[str], clients: int, headers: list[dict] | None = None,
     procs: int = 1,
@@ -1298,39 +1502,37 @@ def http_clients(
     so the clients do not share the server's interpreter lock (nor, with
     procs > 1, one client interpreter's). Returns (status, seconds) per url,
     or with `headers` (one dict per url) (status, seconds, Retry-After or
-    None), and the wall time of the run (the slowest process's)."""
-    code = (
-        "import sys; sys.path.insert(0, sys.argv[1]); "
-        "import chip_smoke; chip_smoke.client_main()"
-    )
-    runs = []
-    for i in range(procs):  # url j goes to process j % procs
-        part = {"urls": urls[i::procs], "clients": max(1, clients // procs),
-                "headers": None if headers is None else headers[i::procs]}
-        proc = subprocess.Popen(
-            [sys.executable, "-c", code, str(Path(__file__).resolve().parent)],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True,
-        )
-        runs.append((proc, json.dumps(part)))
-    docs = []
-    for proc, part in runs:
-        out, err = proc.communicate(part, timeout=600)
-        require(proc.returncode == 0, f"client process: rc {proc.returncode} {err[-2000:]}")
-        docs.append(json.loads(out))
-    results = [None] * len(urls)
-    for i, doc in enumerate(docs):
-        results[i::procs] = doc["results"]
-    return results, max(doc["wall"] for doc in docs)
+    None), and the wall time of the run (first start to last finish)."""
+    docs, wall = _run_clients([
+        {"urls": urls[i::procs], "clients": max(1, clients // procs),
+         "headers": None if headers is None else headers[i::procs]}
+        for i in range(procs)
+    ])
+    return _merged(docs, len(urls)), wall
+
+
+def frame_clients(read: str, frames: list[bytes], clients: int, procs: int):
+    """POST every frame to /check/batch-encoded from `clients` threads of
+    `procs` client processes. Returns (status, seconds, answer bits) per
+    frame and the wall time of the run (first start to last finish)."""
+    docs, wall = _run_clients([
+        {"read": read, "frames": [f.hex() for f in frames[i::procs]],
+         "clients": max(1, clients // procs)}
+        for i in range(procs)
+    ])
+    return _merged(docs, len(frames)), wall
 
 
 def client_main() -> None:
-    """The client side of http_clients: urls on stdin, results on stdout."""
+    """The client side of _run_clients: its part on stdin's first line,
+    "ready" on stdout, then the drive once stdin's next line comes; the
+    results, with the drive's start and end on the monotonic clock, on
+    stdout."""
     import urllib.error
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
-    req = json.load(sys.stdin)
+    req = json.loads(sys.stdin.readline())
     # one opener for every thread: urlopen builds its own on first use, and
     # 64 threads doing so at once parse the CA bundle 64 times
     urllib.request.install_opener(urllib.request.build_opener())
@@ -1354,14 +1556,37 @@ def client_main() -> None:
             e.read()
         return status, time.perf_counter() - t0, retry
 
-    with ThreadPoolExecutor(req["clients"]) as pool:
+    def one_frame(frame_hex):
+        # POST /check/batch-encoded: (status, seconds, answer bits or "")
+        body = bytes.fromhex(frame_hex)
         t0 = time.perf_counter()
-        if req.get("headers") is None:
+        status, raw = post_frame(req["read"], body, timeout=120.0)
+        sec = time.perf_counter() - t0
+        bits = ""
+        if status == 200:
+            bits = "".join("1" if v else "0" for v in decode_check_response(raw)[0])
+        return status, sec, bits
+
+    if req.get("frames") is not None:
+        decode_check_response = port("api.wirecodec", "decode_check_response")
+        post_frame = port("client.vocabcache", "post_frame")
+
+    with ThreadPoolExecutor(req["clients"]) as pool:
+        print("ready", flush=True)
+        sys.stdin.readline()
+        start = time.monotonic()
+        if req.get("frames") is not None:
+            results = list(pool.map(one_frame, req["frames"]))
+        elif req.get("headers") is None:
             results = list(pool.map(one, req["urls"]))
         else:
             results = list(pool.map(one_with, zip(req["urls"], req["headers"])))
-        wall = time.perf_counter() - t0
-    json.dump({"results": results, "wall": wall}, sys.stdout)
+        end = time.monotonic()
+    json.dump({"results": results, "start": start, "end": end}, sys.stdout)
+
+
+def fmt_walls(walls) -> str:
+    return "/".join(f"{w:.3f}" for w in walls)
 
 
 def pct(values, q: float) -> float:
@@ -1937,8 +2162,9 @@ def pool_server_main(args) -> int:
     RelationTuple, SubjectSet = port("relationtuple", "RelationTuple", "SubjectSet")
     harness = port("", "poolharness")
 
-    values = serve_config("auto", cache_size=0)
-    values["serve"]["read"]["workers"] = POOL_WORKERS
+    values = serve_config("auto", cache_size=0, query_mode=args.query_mode)
+    values["serve"]["read"]["workers"] = args.pool_workers
+    values["serve"]["read"]["wire_workers"] = args.wire_workers
     reg = Registry(Config(values=values))
     t0 = time.perf_counter()
     store, pools, edges = gen_rbac(
@@ -1951,21 +2177,30 @@ def pool_server_main(args) -> int:
     read_port, write_port = reg.start_all()
     start_s = time.perf_counter() - t0
     eng, pool = reg.check_engine(), reg._replica_pool
-    require(pool is not None, "start_all forked no read replicas")
+    n_pool = max(args.pool_workers, args.wire_workers)
+    require((pool is not None) == (n_pool > 1), "start_all forked no read replicas")
     phases = {n: round(v, 4) for n, v in eng.last_build_phases.items()}
+    # the frames the parent's ring consumer answers for its wire workers
+    ring = reg._wire_ring
+    ring_frames = harness.count_ring_frames(reg._ring_server)
 
     def info(_arg: str = "") -> dict:
-        pids = [os.getpid(), pool._zygote_pid] + pool.child_pids()
+        kids = pool.child_pids() if pool is not None else []
+        zygote = pool._zygote_pid if pool is not None else -1
+        pids = [os.getpid(), zygote] + kids
         return {
             "read": read_port, "write": write_port, "load_s": load_s,
             "start_s": start_s, "phases": phases, "m": eng._state.ig.m,
             "workers": eng._build_workers(), "host": eng.host_queries(),
-            "alive": pool.alive(), "children": pool.child_pids(),
-            "zygote": pool._zygote_pid, "respawns": pool.n_respawns,
+            "alive": pool.alive() if pool is not None else 1, "children": kids,
+            "zygote": zygote, "respawns": pool.n_respawns if pool is not None else 0,
             "memory_mb": {str(p): _memory_mb(p) for p in harness.live_pids(pids)},
             "b1": masked_spmv.masked_step.launches,
             "b2": packed_ops.packed_propagate.launches,
             "cpus": os.cpu_count(),
+            "endpoints": len(ring.endpoints) if ring is not None else 0,
+            "shm": ring.shm.name if ring is not None else "",
+            "ring_frames": ring_frames(),
         }
 
     def plan(_arg: str) -> dict:
@@ -2014,7 +2249,7 @@ def pool_server_main(args) -> int:
         return {"tree": tree and tree.to_dict()}
 
     def stop() -> dict:
-        pids = pool.child_pids() + [pool._zygote_pid]
+        pids = pool.child_pids() + [pool._zygote_pid] if pool is not None else []
         reg.stop_all()
         deadline = time.monotonic() + 30
         while harness.live_pids(pids) and time.monotonic() < deadline:
@@ -2205,6 +2440,179 @@ def serve_pool(args, serve: dict, card: str) -> dict:
                         for p, m in out["memory_mb"].items()))
     finally:
         server.kill_group()  # a failure's backstop: the group is empty after stop
+    return out
+
+
+# [serve:wire]: encoded frames from WIRE_WORKERS accept processes into the
+# parent's one batcher over the shared-memory ring
+WIRE_WORKERS = 4
+WIRE_ROWS = 64  # rows per encoded frame
+WIRE_REPEATS = 32  # posts of each of the sample's frames per drive
+WIRE_DRIVES = 3  # timed drives of each server, the two in turns
+
+
+def serve_wire(args, serve: dict, card: str) -> dict:
+    """[serve:wire]: two rbac1m servers in fresh interpreters (this script
+    with --pool-server), both in host query mode with the result cache off:
+    serve.read.wire_workers WIRE_WORKERS (workers 1: the wire workers alone
+    make the pool) and a single-process one. The serve phase's sample as
+    encoded frames of WIRE_ROWS rows from a VocabCache, each posted
+    WIRE_REPEATS times a drive by 64 clients in 4 client processes started
+    together, WIRE_DRIVES drives of each server in turns; every answer the
+    oracle's. Then, on the wire server: a leaf insert, a
+    frame from before it answered 409 by every process until the client
+    resyncs, and the resynced frame showing the insert; a SIGKILLed wire
+    worker whose lane alone retires, respawned from the zygote, the frames
+    after it answered right and the other lanes still reaching the parent;
+    stop_all leaves no process. No B1 or B2 launch in either server."""
+    import signal
+
+    RelationTuple = port("relationtuple", "RelationTuple")
+    VocabCache = port("client", "VocabCache")
+    harness = port("", "poolharness")
+    tag = "serve:wire"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    sample, want = serve["sample"], serve["want"]
+    k = len(sample)
+    argv = [sys.executable, str(Path(__file__).resolve()), "--pool-server",
+            "--seed", str(args.seed), "--tuples", str(args.tuples),
+            "--query-mode", "host", "--pool-workers", "1"]
+    servers = {  # both boot at once
+        "wire": harness.PoolProcess(argv + ["--wire-workers", str(WIRE_WORKERS)],
+                                    name="wire server"),
+        "single": harness.PoolProcess(argv + ["--wire-workers", "1"],
+                                      name="single-process server"),
+    }
+    out = {}
+    try:
+        infos = {name: srv.next_doc(900) for name, srv in servers.items()}
+        w, one = infos["wire"], infos["single"]
+        require(w["alive"] == WIRE_WORKERS and w["endpoints"] == WIRE_WORKERS - 1
+                and w["host"] and w["b1"] == 0, f"wire server: {w}")
+        require(one["alive"] == 1 and one["endpoints"] == 0 and one["host"],
+                f"single-process server: {one}")
+        demoted = [line for srv in servers.values() for line in srv.lines
+                   if "serving single-process" in line]
+        require(not demoted, f"a server demoted to single-process: {demoted}")
+        reads = {name: f"http://127.0.0.1:{info['read']}" for name, info in infos.items()}
+        out["cpus"] = w["cpus"]
+        say(f"[{tag} {at()}] servers: wire ({w['alive']} processes, {w['endpoints']} "
+            f"ring endpoints, shm {w['shm']}, start_all {w['start_s']:.3f}s) and single "
+            f"({one['alive']} process, start_all {one['start_s']:.3f}s), host query "
+            f"mode, cache off; host os.cpu_count() {w['cpus']}")
+
+        starts = range(0, k, WIRE_ROWS)
+        expect = ["".join("1" if v else "0" for v in want[i:i + WIRE_ROWS]) for i in starts]
+        frames, before = {}, {}
+        for name in ("wire", "single"):
+            cache = VocabCache(reads[name], timeout=120.0).bootstrap()
+            frames[name] = [cache.frame(sample[i:i + WIRE_ROWS]) for i in starts]
+            before[name] = servers[name].ask("pool")["ring_frames"]
+            out[name] = {"walls": [], "lat": []}
+        for _ in range(WIRE_DRIVES):  # the two servers in turns
+            for name in ("wire", "single"):
+                results, wall = frame_clients(
+                    reads[name], frames[name] * WIRE_REPEATS, 64, 4)
+                bad = [j for j, (status, _, bits) in enumerate(results)
+                       if status != 200 or bits != expect[j % len(expect)]]
+                require(not bad, f"{name}: {len(bad)} of {len(results)} frames wrong "
+                        f"or refused, first {results[bad[0]][:1] if bad else None}")
+                out[name]["walls"].append(wall)
+                out[name]["lat"] += [sec for _, sec, _ in results]
+        n_frames = len(expect) * WIRE_REPEATS  # per drive
+        for name in ("wire", "single"):
+            o = out[name]
+            rates = sorted(n_frames / wall for wall in o["walls"])
+            o.update(
+                p50=pct(o["lat"], 50), p99=pct(o["lat"], 99),
+                frames_s=rates[len(rates) // 2], frames_s_range=(rates[0], rates[-1]),
+                checks_s=rates[len(rates) // 2] * k / len(expect),
+                ring=servers[name].ask("pool")["ring_frames"] - before[name],
+                frames=n_frames * WIRE_DRIVES,
+            )
+            del o["lat"]
+        require(out["wire"]["ring"] > 0 and out["single"]["ring"] == 0,
+                f"ring frames: wire {out['wire']['ring']}, single {out['single']['ring']}")
+        say(f"[{tag} {at()}] {k} checks as {len(expect)} frames of {WIRE_ROWS} rows "
+            f"x{WIRE_REPEATS} per drive, {WIRE_DRIVES} drives of each server in turns, "
+            f"from 64 clients in 4 client processes started together: every answer "
+            f"the oracle's; {out['wire']['ring']} of {out['wire']['frames']} "
+            f"wire-server frames crossed the ring")
+
+        srv, read = servers["wire"], reads["wire"]
+        write = f"http://127.0.0.1:{w['write']}"
+        plan = srv.ask("plan")
+        leaf = RelationTuple.from_dict(plan["leaf"])
+        probe = RelationTuple.from_dict(plan["leaf_probe"])
+        probes = [probe] + sample[: WIRE_ROWS - 1]
+        cache = VocabCache(read, timeout=120.0).bootstrap()
+        stale = cache.frame(probes)
+        status, _ = http("PUT", f"{write}/relation-tuples", leaf.to_dict())
+        require(status == 201, f"PUT {status}")
+        visible = converges(read, probe, True)
+        for _ in range(12):  # fresh connections: every process gates
+            status, doc = post_encoded(read, stale)
+            require(status == 409 and doc["error"]["details"]["reason"]
+                    == "vocab_epoch_mismatch", f"a stale frame: {status} {doc}")
+        cache.sync()
+        truth = srv.ask("expect " + json.dumps([[t.to_dict(), 5] for t in probes]))["expect"]
+        require(truth[0], f"{probe} is not allowed after the leaf insert")
+        for _ in range(12):
+            status, got = post_encoded(read, cache.frame(probes))
+            require(status == 200 and got == truth,
+                    "resynced frames after the leaf insert differ from the oracle")
+        say(f"[{tag} {at()}] leaf insert {leaf}: visible over the pool after "
+            f"{visible[1]:.3f}s; 12 frames from before it 409 (vocab_epoch_mismatch); "
+            f"after the resync 12 frames equal the oracle ({probe} allowed)")
+
+        victim = w["children"][0]
+        t0 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        while True:
+            doc = srv.ask("pool")
+            kids = doc["children"]
+            if (doc["alive"] == WIRE_WORKERS and victim not in kids
+                    and all(p > 0 for p in kids)):
+                break
+            require(time.perf_counter() - t0 < 60, f"no respawn after 60 s: {doc}")
+            time.sleep(0.05)
+        out["respawn_s"] = time.perf_counter() - t0
+        retired = [line.strip() for line in srv.lines if "retiring its ring lane" in line]
+        require(len(retired) == 1 and "endpoint 0 " in retired[0],
+                f"the ring retired {retired}")
+        frames = [cache.frame(sample[i:i + WIRE_ROWS]) for i in starts]
+        before = doc["ring_frames"]
+        results, _ = frame_clients(read, frames * 2, 64, 4)
+        bad = [j for j, (status, _, bits) in enumerate(results)
+               if status != 200 or bits != expect[j % len(frames)]]
+        require(not bad, f"{len(bad)} frames wrong or refused after the kill")
+        after = srv.ask("pool")["ring_frames"] - before
+        require(after > 0, "no frame reached the parent over the ring after the kill")
+        say(f"[{tag} {at()}] wire worker {victim} SIGKILLed: its lane alone retired "
+            f"({retired[0]}), respawned from the zygote in {out['respawn_s']:.3f}s "
+            f"(answers encoded frames from its own engine); {len(results)} frames "
+            f"after it equal the oracle, {after} of them over the ring")
+
+        for name, server in servers.items():
+            doc = server.ask("pool")
+            pids = [p for p in doc["children"] if p > 0] + (
+                [doc["zygote"]] if doc["zygote"] > 0 else [])
+            doc = server.stop(120.0)
+            left = harness.live_pids(pids)
+            require(doc["stopped"] and doc["left"] == [] and left == [],
+                    f"{name}: processes left after stop_all: {doc['left']} {left}")
+            require(doc["b1"] == 0 and doc["b2"] == 0,
+                    f"{name}: B1 {doc['b1']}, B2 {doc['b2']} launches")
+            require(server.proc.returncode == 0, f"{name} server rc {server.proc.returncode}")
+        say(f"[{tag} {at()}] stop_all: no process left in either server; 0 B1 and "
+            f"0 B2 launches")
+    finally:
+        for server in servers.values():
+            server.kill_group()  # a failure's backstop
     return out
 
 
@@ -2671,6 +3079,12 @@ def main() -> int:
     ap.add_argument("--oracle", type=int, default=256)
     ap.add_argument("--pool-server", action="store_true",
                     help="run the [serve:pool] server (the smoke starts it)")
+    ap.add_argument("--pool-workers", type=int, default=POOL_WORKERS,
+                    help="the pool server's serve.read.workers")
+    ap.add_argument("--wire-workers", type=int, default=1,
+                    help="the pool server's serve.read.wire_workers")
+    ap.add_argument("--query-mode", default="auto",
+                    help="the pool server's engine.query_mode")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2704,6 +3118,12 @@ def main() -> int:
     )
     card = smi.stdout.strip().splitlines()[0]
     say(card)
+    native = port("", "native")
+    native.load()  # gcc, at first use, into keto_tpu_torch/_build/
+    require(native.lib is not None and native.tuple_hash_ok,
+            f"the native host tier did not load ({native.build_error or 'tuple hash'})")
+    say(f"[build] native host tier: {native.so_path} ({native.build_s:.3f}s of gcc; "
+        f"0.0 = already built), tuple-hash selftest passed")
     walls["build"] = time.perf_counter() - t0
 
     # -- 2. kernels vs plain ----------------------------------------------------
@@ -2814,6 +3234,27 @@ def main() -> int:
         f"{pn['respawn_s']:.3f}s; write-to-visible over the pool (the first / last "
         f"of 24 agreeing answers after the write returned): leaf insert {pn['leaf'][0]:.3f}/{pn['leaf'][1]:.3f}s, "
         f"role -> role delete {pn['delete'][0]:.3f}/{pn['delete'][1]:.3f}s; "
+        f"B1 0, B2 0")
+
+    # -- 9. wire workers: encoded frames from 4 processes into one batcher -------
+    t0 = time.perf_counter()
+    wn = serve_wire(args, serve, card)
+    walls["serve:wire"] = time.perf_counter() - t0
+    ww, w1 = wn["wire"], wn["single"]
+    say(f"[numbers] serve:wire ({card}; host os.cpu_count() {wn['cpus']}; host query "
+        f"mode, cache off; {args.checks} checks as frames of {WIRE_ROWS} rows x"
+        f"{WIRE_REPEATS} a drive, {WIRE_DRIVES} drives of each in turns, from 64 "
+        f"clients in 4 processes started together; frames/s the median drive's "
+        f"[slowest, fastest], p50/p99 over every drive): {WIRE_WORKERS} processes "
+        f"(wire_workers {WIRE_WORKERS}) {ww['frames_s']:.1f} frames/s "
+        f"[{ww['frames_s_range'][0]:.1f}, {ww['frames_s_range'][1]:.1f}], "
+        f"{ww['checks_s']:.0f} checks/s, drives {fmt_walls(ww['walls'])} s, p50/p99 "
+        f"{ww['p50']:.3f}/{ww['p99']:.3f} ms, {ww['ring']} of {ww['frames']} frames "
+        f"over the ring; one process {w1['frames_s']:.1f} frames/s "
+        f"[{w1['frames_s_range'][0]:.1f}, {w1['frames_s_range'][1]:.1f}], "
+        f"{w1['checks_s']:.0f} checks/s, drives {fmt_walls(w1['walls'])} s, p50/p99 "
+        f"{w1['p50']:.3f}/{w1['p99']:.3f} ms; wire/single (medians) "
+        f"{ww['checks_s'] / w1['checks_s']:.3f}; respawn {wn['respawn_s']:.3f}s; "
         f"B1 0, B2 0")
 
     walls["total"] = time.perf_counter() - t_all

@@ -1,9 +1,9 @@
 """The id-native check front: everything between a decoded encoded-check
-frame and the check batcher (counterpart of ``keto_tpu/api/encoded.py``,
-without the shared-memory wire workers).
+frame and the check batcher (counterpart of ``keto_tpu/api/encoded.py``).
 
-``POST /check/batch-encoded`` decodes the wire frame and hands it here. The
-front owns the parts every transport must agree on:
+``POST /check/batch-encoded`` (and gRPC ``BatchCheckEncoded``) decodes the
+wire frame and hands it here. The front owns the parts every transport must
+agree on:
 
 - the strict vocab ``(lineage, epoch)`` gate (``graph/vocabsync``) — a
   mismatch raises the typed resync error before any engine work;
@@ -18,7 +18,10 @@ front owns the parts every transport must agree on:
   batcher's ``NamespaceQos`` buckets with O(tenants) string work.
 
 The ``backend`` is anything with the batcher's ``check_batch_encoded``
-signature: the in-process ``CheckBatcher``.
+signature: the in-process ``CheckBatcher`` in single-process mode, or a
+``shmring.RingBackend`` in a wire worker (an accept/parse worker process
+funneling into the parent's single batcher), which the front finds by its
+``ring_submit`` hook.
 """
 
 from __future__ import annotations
@@ -32,9 +35,17 @@ from .wirecodec import EncodedCheckRequest
 
 
 class EncodedCheckFront:
-    def __init__(self, manager, backend):
+    """``validate=False`` is the parent-side ring consumer's mode: the
+    worker that accepted the request already ran the strict epoch gate
+    against a vocab at least as old as the parent's (ids are append-only
+    within a lineage), so the parent must not gate again: its epoch has
+    usually moved past the client's by the time the frame crosses the
+    ring."""
+
+    def __init__(self, manager, backend, validate: bool = True):
         self.manager = manager
         self.backend = backend
+        self.validate = validate
 
     def vocab(self):
         return self.manager.snapshot().vocab
@@ -46,13 +57,19 @@ class EncodedCheckFront:
     ) -> np.ndarray:
         snap = self.manager.snapshot()
         vocab = snap.vocab
-        vocabsync.validate_epoch(vocab, req.lineage, req.epoch)
+        if self.validate:
+            vocabsync.validate_epoch(vocab, req.lineage, req.epoch)
         pn = snap.padded_nodes
         dummy = snap.dummy_node
         s = req.start.astype(np.int64)
         t = req.target.astype(np.int64)
         s = np.where((s < 0) | (s >= pn), dummy, s)
         t = np.where((t < 0) | (t >= pn), dummy, t)
+        ring = getattr(self.backend, "ring_submit", None)
+        if ring is not None:
+            # a wire worker: ship the hop-ready batch to the parent's
+            # batcher; the qos counts are derived (and debited once) there
+            return np.asarray(ring(req, s, t, timeout=timeout), dtype=bool)
         allowed = self.backend.check_batch_encoded(
             s,
             t,

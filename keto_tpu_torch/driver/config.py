@@ -1,7 +1,8 @@
 """Config provider (counterpart of ``keto_tpu/driver/config.py``, trimmed).
 
 The same key tree as the reference — ``dsn``, ``serve.read.{host,port,
-max-depth,max_freshness_wait_s,workers,list,encoded,grpc-max-message-size}``,
+max-depth,max_freshness_wait_s,workers,wire_workers,list,encoded,
+grpc-max-message-size}``,
 ``serve.write.{host,port,grpc-max-message-size}``, ``namespaces`` (an
 inline array of ``{id, name}``), the ``engine`` subtree,
 ``qos.{enabled,rate,burst,overrides}`` and the ``overload`` subtree —
@@ -37,6 +38,7 @@ DEFAULTS = {
     "serve.read.host": "",
     "serve.read.max-depth": 5,
     "serve.read.workers": 1,
+    "serve.read.wire_workers": 1,
     "serve.read.max_freshness_wait_s": 30.0,
     "serve.read.list": True,
     "serve.read.encoded": True,
@@ -95,6 +97,7 @@ _RULES: dict[str, tuple[str, Any]] = {
     "serve.read.host": ("string", None),
     "serve.read.max-depth": ("integer", 1),
     "serve.read.workers": ("integer", 1),
+    "serve.read.wire_workers": ("integer", 1),
     "serve.read.max_freshness_wait_s": ("number", 0),
     "serve.read.list": ("boolean", None),
     "serve.read.encoded": ("boolean", None),

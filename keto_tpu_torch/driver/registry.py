@@ -20,6 +20,15 @@ planes. A forked child must not touch CUDA, so with ``engine.query_mode:
 auto`` the closure engine is built in host query mode; any other engine
 (a device query mode, the frontier engines, the host oracle) serves from
 one process, and ``start_all`` logs one line saying so.
+
+``serve.read.wire_workers`` W > 1 (while ``serve.read.encoded`` is on)
+makes the pool max(N, W) processes whose encoded routes funnel into this
+process's one batcher over a shared-memory ring (``engine/shmring.py``):
+each forked child's encoded front ships its batches to ``_ring_handler``
+here, and answers every other route from its own engine. As in the
+reference, ``auto`` turns to host query mode for ``serve.read.workers``
+alone, so wire workers need ``engine.query_mode: host`` (or workers > 1);
+otherwise ``start_all`` serves single-process with the same one line.
 """
 
 from __future__ import annotations
@@ -83,6 +92,13 @@ class Registry:
         # process binds with SO_REUSEPORT; None / (0, 0) when single-process
         self._replica_pool = None
         self._shared_read_ports: tuple[int, int] = (0, 0)
+        # the wire workers' shared-memory ring (engine/shmring.py) and its
+        # parent-side consumer, set when serve.read.wire_workers > 1 forked;
+        # the ring client is set in a forked wire worker only
+        self._wire_ring = None
+        self._wire_ring_client = None
+        self._ring_server = None
+        self._ring_parent_front = None
         self._serving = False  # readiness: flips only after bring-up
         # the gRPC plane: its builders module once probed (None when grpc or
         # google.protobuf do not import), why it is off, and the health
@@ -272,18 +288,45 @@ class Registry:
         clamp and the qos bucketing in front of ``check_batch_encoded``.
         None when serve.read.encoded is off or the checker has no encoded
         path (the host oracle's DirectChecker); the encoded and vocab
-        routes are then not registered."""
+        routes are then not registered. In a forked wire worker the backend
+        is the ring to the parent's batcher instead of the local one."""
         with self._lock:
             if self._encoded_front is None:
                 if not bool(self.config.get("serve.read.encoded")):
                     return None
                 checker = self.checker()
-                if not hasattr(checker, "check_batch_encoded"):
+                if self._wire_ring_client is not None:
+                    from ..engine.shmring import RingBackend
+
+                    backend = RingBackend(self._wire_ring_client)
+                elif hasattr(checker, "check_batch_encoded"):
+                    backend = checker
+                else:
                     return None
                 from ..api.encoded import EncodedCheckFront
 
-                self._encoded_front = EncodedCheckFront(self.snapshots(), checker)
+                self._encoded_front = EncodedCheckFront(self.snapshots(), backend)
             return self._encoded_front
+
+    def _ring_handler(self, frame: bytes) -> bytes:
+        """The parent side of the wire ring: one encoded frame from a worker
+        process -> the single batcher -> a response frame. The worker ran
+        the strict epoch gate; this side clamps the ids again against its
+        own snapshot (which may have grown) and debits qos once, here,
+        where the one set of buckets lives."""
+        from ..api import wirecodec
+        from ..api.encoded import EncodedCheckFront
+
+        front = self._ring_parent_front
+        if front is None:
+            front = self._ring_parent_front = EncodedCheckFront(
+                self.snapshots(), self.checker(), validate=False
+            )
+        req = wirecodec.decode_check_request(frame)
+        allowed = front.check(
+            req, timeout=float(self.config.get("serve.read.max_freshness_wait_s"))
+        )
+        return wirecodec.encode_check_response(allowed, self.read_snaptoken())
 
     def expand_engine(self):
         """Expand over the snapshot's CSR for every engine mode but
@@ -529,13 +572,20 @@ class Registry:
         self._serving = True
 
     def _start_replicas(self, engine) -> None:
-        """Fork serve.read.workers - 1 read replicas of this process, which
-        then binds the shared read port as replica 0. Only the closure
-        engine in host query mode qualifies (a forked child must not touch
-        CUDA); anything else serves from one process with one log line, as
-        does a fork the thread inventory refuses."""
+        """Fork max(serve.read.workers, serve.read.wire_workers) - 1 read
+        replicas of this process, which then binds the shared read port as
+        replica 0 (wire workers count only while serve.read.encoded is on).
+        Only the closure engine in host query mode qualifies (a forked child
+        must not touch CUDA); anything else serves from one process with one
+        log line, as does a fork the thread inventory refuses. With wire
+        workers, the ring is built before the fork and its consumer started
+        after it."""
         n_workers = int(self.config.get("serve.read.workers"))
-        if n_workers <= 1:
+        wire_workers = 1
+        if bool(self.config.get("serve.read.encoded")):
+            wire_workers = int(self.config.get("serve.read.wire_workers"))
+        n_pool = max(n_workers, wire_workers)
+        if n_pool <= 1:
             return
         if not (hasattr(engine, "host_queries") and engine.host_queries()):
             _log.warning(
@@ -553,7 +603,13 @@ class Registry:
         # mint the vocab wire lineage before forking, so every pool process
         # answers the encoded and vocab routes with the same identity
         vocabsync.lineage_of(self.snapshots().snapshot().vocab)
-        pool = ReplicaPool(self, n_workers)
+        wire_ring = None
+        if wire_workers > 1:
+            from ..engine.shmring import WireRing
+
+            wire_ring = WireRing(n_pool - 1)  # one endpoint per child
+        pool = ReplicaPool(self, n_pool)
+        pool.wire_ring = wire_ring
         # wait out transient threads (a rebuild, the overlay's warm), but
         # give up early on an offender that stays the same
         t0 = time.monotonic()
@@ -575,12 +631,24 @@ class Registry:
         try:
             pool.fork_replicas(read_port, grpc_port)
         except RuntimeError as e:
+            if wire_ring is not None:
+                wire_ring.close()
             _log.warning("cannot fork read replicas; serving single-process: %s", e)
         else:
             self._replica_pool = pool
+            if wire_ring is not None:
+                # the parent side: close the child ends (a worker's death
+                # must read as EOF here), then start the consumer threads
+                # that feed the one batcher
+                from ..engine.shmring import RingServer
+
+                wire_ring.parent_seal()
+                self._wire_ring = wire_ring
+                self._ring_server = RingServer(wire_ring, self._ring_handler)
+                self._ring_server.start()
             _log.info(
-                "read replicas forked: %d processes on read port %d",
-                n_workers, read_port,
+                "read replicas forked: %d processes on read port %d "
+                "(%d wire workers)", n_pool, read_port, wire_workers,
             )
         self._shared_read_ports = (read_port, grpc_port)
 
@@ -591,6 +659,14 @@ class Registry:
         if self._replica_pool is not None:
             self._replica_pool.stop()
             self._replica_pool = None
+        # the ring after the pool: the workers holding the child ends are
+        # gone, so stopping the consumer threads strands no frame
+        if self._ring_server is not None:
+            self._ring_server.stop()
+            self._ring_server = None
+        if self._wire_ring is not None:
+            self._wire_ring.close()
+            self._wire_ring = None
         if self._read_plane is not None:
             self._read_plane.stop()
         if self._write_plane is not None:

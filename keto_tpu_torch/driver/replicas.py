@@ -17,12 +17,16 @@ shared copy-on-write, with no serialization. Each replica:
   store copy, which drives its own snapshot manager and write overlay.
 
 The parent keeps the write plane (one writer) and serves reads too, as
-replica 0. A child never touches CUDA: the registry forks only an engine in
-host query mode (``engine/closure.py``), whose D, D^T, overlay patches and
-list gathers are numpy, and every child clears ``allow_device_builds``, so
-a replica past its overlay answers from the exact live-store oracle
-instead of building. A CUDA call in a child raises; nothing catches that
-into another path.
+replica 0. With wire workers (``serve.read.wire_workers``) the registry
+hands the pool a ``WireRing`` before the fork: child ``i`` claims endpoint
+``i - 1`` and its encoded front ships batches to the parent's batcher; the
+zygote drops every ring end, so a respawned replica answers encoded frames
+from its own engine, as in the reference. A child never touches CUDA: the
+registry forks only an engine in host query mode (``engine/closure.py``),
+whose D, D^T, overlay patches and list gathers are numpy, and every child
+clears ``allow_device_builds``, so a replica past its overlay answers from
+the exact live-store oracle instead of building. A CUDA call in a child
+raises; nothing catches that into another path.
 
 Fork discipline: the fork happens before the parent creates any gRPC
 server, check batcher or plane thread, at a quiesced moment (warmup done,
@@ -204,6 +208,9 @@ class ReplicaPool:
         self._wake_r: Optional[socket.socket] = None
         self._wake_w: Optional[socket.socket] = None
         self.n_respawns = 0
+        # the wire workers' shared-memory ring (engine/shmring.py), set by
+        # the registry before fork_replicas when serve.read.wire_workers > 1
+        self.wire_ring = None
 
     def alive(self) -> int:
         """Processes serving the read port: the parent and every live
@@ -272,6 +279,12 @@ class ReplicaPool:
             raise
         if pid == 0:
             parent_sock.close()
+            if self.wire_ring is not None:
+                # the zygote and every replica it respawns hold no ring end:
+                # a stray copy would hide a worker's (or the parent's) death,
+                # and a respawned replica answers encoded frames locally
+                self.wire_ring.drop_inherited()
+                self.wire_ring = None
             try:
                 self._zygote_main(child_sock)
             finally:
@@ -283,7 +296,7 @@ class ReplicaPool:
                 self._zygote.pid = pid
 
     def _fork_loop(self, read_port: int, grpc_port: int) -> None:
-        for _ in range(1, self.n_replicas):
+        for i in range(1, self.n_replicas):
             parent_sock, child_sock = socket.socketpair()
             link = _Link(-1, parent_sock)
             # register the socket before forking: a broadcast landing between
@@ -303,6 +316,10 @@ class ReplicaPool:
                 raise
             if pid == 0:
                 parent_sock.close()
+                if self.wire_ring is not None:
+                    # endpoint i - 1 belongs to child i (the endpoints are
+                    # numbered over the children; the parent has none)
+                    self.registry._wire_ring_client = self.wire_ring.child_claim(i - 1)
                 try:
                     self._child_main(child_sock, read_port, grpc_port)
                 finally:

@@ -11,6 +11,12 @@ lifetime with gathers:
     host    F0/L CSR row gathers + direct-edge hash probe   (numpy)
     device  D[F0 x L] gather, min-reduce, depth compare     (ops.closure)
 
+The encode hashes the requests in one C loop where the native host tier
+(``native/``) loads; in host query mode the C tier's ``closure_check``
+fuses the direct-edge probe and the D gathers of the last two lines into
+one prefetched pass over the host D, with no width caps. Without a C
+compiler both fall back to their numpy twins.
+
 Correctness contract is identical to the host oracle (CheckEngine): allowed
 iff a tuple path of length <= depth exists.
 
@@ -60,8 +66,7 @@ A ``CheckColumns`` batch (``batch_check_columns``) takes the same path with
 no tuple objects, and ``check_ids`` takes pre-encoded vocab ids (the
 id-native wire tier).
 
-Left to later slices: the native host tier (ROADMAP 11), scrubbing,
-metrics and tracing.
+Left to later slices: scrubbing, metrics and tracing.
 
 Rows whose F0/L fan-out overflows the padded width, and snapshots whose
 interior exceeds ``interior_limit`` (D is O(M^2) bytes), are answered by an
@@ -81,6 +86,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import native
 from ..graph.interior import (
     InteriorGraph,
     build_interior,
@@ -933,16 +939,7 @@ class ClosureCheckEngine:
                 list(requests), max_depth, None if depths is None else list(depths)
             )
         n = len(requests)
-        vocab = state.snap.vocab
-        tkeys = [
-            (s.id,) if type(s) is SubjectID else (s.namespace, s.object, s.relation)
-            for s in (r.subject for r in requests)
-        ]
-        s_ids = vocab.lookup_bulk(
-            [(r.namespace, r.object, r.relation) for r in requests]
-        )
-        t_ids = vocab.lookup_bulk(tkeys)
-        is_id = np.fromiter((len(k) == 1 for k in tkeys), dtype=bool, count=n)
+        s_ids, t_ids, is_id = state.snap.vocab.lookup_requests(requests)
         depth = self._depths(n, max_depth, depths)
         allowed = self._check_arrays(
             state, s_ids, t_ids, is_id, depth, pinned, requests
@@ -1062,6 +1059,20 @@ class ClosureCheckEngine:
         start = np.where((start_raw < 0) | (start_raw >= pn), dummy, start_raw)
         target = np.where((target_raw < 0) | (target_raw >= pn), dummy, target_raw)
 
+        if art.d_host is not None and native.lib is not None:
+            # the fused C kernel: the direct-edge probe and the true-degree
+            # D gathers in one prefetched pass, exact for every row (no
+            # width caps, so no oracle fallback on this path)
+            allowed = native.closure_check(
+                art.d_host, ig, start, target, is_id, depth
+            )
+            allowed = self._apply_overlay(
+                pinned_overlay, allowed, start_raw, target_raw, is_id, depth
+            )
+            out = np.empty(n, dtype=bool)
+            out[order] = allowed
+            return out
+
         direct = ig.direct_edge(start, target)
         # split by fan-out: one hot row would otherwise widen the whole
         # batch's D gather to [B, 32, 32]
@@ -1115,13 +1126,15 @@ class ClosureCheckEngine:
         target_raw: np.ndarray,
         is_id: np.ndarray,
         depth: np.ndarray,
-        skip: np.ndarray,
+        skip: Optional[np.ndarray] = None,
     ) -> np.ndarray:
         """Correct the (few) rows the pinned write overlay says may differ
         from the base closure answer — exact at the overlay's version."""
         if ov is None:
             return allowed
-        mask = ov.affected_rows(start_raw, target_raw, is_id) & ~skip
+        mask = ov.affected_rows(start_raw, target_raw, is_id)
+        if skip is not None:
+            mask &= ~skip
         if mask.any():
             allowed[mask] = ov.check_rows(
                 start_raw[mask], target_raw[mask], is_id[mask], depth[mask]

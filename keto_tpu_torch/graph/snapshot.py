@@ -89,16 +89,13 @@ class GraphSnapshot:
         out_target: Optional[np.ndarray] = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Bulk vocab-encode: requests -> (start, target) node ids, unknown
-        or beyond-this-snapshot ids clamped to the inert dummy node. When
+        or beyond-this-snapshot ids clamped to the inert dummy node: one hash
+        pass and one vectorized index probe (``NodeVocab.lookup_requests``,
+        in C where the native tier loads). When
         `out_start`/`out_target` are given, rows [0, n) are written in place
         (persistent staging buffers) and the same arrays are returned."""
         n = len(requests)
-        s_ids = self.vocab.lookup_bulk(
-            [(r.namespace, r.object, r.relation) for r in requests]
-        )
-        t_ids = self.vocab.lookup_bulk(
-            [subject_node_key(r.subject) for r in requests]
-        )
+        s_ids, t_ids, _ = self.vocab.lookup_requests(requests)
         pn = self.padded_nodes
         dummy = self.dummy_node
         s = np.where((s_ids < 0) | (s_ids >= pn), dummy, s_ids)

@@ -1,5 +1,5 @@
 """Node vocabulary: subjects <-> dense int32 node ids (counterpart of
-``keto_tpu/graph/vocab.py``, numpy branches only).
+``keto_tpu/graph/vocab.py``).
 
 Nodes of the permission graph are either subject-set vertices
 ``(namespace, object, relation)`` or subject-id vertices ``(id,)``. Both kinds
@@ -16,6 +16,7 @@ from typing import Hashable, Iterable, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..relationtuple.definitions import Subject, SubjectID, SubjectSet
 
 # A 1-tuple cannot collide with a 3-tuple, so one dict serves both kinds.
@@ -173,28 +174,70 @@ class NodeVocab:
 
     def lookup_bulk(self, keys: Sequence[NodeKey]) -> np.ndarray:
         """int64 ids for `keys`, -1 where unknown; equivalent to
-        [self.lookup(k) for k in keys]."""
+        [self.lookup(k) for k in keys]. The keys are hashed in one C loop
+        (native.object_hashes) where the native tier loads."""
         n = len(keys)
+        if n == 0:
+            return np.full(0, -1, dtype=np.int64)
+        if native.lib is not None:
+            h = native.object_hashes(keys)
+        else:
+            h = np.fromiter((hash(k) for k in keys), dtype=np.int64, count=n)
+        return self.lookup_hashes(h, keys.__getitem__)
+
+    def lookup_hashes(self, h: np.ndarray, key_fn) -> np.ndarray:
+        """int64 ids for keys whose Python hashes are `h`, -1 where unknown.
+        The encode path with no key tuples: callers hash straight off their
+        request objects (native.request_hashes) and build a key with
+        `key_fn(i)` only for the rare rows whose hash collides inside the
+        vocab (the exact-dict fallback). Concurrent interns may be invisible
+        to an in-flight lookup (a transient miss, treated as unknown)."""
+        n = len(h)
         out = np.full(n, -1, dtype=np.int64)
         if n == 0 or not self._key_of:
             return out
-        h = np.fromiter((hash(k) for k in keys), dtype=np.int64, count=n)
         mask, slots, slot_ids, collisions, _ = self._extend_hash_index()
-        idx = (mix64(h) & np.uint64(mask)).astype(np.int64)
-        active = np.arange(n, dtype=np.int64)
-        while len(active):
-            cur = idx[active]
-            occ = slot_ids[cur]
-            hit = (occ >= 0) & (slots[cur] == h[active])
-            out[active[hit]] = occ[hit]
-            active = active[(occ >= 0) & ~hit]
-            idx[active] = (idx[active] + 1) & mask
+        if native.lib is not None:
+            out = native.probe_index(slots, slot_ids, mask, h)
+        else:
+            idx = (mix64(h) & np.uint64(mask)).astype(np.int64)
+            active = np.arange(n, dtype=np.int64)
+            while len(active):
+                cur = idx[active]
+                occ = slot_ids[cur]
+                hit = (occ >= 0) & (slots[cur] == h[active])
+                out[active[hit]] = occ[hit]
+                active = active[(occ >= 0) & ~hit]
+                idx[active] = (idx[active] + 1) & mask
         if collisions:
             get = self._id_of.get
             for i in np.nonzero(np.isin(h, list(collisions)))[0]:
-                v = get(keys[int(i)])
+                v = get(key_fn(int(i)))
                 out[i] = -1 if v is None else v
         return out
+
+    def lookup_requests(self, requests) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The batched encode of relation tuples: the ids of each request's
+        start key (ns, obj, rel) and of its subject's node key, -1 where
+        unknown, and whether each subject is a subject id. Where the native
+        tier loads and its tuple hash is this interpreter's, the key hashes
+        come straight off the request objects in one C loop
+        (native.request_hashes) and no key tuple is built."""
+        if native.lib is not None and native.tuple_hash_ok:
+            hs, ht, is_id = native.request_hashes(requests, SubjectID)
+
+            def skey(i: int):
+                r = requests[i]
+                return (r.namespace, r.object, r.relation)
+
+            def tkey(i: int):
+                return subject_node_key(requests[i].subject)
+
+            return self.lookup_hashes(hs, skey), self.lookup_hashes(ht, tkey), is_id
+        tkeys = [subject_node_key(r.subject) for r in requests]
+        s_ids = self.lookup_bulk([(r.namespace, r.object, r.relation) for r in requests])
+        is_id = np.fromiter((len(k) == 1 for k in tkeys), dtype=bool, count=len(tkeys))
+        return s_ids, self.lookup_bulk(tkeys), is_id
 
     def key(self, nid: int) -> NodeKey:
         return self._key_of[nid]

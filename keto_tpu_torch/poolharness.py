@@ -52,6 +52,27 @@ def live_pids(pids) -> list[int]:
     return out
 
 
+def count_ring_frames(server) -> Callable[[], int]:
+    """Count the encoded frames a wire server's parent answers for its wire
+    workers. ``server`` is a started ``RingServer`` of either package, or
+    None (no wire workers: the count stays 0). Both packages' consumers
+    call ``server.handler(frame)`` afresh for every frame they read, so the
+    handler is wrapped in place; returns the count's reader."""
+    frames = [0]
+    if server is None:
+        return lambda: 0
+    lock = threading.Lock()
+    handler = server.handler
+
+    def counting(frame: bytes) -> bytes:
+        with lock:
+            frames[0] += 1
+        return handler(frame)
+
+    server.handler = counting
+    return lambda: frames[0]
+
+
 def serve_commands(
     handlers: dict[str, Callable[[str], dict]], stop: Callable[[], dict]
 ) -> int:

@@ -114,6 +114,9 @@ def test_keys_match_the_reference(values):
         {"engine": {"closure_builder": "dense"}},
         {"engine": {"closure_block_workers": -1}},
         {"engine": {"closure_block_workers": "all"}},
+        {"serve": {"read": {"wire_workers": 0}}},
+        {"serve": {"read": {"wire_workers": "four"}}},
+        {"serve": {"read": {"wire_workers": 2.5}}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):
