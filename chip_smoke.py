@@ -164,6 +164,37 @@ Phases, in order; any failure exits non-zero:
             seconds), checks/s, p50/p99 of each server and the ratio,
             respawn time, os.cpu_count(); 0 B1 and 0 B2 launches
 
+[device]    the device-aware planes (breaker, HBM admission, supervisor,
+            scrubber, /debug), on by default as in the reference. Every
+            server above ends with /debug/device read back: breaker closed
+            with no failure and no oracle-answered batch, no quarantined
+            shape, backend cuda, no failover event. Drills, on the serve
+            phase's first server after [serve:expand+list]: the HBM budget
+            beside nvidia-smi's total; the breaker's own cost (p50 of the
+            sample's batch_check through the breaker against the bare engine,
+            10 in turns) in device query mode and in host query mode (the
+            supervisor's CPU-failover mapping: a host residency built by the
+            numpy builder, no B1, then home on the card, 135 B1); the scrub
+            drill (scrub.device_bitflip poisons one cell of the card's D, the
+            next cycle reports exactly that row, reset_residency rebuilds D
+            with 135 B1 launches, byte-equal to the plain build, the next
+            cycle clean, the sample the oracle's); /debug/scrub,
+            /debug/overload, /debug/graph; /debug/profile?seconds=1 during a
+            GET /check drive, whose archive must hold a CUDA kernel event. In
+            the packed phase, after its measurements: the github10m engine
+            wrapped as the registry wraps it (breaker, supervisor, pipelined
+            CheckBatcher with HbmAdmission), drill batches of 256 rows of the
+            sample held to its answers: device.oom (bisected, breaker closed),
+            device.batch_nan x3 (open, oracle, half-open probe closes it,
+            readiness down then up), device.lost and backend.probe_hang (the
+            supervisor's child probe, reset_residency, warmup, force_probe),
+            reconfigure 2 -> 0 -> 2 under 512 closed-loop submitters (no
+            future lost), device.compile_fail (one shape quarantined, bucket
+            8192 still launches B2), and a real CUDA out-of-memory classified
+            "oom". Each drill prints a line; the drills' B1 and B2 launches
+            are printed on their own [numbers] lines and stay out of the
+            kernels line, which counts the main path's runs alone.
+
 The second-to-last line of output is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -1249,12 +1280,21 @@ def run_github(args, rng, dev) -> dict:
         f"check_batch_encoded of {k} ids: {pipe['encoded_launches']} B2 "
         f"launches, then {pipe['encoded_again_launches']} (all "
         f"{pipe['encoded_hits']} from the encoded cache)")
+    del f, src_all, dst_all, row_ptr, targets
+    torch.cuda.empty_cache()
+    drills = device_packed(eng, store, sample, allowed)
+    say(f"[numbers] [device] packed drills ({DRILL_ROWS}-row batches): device.lost "
+        f"recovered in {drills['device.lost']:.3f}s, backend.probe_hang in "
+        f"{drills['backend.probe_hang']:.3f}s; {drills['launches']} B2 launches; "
+        f"{drills['wall_s']:.1f}s")
     return {
         "name": "packed_propagate",
         "route": "cuda",
         "source": "keto_tpu_torch/csrc/packed_propagate.cu",
         "replaces": "keto_tpu/ops/packed.py:60",
         "launches": launches + pipe["launches"],
+        "drill_launches": drills["launches"],
+        "drill_wall_s": drills["wall_s"],
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1664,7 +1704,10 @@ def run_serve(args, dev, card) -> dict:
     numbers = {}
     # the result cache off, so the single-check drive stays comparable with
     # the runs before the cache existed; the cache has its own server below
-    reg = Registry(Config(values=serve_config("auto", cache_size=0)))
+    # the scrubber's config is on, and its thread and live-check tap are off
+    # until the [device] drill: the serve numbers stay comparable with the
+    # runs before the scrubber existed
+    reg = Registry(Config(values={**serve_config("auto", cache_size=0), "scrub": SCRUB}))
     t0 = time.perf_counter()
     store, pools, edges = gen_rbac(
         args.tuples, np.random.default_rng(args.seed + 1), store=reg.store()
@@ -1676,6 +1719,8 @@ def run_serve(args, dev, card) -> dict:
     read_port, write_port = reg.start_all()
     start_s = time.perf_counter() - t0
     eng, batcher = reg.check_engine(), reg.checker()
+    reg.scrubber().stop()
+    batcher.scrub_observer = None
     read = f"http://127.0.0.1:{read_port}"
     write = f"http://127.0.0.1:{write_port}"
     m_pad = eng._state.m_pad
@@ -1911,6 +1956,10 @@ def run_serve(args, dev, card) -> dict:
         numbers["list"] = serve_expand_list(reg, store, pools, edges, rng, read,
                                             write, at, card)
         numbers["list"]["wall_s"] = time.perf_counter() - t0
+
+        # 6. [device]: the planes idle through every step above, then drilled
+        planes_idle(read, "serve")
+        numbers["device"] = device_rbac(reg, store, sample, read, card, dev)
     finally:
         reg.stop_all()
 
@@ -1956,6 +2005,7 @@ def run_serve(args, dev, card) -> dict:
             f"snaptoken {v_old} equal the oracle there; snaptoken {v_new} "
             f"waited {swap_s:.3f}s for the swap and equals the new oracle; "
             f"builds full={eng.n_full_builds} incr={eng.n_incremental_builds}")
+        planes_idle(read, "serve:bounded")
     finally:
         reg.stop_all()
 
@@ -1996,6 +2046,7 @@ def run_serve(args, dev, card) -> dict:
         f"mean batch {c['mean_batch1']:.2f} / {c['mean_batch2']:.2f}")
     return {"launches": launches, "list_launches": numbers["list"]["launches"],
             "cache_launches": c["launches"], "sample": sample, "want": want,
+            "device": numbers["device"],
             "single_p50_ms": numbers["single_p50_ms"],
             "single_p99_ms": numbers["single_p99_ms"],
             "single_rate": numbers["single_rate"],
@@ -2114,6 +2165,7 @@ def serve_overload(args, serve: dict, card: str) -> dict:
         say(f"[serve:overload {at()}] after {4 * OVERLOAD['hysteresis_ms'] / 1e3:.1f} s "
             f"quiet the ladder reads rung 0; 64 checks from one client: no 429, "
             f"equal the oracle; {out['launches']} B1 launches")
+        planes_idle(read, "serve:overload")
     finally:
         reg.stop_all()
     return out
@@ -2426,6 +2478,7 @@ def serve_pool(args, serve: dict, card: str) -> dict:
             f"both equal the oracle; "
             f"replicas answering from the live store: {fell_back or 'none'}")
 
+        planes_idle(read, "serve:pool")
         pids = doc["children"] + [doc["zygote"]]
         doc = server.stop(120.0)
         left = harness.live_pids(pids)
@@ -2598,6 +2651,7 @@ def serve_wire(args, serve: dict, card: str) -> dict:
             f"after it equal the oracle, {after} of them over the ring")
 
         for name, server in servers.items():
+            planes_idle(reads[name], f"serve:wire {name}")
             doc = server.ask("pool")
             pids = [p for p in doc["children"] if p > 0] + (
                 [doc["zygote"]] if doc["zygote"] > 0 else [])
@@ -2613,6 +2667,449 @@ def serve_wire(args, serve: dict, card: str) -> dict:
     finally:
         for server in servers.values():
             server.kill_group()  # a failure's backstop
+    return out
+
+
+# [device]: the device-aware planes — breaker, HBM admission, supervisor,
+# scrubber and /debug — idle on every server, then drilled on the card
+
+# the serve server's scrubber: a short interval for the drill; the replay
+# kind stays off there (its oracle, CheckEngine over the columnar store,
+# scans the columns per query) and is exercised by the CPU tests
+SCRUB = {"enabled": True, "interval_s": 0.5, "sample_rows": 1024,
+         "replay_per_cycle": 0}
+DRILL_ROWS = 256  # rows of each packed drill batch
+
+
+def planes_idle(read: str, tag: str) -> dict:
+    """/debug/device at the end of a phase without drills: the breaker
+    closed with no failure and no oracle-answered batch, no quarantined
+    shape, the card serving and no failover event."""
+    status, doc = http("GET", f"{read}/debug/device")
+    require(status == 200, f"[{tag}] GET /debug/device: {status}")
+    br = doc.get("breaker") or {}
+    require(br.get("open") is False and br.get("failures") == 0
+            and br.get("real_failures") == 0
+            and br.get("fallback_batches") == 0 and doc.get("quarantine") == []
+            and doc.get("backend") == "cuda"
+            and (doc.get("supervisor") or {}).get("timeline") == [],
+            f"[{tag}] the device planes moved outside a drill: {doc}")
+    say(f"[device] {tag}: breaker closed, 0 failures (0 real), 0 oracle-answered batches, "
+        f"quarantine empty, backend cuda, no failover event")
+    return doc
+
+
+def _p50_pair(bare, wrapped, sample, want, reps: int = 10) -> tuple[float, float]:
+    """p50 ms of `bare` and `wrapped` on the sample, in turns (bare, wrapped,
+    wrapped, bare, ...), every answer held to `want`."""
+    lat = {0: [], 1: []}
+    for i in range(reps):
+        order = (0, 1) if i % 2 == 0 else (1, 0)
+        for k in order:
+            fn = (bare, wrapped)[k]
+            t0 = time.perf_counter()
+            got = fn(sample)
+            lat[k].append(time.perf_counter() - t0)
+            require([bool(v) for v in got] == want, "breaker-cost answers differ")
+    return pct(lat[0], 50), pct(lat[1], 50)
+
+
+def _poisoned_row_sampled(seed: int, m: int, m_pad: int, n: int):
+    """The row scrub.device_bitflip poisons with a scrubber rng of `seed`,
+    if that rng's next sample holds it (the draws of scrub_residency), else
+    None."""
+    g = np.random.default_rng(seed)
+    r = int(g.integers(m))
+    g.integers(m_pad)
+    rows = g.choice(m, size=min(n, m), replace=False)
+    return r if r in rows else None
+
+
+def _profile_kernels(read: str, urls: list[str], batcher) -> tuple[int, int, float]:
+    """/debug/profile?seconds=1 while 64 clients drive GET /check (the
+    capture starts once the batcher sees the drive): the archive's Chrome
+    trace parsed; (CUDA kernel events, all events, the capture's seconds)."""
+    import io
+    import tarfile
+    import threading
+    import urllib.request
+
+    drive = {}
+
+    def run():
+        drive["results"], drive["wall"] = http_clients(urls, 64)
+
+    t = threading.Thread(target=run)
+    t.start()
+    try:
+        start = batcher.n_dispatched
+        deadline = time.monotonic() + 120
+        while batcher.n_dispatched < start + 64 and time.monotonic() < deadline:
+            time.sleep(0.01)  # the client process is up and driving
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"{read}/debug/profile?seconds=1", timeout=120) as r:
+            status, ctype, body = r.status, r.headers.get("Content-Type"), r.read()
+        secs = time.perf_counter() - t0
+    finally:
+        t.join()
+    require(status == 200 and ctype == "application/gzip", f"/debug/profile {status} {ctype}")
+    with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
+        trace = json.loads(tar.extractfile("profile/trace.json").read())
+    events = trace.get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    require(all(s in (200, 403) for s, _ in drive["results"]), "GET /check during the profile")
+    return len(kernels), len(events), secs
+
+
+def device_rbac(reg, store, sample, read, card, dev) -> dict:
+    """[device] on the serve phase's server at rbac1m: the HBM budget; the
+    breaker's own cost in device and in host query mode (the supervisor's
+    CPU-failover mapping: host residency built, then home on the card); the
+    scrub drill (a poisoned D cell detected, D rebuilt by B1, byte-equal to
+    the plain build); /debug/scrub, /debug/overload, /debug/graph, and
+    /debug/profile during a GET /check drive."""
+    masked_spmv = port("engine", "masked_spmv")
+    pack_adjacency = port("ops.closure", "pack_adjacency")
+    FAULTS = port("faults", "FAULTS")
+    eng, sup, breaker = reg.check_engine(), reg.device_supervisor(), reg._engine_breaker
+    out = {}
+    t_phase = time.perf_counter()
+    status, doc = http("GET", f"{read}/debug/device")
+    total = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    budget = doc["hbm"]["budget_bytes"]
+    require(budget and budget > 0, f"no HBM budget on the card: {doc['hbm']}")
+    out["budget_gib"] = budget / 2**30
+    say(f"[device] HBM budget {out['budget_gib']:.3f} GiB (engine.memory.hbm_budget_frac "
+        f"{doc['hbm']['budget_frac']} of the card's {torch.cuda.mem_get_info()[1] / 2**30:.3f} "
+        f"GiB); nvidia-smi memory.total {total}; bytes per row {doc['hbm']['bytes_per_row']}")
+
+    t0 = time.perf_counter()
+    want = SetGraphOracle(store).batch(sample)
+    oracle_s = time.perf_counter() - t0
+    masked_spmv.masked_step.launches = 0  # the [device] rbac drills start here
+
+    # the breaker's own cost: device query mode, then host query mode (the
+    # supervisor's CPU failover: the residency rebuilt in host memory by the
+    # numpy semiring builder, no launch), then home on the card
+    out["device_ms"] = _p50_pair(eng.batch_check, breaker.batch_check, sample, want)
+    t0 = time.perf_counter()
+    require(sup._swap_to("cpu") and sup._reinit("cpu"), f"host failover: {sup.status()}")
+    out["host_build_s"] = time.perf_counter() - t0
+    require(eng.host_queries() and eng._state.d is None and eng._state.d_host is not None,
+            "the host failover left D on the card")
+    require(masked_spmv.masked_step.launches == 0, "the host residency launched B1")
+    out["host_ms"] = _p50_pair(eng.batch_check, breaker.batch_check, sample, want)
+    t0 = time.perf_counter()
+    require(sup._reinit("cuda", homecoming=True), f"homecoming: {sup.status()}")
+    out["home_s"] = time.perf_counter() - t0
+    require(not eng.host_queries() and eng._state.d is not None, "not home on the card")
+    home_launches = masked_spmv.masked_step.launches
+    expected = (eng._state.m_pad // 256) * (5 - 2)
+    require(home_launches == expected, f"homecoming: {home_launches} B1 launches")
+    (db, dw), (hb, hw) = out["device_ms"], out["host_ms"]
+    say(f"[device] breaker cost, batch_check of {len(sample)} p50 of 10 in turns: device "
+        f"query mode bare {db:.3f} ms / breaker {dw:.3f} ms = {dw / db:.3f}x; host query "
+        f"mode bare {hb:.3f} / {hw:.3f} ms = {hw / hb:.3f}x; every answer the oracle's "
+        f"(set-graph oracle {oracle_s:.1f}s); host failover build {out['host_build_s']:.3f}s "
+        f"(0 B1), home {out['home_s']:.3f}s ({home_launches} B1)")
+
+    # the scrub drill: the scrubber's rng seeded so its first sample holds
+    # the row the fault poisons (sampling 1024 of m rows finds one poisoned
+    # row with probability 1024/m a cycle); the drill then times detection
+    # and repair
+    daemon = reg.scrubber()
+    st = eng._state
+    m, m_pad = st.ig.m, st.m_pad
+    seed, row = next((s, r) for s in range(100_000)
+                     if (r := _poisoned_row_sampled(s, m, m_pad, daemon.sample_rows)) is not None)
+    daemon._rng = np.random.default_rng(seed)
+    b1_before = masked_spmv.masked_step.launches
+    FAULTS.arm("scrub.device_bitflip")
+    t_arm, wall_arm = time.perf_counter(), time.time()
+    daemon.start()
+    deadline = t_arm + 60
+    while daemon.repairs.get("reset_residency", 0) < 1 and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    found_s = time.perf_counter() - t_arm
+    require(daemon.repairs.get("reset_residency") == 1, f"no repair: {daemon.snapshot()}")
+    cycles = daemon.cycles
+    while daemon.cycles < cycles + 1 and time.perf_counter() < deadline:
+        time.sleep(0.01)  # the next cycle, after the repair
+    daemon.stop()
+    repair_launches = masked_spmv.masked_step.launches - b1_before
+    hist = daemon.history()
+    dev_find = [f for f in hist[0]["findings"] if f.get("kind") == "device"]
+    require(len(hist) == 1 and dev_find and dev_find[0]["bad_rows"] == [row],
+            f"the scrub did not report exactly row {row}: {hist}")
+    require(daemon.mismatches == {"device": 1} and daemon.cycles >= cycles + 1
+            and daemon.last_clean_version == store.version,
+            f"the cycle after the repair is not clean: {daemon.snapshot()}")
+    ev = [e for e in sup.status()["timeline"] if e["event"] == "scrub_reset_residency"]
+    require(len(ev) == 1 and ev[0]["ok"], f"supervisor timeline {sup.status()}")
+    out["repair_s"] = ev[0]["seconds"]
+    out["detect_s"] = ev[0]["t"] - ev[0]["seconds"] - wall_arm
+    require(repair_launches == expected, f"scrub repair: {repair_launches} B1 launches")
+    st = eng._state
+    d_plain = masked_spmv.build_closure_semiring(
+        pack_adjacency(st.ig.ii_src, st.ig.ii_dst, st.m_pad), st.ig.m, m_pad=st.m_pad,
+        k_max=st.k_max, device=dev, step=masked_spmv.masked_step_plain,
+    )
+    require(torch.equal(st.d, d_plain), "the repaired D differs from the plain build")
+    del d_plain
+    require([bool(v) for v in eng.batch_check(sample)] == want,
+            "answers after the repair differ from the oracle")
+    say(f"[device] scrub drill: row {row} of m={m} poisoned on the card (rng seed {seed}); "
+        f"detected {out['detect_s']:.3f}s after arming (interval {daemon.interval_s}s, "
+        f"{daemon.sample_rows} rows a cycle), repaired by reset_residency in "
+        f"{out['repair_s']:.3f}s ({repair_launches} B1 launches), D byte-equal to the "
+        f"plain build, the next cycle clean, {len(sample)} answers the oracle's; "
+        f"{found_s:.3f}s from arming to the repair's end")
+
+    # /debug pages
+    status, doc = http("GET", f"{read}/debug/scrub")
+    require(status == 200 and doc["mismatches"] == {"device": 1}
+            and doc["repairs"].get("reset_residency") == 1 and doc["history"],
+            f"/debug/scrub {status} {doc}")
+    status, ov = http("GET", f"{read}/debug/overload")
+    require(status == 200 and ov == {"enabled": False}, f"/debug/overload {status} {ov}")
+    status, graph = http("GET", f"{read}/debug/graph")
+    devs = graph["devices"]
+    require(status == 200 and devs and devs[0]["memory_stats"]["bytes_in_use"] > 0
+            and graph["graph"]["tuples"] == len(store) and graph["transfer_bytes"],
+            f"/debug/graph {status} {graph}")
+    say(f"[device] /debug/scrub: {doc['cycles']} cycles, mismatches {doc['mismatches']}, "
+        f"repairs {doc['repairs']}; /debug/overload {ov}; /debug/graph: "
+        f"{devs[0]['device_kind']}, in use {devs[0]['memory_stats']['bytes_in_use'] / 2**30:.3f} "
+        f"GiB, reserved {devs[0]['memory_stats']['bytes_reserved'] / 2**30:.3f} GiB, kernel "
+        f"builds {graph['jit_compilations']} ({graph['jit_compile_seconds']}s)")
+
+    kernels, events, secs = _profile_kernels(
+        read, [f"{read}/check?{tuple_query(t)}" for t in sample], reg.checker())
+    require(kernels > 0, f"the profile holds no CUDA kernel event ({events} events)")
+    out["launches"] = masked_spmv.masked_step.launches  # the rbac drills end here
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"[device] /debug/profile?seconds=1 during {len(sample)} GET /check from 64 clients: "
+        f"{kernels} CUDA kernel events of {events} in the archive ({secs:.3f}s)")
+    return out
+
+
+class _SetOracle:
+    """SetGraphOracle as the breaker's host oracle (``batch_check`` and
+    ``subject_is_allowed``) in the packed drills. The registry's oracle is
+    the host CheckEngine over the store, about 0.17 s a check at github10m
+    ([main:packed] times a host CheckEngine on the sample): a 4096-row
+    batch the breaker
+    sent there would take about 12 minutes, past any caller deadline. That
+    is an open fault of the packed breaker (ROADMAP section C), so the
+    drills stand this oracle in for it and do not time the registry's."""
+
+    def __init__(self, store):
+        self.so = SetGraphOracle(store)
+
+    def batch_check(self, requests, max_depth=0):
+        return self.so.batch(requests, max_depth or 5)
+
+    def subject_is_allowed(self, requested, max_depth=0):
+        return self.so.check(requested, max_depth or 5)
+
+
+class _Readiness:
+    def __init__(self):
+        self.log = []
+
+    def set_serving(self, serving):
+        self.log.append(bool(serving))
+
+
+def device_packed(eng, store, sample, want) -> dict:
+    """[device] on the github10m packed engine, wrapped as the registry
+    wraps it (the breaker over it, the supervisor on the breaker's hook, a
+    pipelined CheckBatcher with HbmAdmission) but for the breaker's oracle,
+    which is the set-graph oracle here (see _SetOracle): each drill's batch
+    is DRILL_ROWS rows of the sample, held to `want`."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    DeviceFallbackEngine, classify = port(
+        "engine.fallback", "DeviceFallbackEngine", "classify_device_error")
+    HbmAdmission = port("engine.hbm", "HbmAdmission")
+    DeviceSupervisor = port("driver.registry", "DeviceSupervisor")
+    CheckBatcher = port("engine.batcher", "CheckBatcher")
+    CheckColumns = port("relationtuple.columns", "CheckColumns")
+    FAULTS = port("faults", "FAULTS")
+    packed = port("ops", "packed")
+
+    t_phase = time.perf_counter()
+    oracle = _SetOracle(store)
+    rows, rows_want = sample[:DRILL_ROWS], want[:DRILL_ROWS]
+    require(oracle.batch_check(rows) == rows_want, "the set-graph oracle differs from the card")
+    health = _Readiness()
+    sup = DeviceSupervisor(eng, warm_batch=4096, probe_timeout_s=120.0)
+    breaker = DeviceFallbackEngine(
+        eng, fallback_factory=lambda: oracle, failure_threshold=3, cooldown_s=1.0,
+        health=health, on_device_lost=sup.notify_device_lost,
+    )
+    sup.bind_breaker(breaker)
+    hbm = HbmAdmission()
+    batcher = CheckBatcher(breaker, pipeline_depth=2, encode_workers=2, hbm=hbm)
+    cols = CheckColumns.from_tuples(rows)
+    out = {"lines": []}
+
+    def drill(name, check, detail):
+        launches = packed.packed_propagate.launches
+        t0 = time.perf_counter()
+        got = check()
+        secs = time.perf_counter() - t0
+        b2 = packed.packed_propagate.launches - launches
+        line = (f"[device] packed {name}: {detail(b2)}; {secs:.3f}s; breaker "
+                f"{breaker.breaker_snapshot()}")
+        say(line)
+        out["lines"].append(line)
+        return got, b2, secs
+
+    def columnar():
+        return batcher.check_batch_columnar(cols)
+
+    packed.packed_propagate.launches = 0  # the [device] packed drills start here
+    try:
+        # device.oom: bisected, answered exactly, the breaker stays closed
+        FAULTS.arm("device.oom")
+        got, b2, _ = drill("device.oom", columnar, lambda b2: (
+            f"{DRILL_ROWS} rows bisected ({breaker.n_bisections} bisections), {b2} B2 "
+            f"launches"))
+        require(got == rows_want and not breaker.circuit_open() and b2 > 0
+                and breaker.n_bisections == 1 and breaker.n_fallback_batches == 0,
+                "device.oom drill")
+
+        # device.batch_nan x3: open, the oracle answers, the probe closes it
+        FAULTS.arm("device.batch_nan", times=3)
+        for i in range(3):
+            got, b2, _ = drill(f"device.batch_nan {i + 1}/3", columnar,
+                               lambda b2: f"garbage answered by the oracle, {b2} B2")
+            require(got == rows_want, "batch_nan answers")
+        require(breaker.circuit_open() and health.log == [False], "batch_nan: not open")
+        time.sleep(1.0 * 1.25 + 0.05)  # the cooldown and its most jitter
+        got, b2, _ = drill("half-open probe", columnar, lambda b2: f"{b2} B2 launches")
+        require(got == rows_want and b2 > 0 and not breaker.circuit_open()
+                and health.log == [False, True], f"the probe: {health.log}")
+
+        # device.lost: the supervisor's child probe on the card,
+        # reset_residency, warmup and force_probe; then backend.probe_hang:
+        # one failed probe (no host residency to fail over to), then the same
+        for name, hang, expect in (
+            ("device.lost", False, ["device_lost", "probe", "recovered"]),
+            ("backend.probe_hang", True,
+             ["device_lost", "probe", "swap_failed", "probe", "recovered"]),
+        ):
+            n_fb = breaker.n_fallback_batches
+            n_ev = len(sup.status()["timeline"])
+            if hang:
+                FAULTS.arm("backend.probe_hang")
+            FAULTS.arm("device.lost")
+            got, _, _ = drill(name, columnar, lambda b2: "the lost batch answered by the oracle")
+            require(got == rows_want and breaker.circuit_open(), f"{name}: lost batch")
+            t0 = time.perf_counter()
+            st = sup.status()
+            while st["recovering"] and time.perf_counter() - t0 < 300:
+                time.sleep(0.05)
+                st = sup.status()
+            new = st["timeline"][n_ev:]
+            events = [e["event"] for e in new]
+            probes = [e for e in new if e["event"] == "probe"]
+            require(st["backend"] == "cuda" and events == expect
+                    and probes[-1]["ok"], f"{name}: {st}")
+            got, b2, _ = drill(f"{name} recovered", columnar, lambda b2: (
+                f"recovered in {st['last_recovery_s']:.3f}s, timeline {events}, probes "
+                f"{[(p['ok'], p['detail']) for p in probes]}; {b2} B2 launches"))
+            require(got == rows_want and b2 > 0 and not breaker.circuit_open()
+                    and breaker.n_fallback_batches == n_fb + 1, f"{name}: after")
+            out[name] = st["last_recovery_s"]
+        require(health.log == [False, True] * 3, f"readiness {health.log}")
+
+        # reconfigure under 512 closed-loop submitters: 2 -> 0 -> 2
+        stop, errs, answered = [False], [], [0]
+        lock = threading.Lock()
+
+        def submit(i):
+            j = i
+            while not stop[0]:
+                t = sample[j % len(sample)]
+                try:
+                    ok = batcher.check(t, timeout=120) == want[j % len(sample)]
+                except Exception as e:
+                    errs.append(repr(e))
+                    return
+                with lock:
+                    answered[0] += 1
+                if not ok:
+                    errs.append(f"wrong answer for {t}")
+                    return
+                j += 512
+
+        launches = packed.packed_propagate.launches
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(512) as pool:
+            futs = [pool.submit(submit, i) for i in range(512)]
+            shapes = []
+            for depth in (0, 2):
+                time.sleep(1.5)
+                require(batcher.reconfigure(pipeline_depth=depth), "reconfigure no-op")
+                shapes.append((batcher.pipeline_depth, batcher.pipelined))
+            time.sleep(1.5)
+            stop[0] = True
+            for f in futs:
+                f.result(timeout=300)
+        secs = time.perf_counter() - t0
+        b2 = packed.packed_propagate.launches - launches
+        require(not errs and answered[0] >= 512, f"reconfigure drill: {errs[:3]}")
+        line = (f"[device] packed reconfigure under 512 closed-loop submitters: depth 2 -> "
+                f"{shapes[0]} -> {shapes[1]}, {answered[0]} checks answered, none lost or "
+                f"wrong, {b2} B2 launches; {secs:.3f}s")
+        say(line)
+
+        # device.compile_fail, last: one shape quarantined (for the rest of this
+        # snapshot) while another shape launches
+        n_fb = breaker.n_fallback_batches
+        FAULTS.arm("device.compile_fail")
+        got, b2, _ = drill("device.compile_fail", columnar, lambda b2: (
+            f"shape quarantined {breaker.quarantine_snapshot()}, {b2} B2 launches"))
+        require(got == rows_want and b2 == 0 and len(breaker.quarantine_snapshot()) == 1
+                and not breaker.circuit_open(), "device.compile_fail drill")
+        # another bucket (8192) at the same snapshot, through the breaker
+        # (the batcher never forms a batch past max_batch 4096)
+        big = sample + rows
+        got, b2, _ = drill("another shape", lambda: breaker.decode_launched(
+            breaker.launch_encoded(eng.encode_batch(big))), lambda b2: (
+            f"{len(big)} rows in bucket 8192 launch ({b2} B2 launches)"))
+        require(got == want + rows_want and b2 > 0, "the other shape")
+        require(breaker.n_fallback_batches == n_fb + 1, "compile_fail: oracle batches")
+
+        # a real out-of-memory on the card: more than the card holds (the
+        # free memory alone is no bound: the caching allocator's reserve
+        # is not counted free, and serves an allocation past it)
+        size = torch.cuda.mem_get_info()[1] + (1 << 30)
+        try:
+            torch.empty(size, dtype=torch.uint8, device="cuda")
+            require(False, "an allocation past the card's memory succeeded")
+        except torch.cuda.OutOfMemoryError as e:
+            kind = classify(e)
+            require(kind == "oom", f"a real CUDA OOM classified {kind}")
+            say(f"[device] real OOM: torch.empty of {size / 2**30:.3f} GiB "
+                f"raised {type(e).__name__} ({str(e)[:80]!r}...), classified {kind}")
+        torch.cuda.empty_cache()
+        snap = hbm.snapshot()
+        say(f"[device] packed HBM admission: budget {snap['budget_bytes'] / 2**30:.3f} GiB, "
+            f"learned {snap['bytes_per_row']} bytes per row over {snap['modeled_shapes']} "
+            f"shapes, {hbm.n_splits} pre-splits, in flight {snap['inflight_batches']}")
+    finally:
+        batcher.close()
+        sup.stop()
+        FAULTS.reset()
+    out["launches"] = packed.packed_propagate.launches  # the packed drills end here
+    out["wall_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2776,6 +3273,7 @@ def serve_cache(args, at) -> dict:
             f"oracle, pass 2 hit share {out['hit2']:.4f}; {flip} flipped by a "
             f"write and back by its delete, each seen by the next GET /check; "
             f"{out['launches']} B1 launches")
+        planes_idle(read, "serve:cache")
     finally:
         reg.stop_all()
     return out
@@ -3263,13 +3761,27 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    dv = serve["device"]
+    say(f"[numbers] [device] ({card}): HBM budget {dv['budget_gib']:.3f} GiB; breaker "
+        f"cost (batch_check of {args.checks}, p50 bare / breaker ms): device query mode "
+        f"{dv['device_ms'][0]:.3f} / {dv['device_ms'][1]:.3f} = "
+        f"{dv['device_ms'][1] / dv['device_ms'][0]:.3f}x, host query mode "
+        f"{dv['host_ms'][0]:.3f} / {dv['host_ms'][1]:.3f} = "
+        f"{dv['host_ms'][1] / dv['host_ms'][0]:.3f}x; scrub detect {dv['detect_s']:.3f}s, "
+        f"repair {dv['repair_s']:.3f}s; host failover build {dv['host_build_s']:.3f}s, home "
+        f"{dv['home_s']:.3f}s; rbac drills {dv['launches']} B1 launches in "
+        f"{dv['wall_s']:.1f}s; packed drills {b2['drill_launches']} B2 launches in "
+        f"{b2['drill_wall_s']:.1f}s")
     say(f"[numbers] B1 launches: main:closure {b1['launches']}, serve "
         f"{serve['launches']}, the list path's rebuild {serve['list_launches']}, "
         f"the cache server {serve['cache_launches']}, the overload server "
         f"{ov['launches']}; B2 launches: main:packed with its batcher drives "
         f"{b2['launches']}")
+    say(f"[numbers] [device] drill launches, not in the kernels line: B1 "
+        f"{dv['launches']}, B2 {b2['drill_launches']}")
     # the kernels line counts each kernel's launches over every phase's
-    # drive of the main path
+    # drive of the main path, each counted from 0 just before its run; the
+    # [device] drills are not the main path's run
     b1["launches"] += (serve["launches"] + serve["list_launches"]
                        + serve["cache_launches"] + ov["launches"])
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))

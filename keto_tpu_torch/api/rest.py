@@ -45,9 +45,12 @@ overload plane in ``X-Request-Criticality`` (``critical``, ``default`` or
 ``sheddable``; absent or unknown means ``overload.default_criticality``);
 a shed check is a 429 with ``Retry-After``.
 
+The ``/debug/*`` routes (``api/debug.py``) are registered on the read
+port by the registry, behind ``debug.enabled`` and ``debug.token``.
+
 Each request runs on its connection's thread, so concurrent single checks
 meet in the check batcher. Not ported yet, and so not registered: the
-metrics, debug, replication and cluster routes, and CORS.
+metrics, replication and cluster routes, and CORS.
 """
 
 from __future__ import annotations

@@ -14,9 +14,9 @@ version it was answered at, and a request's snaptoken or ``latest`` makes
 the batcher catch up first. The criticality class of a check rides the
 ``x-keto-criticality`` metadata into the overload plane's admission.
 
-Left out: the fault-injection sites (ROADMAP 10), the per-request check
-telemetry and trace metadata (ROADMAP 14.5), and the follower's
-read-only write plane (ROADMAP 14.6).
+``Check`` carries the ``replica.slow`` fault site (``faults.py``). Left
+out: the per-request check telemetry and trace metadata (ROADMAP 14.5),
+and the follower's read-only write plane (ROADMAP 14.6).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Callable, Iterator, Optional
 import grpc
 
 from ..engine.overload import parse_criticality
+from ..faults import FAULTS
 from ..engine.tree import NodeType, Tree
 from ..relationtuple.columns import CheckColumns, proto_has_columns
 from ..relationtuple.definitions import RelationTuple, SubjectID, subject_from_dict
@@ -135,8 +136,10 @@ class CheckServicer:
         self.default_criticality = default_criticality
 
     def Check(self, request, context):
-        # the replica.slow fault site is not ported (ROADMAP 10)
         try:
+            # fault site: THIS process answers slowly (each forked replica
+            # owns its registry copy); the seam hedged client reads mask
+            FAULTS.maybe_sleep("replica.slow")
             subject = subject_from_proto(
                 request.subject if request.HasField("subject") else None
             )

@@ -5,12 +5,16 @@ max-depth,max_freshness_wait_s,workers,wire_workers,list,encoded,
 grpc-max-message-size}``,
 ``serve.write.{host,port,grpc-max-message-size}``, ``namespaces`` (an
 inline array of ``{id, name}``), the ``engine`` subtree,
-``qos.{enabled,rate,burst,overrides}`` and the ``overload`` subtree —
-from a JSON or TOML file (YAML where PyYAML is installed) merged with
-``values``. Only the keys this package reads are validated, by hand and
-with the reference's messages (no jsonschema); the ``overload`` object is
-closed, as in the reference's schema, so a misspelt key is an error; other
-keys are carried and ignored. Environment overrides, hot reload and
+``qos.{enabled,rate,burst,overrides}``, and the ``overload``, ``scrub`` and
+``debug`` subtrees — from a JSON or TOML file (YAML where PyYAML is
+installed) merged with ``values``. Only the keys this package reads are
+validated, by hand and with the reference's messages (no jsonschema); the
+``overload``, ``engine.memory``, ``engine.failover``, ``scrub`` and
+``debug`` objects are closed, as in the reference's schema, so a misspelt
+key is an error; other keys are carried and ignored. ``scrub.freeze_burn_rate``
+is validated and carried for the SLO freeze (ROADMAP 14.5), and
+``scrub.wal_segments_per_cycle`` and ``scrub.digest_chunk_size`` for the
+scrubber's WAL and replica kinds (14.2, 14.6). Environment overrides, hot reload and
 namespace file watchers are not ported yet (ROADMAP 14.4).
 """
 
@@ -66,6 +70,16 @@ DEFAULTS = {
     "engine.encoded_cache_size": 65536,
     "engine.pipeline_depth": 2,
     "engine.encode_workers": 2,
+    "engine.fallback": True,
+    "engine.memory.admission": True,
+    "engine.memory.hbm_budget_frac": 0.8,
+    "engine.memory.bytes_per_row": 4096,
+    "engine.failover.enabled": True,
+    "engine.failover.probe_mode": "child",
+    "engine.failover.probe_timeout_s": 10.0,
+    "engine.failover.probe_interval_s": 0.5,
+    "engine.failover.max_backoff_s": 30.0,
+    "engine.failover.allow_cpu": True,
     "qos.enabled": False,
     "qos.rate": 0.0,
     "qos.burst": 100.0,
@@ -83,6 +97,19 @@ DEFAULTS = {
     "overload.throttle_k": 2.0,
     "overload.history": 256,
     "overload.default_criticality": "default",
+    "scrub.enabled": False,
+    "scrub.interval_s": 5.0,
+    "scrub.sample_rows": 64,
+    "scrub.reservoir": 256,
+    "scrub.replay_per_cycle": 32,
+    "scrub.wal_segments_per_cycle": 4,
+    "scrub.max_repairs_per_cycle": 2,
+    "scrub.digest_chunk_size": 1024,
+    "scrub.freeze_burn_rate": 0.0,
+    "scrub.history": 256,
+    "debug.enabled": True,
+    "debug.token": "",
+    "debug.profile_max_s": 30,
 }
 
 _ENGINE_MODES = [
@@ -124,6 +151,16 @@ _RULES: dict[str, tuple[str, Any]] = {
     "engine.encoded_cache_size": ("integer", 0),
     "engine.pipeline_depth": ("integer", 0),
     "engine.encode_workers": ("integer", 1),
+    "engine.fallback": ("boolean", None),
+    "engine.memory.admission": ("boolean", None),
+    "engine.memory.hbm_budget_frac": ("number", ("exclusive", 0)),
+    "engine.memory.bytes_per_row": ("integer", 1),
+    "engine.failover.enabled": ("boolean", None),
+    "engine.failover.probe_mode": ("enum", ["child", "inproc"]),
+    "engine.failover.probe_timeout_s": ("number", ("exclusive", 0)),
+    "engine.failover.probe_interval_s": ("number", ("exclusive", 0)),
+    "engine.failover.max_backoff_s": ("number", 0),
+    "engine.failover.allow_cpu": ("boolean", None),
     "qos.enabled": ("boolean", None),
     "qos.rate": ("number", None),
     "qos.burst": ("number", 1),
@@ -141,14 +178,28 @@ _RULES: dict[str, tuple[str, Any]] = {
     "overload.throttle_k": ("number", 1),
     "overload.history": ("integer", 1),
     "overload.default_criticality": ("enum", ["default", "sheddable"]),
+    "scrub.enabled": ("boolean", None),
+    "scrub.interval_s": ("number", ("exclusive", 0)),
+    "scrub.sample_rows": ("integer", 1),
+    "scrub.reservoir": ("integer", 1),
+    "scrub.replay_per_cycle": ("integer", 0),
+    "scrub.wal_segments_per_cycle": ("integer", 0),
+    "scrub.max_repairs_per_cycle": ("integer", 0),
+    "scrub.digest_chunk_size": ("integer", 1),
+    "scrub.freeze_burn_rate": ("number", 0),
+    "scrub.history": ("integer", 1),
+    "debug.enabled": ("boolean", None),
+    "debug.token": ("string", None),
+    "debug.profile_max_s": ("number", 0.1),
 }
 
 # upper bounds, checked after the lower ones (the reference's keyword order)
-_MAXIMA = {"overload.decrease": 1}
+_MAXIMA = {"overload.decrease": 1, "engine.memory.hbm_budget_frac": 1}
 
 # objects whose schema admits no other property
 _CLOSED = {
-    "overload": {key.split(".", 1)[1] for key in _RULES if key.startswith("overload.")}
+    obj: {key[len(obj) + 1:] for key in _RULES if key.startswith(obj + ".")}
+    for obj in ("overload", "engine.memory", "engine.failover", "scrub", "debug")
 }
 
 # the properties each per-namespace qos override may carry

@@ -21,6 +21,17 @@ auto`` the closure engine is built in host query mode; any other engine
 (a device query mode, the frontier engines, the host oracle) serves from
 one process, and ``start_all`` logs one line saying so.
 
+The device-aware planes wrap every device engine as the reference's
+defaults do: ``checker()`` puts the circuit breaker
+(``engine/fallback.py``, ``engine.fallback``) between the batcher and the
+engine, with the host oracle behind it and the ``DeviceSupervisor`` below
+(``engine.failover.*``) on its lost-device hook; the batcher and the closure
+engine's background rebuild share one ``HbmAdmission``
+(``engine.memory.*``); ``scrubber()`` builds the integrity scrubber
+(``scrub.*``), started by ``start_all`` after any replica fork; and the read
+port serves ``/debug`` (``api/debug.py``, ``debug.*``). The breaker drives
+readiness: REST ``/health/ready`` and, with gRPC, the health service.
+
 ``serve.read.wire_workers`` W > 1 (while ``serve.read.encoded`` is on)
 makes the pool max(N, W) processes whose encoded routes funnel into this
 process's one batcher over a shared-memory ring (``engine/shmring.py``):
@@ -45,6 +56,7 @@ from ..api.rest import build_read_router, build_write_router
 from ..engine.batcher import CheckBatcher, DirectChecker
 from ..engine.cache import CheckResultCache
 from ..engine.check import CheckEngine
+from ..faults import FAULTS
 from ..graph.snapshot import SnapshotManager
 from ..store.columnar import ColumnarTupleStore
 from ..store.memory import InMemoryTupleStore
@@ -68,6 +80,328 @@ _log = logging.getLogger("keto_tpu_torch")
 # long one unchanged offender may persist before it gives up early
 _FORK_QUIESCE_S = 180.0
 _FORK_STABLE_S = 2.0
+
+
+class DeviceSupervisor:
+    """Device-loss recovery and runtime backend failover (counterpart of
+    ``keto_tpu/driver/registry.py DeviceSupervisor``).
+
+    The breaker (engine/fallback.py) classifies a lost-device launch error,
+    forces its circuit open (a real error's batches fail typed meanwhile;
+    an injected one's are answered by the host oracle) and calls
+    :meth:`notify_device_lost`. This supervisor then runs the recovery loop
+    on a daemon thread:
+
+    1. probe the home backend (``cuda``) in a fresh child process under
+       ``probe_timeout_s``: ``python -c "import torch; print(
+       torch.cuda.device_count())"``, spawned, never forked, so a wedged
+       driver hangs the child and the timeout kills it
+       (``backend.probe_hang`` drills exactly that);
+    2. on probe success: drop every device-resident artifact
+       (``engine.reset_residency()``), re-warm the kernels, and collapse
+       the breaker's open window so the next batch is the half-open probe;
+    3. on probe failure: fail over to the CPU and keep re-probing the home
+       backend with exponential backoff; when it answers, swap home again.
+
+    The CPU failover is the port's own host residency, not a default
+    device: the reference repoints JAX's default device, but the port's
+    engines carry an explicit device, and a plain-kernel build on the host
+    CPU would take minutes at scale. So the swap puts the closure engine in
+    host query mode (``set_host_queries(True)``), whose re-init builds D
+    with the numpy semiring builder and answers with no device work;
+    homecoming restores the placement it had and rebuilds on the card.
+    Answers do not change. An engine without a host residency (the
+    frontier engines) cannot fail over: it waits for the card.
+
+    Readiness stays NOT_SERVING from the loss until the homecoming: while
+    a recovery runs and for as long as ``backend`` is not the home
+    platform (:meth:`serving_ok`; ``on_change`` re-syncs the registry's
+    health at each transition). A host residency answers, but a balancer
+    must not take this process for a healthy card.
+
+    A sticky CUDA error (an illegal address, a device-side assert) poisons
+    this process's context while a fresh child still sees a healthy card:
+    the probe succeeds and the re-init fails. The loop then backs off and
+    retries, and each attempt lands in the timeline as ``reinit_failed``.
+
+    Every transition logs and lands in the failover timeline that
+    ``/debug/device`` serves.
+    """
+
+    _TIMELINE_CAP = 64
+    _PROBE_CODE = "import torch; print(torch.cuda.device_count())"
+
+    def __init__(
+        self,
+        engine,
+        warm_batch: int = 1,
+        enabled: bool = True,
+        probe_mode: str = "child",  # child | inproc
+        probe_timeout_s: float = 10.0,
+        probe_interval_s: float = 0.5,
+        max_backoff_s: float = 30.0,
+        allow_cpu_failover: bool = True,
+        home_platform: str = "cuda",
+        clock=time.monotonic,
+        on_change=None,
+    ):
+        self.engine = engine
+        self._on_change = on_change
+        self._recovering = False
+        self.warm_batch = max(1, int(warm_batch))
+        self.enabled = bool(enabled)
+        self.probe_mode = probe_mode
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.probe_interval_s = max(0.05, float(probe_interval_s))
+        self.max_backoff_s = max(self.probe_interval_s, float(max_backoff_s))
+        self.allow_cpu_failover = bool(allow_cpu_failover)
+        self._clock = clock
+        self._breaker = None
+        self._lock = threading.Lock()
+        self._worker: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._timeline: list[dict] = []
+        self._last_recovery_s: Optional[float] = None
+        self._failovers = 0
+        self.home_platform = home_platform
+        self.backend = home_platform  # the current serving backend
+        # the engine's query placement before a CPU failover, restored on
+        # homecoming
+        self._home_host: Optional[bool] = None
+
+    def bind_breaker(self, breaker) -> None:
+        """Late-bound: the registry builds the breaker after the supervisor
+        (the breaker's constructor takes the notify callback)."""
+        self._breaker = breaker
+
+    # -- event intake ----------------------------------------------------------
+
+    def notify_device_lost(self, err) -> None:
+        """Called by the breaker when a launch failed with a lost device.
+        Idempotent while a recovery is already running."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._recovering:
+                return  # recovery already in flight
+            self._recovering = True
+            self._failovers += 1
+            self._worker = threading.Thread(
+                target=self._recover,
+                args=(str(err), self._clock()),
+                name="device-supervisor",
+                daemon=True,
+            )
+            worker = self._worker
+        self._event("device_lost", error=str(err))
+        _log.warning("device lost (%s); recovering", err)
+        self._changed()
+        worker.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        worker = self._worker
+        if worker is not None and worker.is_alive():
+            worker.join(timeout=5)
+
+    # -- recovery loop ---------------------------------------------------------
+
+    def _recover(self, error: str, t_lost: float) -> None:
+        try:
+            self._recover_loop(t_lost)
+        finally:
+            with self._lock:
+                self._recovering = False
+            self._changed()
+
+    def _recover_loop(self, t_lost: float) -> None:
+        backoff = self.probe_interval_s
+        swapped = failed_over = False
+        while not self._stop.is_set():
+            ok, detail = self._probe_backend(self.home_platform)
+            self._event("probe", backend=self.home_platform, ok=ok, detail=detail)
+            if ok:
+                if self._reinit(self.home_platform, homecoming=swapped):
+                    self.backend = self.home_platform
+                    recovery_s = self._clock() - t_lost
+                    self._last_recovery_s = recovery_s
+                    self._event(
+                        "recovered",
+                        backend=self.home_platform,
+                        recovery_s=round(recovery_s, 3),
+                    )
+                    _log.info(
+                        "device recovered; serving on %s after %.3fs",
+                        self.home_platform, recovery_s,
+                    )
+                    return
+            elif (
+                self.allow_cpu_failover
+                and not failed_over
+                and self.home_platform != "cpu"
+            ):
+                # the home backend is gone for now: serve from host memory
+                # instead of failing every batch
+                if not swapped and self._swap_to("cpu"):
+                    # the backend moves before the re-init's forced probe
+                    # can close the breaker: readiness never sees a window
+                    # where the host residency passes for the card
+                    self.backend = "cpu"
+                    swapped = True
+                if swapped and self._reinit("cpu"):
+                    failed_over = True
+                    self._event("failover", backend="cpu")
+                    _log.warning(
+                        "home backend %s unavailable; serving from a host "
+                        "residency", self.home_platform,
+                    )
+            if self._stop.wait(backoff):
+                return
+            backoff = min(backoff * 2, self.max_backoff_s)
+
+    def _probe_backend(self, platform: str) -> tuple[bool, str]:
+        """Is ``platform`` usable? By default in a fresh child process: a
+        wedged driver hangs the CHILD, the timeout kills it, and the verdict
+        is an ordinary failure. The CPU is always usable."""
+        if FAULTS.should_fire("backend.probe_hang"):
+            # stands in for the child blocking past its timeout and being
+            # killed — deterministic, no real child to wedge
+            return False, "probe hung; child killed (injected)"
+        if platform != "cuda":
+            return True, "host"
+        if self.probe_mode == "inproc":
+            try:
+                import torch
+
+                n = torch.cuda.device_count()
+                return n > 0, f"{n} devices"
+            except Exception as e:
+                return False, str(e)[-200:]
+        import subprocess
+        import sys
+
+        try:
+            out = subprocess.run(
+                [sys.executable, "-c", self._PROBE_CODE],
+                capture_output=True,
+                text=True,
+                timeout=self.probe_timeout_s,
+            )
+        except subprocess.TimeoutExpired:
+            return False, f"probe child killed after {self.probe_timeout_s}s"
+        except OSError as e:
+            return False, str(e)[-200:]
+        if out.returncode != 0:
+            return False, (out.stderr or "").strip()[-200:] or f"rc={out.returncode}"
+        try:
+            return int(out.stdout.strip()) > 0, out.stdout.strip() + " devices"
+        except ValueError:
+            return False, f"unparseable probe output {out.stdout!r}"
+
+    def _swap_to(self, platform: str) -> bool:
+        """Move the engine's residency to host memory (``cpu``) or back to
+        the placement it had (home)."""
+        place = getattr(self.engine, "set_host_queries", None)
+        if place is None or getattr(self.engine, "builder", None) != "semiring":
+            # no host residency to fail over to (a frontier engine), or one
+            # whose host build runs on the device (the matmul builder)
+            self._event(
+                "swap_failed", backend=platform,
+                error="the engine has no host residency",
+            )
+            return False
+        try:
+            if platform == "cpu":
+                if self._home_host is None:
+                    self._home_host = self.engine.host_queries()
+                place(True)
+            else:
+                place(bool(self._home_host))
+            return True
+        except Exception as e:
+            self._event("swap_failed", backend=platform, error=str(e)[-200:])
+            return False
+
+    def _reinit(self, platform: str, homecoming: bool = False) -> bool:
+        """Teardown + re-init on ``platform``: restore the home placement
+        when coming back from a failover, drop and rebuild the residency,
+        re-warm the kernels, then collapse the breaker's open window so the
+        next batch is the half-open probe."""
+        try:
+            if homecoming and not self._swap_to(platform):
+                return False
+            reset = getattr(self.engine, "reset_residency", None)
+            if reset is not None:
+                reset()
+            warmup = getattr(self.engine, "warmup", None)
+            if warmup is not None:
+                warmup(self.warm_batch)
+            breaker = self._breaker
+            if breaker is not None:
+                breaker.force_probe()
+            return True
+        except Exception as e:
+            self._event("reinit_failed", backend=platform, error=str(e)[-200:])
+            _log.warning("device re-init on %s failed: %s", platform, e)
+            return False
+
+    def reset_residency(self) -> bool:
+        """Public quarantine + re-upload seam (the scrubber's device repair):
+        tear down the residency and re-warm on the CURRENT backend — no
+        probing, no failover bookkeeping."""
+        t0 = time.perf_counter()
+        ok = self._reinit(self.backend)
+        self._event(
+            "scrub_reset_residency", backend=self.backend, ok=ok,
+            seconds=round(time.perf_counter() - t0, 6),
+        )
+        return ok
+
+    # -- introspection ---------------------------------------------------------
+
+    def serving_ok(self) -> bool:
+        """Readiness from the supervisor's side: no recovery running, and
+        serving on the home platform."""
+        with self._lock:
+            return not self._recovering and self.backend == self.home_platform
+
+    def _changed(self) -> None:
+        cb = self._on_change
+        if cb is not None:
+            cb()
+
+    def _event(self, event: str, **fields) -> None:
+        entry = {"t": time.time(), "event": event, **fields}
+        with self._lock:
+            self._timeline.append(entry)
+            del self._timeline[: -self._TIMELINE_CAP]
+
+    def status(self) -> dict:
+        with self._lock:
+            timeline = list(self._timeline)
+            recovering = self._recovering
+        return {
+            "enabled": self.enabled,
+            "backend": self.backend,
+            "home_platform": self.home_platform,
+            "recovering": recovering,
+            "failovers": self._failovers,
+            "last_recovery_s": self._last_recovery_s,
+            "timeline": timeline,
+        }
+
+
+class _Readiness:
+    """The health object the device breaker drives: it moves the registry's
+    readiness (REST ``/health/ready``) and, when the gRPC plane is up, its
+    health service, as the reference's ``HealthServicer`` does both."""
+
+    def __init__(self, registry: "Registry"):
+        self._registry = registry
+
+    def set_serving(self, serving: bool) -> None:
+        self._registry._breaker_ok = bool(serving)
+        self._registry._sync_health()
 
 
 class Registry:
@@ -100,6 +434,17 @@ class Registry:
         self._ring_server = None
         self._ring_parent_front = None
         self._serving = False  # readiness: flips only after bring-up
+        # the device-aware planes: the breaker at the checker seam, the
+        # supervisor on its lost-device hook, the memory admission, the
+        # scrubber and the /debug context; the breaker clears _breaker_ok
+        # while its circuit is open
+        self._engine_breaker = None
+        self._device_supervisor = None
+        self._hbm_admission = None
+        self._scrubber = None
+        self._debug_context = None
+        self._breaker_ok = True
+        self._readiness = _Readiness(self)
         # the gRPC plane: its builders module once probed (None when grpc or
         # google.protobuf do not import), why it is off, and the health
         # service both planes share
@@ -173,6 +518,11 @@ class Registry:
                 freshness=str(cfg.get("engine.freshness")),
                 strong_freshness_edges=int(cfg.get("engine.strong_freshness_edges")),
                 rebuild_debounce_s=float(cfg.get("engine.rebuild_debounce_ms")) / 1e3,
+                rebuild_gate=(
+                    hbm.wait_for_headroom
+                    if (hbm := self.hbm_admission()) is not None
+                    else None
+                ),
                 device=self.device,
             )
         from ..engine.device import DeviceCheckEngine
@@ -197,6 +547,11 @@ class Registry:
                 else:
                     cfg = self.config
                     cache_size = int(cfg.get("engine.cache_size"))
+                    if bool(cfg.get("engine.fallback")):
+                        # the breaker wraps the engine at THIS seam only: the
+                        # rest of the registry (the fork, host_queries, the
+                        # versions) keeps seeing the raw engine
+                        engine = self._wrap_breaker(engine)
                     self._checker = CheckBatcher(
                         engine,
                         max_batch=max_batch,
@@ -213,8 +568,212 @@ class Registry:
                         encoded_cache_size=int(cfg.get("engine.encoded_cache_size")),
                         qos=self.qos(),
                         overload=self.overload(),
+                        hbm=self.hbm_admission(),
                     )
             return self._checker
+
+    def _wrap_breaker(self, engine):
+        from ..engine.fallback import DeviceFallbackEngine
+
+        cfg = self.config
+        max_depth = cfg.read_api_max_depth()
+        supervisor = self.device_supervisor()
+        breaker = self._engine_breaker = DeviceFallbackEngine(
+            engine,
+            fallback_factory=lambda: CheckEngine(self.store(), max_depth=max_depth),
+            failure_threshold=int(cfg.get("engine.fallback_threshold")),
+            cooldown_s=float(cfg.get("engine.fallback_cooldown_ms")) / 1e3,
+            health=self._readiness,
+            on_device_lost=(
+                supervisor.notify_device_lost if supervisor is not None else None
+            ),
+        )
+        if supervisor is not None:
+            # recovery ends with a forced half-open probe on this breaker
+            supervisor.bind_breaker(breaker)
+        return breaker
+
+    def hbm_admission(self):
+        """The device-memory budget shared by the batcher (chunk admission,
+        per-batch reserve/release) and the closure engine (rebuild gate).
+        None when engine.memory.admission is off or the engine is the host
+        oracle (no device memory to budget)."""
+        with self._lock:
+            if self._hbm_admission is None:
+                if not bool(self.config.get("engine.memory.admission")):
+                    return None
+                if self.config.engine_mode() == "host":
+                    return None
+                from ..engine.hbm import HbmAdmission
+
+                self._hbm_admission = HbmAdmission(
+                    budget_frac=float(self.config.get("engine.memory.hbm_budget_frac")),
+                    bytes_per_row=int(self.config.get("engine.memory.bytes_per_row")),
+                )
+            return self._hbm_admission
+
+    def device_supervisor(self):
+        """Device-loss recovery (``DeviceSupervisor``) on the breaker's
+        lost-device hook. None when engine.failover.enabled is off or the
+        engine is the host oracle (nothing to fail over)."""
+        with self._lock:
+            if self._device_supervisor is None:
+                cfg = self.config
+                if not bool(cfg.get("engine.failover.enabled")):
+                    return None
+                engine = self.check_engine()
+                if isinstance(engine, CheckEngine):
+                    return None
+                self._device_supervisor = DeviceSupervisor(
+                    engine,
+                    warm_batch=int(cfg.get("engine.max_batch")),
+                    probe_mode=str(cfg.get("engine.failover.probe_mode")),
+                    probe_timeout_s=float(cfg.get("engine.failover.probe_timeout_s")),
+                    probe_interval_s=float(cfg.get("engine.failover.probe_interval_s")),
+                    max_backoff_s=float(cfg.get("engine.failover.max_backoff_s")),
+                    allow_cpu_failover=bool(cfg.get("engine.failover.allow_cpu")),
+                    home_platform=self.device.type,
+                    on_change=self._sync_health,
+                )
+            return self._device_supervisor
+
+    def scrubber(self):
+        """The integrity scrubber (engine/scrub.py), wired to the serving
+        engine's residency, the batcher's live-check tap and its result
+        caches. Built lazily (building it builds the checker); its thread
+        starts in start_all, after any replica fork."""
+        with self._lock:
+            if self._scrubber is not None:
+                return self._scrubber
+            from ..engine.scrub import ScrubDaemon
+
+            cfg = self.config
+            self.checker()  # engine + batcher + breaker exist after this
+
+            def _engine():
+                return self._check_engine
+
+            def _oracle():
+                fb = getattr(self._check_engine, "fallback_engine", None)
+                return fb() if fb is not None else None
+
+            def _repair():
+                # the ladder's re-upload rung: the supervisor re-warms and
+                # re-probes the breaker; without one, the bare reset
+                sup = self._device_supervisor
+                if sup is not None:
+                    sup.reset_residency()
+                    return
+                reset = getattr(self._check_engine, "reset_residency", None)
+                if reset is not None:
+                    reset()
+
+            def _flush_caches():
+                b = self._checker
+                for c in (getattr(b, "cache", None), getattr(b, "encoded_cache", None)):
+                    if c is not None:
+                        c.clear()
+
+            def _breaker_guard():
+                b = self._engine_breaker
+                if b is not None and b.breaker_snapshot()["open"]:
+                    return "breaker_open"
+                return None
+
+            def _hbm_guard():
+                h = self._hbm_admission
+                if h is None:
+                    return None
+                snap = h.snapshot()
+                headroom = snap["headroom_bytes"]
+                if headroom is not None and headroom <= 0 and snap["inflight_bytes"] > 0:
+                    return "hbm_pressure"
+                return None
+
+            self._scrubber = ScrubDaemon(
+                engine_fn=_engine,
+                oracle_fn=_oracle,
+                repair_fn=_repair,
+                cache_flush_fn=_flush_caches,
+                version_fn=self._answering_version,
+                interval_s=float(cfg.get("scrub.interval_s")),
+                sample_rows=int(cfg.get("scrub.sample_rows")),
+                reservoir=int(cfg.get("scrub.reservoir")),
+                replay_per_cycle=int(cfg.get("scrub.replay_per_cycle")),
+                max_repairs_per_cycle=int(cfg.get("scrub.max_repairs_per_cycle")),
+                history=int(cfg.get("scrub.history")),
+                enabled_fn=lambda: bool(cfg.get("scrub.enabled")),
+                guards=(_breaker_guard, _hbm_guard),
+            )
+            if isinstance(self._checker, CheckBatcher):
+                # tap answered live batches into the replay reservoir
+                self._checker.scrub_observer = self._scrubber.observe_batch
+            return self._scrubber
+
+    def debug_context(self):
+        """Everything /debug needs (api/debug.py), gated by debug.*."""
+        with self._lock:
+            if self._debug_context is None:
+                from ..api.debug import DebugContext
+                from ..telemetry.devstats import DEVSTATS
+
+                DEVSTATS.set_graph_panel(self.graph_panel)
+                cfg = self.config
+                self._debug_context = DebugContext(
+                    config=cfg,
+                    enabled=bool(cfg.get("debug.enabled")),
+                    token=str(cfg.get("debug.token") or ""),
+                    profile_max_s=float(cfg.get("debug.profile_max_s")),
+                    device_status_fn=self._device_status,
+                    # getters, not instances: /debug observes a plane and
+                    # never constructs one
+                    scrub_fn=lambda: self._scrubber,
+                    overload_fn=lambda: self._overload,
+                )
+            return self._debug_context
+
+    def _device_status(self) -> dict:
+        """/debug/device: the serving backend, breaker and quarantine
+        state, the failover timeline, the HBM budget. Reads only components
+        already built — asking for status never constructs an engine."""
+        out: dict = {"backend": None, "supervisor": None}
+        sup = self._device_supervisor
+        if sup is not None:
+            status = sup.status()
+            out["supervisor"] = status
+            out["backend"] = status.get("backend")
+        if out["backend"] is None:
+            out["backend"] = self.device.type
+        breaker = self._engine_breaker
+        if breaker is not None:
+            out["breaker"] = breaker.breaker_snapshot()
+            out["quarantine"] = breaker.quarantine_snapshot()
+        hbm = self._hbm_admission
+        if hbm is not None:
+            out["hbm"] = hbm.snapshot()
+        return out
+
+    def graph_panel(self) -> dict:
+        """The graph's shape for /debug/graph: tuples, snapshot version,
+        CSR nnz, vocab size. Reads only materialized state: sampling never
+        forces a snapshot encode or a closure build."""
+        out: dict = {}
+        store = self._store
+        if store is not None:
+            out["tuples"] = len(store)
+            out["store_version"] = store.version
+        mgr = self._snapshots
+        snap = mgr._snap if mgr is not None else None
+        if snap is not None:
+            out["snapshot_version"] = snap.version
+            out["csr_nnz"] = snap.num_edges
+            out["vocab_size"] = len(snap.vocab)
+            out["padded_nodes"] = snap.padded_nodes
+            out["padded_edges"] = snap.padded_edges
+        engine = self._check_engine
+        if engine is not None:
+            out["engine"] = type(engine).__name__
+        return out
 
     def qos(self):
         """Per-namespace token-bucket admission (engine/qos.py), handed to
@@ -365,6 +924,10 @@ class Registry:
                 if not hasattr(engine, "reverse_artifacts"):
                     return None
                 engine.reverse_enabled = bool(self.config.get("engine.reverse_index"))
+                hbm = self.hbm_admission()
+                if hbm is not None:
+                    # a device D^T is resident bytes the admission charges
+                    engine.reverse_residency_cb = hbm.set_reverse_residency
                 from ..engine.listing import ListEngine
 
                 self._list_engine = ListEngine(
@@ -409,7 +972,19 @@ class Registry:
     # -- serving ---------------------------------------------------------------
 
     def is_serving(self) -> bool:
-        return self._serving
+        """Readiness: up after bring-up; down while the device breaker holds
+        it down (an open circuit, a real device error) and while the device
+        supervisor recovers or serves from a host residency."""
+        sup = self._device_supervisor
+        return (
+            self._serving
+            and self._breaker_ok
+            and (sup is None or sup.serving_ok())
+        )
+
+    def _sync_health(self) -> None:
+        if self._health is not None:
+            self._health.set_serving(self.is_serving())
 
     @property
     def grpc_enabled(self) -> bool:
@@ -471,6 +1046,9 @@ class Registry:
                     ),
                     default_criticality=self.default_criticality(),
                 )
+                from ..api.debug import DebugAPI
+
+                DebugAPI(self.debug_context()).register(router)
                 api = self._grpc()
                 grpc_server = None
                 if api is not None:
@@ -562,14 +1140,19 @@ class Registry:
         write_port = self.write_plane().start()
         if not self.grpc_enabled:
             _log.warning(self.grpc_off_reason)
+        if bool(self.config.get("scrub.enabled")):
+            # the scrubber's thread, after the fork like every thread
+            self.scrubber().start()
         self.mark_serving()
         return read_port, write_port
 
     def mark_serving(self) -> None:
-        """Readiness on: /health and the gRPC health service say SERVING."""
+        """Readiness on: /health and the gRPC health service say SERVING
+        (unless the device breaker is open)."""
         if self.grpc_enabled:
-            self._health_servicer().set_serving(True)
+            self._health_servicer()
         self._serving = True
+        self._sync_health()
 
     def _start_replicas(self, engine) -> None:
         """Fork max(serve.read.workers, serve.read.wire_workers) - 1 read
@@ -667,11 +1250,15 @@ class Registry:
         if self._wire_ring is not None:
             self._wire_ring.close()
             self._wire_ring = None
+        if self._scrubber is not None:
+            self._scrubber.stop()
         if self._read_plane is not None:
             self._read_plane.stop()
         if self._write_plane is not None:
             self._write_plane.stop()
         if self._checker is not None:
             self._checker.close()
+        if self._device_supervisor is not None:
+            self._device_supervisor.stop()
         if self._snapshots is not None:
             self._snapshots.close()

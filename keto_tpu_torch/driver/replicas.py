@@ -51,8 +51,11 @@ Self-healing:
   the replica exits to be respawned fresh.
 
 Every child exits when its parent's end of the socket closes, so no
-replica outlives its parent. The reference's fault sites (``replica.crash``,
-``delta.drop``, ``delta.slow``) wait for ROADMAP 10; its metrics for 14.5.
+replica outlives its parent. The fault sites (``faults.py``):
+``delta.slow`` stalls a broadcast, ``delta.drop`` skips one frame for one
+replica (the resync fills the gap), ``replica.crash`` kills a replica with a
+delta in hand; a respawn command carries the parent's current armed state.
+The pool's metrics wait for ROADMAP 14.5.
 Only process-private stores reach this pool (every store the port accepts
 is one); SQL stores, which spawn workers instead, wait for ROADMAP 14.1.
 """
@@ -71,6 +74,8 @@ import threading
 import traceback
 from collections import deque
 from typing import Optional
+
+from ..faults import FAULTS
 
 _LEN = struct.Struct("!I")
 _log = logging.getLogger("keto_tpu_torch")
@@ -370,11 +375,19 @@ class ReplicaPool:
         )
         with self._log_lock:
             self._delta_log.append((version, payload))
+        # fault sites: stall the broadcast (a replica staleness window), or
+        # skip this frame for ONE serving replica — the version gap the
+        # resync handshake exists to detect and fill
+        FAULTS.maybe_sleep("delta.slow")
+        drop_one = FAULTS.should_fire("delta.drop")
         with self._bcast_lock:
             links = list(self._children)
             zygote = self._zygote
         dead = []
         for link in links:
+            if drop_one:
+                drop_one = False
+                continue
             try:
                 self._send_to(link, payload)
             except OSError:  # socket.timeout is an OSError
@@ -541,7 +554,12 @@ class ReplicaPool:
             self._children.append(link)
         self._pending_spawns.append(link)
         try:
-            cmd = pickle.dumps(("spawn", self._ports), protocol=pickle.HIGHEST_PROTOCOL)
+            # the current fault snapshot rides along: a fault armed at boot
+            # and disarmed since must not come back in the replacement
+            cmd = pickle.dumps(
+                ("spawn", self._ports, FAULTS.snapshot()),
+                protocol=pickle.HIGHEST_PROTOCOL,
+            )
             with zygote.lock:
                 zygote.sock.settimeout(self.SEND_TIMEOUT_S)
                 _send_frame(zygote.sock, cmd)
@@ -670,10 +688,13 @@ class ReplicaPool:
                     # replicas the delta log cannot catch up
                     os._exit(3)
             elif msg[0] == "spawn":
-                _, ports = msg
+                _, ports, fault_snapshot = msg
                 _msg, fds, _flags, _addr = socket.recv_fds(sock, 1, 1)
                 if not fds:
                     continue
+                # the parent's CURRENT fault state, not the one inherited at
+                # the zygote's fork: disarmed faults must not resurrect
+                FAULTS.load(fault_snapshot)
                 pid = os.fork()
                 if pid == 0:
                     sock.close()
@@ -755,6 +776,10 @@ class ReplicaPool:
                     # already reflected (a frame from before the fork, or a
                     # replay overlap): drop, never hold
                     continue
+                # fault site: die where a sick replica would, with a delta
+                # in hand, before applying it
+                if FAULTS.should_fire("replica.crash"):
+                    os._exit(9)
                 held[version] = (inserted, deleted)
                 while (nxt := store.version + 1) in held:
                     ins, dels = held.pop(nxt)

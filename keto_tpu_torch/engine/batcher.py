@@ -37,7 +37,8 @@ tuple batches by criticality class (``critical``, ``default``,
 ``sheddable``) before they queue, culls queued entries past the CoDel
 target, serves newest-first while the standing queue lasts, and relaxes a
 snaptoken wait to the current snapshot on its bounded-stale rung. It
-learns from each dispatched batch's queue delay.
+learns from each dispatched batch's queue delay, and from how long the
+queue stayed empty (a whole interval of it ends a standing queue).
 
 Every stage is supervised:
 
@@ -53,9 +54,17 @@ Every stage is supervised:
   :class:`BatcherClosed`.
 
 ``min_version`` (the snaptoken) makes the engine catch up first through
-``engine.wait_for_version``. Not ported yet: ``reconfigure``, HBM
-admission and the scrub hooks (ROADMAP 10), tracing and metrics (ROADMAP
-14.5).
+``engine.wait_for_version``.
+
+``hbm`` (an ``HbmAdmission``, ``engine/hbm.py``) clamps every chunk the
+batcher forms to the device-memory headroom and charges each launched
+batch's modeled bytes from launch to decode. ``scrub_observer`` (the
+scrubber's ``observe_batch``, ``engine/scrub.py``) taps answered batches
+into its replay reservoir. ``reconfigure`` resizes the pipeline on a live
+batcher: in-flight batches drain first, queued requests wait out the swap.
+Every stage loop carries the ``batcher.*`` fault sites (``faults.py``),
+and the stage seconds go to ``DEVSTATS`` (``/debug/graph``). Tracing and
+metrics wait for ROADMAP 14.5.
 """
 
 from __future__ import annotations
@@ -69,7 +78,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..faults import FAULTS
 from ..relationtuple.definitions import RelationTuple
+from ..telemetry.devstats import DEVSTATS
 from ..utils.errors import (
     DeadlineExceeded,
     ErrInternal,
@@ -131,7 +142,7 @@ class _PBatch:
     """One batch moving through the pipeline: queue items plus per-stage
     artifacts."""
 
-    __slots__ = ("items", "enc", "launched", "keys")
+    __slots__ = ("items", "enc", "launched", "keys", "t_encoded", "hbm_token")
 
     def __init__(self, items):
         # [(request, depth, Future, t_enqueued, deadline, criticality), ...]
@@ -139,6 +150,8 @@ class _PBatch:
         self.enc = None  # EncodedBatch after the encode stage
         self.launched = None  # LaunchedBatch after the launch stage
         self.keys = None  # encoded-cache keys (when the cache is on)
+        self.t_encoded = 0.0
+        self.hbm_token = 0  # HBM admission reservation; 0 = none held
 
 
 class _Holder:
@@ -167,6 +180,7 @@ class CheckBatcher:
         encoded_cache_size: int = 0,  # 0 disables the encoded-request cache
         qos=None,  # NamespaceQos: per-namespace token-bucket admission
         overload=None,  # OverloadController: adaptive admission + brownout
+        hbm=None,  # HbmAdmission: device-memory budget; None disables
     ):
         self.engine = engine
         self.max_batch = max_batch
@@ -177,11 +191,15 @@ class CheckBatcher:
         self.version_fn = version_fn
         self.qos = qos
         self.overload = overload
+        self.hbm = hbm
+        # the scrubber's live-traffic tap (ScrubDaemon.observe_batch): fed
+        # every answered batch; never allowed to fail a check
+        self.scrub_observer = None
         self.pipeline_depth = pipeline_depth
         self.encode_workers = max(1, encode_workers)
         # pipelining needs the engine's split encode/launch/decode API;
         # engines without it (host oracle, closure) keep the serial loop
-        capable = callable(getattr(engine, "encode_batch", None))
+        capable = self._pipeline_capable()
         self.pipelined = pipeline_depth >= 1 and capable
         # the encoded-request cache serves the pipelined single-check path,
         # the columnar batches and the encoded batches, so it only needs a
@@ -203,6 +221,10 @@ class CheckBatcher:
         # resolved, whichever stage or queue owns it
         self._pipe_batches: dict[int, _PBatch] = {}
         self._closed = False
+        # reconfigure(): one resize at a time; _quiesce makes every stage
+        # loop exit without draining the queue
+        self._reconfig_lock = threading.Lock()
+        self._quiesce = False
         # close() lets the stages drain for this long before failing the
         # leftovers typed; only a wedged engine ever exhausts it
         self.close_join_s = 5.0
@@ -228,12 +250,19 @@ class CheckBatcher:
             self._encoders_live = self.encode_workers
             self._threads = self._spawn_pipeline()
         else:
-            self._threads = [
-                threading.Thread(
-                    target=self._run_guard, name="check-batcher", daemon=True
-                )
-            ]
-            self._threads[0].start()
+            self._threads = [self._spawn_dispatcher()]
+
+    def _pipeline_capable(self) -> bool:
+        # a wrapper (the device breaker) says whether its primary pipelines
+        sup = getattr(self.engine, "pipeline_supported", None)
+        if callable(sup):
+            return sup()
+        return callable(getattr(self.engine, "encode_batch", None))
+
+    def _spawn_dispatcher(self) -> threading.Thread:
+        t = threading.Thread(target=self._run_guard, name="check-batcher", daemon=True)
+        t.start()
+        return t
 
     def _spawn_pipeline(self) -> list[threading.Thread]:
         threads = [
@@ -413,18 +442,45 @@ class CheckBatcher:
             self._admit_overload(criticality)
         self._admit(min_version, timeout, deadline, relax=True)
         if self.cache is None:
-            return dispatch_batched(self.engine, requests, max_depth, self.max_batch)
+            return self._dispatch_direct(requests, max_depth)
         version = self.version_fn()
         keys = [(r, max_depth) for r in requests]
         cached = self.cache.get_many(version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
         if not miss:
             return [bool(v) for v in cached]
-        res = dispatch_batched(
-            self.engine, [requests[i] for i in miss], max_depth, self.max_batch
-        )
+        res = self._dispatch_direct([requests[i] for i in miss], max_depth)
         self.cache.put_many(version, [keys[i] for i in miss], res)
         return _merge(cached, miss, res)
+
+    def _admit_rows(self) -> int:
+        """The chunk size the HBM admission currently accepts: max_batch
+        clamped to the headroom left by in-flight batches. Asked per chunk,
+        since headroom moves as batches decode."""
+        if self.hbm is None:
+            return self.max_batch
+        return max(1, self.hbm.clamp_rows(self.max_batch))
+
+    def _dispatch_direct(self, requests, max_depth: int) -> list[bool]:
+        """A caller-assembled tuple batch on the caller's thread, in chunks
+        the admission accepts, tapped into the scrubber's reservoir."""
+        out: list[bool] = []
+        i = 0
+        while i < len(requests):
+            step = self._admit_rows()
+            chunk = requests[i : i + step]
+            out.extend(bool(v) for v in self.engine.batch_check(chunk, max_depth))
+            i += step
+        self._tap(requests, out)
+        return out
+
+    def _tap(self, requests, results) -> None:
+        obs = self.scrub_observer
+        if obs is not None:
+            try:
+                obs(requests, results)
+            except Exception:
+                pass  # a broken scrub tap must never fail live checks
 
     def check_batch_columnar(
         self,
@@ -455,13 +511,14 @@ class CheckBatcher:
         return out
 
     def _column_chunks(self, cols):
-        """``cols`` in max_batch slices (the batch itself when it fits)."""
+        """``cols`` in slices the admission accepts (the batch itself when
+        it fits)."""
         n = len(cols)
-        for i in range(0, n, self.max_batch):
-            yield (
-                cols if n <= self.max_batch
-                else cols.select(range(i, min(i + self.max_batch, n)))
-            )
+        i = 0
+        while i < n:
+            step = self._admit_rows()
+            yield cols if i == 0 and n <= step else cols.select(range(i, min(i + step, n)))
+            i += step
 
     def _dispatch_columns(self, cols, max_depth: int) -> list[bool]:
         """One encoded columnar dispatch: encode into staging, resolve cache
@@ -553,9 +610,11 @@ class CheckBatcher:
             want = np.zeros(n, dtype=np.int32)
         d = np.where((want <= 0) | (want > gmax), gmax, want) if gmax > 0 else want
         out: list[bool] = []
-        for i in range(0, n, self.max_batch):
-            j = i + self.max_batch
+        i = 0
+        while i < n:
+            j = i + self._admit_rows()
             out.extend(self._dispatch_encoded(s[i:j], t[i:j], d[i:j]))
+            i = j
         return out
 
     def _dispatch_encoded(self, s, t, d) -> list[bool]:
@@ -656,15 +715,94 @@ class CheckBatcher:
                 )
         return out
 
+    def reconfigure(
+        self,
+        pipeline_depth: Optional[int] = None,
+        encode_workers: Optional[int] = None,
+    ) -> bool:
+        """Resize the dispatch pipeline on a live batcher (the seam for
+        ``engine.pipeline_depth`` / ``engine.encode_workers``).
+
+        In-flight batches drain FIRST: the quiesce flag makes every stage
+        loop exit through :meth:`_await_work` without draining the queue;
+        the encode workers' sentinel cascade then flushes everything already
+        past encode through launch and decode in order, so a clean resize
+        drops or fails no caller. Queued requests wait out the swap and the
+        rebuilt stages pick them up. Serial <-> pipelined transitions are
+        derived from the engine's capabilities as in ``__init__``.
+
+        Only a wedged engine exhausts the join budget; the batches a wedged
+        stage still holds then fail typed (:class:`DispatcherCrashed`), as
+        a stage death would.
+
+        Returns True when the pipeline was rebuilt, False for a no-op. The
+        ``batcher.reconfigure_stall`` fault site stalls the drain window."""
+        with self._reconfig_lock:
+            new_depth = (
+                self.pipeline_depth if pipeline_depth is None
+                else max(0, int(pipeline_depth))
+            )
+            new_workers = (
+                self.encode_workers if encode_workers is None
+                else max(1, int(encode_workers))
+            )
+            if new_depth == self.pipeline_depth and new_workers == self.encode_workers:
+                return False
+            with self._cv:
+                if self._closed:
+                    raise BatcherClosed()
+                self._quiesce = True
+                self._cv.notify_all()
+            # the drain window: in-flight batches flush through the sentinel
+            # cascade while new arrivals pool in the queue
+            FAULTS.maybe_sleep("batcher.reconfigure_stall")
+            deadline = time.monotonic() + self.close_join_s
+            for t in self._threads:
+                t.join(timeout=max(0.0, deadline - time.monotonic()))
+            stragglers: list[tuple] = []
+            with self._cv:
+                # a wedged stage keeps its batch past the join budget: fail
+                # exactly those typed; queued entries are NOT touched
+                stragglers.extend(self._inflight)
+                self._inflight = []
+                for b in self._pipe_batches.values():
+                    stragglers.extend(b.items)
+                self._pipe_batches = {}
+                self._quiesce = False
+                self.pipeline_depth = new_depth
+                self.encode_workers = new_workers
+                self.pipelined = new_depth >= 1 and self._pipeline_capable()
+            for item in stragglers:
+                f = item[2]
+                if not f.done():
+                    f.set_exception(DispatcherCrashed())
+            if self.pipelined:
+                self._launch_q = _queue_mod.Queue(maxsize=max(2, self.encode_workers))
+                self._decode_q = _queue_mod.Queue(maxsize=max(1, new_depth))
+                self._encoders_live = self.encode_workers
+                self._threads = self._spawn_pipeline()
+            else:
+                self._threads = [self._spawn_dispatcher()]
+            return True
+
     # -- shared plumbing -------------------------------------------------------
 
     def _await_work(self) -> Optional[list[tuple]]:
         """Block for queued requests; None on clean shutdown with an empty
-        queue, else the drained batch (after the accumulation window when
-        only one request is waiting)."""
+        queue — or at once on a reconfigure quiesce, BEFORE draining, so
+        queued entries stay for the rebuilt stages — else the drained batch
+        (after the accumulation window when only one request is waiting)."""
         with self._cv:
-            while not self._queue and not self._closed:
+            idle_since = None
+            while not self._queue and not self._closed and not self._quiesce:
+                if idle_since is None:
+                    idle_since = time.monotonic()
                 self._cv.wait()
+            if idle_since is not None and self.overload is not None:
+                # the overload plane learns how long the queue stayed empty
+                self.overload.note_idle(time.monotonic() - idle_since)
+            if self._quiesce and not self._closed:
+                return None
             if self._closed and not self._queue:
                 return None
             first_only = len(self._queue) == 1
@@ -709,10 +847,10 @@ class CheckBatcher:
             if ov.lifo() and self._queue:
                 # adaptive LIFO: the newest entries are the ones most
                 # likely to still meet their deadlines
-                batch = self._queue[-self.max_batch :]
+                batch = self._queue[-self._admit_rows() :]
                 del self._queue[-len(batch) :]
                 return batch
-        batch = self._queue[: self.max_batch]
+        batch = self._queue[: self._admit_rows()]
         del self._queue[: len(batch)]
         return batch
 
@@ -770,12 +908,14 @@ class CheckBatcher:
 
     def _run(self) -> None:
         while True:
+            FAULTS.fire("batcher.dispatcher_die")
             batch = self._await_work()
             if batch is None:
                 return
             batch, _ = self._cull(batch, "dispatch")
             if not batch:
                 continue
+            FAULTS.maybe_sleep("batcher.dispatch_slow")
             with self._cv:
                 self._inflight = batch
             self.n_batches += 1
@@ -804,6 +944,7 @@ class CheckBatcher:
                 f = item[2]
                 if not f.done():
                     f.set_result(bool(allowed))
+            self._tap(requests, results)
             with self._cv:
                 self._inflight = []
 
@@ -817,6 +958,13 @@ class CheckBatcher:
     def _complete(self, batch: _PBatch) -> None:
         with self._lock:
             self._pipe_batches.pop(id(batch), None)
+        if self.hbm is not None and batch.hbm_token:
+            self.hbm.release(batch.hbm_token)
+            batch.hbm_token = 0
+
+    @staticmethod
+    def _observe(stage: str, seconds: float) -> None:
+        DEVSTATS.record_stage(stage, seconds)
 
     def _fail_batch(self, batch: _PBatch, exc: BaseException) -> None:
         self._complete(batch)
@@ -868,14 +1016,17 @@ class CheckBatcher:
         batch = _PBatch(items)
         holder.batch = batch
         self._register(batch)
+        FAULTS.fire("batcher.encode_die")
+        FAULTS.maybe_sleep("batcher.encode_slow")
         with self._lock:
             self.n_batches += 1
             self.n_dispatched += len(items)
+        t0 = time.perf_counter()
+        queued = t0 - min(it[3] for it in items)
+        self._observe("enqueue", queued)
         if self.overload is not None:
             # pipelined shape: the queue delay alone is the limiter signal
-            self.overload.observe(
-                time.perf_counter() - min(it[3] for it in items)
-            )
+            self.overload.observe(queued)
         requests = [it[0] for it in items]
         depths = [it[1] for it in items]
         try:
@@ -899,6 +1050,7 @@ class CheckBatcher:
                     enc.release()
                     self._complete(batch)
                     holder.batch = None
+                    self._observe("encode", time.perf_counter() - t0)
                     return
                 enc.compact(miss)
                 batch.items = [items[i] for i in miss]
@@ -906,6 +1058,8 @@ class CheckBatcher:
             else:
                 batch.keys = keys
         enc.deadlines = [it[4] for it in batch.items]
+        batch.t_encoded = time.perf_counter()
+        self._observe("encode", batch.t_encoded - t0)
         # ownership passes to the launch queue; the bounded put is the
         # encode stage's backpressure
         holder.batch = None
@@ -921,6 +1075,10 @@ class CheckBatcher:
 
     def _launch_step(self, batch: _PBatch, holder: _Holder) -> None:
         holder.batch = batch
+        # the device stage inherits the dispatcher's fault site: "the
+        # dispatcher" is the thread that talks to the device
+        FAULTS.fire("batcher.dispatcher_die")
+        FAULTS.maybe_sleep("batcher.launch_slow")
         # cull rows that died waiting in the launch queue BEFORE the device
         # stage: compacting the staged buffers here is the last chance not
         # to pay device time for them
@@ -935,14 +1093,24 @@ class CheckBatcher:
             batch.items = kept
             if batch.keys is not None:
                 batch.keys = [batch.keys[i] for i in keep_idx]
+        if self.hbm is not None:
+            # charge the batch's modeled device memory before the launch;
+            # released in _complete/_fail_batch once it leaves the device
+            batch.hbm_token = self.hbm.reserve(
+                getattr(batch.enc, "b", 0) or 0,
+                getattr(batch.enc, "version", 0) or 0,
+            )
         try:
             batch.launched = self.engine.launch_encoded(batch.enc)
         except Exception as e:
             # a launch that raises fails its batch typed; it is never
-            # re-answered on the CPU
+            # re-answered on the CPU (behind the device breaker only an
+            # injected fault's batch goes to the oracle instead of raising)
             self._fail_batch(batch, e)
             holder.batch = None
             return
+        # launch = launch-queue wait + the enqueue of the steps
+        self._observe("launch", time.perf_counter() - batch.t_encoded)
         holder.batch = None
         # bounded put: blocks once pipeline_depth batches await decode,
         # which is what caps the batches in flight
@@ -957,6 +1125,8 @@ class CheckBatcher:
 
     def _decode_step(self, batch: _PBatch, holder: _Holder) -> None:
         holder.batch = batch
+        FAULTS.fire("batcher.decode_die")
+        FAULTS.maybe_sleep("batcher.decode_slow")
         # rows that died on the device still decode (decoding frees the
         # staging buffers) but their callers fail typed now; items stay in
         # place so the results align
@@ -969,19 +1139,32 @@ class CheckBatcher:
                 n_expired += 1
         if n_expired:
             self._note_expired("decode", n_expired)
+        t0 = time.perf_counter()
         try:
             results = self.engine.decode_launched(batch.launched)
         except Exception as e:
             self._fail_batch(batch, e)
             holder.batch = None
             return
+        # device = the wait for the result's copy back
+        self._observe("device", time.perf_counter() - t0)
+        # a None answer is a row the breaker's oracle skipped because its
+        # caller's deadline had passed: that caller already failed typed,
+        # and nothing is cached or tapped for it
         for item, allowed in zip(batch.items, results):
             f = item[2]
-            if not f.done():
+            if allowed is not None and not f.done():
                 f.set_result(bool(allowed))
-        if self.encoded_cache is not None and batch.keys is not None:
+        live = [i for i, v in enumerate(results) if v is not None]
+        if live:
+            self._tap(
+                [batch.items[i][0] for i in live], [results[i] for i in live]
+            )
+        if self.encoded_cache is not None and batch.keys is not None and live:
             self.encoded_cache.put_many(
-                batch.enc.version, batch.keys, [bool(v) for v in results]
+                batch.enc.version,
+                [batch.keys[i] for i in live],
+                [bool(results[i]) for i in live],
             )
         self._complete(batch)
         holder.batch = None

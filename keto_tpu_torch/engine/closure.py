@@ -66,7 +66,18 @@ A ``CheckColumns`` batch (``batch_check_columns``) takes the same path with
 no tuple objects, and ``check_ids`` takes pre-encoded vocab ids (the
 id-native wire tier).
 
-Left to later slices: scrubbing, metrics and tracing.
+Integrity and supervision seams: ``reset_residency`` drops the resident
+closure (D, D^T and the overlay) and rebuilds it synchronously (the
+scrubber's repair, the device supervisor's re-init), and
+``scrub_residency`` holds a random sample of resident rows against a host
+BFS of the snapshot (``engine/scrub.py``; the ``scrub.device_bitflip``
+fault site poisons the serving D in place first). ``rebuild_gate`` holds a
+background rebuild until the device has memory headroom
+(``HbmAdmission.wait_for_headroom``), and ``reverse_residency_cb`` reports
+a device-resident D^T's bytes to the same admission. ``set_host_queries``
+moves the residency between the card and host memory at the next build:
+the device supervisor's CPU failover. Metrics and tracing wait for
+ROADMAP 14.5.
 
 Rows whose F0/L fan-out overflows the padded width, and snapshots whose
 interior exceeds ``interior_limit`` (D is O(M^2) bytes), are answered by an
@@ -87,6 +98,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..faults import FAULTS
 from ..graph.interior import (
     InteriorGraph,
     build_interior,
@@ -110,6 +122,7 @@ from .check import DEFAULT_MAX_DEPTH, CheckEngine
 from .masked_spmv import build_closure_semiring
 from .overlay import WriteOverlay
 from .semiring import (
+    _bfs_rows_into,
     build_closure_bitset,
     transpose_closure,
     update_closure_bitset_ex,
@@ -148,6 +161,25 @@ def _m_pad_for(m: int) -> int:
     INF row (the PAD index) plus the grow reserve, bucketed to 256."""
     n = m + 1 + _GROW_RESERVE
     return ((n + 255) // 256) * 256
+
+
+def _scrub_expected_rows(
+    adj_packed: np.ndarray, rows: np.ndarray, m_pad: int, k_max: int
+) -> np.ndarray:
+    """Host truth for a sampled set of closure rows: the masked-SpMV BFS of
+    the host semiring build (``engine/semiring.py``) into a compact
+    (n, m_pad) array, so scrubbing a handful of rows never allocates the
+    full m_pad^2 matrix. Diagonal 0 for the (live) sampled rows, INF
+    elsewhere — byte-identical to every closure build."""
+    n = len(rows)
+    exp = np.full((n, m_pad), INF_DIST, dtype=np.uint8)
+    if n:
+        _bfs_rows_into(exp, adj_packed, adj_packed.any(axis=1), rows, m_pad, k_max,
+                       out_rows=np.arange(n))
+        # diagonal last, as the builders do: a cycle's BFS distance back to
+        # the source is overwritten by the 0 self-distance
+        exp[np.arange(n), rows] = 0
+    return exp
 
 
 def _probe_roundtrip_slow(device: torch.device) -> bool:
@@ -335,8 +367,11 @@ class ClosureCheckEngine:
 
             subscribe(_cb)
         # reverse residency for the list path (engine/listing.py); the
-        # registry sets reverse_enabled from engine.reverse_index
+        # registry sets reverse_enabled from engine.reverse_index and points
+        # reverse_residency_cb at HbmAdmission.set_reverse_residency, so a
+        # device-resident D^T is charged against the memory budget
         self.reverse_enabled = True
+        self.reverse_residency_cb = None  # callable(bytes) or None
         self.last_reverse_build_s = 0.0
         # build telemetry (read by tests and the smoke run)
         self.n_full_builds = 0
@@ -376,6 +411,14 @@ class ClosureCheckEngine:
         eng._overlay = WriteOverlay(art)
         eng._state = art
         return eng
+
+    def set_host_queries(self, host: bool) -> None:
+        """Place queries (and D) on the host or on the device from the next
+        residency build on; ``reset_residency`` applies it at once. The
+        device supervisor's CPU failover: while the card is gone the
+        closure lives in host memory, built by the numpy semiring builder,
+        and answers are unchanged."""
+        self._host_queries = bool(host)
 
     def host_queries(self) -> bool:
         """Whether queries read a host D. ``auto`` resolves once: on a CUDA
@@ -448,6 +491,11 @@ class ClosureCheckEngine:
                         art.d_rev = art.d.t().contiguous()
                         if art.d_rev.is_cuda:
                             torch.cuda.synchronize(art.d_rev.device)
+                        # only a device D^T counts against the memory
+                        # budget; the host transpose lives in ordinary RAM
+                        cb = self.reverse_residency_cb
+                        if cb is not None:
+                            cb(art.d_rev.numel() * art.d_rev.element_size())
                 self.last_reverse_build_s = time.perf_counter() - t0
             d = art.d_host if art.d_host is not None else art.d
             return ReverseView(art.snap, art.ig, art.rev, d, art.d_rev)
@@ -625,7 +673,13 @@ class ClosureCheckEngine:
                 if self.rebuild_debounce_s > 0:
                     time.sleep(self.rebuild_debounce_s)  # coalesce bursts
                 if self._rebuild_gate is not None:
-                    self._rebuild_gate()
+                    # hold the rebuild's device peak off in-flight batch
+                    # memory; the gate times out rather than starving the
+                    # rebuild, so staleness stays bounded either way
+                    try:
+                        self._rebuild_gate()
+                    except Exception:
+                        _log.exception("rebuild gate failed; rebuilding anyway")
                 state = self._build_sync()
                 # exit check and flag clear are atomic wrt _kick_rebuild:
                 # otherwise a write landing between them would see
@@ -846,6 +900,89 @@ class ClosureCheckEngine:
         ):
             self.batch_check([dummy] * batch)
 
+    # -- integrity scrubbing (engine/scrub.py) ---------------------------------
+
+    def reset_residency(self) -> None:
+        """Drop the resident closure (D, the lazy D^T, and the write
+        overlay) and rebuild synchronously from the store — the scrubber's
+        quarantine + re-upload seam, and the device supervisor's re-init."""
+        with self._build_lock:
+            self._state = None
+            self._overlay = None
+        self._build_sync()
+
+    def scrub_residency(self, sample_rows: int = 64, rng=None):
+        """Hold a random sample of resident closure rows against host truth
+        (the masked-SpMV BFS of the host builder over the snapshot's
+        interior adjacency). Returns a report dict, or None when there is
+        nothing scrubbable right now:
+
+        - no resident closure (the fallback state, or not built), or
+        - the residency is not quiescent — the state lags the live store
+          version or the write overlay holds absorbed corrections. The
+          overlay patches D in place *by design*, so a patched D diverging
+          from the pure snapshot closure is not corruption; scrubbing
+          resumes after the next rebuild folds it in.
+
+        The ``scrub.device_bitflip`` fault site fires here: it poisons one
+        element of the serving copy in place (the tensor on the card, or
+        the host D), so a drill proves that the sampled comparison detects
+        and the repair restores the buffer queries read."""
+        state = self._state
+        if not isinstance(state, _ClosureArtifacts):
+            return None
+        if state.version != self.snapshots.store.version:
+            return None
+        ov = self._overlay
+        if ov is not None and ov.art is state:
+            ov.drain()
+            if ov.n_events or ov.broken:
+                return None
+        ig, m_pad = state.ig, state.m_pad
+        if ig.m == 0:
+            return {"sampled": 0, "version": state.version,
+                    "bad_rows": [], "bad_rev_rows": []}
+        if rng is None:
+            rng = np.random.default_rng()
+        if FAULTS.should_fire("scrub.device_bitflip"):
+            r = int(rng.integers(ig.m))
+            c = int(rng.integers(m_pad))
+            if state.d_host is not None:
+                cur = int(state.d_host[r, c])
+                state.d_host[r, c] = 0 if cur else 1
+            else:
+                cur = int(state.d[r, c])
+                state.d[r, c] = 0 if cur else 1
+        n = min(max(1, int(sample_rows)), ig.m)
+        rows = np.sort(rng.choice(ig.m, size=n, replace=False).astype(np.int64))
+        packed = pack_adjacency(ig.ii_src, ig.ii_dst, m_pad)
+        expected = _scrub_expected_rows(packed, rows, m_pad, state.k_max)
+        if state.d_host is not None:
+            served = state.d_host[rows]
+        else:
+            served = state.d[torch.from_numpy(rows).to(state.d.device)].cpu().numpy()
+        diff = np.any(served != expected, axis=1)
+        bad_rows = [int(r) for r in rows[diff]]
+        # cross-check the transposed residency when the list path built
+        # it: D^T[:, r] must equal D's recomputed row r
+        bad_rev_rows: list[int] = []
+        with state.rev_lock:
+            d_rev = state.d_rev
+        if d_rev is not None:
+            if isinstance(d_rev, np.ndarray):
+                rev_rows = d_rev[:, rows].T
+            else:
+                rev_rows = d_rev[:, torch.from_numpy(rows).to(d_rev.device)].t().cpu().numpy()
+            rev_diff = np.any(rev_rows != expected, axis=1)
+            bad_rev_rows = [int(r) for r in rows[rev_diff]]
+        return {
+            "sampled": int(n),
+            "version": state.version,
+            "resident": "host" if state.d_host is not None else "device",
+            "bad_rows": bad_rows,
+            "bad_rev_rows": bad_rev_rows,
+        }
+
     def device_view(self) -> "ClosureCheckEngine":
         """A second engine over the same snapshots that serves the same
         resident closure with ``query_mode="device"``: one upload of D
@@ -933,18 +1070,33 @@ class ClosureCheckEngine:
     ) -> list[bool]:
         if not requests:
             return []
+        return self.batch_check_array(requests, max_depth, depths).tolist()
+
+    def batch_check_array(
+        self,
+        requests: Sequence[RelationTuple],
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """``batch_check``'s answers as a bool array: the seam the device
+        breaker validates by dtype and shape before one ``tolist``."""
+        if not requests:
+            return np.zeros(0, dtype=bool)
         state, pinned = self._serving_pinned()
         if not isinstance(state, _ClosureArtifacts):
-            return self.fallback_engine().batch_check(
-                list(requests), max_depth, None if depths is None else list(depths)
+            return np.array(
+                self.fallback_engine().batch_check(
+                    list(requests), max_depth,
+                    None if depths is None else list(depths),
+                ),
+                dtype=bool,
             )
         n = len(requests)
         s_ids, t_ids, is_id = state.snap.vocab.lookup_requests(requests)
         depth = self._depths(n, max_depth, depths)
-        allowed = self._check_arrays(
+        return self._check_arrays(
             state, s_ids, t_ids, is_id, depth, pinned, requests
         )
-        return allowed.tolist()
 
     def batch_check_columns(
         self,
@@ -958,16 +1110,31 @@ class ClosureCheckEngine:
         materialize only on the oversized-interior fallback and, one row at
         a time, for the overflow rows ``_check_arrays`` hands the exact
         fallback."""
+        if not len(cols):
+            return []
+        return self.batch_check_columns_array(cols, max_depth, depths).tolist()
+
+    def batch_check_columns_array(
+        self,
+        cols,
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """``batch_check_columns``'s answers as a bool array (the breaker's
+        seam, as ``batch_check_array``)."""
         n = len(cols)
         if not n:
-            return []
+            return np.zeros(0, dtype=bool)
         state, pinned = self._serving_pinned()
         if not isinstance(state, _ClosureArtifacts):
             # interior too large for a closure: the exact fallback, the only
             # path that needs every row as a tuple object
-            return self.fallback_engine().batch_check(
-                cols.materialize(), max_depth,
-                None if depths is None else list(depths),
+            return np.array(
+                self.fallback_engine().batch_check(
+                    cols.materialize(), max_depth,
+                    None if depths is None else list(depths),
+                ),
+                dtype=bool,
             )
         vocab = state.snap.vocab
         tkeys = cols.target_keys()
@@ -975,10 +1142,9 @@ class ClosureCheckEngine:
         t_ids = vocab.lookup_bulk(tkeys)
         is_id = np.fromiter((len(k) == 1 for k in tkeys), dtype=bool, count=n)
         depth = self._depths(n, max_depth, depths)
-        allowed = self._check_arrays(
+        return self._check_arrays(
             state, s_ids, t_ids, is_id, depth, pinned, _ColumnRows(cols)
         )
-        return allowed.tolist()
 
     def check_ids(
         self,

@@ -32,8 +32,13 @@ soon as ``decode_launched`` has copied the result back.
 ``SnapshotExpandEngine`` builds Expand trees from a snapshot's forward
 CSR (host work: no kernel runs), for every engine mode but ``host``.
 
-Left to later slices of the port: the fault-injection sites, the
-garbage-batch path and the device telemetry hooks (ROADMAP item 10).
+``launch_encoded`` carries the device fault sites (``faults.py``):
+``device.compile_error``, ``device.oom``, ``device.compile_fail``,
+``device.lost`` raise as those failures would, ``device.slow`` stalls, and
+``device.batch_nan`` returns a garbage batch (NaN answers) as a sick card
+would; the breaker in ``engine/fallback.py`` is tested against them. The
+staging copies are tallied in ``DEVSTATS`` (``/debug/graph``). The
+per-request ledger marks wait for ROADMAP 14.5.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..faults import FAULTS
 from ..graph.snapshot import GraphSnapshot, SnapshotManager, _bucket
 from ..ops.frontier import (
     batched_check_dense,
@@ -55,6 +61,7 @@ from ..ops.frontier import (
 )
 from ..ops.packed import PACKED_BATCH_MULTIPLE, csr_row_ptr, packed_batched_check
 from ..relationtuple.definitions import RelationTuple, Subject, SubjectID, SubjectSet
+from ..telemetry.devstats import DEVSTATS
 from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, clamp_depth
 from .expand import (
@@ -193,13 +200,16 @@ class EncodedBatch:
 
 class LaunchedBatch:
     """A dispatched batch: the device result, not yet copied to the host.
-    CUDA launches return at enqueue; decode blocks on the copy."""
+    CUDA launches return at enqueue; decode blocks on the copy. ``garbage``
+    marks the ``device.batch_nan`` drill's batch, which decodes to NaNs."""
 
-    __slots__ = ("enc", "hit")
+    __slots__ = ("enc", "hit", "garbage")
 
-    def __init__(self, enc: EncodedBatch, hit: torch.Tensor):
+    def __init__(self, enc: EncodedBatch, hit: Optional[torch.Tensor] = None,
+                 garbage: bool = False):
         self.enc = enc
         self.hit = hit
+        self.garbage = garbage
 
 
 class _DeviceGraph:
@@ -362,7 +372,19 @@ class DeviceCheckEngine:
         Serial composition of the pipeline stages — one batch in flight."""
         if not requests:
             return []
-        return self.decode_launched(
+        return self.batch_check_array(requests, max_depth, depths).tolist()
+
+    def batch_check_array(
+        self,
+        requests: Sequence[RelationTuple],
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """``batch_check``'s answers as an array: the seam the device
+        breaker validates by dtype and shape before one ``tolist``."""
+        if not requests:
+            return np.zeros(0, dtype=bool)
+        return self.decode_launched_array(
             self.launch_encoded(self.encode_batch(requests, max_depth, depths))
         )
 
@@ -440,7 +462,19 @@ class DeviceCheckEngine:
         """Serial columnar dispatch — the zero-object twin of batch_check."""
         if not len(cols):
             return []
-        return self.decode_launched(
+        return self.batch_check_columns_array(cols, max_depth, depths).tolist()
+
+    def batch_check_columns_array(
+        self,
+        cols,
+        max_depth: int = 0,
+        depths: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """``batch_check_columns``'s answers as an array (the breaker's
+        seam, as ``batch_check_array``)."""
+        if not len(cols):
+            return np.zeros(0, dtype=bool)
+        return self.decode_launched_array(
             self.launch_encoded(self.encode_columns(cols, max_depth, depths))
         )
 
@@ -505,6 +539,22 @@ class DeviceCheckEngine:
         enqueue the steps. The loop reads one `done.all()` per step, so it
         returns once the last step is enqueued; the result stays on the
         device."""
+        # fault sites: stand-ins for a failed kernel build, an
+        # out-of-memory, a lost device, a launch refused for one shape, a
+        # numerically sick card returning garbage, and a slow dispatch —
+        # what the breaker (engine/fallback.py), the device supervisor
+        # (driver/registry.py) and the batcher's deadline culls are tested
+        # against
+        FAULTS.fire("device.compile_error")
+        FAULTS.fire("device.oom")
+        FAULTS.fire("device.compile_fail")
+        FAULTS.fire("device.lost")
+        FAULTS.maybe_sleep("device.slow")
+        if FAULTS.should_fire("device.batch_nan"):
+            return LaunchedBatch(enc, garbage=True)
+        DEVSTATS.record_transfer(
+            enc.start.nbytes + enc.target.nbytes + enc.depth.nbytes, "h2d"
+        )
         dg = enc.dg
         dev = self.device
         # torch.tensor copies: the staging buffers are recycled after decode
@@ -542,9 +592,18 @@ class DeviceCheckEngine:
     def decode_launched(self, launched: LaunchedBatch) -> list[bool]:
         """Stage 3: copy the result to the host (the blocking step) and
         recycle the staging buffers."""
+        return self.decode_launched_array(launched).tolist()
+
+    def decode_launched_array(self, launched: LaunchedBatch) -> np.ndarray:
+        """Stage 3's answers as an array: bool, one per row, except the
+        ``device.batch_nan`` drill's batch, which decodes to float NaNs."""
         enc = launched.enc
         try:
-            return launched.hit[: enc.n].cpu().tolist()
+            if launched.garbage:
+                return np.full(enc.n, np.nan)
+            hit = launched.hit[: enc.n].cpu()
+            DEVSTATS.record_transfer(hit.numel() * hit.element_size(), "d2h")
+            return hit.numpy()
         finally:
             enc.release()
 

@@ -41,7 +41,8 @@ the request is answered by the live-store oracle, which is always exact;
 a run of gather failures opens a breaker that pins the oracle for a
 cooldown. The oracle is the reference's exact-answer escalation, not a
 device fallback: an error of the card still counts as a failure and opens
-the breaker. The fault-injection site of the reference is not ported.
+the breaker. Both reverse gathers carry the ``list.gather_fail`` fault
+site (``faults.py``), which drives that breaker in the tests.
 
 Pages ride the shared continuation tokens (``engine/paging.py``): they pin
 the data version (stale -> 409 ``ErrStalePageToken``) and echo the query
@@ -58,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..faults import FAULTS
 from ..relationtuple.definitions import (
     RelationQuery,
     RelationTuple,
@@ -314,6 +316,7 @@ class ListEngine:
     def _reverse_list_objects(
         self, view, subject, relation: str, namespace: str, depth: int
     ) -> list:
+        FAULTS.fire("list.gather_fail")
         snap, ig, rev = view.snap, view.ig, view.rev
         t = snap.node_for_subject(subject)
         cand: list[np.ndarray] = []
@@ -347,6 +350,7 @@ class ListEngine:
     def _reverse_list_subjects(
         self, view, namespace: str, object: str, relation: str, depth: int
     ) -> list:
+        FAULTS.fire("list.gather_fail")
         snap, ig, rev = view.snap, view.ig, view.rev
         s = snap.node_for_set(namespace, object, relation)
         cand: list[np.ndarray] = []

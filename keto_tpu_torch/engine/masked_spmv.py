@@ -122,7 +122,7 @@ def masked_step(frontier, adj, reached):
             geom.rows, geom.grid_x, stream,
         )
     if err != 0:
-        raise RuntimeError(f"masked_spmv launch failed: CUDA error {err}")
+        raise kernels.launch_error("masked_spmv", err)
     masked_step.launches += 1
     return newly, reached_out
 

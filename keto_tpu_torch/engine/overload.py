@@ -25,9 +25,10 @@ under its queue lock, ``observe`` once per dispatched batch. The clock and
 the random source are injectable, so a test drives the plane
 deterministically. Standard library only.
 
-Not ported yet: the metrics families (ROADMAP 14.5; the flight recorder
-and logger hooks take any object with ``record``/``info``, and the
-registry passes None) and ``/debug/overload`` (ROADMAP 10).
+``OverloadController.snapshot`` and ``history`` are what ``/debug/overload``
+serves (``api/debug.py``). Not ported yet: the metrics families (ROADMAP
+14.5; the flight recorder and logger hooks take any object with
+``record``/``info``, and the registry passes None).
 """
 
 from __future__ import annotations
@@ -176,6 +177,18 @@ class AdaptiveLimiter:
         """Queued-age cull threshold while overloaded, else None (no
         culling below sustained pressure — CoDel tolerates bursts)."""
         return self.target_delay_s if self.overloaded else None
+
+    def note_idle(self, idle_s: float) -> None:
+        """The queue stayed empty for ``idle_s``. No standing queue
+        survives a whole interval of emptiness (CoDel leaves its dropping
+        state when the queue empties), so the sustained-delay verdict is
+        cleared; a shorter gap between two drains of a storm keeps it.
+        Without this, the verdict of a storm's last batch would outlive
+        any quiet spell and cull the next lone request on its first
+        scheduling delay past the target."""
+        if idle_s >= self.interval_s:
+            self._above_since = None
+            self.overloaded = False
 
     def snapshot(self) -> dict:
         return {
@@ -532,6 +545,12 @@ class OverloadController:
     def cull_age_s(self) -> Optional[float]:
         return self.limiter.cull_age_s() if self.enabled() else None
 
+    def note_idle(self, idle_s: float) -> None:
+        """The batcher's queue stayed empty for ``idle_s`` (see
+        :meth:`AdaptiveLimiter.note_idle`)."""
+        with self._lock:
+            self.limiter.note_idle(idle_s)
+
     def note_culled(self, n: int) -> None:
         with self._lock:
             self.culled += n
@@ -564,8 +583,7 @@ class OverloadController:
             return self.brownout.history(n)
 
     def snapshot(self) -> dict:
-        """The plane's state as one object (the reference serves it at
-        /debug/overload, ROADMAP 10)."""
+        """The plane's state as one object (``/debug/overload``)."""
         with self._lock:
             state = self.brownout.current()
             return {

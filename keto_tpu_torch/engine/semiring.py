@@ -56,9 +56,11 @@ def _bfs_rows_into(
     rows: np.ndarray,
     m_pad: int,
     k_max: int,
+    out_rows: Optional[np.ndarray] = None,
 ) -> None:
     """Masked-SpMV BFS from each of `rows`, writing uint8 distance rows into
-    d_out[rows] (pre-filled with INF). `has_out` (bool[m_pad]) marks the
+    d_out[rows] (pre-filled with INF), or into d_out[out_rows] when given (a
+    compact output, as the scrubber's). `has_out` (bool[m_pad]) marks the
     nodes with an out-edge: only their adjacency rows are ORed, since a
     sink's row is all zero (at rbac1m 10 000 of the 11 000 interior nodes
     are groups, sinks of the interior graph)."""
@@ -74,7 +76,7 @@ def _bfs_rows_into(
         rs, vs = np.nonzero(fb)
         if rs.size == 0:
             return
-        d_out[rows[rs], vs] = k
+        d_out[(rows if out_rows is None else out_rows)[rs], vs] = k
         if k == k_max:
             return
         k += 1

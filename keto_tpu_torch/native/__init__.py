@@ -138,6 +138,10 @@ def load():
                         built = not so_path.exists()
                         lib = _build_lib(so_path)
                         secs = time.perf_counter() - t0 if built else 0.0
+                        if built:
+                            from ..telemetry.devstats import DEVSTATS
+
+                            DEVSTATS.record_compile(secs)
                     except Exception as e:  # a missing compiler, a read-only tree
                         error = f"{type(e).__name__}: {e}"
                 if lib is None:

@@ -146,7 +146,7 @@ def packed_propagate(
             out.data_ptr(), n_out, w, stream,
         )
     if err != 0:
-        raise RuntimeError(f"packed_propagate launch failed: CUDA error {err}")
+        raise kernels.launch_error("packed_propagate", err)
     packed_propagate.launches += 1
     return out
 

@@ -8,7 +8,9 @@ minutes a source that includes PyTorch's headers takes. Libraries land in
 ``keto_tpu_torch/_build/`` (git-ignored), named by a hash of everything
 the build reads (the source, every ``csrc/*.cuh`` header it may include,
 and the flags), so an edited source or header is rebuilt and an unchanged
-one is reused.
+one is reused. Each build's seconds go to ``DEVSTATS.record_compile``
+(``/debug/graph``), the counterpart of the reference's jit compilation
+events.
 
 Nothing here falls back: a missing GPU, a missing ``nvcc``, a failed build
 or a failed load raises.
@@ -28,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from ..telemetry.devstats import DEVSTATS
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -37,6 +41,29 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+
+
+# cudaError_t codes a launch can return, with the runtime's own text, so a
+# failed launch raises with words engine/fallback.py classify_device_error
+# can type (a sticky context error, a shape the card refuses, memory)
+CUDA_ERROR_TEXT = {
+    2: "out of memory",
+    7: "too many resources requested for launch",
+    9: "invalid configuration argument",
+    100: "no CUDA-capable device is detected",
+    209: "no kernel image is available for execution on the device",
+    214: "uncorrectable ECC error encountered",
+    700: "an illegal memory access was encountered",
+    710: "device-side assert triggered",
+    715: "an illegal instruction was encountered",
+    719: "unspecified launch failure",
+}
+
+
+def launch_error(kernel: str, err: int) -> RuntimeError:
+    """The error a kernel wrapper raises for a nonzero cudaError_t."""
+    text = CUDA_ERROR_TEXT.get(err, "unlisted cudaError_t")
+    return RuntimeError(f"{kernel} launch failed: CUDA error {err}: {text}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -111,6 +138,7 @@ def build(names: Optional[list[str]] = None) -> dict[str, float]:
             failed.append(f"{name}: {log.decode(errors='replace')}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        DEVSTATS.record_compile(secs[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return secs

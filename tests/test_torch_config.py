@@ -39,9 +39,14 @@ VALUES = {
     },
     "engine": {"mode": "closure", "freshness": "bounded", "max_batch": 128,
                "rebuild_debounce_ms": 5, "strong_freshness_edges": 1000,
-               "max_queue": 512},
+               "max_queue": 512, "fallback": False,
+               "memory": {"hbm_budget_frac": 0.5, "bytes_per_row": 512},
+               "failover": {"probe_mode": "inproc", "allow_cpu": False}},
     "overload": {"enabled": True, "target_delay_ms": 5.0, "dwell_ms": 200,
                  "throttle_window_s": 2.0, "default_criticality": "sheddable"},
+    "scrub": {"enabled": True, "interval_s": 0.5, "sample_rows": 1024,
+              "max_repairs_per_cycle": 1},
+    "debug": {"token": "t", "profile_max_s": 5},
     "log": {"level": "error"},
 }
 
@@ -117,6 +122,34 @@ def test_keys_match_the_reference(values):
         {"serve": {"read": {"wire_workers": 0}}},
         {"serve": {"read": {"wire_workers": "four"}}},
         {"serve": {"read": {"wire_workers": 2.5}}},
+        {"engine": {"fallback": "yes"}},
+        {"engine": {"memory": {"admission": 1}}},
+        {"engine": {"memory": {"hbm_budget_frac": 0}}},
+        {"engine": {"memory": {"hbm_budget_frac": 1.5}}},
+        {"engine": {"memory": {"bytes_per_row": 0}}},
+        {"engine": {"memory": {"budget": 0.5}}},
+        {"engine": {"failover": {"enabled": "on"}}},
+        {"engine": {"failover": {"probe_mode": "thread"}}},
+        {"engine": {"failover": {"probe_timeout_s": 0}}},
+        {"engine": {"failover": {"probe_interval_s": -1}}},
+        {"engine": {"failover": {"max_backoff_s": -1}}},
+        {"engine": {"failover": {"allow_cpu": "no"}}},
+        {"engine": {"failover": {"retries": 3}}},
+        {"scrub": {"enabled": "yes"}},
+        {"scrub": {"interval_s": 0}},
+        {"scrub": {"sample_rows": 0}},
+        {"scrub": {"reservoir": 0}},
+        {"scrub": {"replay_per_cycle": -1}},
+        {"scrub": {"wal_segments_per_cycle": -1}},
+        {"scrub": {"max_repairs_per_cycle": -1}},
+        {"scrub": {"digest_chunk_size": 0}},
+        {"scrub": {"freeze_burn_rate": -1}},
+        {"scrub": {"history": 0}},
+        {"scrub": {"rows": 5}},
+        {"debug": {"enabled": "yes"}},
+        {"debug": {"token": 5}},
+        {"debug": {"profile_max_s": 0.05}},
+        {"debug": {"pprof": True}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):

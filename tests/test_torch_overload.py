@@ -471,6 +471,9 @@ class _StubOverload:
     def cull_age_s(self):
         return self.cull
 
+    def note_idle(self, idle_s):
+        pass
+
     def note_culled(self, n):
         self.culled += n
 
@@ -520,6 +523,34 @@ def test_codel_cull_exempts_critical():
         assert results[1] is True and ov.culled == 1
     finally:
         eng.release.set()
+        b.close()
+
+
+def test_a_quiet_spell_clears_the_storm_verdict():
+    """After a storm the limiter's sustained-delay verdict stays set until a
+    dispatch observes a delay under target; a queue that then stays empty
+    for a whole interval must clear it, or the next lone check is culled by
+    the storm's verdict on its first scheduling delay past the target (here
+    the batcher's 20 ms accumulation window against a 5 ms target). A gap
+    shorter than the interval keeps the verdict. The reference has no such
+    exit; this is the port's repair."""
+    ctl = OverloadController(
+        max_queue=1000,
+        limiter=AdaptiveLimiter(initial=100, target_delay_s=0.005, interval_s=0.05),
+        brownout=BrownoutController(hysteresis_s=0.05, min_dwell_s=0.0),
+        throttle=AdaptiveThrottle(window_s=5.0),
+    )
+    ctl.limiter.overloaded = True  # the verdict a storm's last batch left
+    ctl.note_idle(0.01)
+    assert ctl.cull_age_s() == 0.005  # a gap inside a storm keeps it
+    eng = _GateEngine()
+    eng.release.set()
+    b = CheckBatcher(eng, max_batch=8, window_s=0.02, overload=ctl)
+    try:
+        time.sleep(0.1)  # the quiet spell: the dispatcher waits, queue empty
+        assert b.check(_tup(), timeout=10) is True
+        assert ctl.culled == 0 and not ctl.limiter.overloaded
+    finally:
         b.close()
 
 
