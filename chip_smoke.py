@@ -163,6 +163,40 @@ Phases, in order; any failure exits non-zero:
             frames/s (median and range over the drives, with the drive's
             seconds), checks/s, p50/p99 of each server and the ratio,
             respawn time, os.cpu_count(); 0 B1 and 0 B2 launches
+10. persist  rbac1m (the serve phase's generator and seed) loaded through the
+            port's SQL store (SQLiteTupleStore, sqlite://<tmpdir>/keto.db) in
+            chunks of PERSIST_CHUNK, then a Registry on that DSN in the
+            default closure mode on the card: start_all split into the SQL
+            read (the store's own snapshot()), the snapshot encode, the
+            interior and the B1 build (its launches); the serve phase's 4096
+            sample in process and over POST /check/batch equal to its
+            set-graph oracle, a prefix equal to the host CheckEngine over
+            the SQL store; PERSIST_WRITES mixed writes over REST (leaf
+            inserts and deletes, group joins, group -> group inserts and
+            deletes), each seen by the next GET /check (write-to-visible
+            p50/p99); the database reopened in a fresh store holds every
+            acked write. [persist:spawn]: the same database behind
+            serve.read.workers SPAWN_WORKERS (spawned workers, host query
+            mode), the sample as GET /check from 64 clients in 4 client
+            processes equal to [persist]'s answers; checks/s, p50/p99, each
+            process's RSS and card memory (nvidia-smi --query-compute-apps),
+            each worker's boot seconds and whether it initialised CUDA; then
+            KETO_WORKER_ALLOW_ACCEL=1 with 2 workers: the spawned worker
+            builds D with B1 on the card in its own context (its ready line)
+11. durable  this script re-run with --durable-server DIR (fresh
+            interpreters): rbac1m on a columnar store with store.wal.dir and
+            checkpoint.dir at the reference defaults (sync always,
+            interval-versions 10 000, interval-s 300, keep 2), bulk-loaded
+            (each bulk load cuts a synchronous checkpoint); DURABLE_WRITES
+            acked REST writes (a tenth role -> role), the server SIGKILLed
+            and restarted: the recovery report (checkpoint version, WAL
+            records replayed, gap), checkpoint load and replay seconds,
+            whether the CSR was primed, start_all and the restart to the
+            first 4096-check batch answered on the card; every acked write
+            read back over GET /relation-tuples, the batch equal to the
+            set-graph oracle over the recovered store, a cold re-ingest of
+            the same tuples timed beside it; then a graceful stop (the final
+            checkpoint carries the CSR) and a third boot whose CSR is primed
 
 [device]    the device-aware planes (breaker, HBM admission, supervisor,
             scrubber, /debug), on by default as in the reference. Every
@@ -190,8 +224,13 @@ Phases, in order; any failure exits non-zero:
             supervisor's child probe, reset_residency, warmup, force_probe),
             reconfigure 2 -> 0 -> 2 under 512 closed-loop submitters (no
             future lost), device.compile_fail (one shape quarantined, bucket
-            8192 still launches B2), and a real CUDA out-of-memory classified
-            "oom". Each drill prints a line; the drills' B1 and B2 launches
+            8192 still launches B2), the bounded oracle (device.batch_nan
+            sends the whole sample, one batch, to the registry's own oracle,
+            the host CheckEngine over the store, under a BOUNDED_DEADLINE_S
+            deadline: it returns by the deadline plus one row's oracle time,
+            answered rows equal to the plain path, the rest failed typed), and
+            a real CUDA out-of-memory classified "oom"; HBM admission must
+            have learned at least one batch shape. Each drill prints a line; the drills' B1 and B2 launches
             are printed on their own [numbers] lines and stay out of the
             kernels line, which counts the main path's runs alone.
 
@@ -1077,6 +1116,7 @@ def plain_check(eng, requests, depths=None):
 
 def run_github(args, rng, dev) -> dict:
     """The packed path at github10m, and B2's numbers."""
+    DEVSTATS = port("telemetry.devstats", "DEVSTATS")
     CheckEngine, DeviceCheckEngine = port("engine", "CheckEngine", "DeviceCheckEngine")
     masked_spmv = port("engine", "masked_spmv")
     SnapshotManager = port("graph", "SnapshotManager")
@@ -1130,7 +1170,7 @@ def run_github(args, rng, dev) -> dict:
     mixed = chains + direct + uniform
     sample = [mixed[i] for i in rng.permutation(len(mixed))]
 
-    torch.cuda.reset_peak_memory_stats()
+    DEVSTATS.reset_peak()
     eng = DeviceCheckEngine(mgr, mode="packed", max_depth=5, device=dev)
     masked_spmv.masked_step.launches = 0  # main path starts here
     packed.packed_propagate.launches = 0
@@ -1189,7 +1229,7 @@ def run_github(args, rng, dev) -> dict:
         lat.append(time.perf_counter() - t0)
     p50_ms = float(np.median(lat)) * 1e3
     rate = k * reps / sum(lat)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = DEVSTATS.peak_bytes(span=True) / 2**30
     say(f"[numbers] packed batch under the profiler: "
         f"{profile_batch(lambda: eng.batch_check(sample))}")
 
@@ -1311,6 +1351,7 @@ def packed_pipeline(eng, store, sample, want, threads: int = 512) -> dict:
     cache on) and through the serial one. Then one check_batch_encoded of
     the sample's ids, twice: the second is answered by the encoded cache
     with no B2 launch. Answers equal `want` (the phase's checked answers)."""
+    DEVSTATS = port("telemetry.devstats", "DEVSTATS")
     from concurrent.futures import ThreadPoolExecutor
 
     CheckBatcher = port("engine.batcher", "CheckBatcher")
@@ -1329,7 +1370,7 @@ def packed_pipeline(eng, store, sample, want, threads: int = 512) -> dict:
                 list(pool.map(batcher.check, sample[:threads]))  # warm threads
                 batcher.n_batches = batcher.n_dispatched = 0
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
+                DEVSTATS.reset_peak()
                 packed.packed_propagate.launches = 0  # this drive starts here
                 t0 = time.perf_counter()
                 got = list(pool.map(batcher.check, sample))
@@ -1342,7 +1383,7 @@ def packed_pipeline(eng, store, sample, want, threads: int = 512) -> dict:
                 "rate": len(sample) / wall,
                 "mean_batch": batcher.mean_batch_size(),
                 "launches": launches,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "peak_gib": DEVSTATS.peak_bytes(span=True) / 2**30,
             }
             if name == "pipelined":
                 stats = batcher.pipeline_stats()
@@ -1688,6 +1729,7 @@ def chain_sample(rng, pools, edges, k: int):
 def run_serve(args, dev, card) -> dict:
     """The serving seam at rbac1m: Registry -> REST planes -> CheckBatcher ->
     ClosureCheckEngine on the card, driven over HTTP."""
+    DEVSTATS = port("telemetry.devstats", "DEVSTATS")
     from concurrent.futures import ThreadPoolExecutor
 
     Config, Registry = port("driver", "Config", "Registry")
@@ -1695,7 +1737,7 @@ def run_serve(args, dev, card) -> dict:
     packed_ops = port("ops", "packed")
     RelationTuple = port("relationtuple", "RelationTuple")
 
-    torch.cuda.reset_peak_memory_stats()
+    DEVSTATS.reset_peak()
     t_serve = time.perf_counter()
 
     def at() -> str:  # seconds into the phase, for the log
@@ -2011,7 +2053,7 @@ def run_serve(args, dev, card) -> dict:
 
     # 7. the result cache at its default size, on a server of its own
     numbers["cache"] = serve_cache(args, at)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = DEVSTATS.peak_bytes(span=True) / 2**30
     classes = "; ".join(
         f"{c} {v:.3f} ms visible, {a:.3f} ms apply"
         for c, (v, a) in numbers["classes"].items()
@@ -2898,13 +2940,10 @@ def device_rbac(reg, store, sample, read, card, dev) -> dict:
 
 class _SetOracle:
     """SetGraphOracle as the breaker's host oracle (``batch_check`` and
-    ``subject_is_allowed``) in the packed drills. The registry's oracle is
-    the host CheckEngine over the store, about 0.17 s a check at github10m
-    ([main:packed] times a host CheckEngine on the sample): a 4096-row
-    batch the breaker
-    sent there would take about 12 minutes, past any caller deadline. That
-    is an open fault of the packed breaker (ROADMAP section C), so the
-    drills stand this oracle in for it and do not time the registry's."""
+    ``subject_is_allowed``) in the packed drills that time the breaker's
+    paths. The registry's oracle is the host CheckEngine over the store,
+    seconds a check at github10m; the bounded-oracle drill drives that one,
+    under a deadline (bounded_oracle_drill)."""
 
     def __init__(self, store):
         self.so = SetGraphOracle(store)
@@ -3087,6 +3126,9 @@ def device_packed(eng, store, sample, want) -> dict:
         require(got == want + rows_want and b2 > 0, "the other shape")
         require(breaker.n_fallback_batches == n_fb + 1, "compile_fail: oracle batches")
 
+        # the bounded oracle: the registry's own oracle under a deadline
+        out["bounded"] = bounded_oracle_drill(eng, store, sample, want, hbm)
+
         # a real out-of-memory on the card: more than the card holds (the
         # free memory alone is no bound: the caching allocator's reserve
         # is not counted free, and serves an allocation past it)
@@ -3101,9 +3143,14 @@ def device_packed(eng, store, sample, want) -> dict:
                 f"raised {type(e).__name__} ({str(e)[:80]!r}...), classified {kind}")
         torch.cuda.empty_cache()
         snap = hbm.snapshot()
+        DEVSTATS = port("telemetry.devstats", "DEVSTATS")
         say(f"[device] packed HBM admission: budget {snap['budget_bytes'] / 2**30:.3f} GiB, "
             f"learned {snap['bytes_per_row']} bytes per row over {snap['modeled_shapes']} "
-            f"shapes, {hbm.n_splits} pre-splits, in flight {snap['inflight_batches']}")
+            f"shapes (per-batch peak windows), {hbm.n_splits} pre-splits, in flight "
+            f"{snap['inflight_batches']}; the process high-water mark "
+            f"{DEVSTATS.peak_bytes() / 2**30:.3f} GiB")
+        require(snap["modeled_shapes"] >= 1, "HBM admission learned no shape")
+        out["hbm"] = snap
     finally:
         batcher.close()
         sup.stop()
@@ -3292,6 +3339,7 @@ def tree_nodes(doc: dict) -> int:
 def serve_expand_list(reg, store, pools, edges, rng, read, write, at, card) -> dict:
     """[serve:expand+list]: Expand and the list routes over REST on the
     running server, after the mixed writes. Returns the phase's numbers."""
+    DEVSTATS = port("telemetry.devstats", "DEVSTATS")
     from urllib.parse import urlencode
 
     CheckEngine, masked_spmv = port("engine", "CheckEngine", "masked_spmv")
@@ -3564,8 +3612,721 @@ def serve_expand_list(reg, store, pools, edges, rng, read, write, at, card) -> d
     say(f"[numbers] {tag} ({card}): first list query after 1000 writes "
         f"{first_s:.3f} s (rebuild {phases}, D^T + reverse CSRs "
         f"{numbers['reverse_s']:.4f} s, {launches} B1 launches); peak device "
-        f"memory so far in the phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"memory so far in the phase {DEVSTATS.peak_bytes(span=True) / 2**30:.3f} GiB")
     return numbers
+
+
+# -- [persist], [persist:spawn], [durable]: SQL stores, spawned workers, the WAL --
+
+PERSIST_CHUNK = 50_000  # tuples per write call when loading the SQL store
+PERSIST_WRITES = 100  # mixed writes over REST in [persist]
+SPAWN_WORKERS = 4  # serve.read.workers on the SQL store in [persist:spawn]
+DURABLE_WRITES = 1000  # acked REST writes before the SIGKILL in [durable]
+BOUNDED_DEADLINE_S = 2.0  # the bounded-oracle drill's deadline
+
+
+def smi_apps() -> dict:
+    """Card memory per process, MiB, as nvidia-smi --query-compute-apps gives
+    it (pid -> MiB); empty where nvidia-smi lists none."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        try:
+            apps[int(pid)] = float(mib)
+        except ValueError:
+            continue
+    return apps
+
+
+def rbac_sample(args, store, pools, edges):
+    """The serve phase's sample and its set-graph oracle answers: the same
+    generator seed (args.seed + 1) and the same sample rng (args.seed + 2)
+    as run_serve, so the answers are the serve phase's."""
+    rng = np.random.default_rng(args.seed + 2)
+    sample, _ = chain_sample(rng, pools, edges, args.checks)
+    return sample, SetGraphOracle(store).batch(sample)
+
+
+def persist_config(dsn: str, workers: int = 1) -> dict:
+    """The serve phase's config on `dsn`. With workers > 1 the parent keeps
+    device query placement (auto would turn to host query mode, which only
+    the fork pool needs): it builds D with B1 while its spawned workers,
+    pinned to host query mode, build theirs on the host."""
+    values = serve_config("auto", cache_size=0)
+    values["dsn"] = dsn
+    values["serve"]["read"]["workers"] = workers
+    if workers > 1:
+        values["engine"]["query_mode"] = "device"
+    return values
+
+
+def persist_writes(pools, edges) -> list:
+    """PERSIST_WRITES mixed writes, each with the probe it flips and the
+    answer the probe must give after it: resource grants to fresh users
+    (leaf inserts) and their deletes, fresh users joining a group (leaf
+    inserts), then group -> group edges that make those users members of
+    another group (interior inserts) and their deletes. Every probe involves
+    a fresh user only, so its answer is known without an oracle."""
+    resources, groups = pools["resources"], pools["groups"]
+    out = []
+    for i in range(40):  # leaf: a grant to a fresh user
+        t = to_tuple(resources[i * 7919 % len(resources)], (f"persist-u{i}",))
+        out.append(("PUT", t, t, True))
+    for i in range(20):  # leaf delete
+        t = to_tuple(resources[i * 7919 % len(resources)], (f"persist-u{i}",))
+        out.append(("DELETE", t, t, False))
+    for i in range(20):  # leaf: a fresh user joins group y
+        y = groups[(2 * i + 1) % len(groups)]
+        t = to_tuple(y, (f"persist-w{i}",))
+        out.append(("PUT", t, t, True))
+    for i in range(10):  # interior: group x contains group y
+        x, y = groups[(2 * i) % len(groups)], groups[(2 * i + 1) % len(groups)]
+        out.append(("PUT", to_tuple(x, y), to_tuple(x, (f"persist-w{i}",)), True))
+    for i in range(10):  # interior delete
+        x, y = groups[(2 * i) % len(groups)], groups[(2 * i + 1) % len(groups)]
+        out.append(("DELETE", to_tuple(x, y), to_tuple(x, (f"persist-w{i}",)), False))
+    require(len(out) == PERSIST_WRITES, "persist write plan")
+    return out
+
+
+def rest_write(write: str, method: str, t) -> int:
+    if method == "PUT":
+        return http("PUT", f"{write}/relation-tuples", t.to_dict())[0]
+    return http("DELETE", f"{write}/relation-tuples?{tuple_query(t)}")[0]
+
+
+def serve_persist(args, dev, card, serve: dict) -> dict:
+    """[persist]: rbac1m on sqlite://<tmpdir>/keto.db, loaded through the
+    port's SQL store, served by the closure engine on the card."""
+    import tempfile
+
+    Config, Registry = port("driver", "Config", "Registry")
+    SQLiteTupleStore = port("persistence", "SQLiteTupleStore")
+    CheckEngine, masked_spmv = port("engine", "CheckEngine", "masked_spmv")
+    packed_ops = port("ops", "packed")
+    MemoryNamespaceManager = port("namespace", "MemoryNamespaceManager")
+    tag = "persist"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    out = {"dir": tempfile.mkdtemp(prefix="keto-persist-")}
+    db = os.path.join(out["dir"], "keto.db")
+    out["dsn"] = f"sqlite://{db}"
+    cols, pools, edges = gen_rbac(args.tuples, np.random.default_rng(args.seed + 1))
+    sample, want = rbac_sample(args, cols, pools, edges)
+    require(want == serve["want"], "the regenerated sample's answers are not serve's")
+    tuples = cols.all_tuples()
+    del cols
+    nsm = MemoryNamespaceManager()
+    for ns in ("rbac", "videos"):
+        nsm.add(ns)
+    sql = SQLiteTupleStore(db, namespace_manager=nsm)
+    t0 = time.perf_counter()
+    for i in range(0, len(tuples), PERSIST_CHUNK):
+        sql.write_relation_tuples(*tuples[i : i + PERSIST_CHUNK])
+    out["load_s"] = time.perf_counter() - t0
+    require(len(sql) == len(tuples) == args.tuples, f"{len(sql)} rows in sqlite")
+    sql.close()
+    out["db_mib"] = os.path.getsize(db) / 2**20
+    say(f"[{tag} {at()}] {len(tuples)} tuples through SQLiteTupleStore in chunks of "
+        f"{PERSIST_CHUNK}: {out['load_s']:.3f}s, keto.db {out['db_mib']:.1f} MiB ({card})")
+    del tuples
+
+    reg = Registry(Config(values=persist_config(out["dsn"])), device=dev)
+    store = reg.store()
+    require(type(store).__name__ == "SQLTupleStore", f"store {type(store).__name__}")
+    read_s = []
+    sql_snapshot = store.snapshot
+
+    def timed_snapshot():  # the store's own read path, timed
+        t = time.perf_counter()
+        got = sql_snapshot()
+        read_s.append(time.perf_counter() - t)
+        return got
+
+    store.snapshot = timed_snapshot
+    masked_spmv.masked_step.launches = 0  # the persist path starts here
+    packed_ops.packed_propagate.launches = 0
+    t0 = time.perf_counter()
+    reg.snapshots()  # the first snapshot: the SQL read and the encode
+    snap_s = time.perf_counter() - t0
+    read_port, write_port = reg.start_all()
+    out["start_s"] = time.perf_counter() - t0
+    eng, batcher = reg.check_engine(), reg.checker()
+    ph = eng.last_build_phases
+    out["read_s"] = read_s[0]
+    out["encode_s"] = snap_s - read_s[0]
+    out["phases"] = {k: round(v, 4) for k, v in ph.items()}
+    out["start_launches"] = masked_spmv.masked_step.launches
+    expected = (eng._state.m_pad // 256) * (5 - 2)
+    require(not eng.host_queries() and out["start_launches"] == expected,
+            f"persist start_all: {out['start_launches']} B1 launches, want {expected}")
+    say(f"[{tag} {at()}] start_all on the card {out['start_s']:.3f}s: SQL read "
+        f"(SQLTupleStore.snapshot, {len(read_s)} call) {out['read_s']:.3f}s, snapshot "
+        f"encode {out['encode_s']:.3f}s, interior {ph.get('interior', 0):.3f}s, closure "
+        f"build {ph.get('kernel', 0):.3f}s with {out['start_launches']} B1 launches, the "
+        f"rest (warmup, CSR) {out['start_s'] - snap_s - ph.get('total', 0):.3f}s; phases "
+        f"{out['phases']} ({card})")
+    read = f"http://127.0.0.1:{read_port}"
+    write = f"http://127.0.0.1:{write_port}"
+    try:
+        t0 = time.perf_counter()
+        got = batcher.check_batch(sample)
+        out["batch_s"] = time.perf_counter() - t0
+        require(got == want, "persist: the sample's answers differ from [serve]'s oracle")
+        n_sql = 32
+        t0 = time.perf_counter()
+        require(CheckEngine(store, max_depth=5).batch_check(sample[:n_sql]) == want[:n_sql],
+                "persist: the host CheckEngine over SQL disagrees")
+        sql_oracle_s = time.perf_counter() - t0
+        status, doc = http("POST", f"{read}/check/batch", [t.to_dict() for t in sample])
+        require(status == 200 and doc["allowed"] == want, f"persist /check/batch {status}")
+        say(f"[{tag} {at()}] the sample: {len(sample)} checks equal to [serve]'s set-graph "
+            f"oracle in process ({out['batch_s'] * 1e3:.3f} ms) and over POST /check/batch; "
+            f"the first {n_sql} equal the host CheckEngine over the SQL store "
+            f"({sql_oracle_s:.1f}s)")
+
+        visible, written = [], []
+        for method, t, probe, after in persist_writes(pools, edges):
+            t0 = time.perf_counter()
+            status = rest_write(write, method, t)
+            require(status == (201 if method == "PUT" else 204),
+                    f"persist {method} {t}: {status}")
+            while True:
+                if rest_check(read, probe) == after:
+                    break
+                require(time.perf_counter() - t0 < 60, f"persist: {probe} never {after}")
+                time.sleep(0.005)
+            visible.append(time.perf_counter() - t0)
+            written.append((method, t))
+        out["visible_p50"], out["visible_p99"] = pct(visible, 50), pct(visible, 99)
+        out["launches"] = masked_spmv.masked_step.launches
+        require(packed_ops.packed_propagate.launches == 0, "B2 ran on the persist path")
+        say(f"[{tag} {at()}] {len(written)} mixed writes over REST (40 leaf inserts, 20 "
+            f"leaf deletes, 20 group joins, 10 group -> group inserts and 10 deletes): "
+            f"each visible to the next GET /check; write-to-visible p50 "
+            f"{out['visible_p50']:.3f} ms, p99 {out['visible_p99']:.3f} ms ({card})")
+        planes_idle(read, tag)
+    finally:
+        reg.stop_all()
+        store.close()
+
+    fresh = SQLiteTupleStore(db, namespace_manager=nsm)
+    final = {}
+    for method, t in written:
+        final[str(t)] = (t, method == "PUT")
+    missing = [
+        k for k, (t, present) in final.items()
+        if (fresh.get_relation_tuples(t.to_query())[0] == [t]) != present
+    ]
+    require(not missing, f"persist: after a reopen {len(missing)} acked writes differ: "
+            f"{missing[:3]}")
+    net = sum(1 for _, present in final.values() if present)
+    require(len(fresh) == args.tuples + net, f"persist: {len(fresh)} rows after reopen")
+    fresh.close()
+    say(f"[{tag} {at()}] reopened in a fresh store: every acked write is there "
+        f"({len(final)} tuples written, {net} present), {args.tuples + net} rows")
+    out["sample"], out["want"] = sample, want
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def serve_persist_spawn(args, dev, card, persist: dict) -> dict:
+    """[persist:spawn]: the [persist] database behind serve.read.workers
+    SPAWN_WORKERS (spawned workers, host query mode), GET /check from 64
+    clients in 4 client processes; then KETO_WORKER_ALLOW_ACCEL=1 and 2
+    workers, where the spawned worker builds D with B1 on the card."""
+    Config, Registry = port("driver", "Config", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    tag = "persist:spawn"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    sample, want = persist["sample"], persist["want"]
+    out = {}
+    for name, workers, accel in (("host", SPAWN_WORKERS, False), ("accel", 2, True)):
+        env_before = os.environ.get("KETO_WORKER_ALLOW_ACCEL")
+        if accel:
+            os.environ["KETO_WORKER_ALLOW_ACCEL"] = "1"
+        reg = Registry(Config(values=persist_config(persist["dsn"], workers)), device=dev)
+        masked_spmv.masked_step.launches = 0
+        t0 = time.perf_counter()
+        try:
+            read_port, _ = reg.start_all()
+            start_s = time.perf_counter() - t0
+            pool = reg._replica_pool
+            require(type(pool).__name__ == "SpawnWorkerPool"
+                    and pool.wait_ready(600), f"[{tag}] workers not serving")
+            ready_s = time.perf_counter() - t0
+            docs = pool.ready_docs()
+            require(len(docs) == workers - 1 and pool.alive() == workers,
+                    f"[{tag}] {len(docs)} workers ready")
+            read = f"http://127.0.0.1:{read_port}"
+            apps = smi_apps()
+            out.setdefault("smi", []).append(apps)
+            pids = [os.getpid()] + pool.pids()
+            mem = {p: _memory_mb(p).get("rss", 0.0) for p in pids}
+            card_mib = {p: apps.get(p, 0.0) for p in pids}
+            parent_host = reg.check_engine().host_queries()
+            if not accel:
+                urls = [f"{read}/check?{tuple_query(t)}" for t in sample]
+                results, wall = http_clients(urls, 64, procs=4)
+                require([s == 200 for s, _ in results] == want
+                         and all(s in (200, 403) for s, _ in results),
+                         f"[{tag}] GET /check answers differ from [persist]'s")
+                lat = [sec for _, sec in results]
+                out.update(p50=pct(lat, 50), p99=pct(lat, 99), rate=len(urls) / wall)
+                for d in docs:
+                    require(d["query_mode"] == "host" and d["b1_launches"] == 0,
+                            f"[{tag}] worker {d}")
+                out["launches"] = masked_spmv.masked_step.launches
+                require(not parent_host and out["launches"] > 0,
+                        f"[{tag}] the parent: host {parent_host}, "
+                        f"{out['launches']} B1 launches")
+                out["boot_s"] = [d["boot_s"] for d in docs]
+                out["worker_cuda"] = [d["cuda_initialized"] for d in docs]
+                out.update(start_s=start_s, ready_s=ready_s, rss=mem, card_mib=card_mib)
+                say(f"[{tag} {at()}] {workers} processes (parent {os.getpid()} in device "
+                    f"query mode, {out['launches']} B1 launches, + spawned "
+                    f"{pool.pids()} in host query mode): start_all {start_s:.3f}s, all "
+                    f"serving after {ready_s:.3f}s, worker boot s "
+                    f"{[round(b, 3) for b in out['boot_s']]}; {len(urls)} GET /check from "
+                    f"64 clients in 4 processes, every answer [persist]'s: "
+                    f"{out['rate']:.0f} checks/s, p50 {out['p50']:.3f} ms, p99 "
+                    f"{out['p99']:.3f} ms; RSS MB {{pid: MB}} "
+                    f"{ {p: round(v) for p, v in mem.items()} }; card MiB by pid (nvidia-smi "
+                    f"--query-compute-apps) {card_mib}, as listed {apps}; workers "
+                    f"initialised CUDA: {out['worker_cuda']} ({card})")
+            else:
+                d = docs[0]
+                require(d["query_mode"] == "device" and d["cuda_initialized"]
+                        and d["b1_launches"] > 0, f"[{tag}] the opt-in worker: {d}")
+                got = [rest_check(read, t) for t in sample[:256]]
+                require(got == want[:256], f"[{tag}] opt-in answers differ")
+                out["accel"] = {"doc": d, "card_mib": card_mib, "start_s": start_s,
+                                "ready_s": ready_s}
+                out["accel_launches"] = d["b1_launches"] + masked_spmv.masked_step.launches
+                say(f"[{tag} {at()}] KETO_WORKER_ALLOW_ACCEL=1, {workers} processes: the "
+                    f"spawned worker {d['pid']} built D on the card in its own context "
+                    f"({d['query_mode']} query mode, {d['b1_launches']} B1 launches, boot "
+                    f"{d['boot_s']:.3f}s, its allocator holding "
+                    f"{d['cuda_reserved_mib']:.0f} MiB; nvidia-smi --query-compute-apps "
+                    f"lists {apps}); the parent "
+                    f"{masked_spmv.masked_step.launches} B1 launches; 256 GET /check over "
+                    f"both equal [persist]'s ({card})")
+        finally:
+            reg.stop_all()
+            if accel:
+                if env_before is None:
+                    os.environ.pop("KETO_WORKER_ALLOW_ACCEL", None)
+                else:
+                    os.environ["KETO_WORKER_ALLOW_ACCEL"] = env_before
+            reg.store().close()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def durable_values(wal_dir: str) -> dict:
+    values = serve_config("auto", cache_size=0)
+    values["store"] = {"wal": {"dir": os.path.join(wal_dir, "wal")}}
+    values["checkpoint"] = {"dir": os.path.join(wal_dir, "checkpoints")}
+    return values
+
+
+def durable_server_main(args) -> int:
+    """The [durable] server, run in a fresh interpreter (this script with
+    --durable-server DIR): a columnar store with store.wal.dir and
+    checkpoint.dir under DIR at the reference defaults. On an empty DIR it
+    bulk-loads rbac1m (the serve phase's seed; each bulk load cuts a
+    synchronous checkpoint); on a non-empty one it recovers. It prints a
+    POOL line with its ports, recovery report, timings and B1 launches,
+    then answers commands on stdin: oracle <json tuples>, reingest, stop."""
+    Config, Registry = port("driver", "Config", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    ColumnarTupleStore = port("store", "ColumnarTupleStore")
+    RelationTuple = port("relationtuple", "RelationTuple")
+    harness = port("", "poolharness")
+
+    t_boot = time.perf_counter()
+    dev = torch.device(args.device)
+    reg = Registry(Config(values=durable_values(args.durable_server)), device=dev)
+    store = reg.store()
+    store_s = time.perf_counter() - t_boot
+    rep = store.recovery
+    load_s = 0.0
+    if store.version == 0:
+        t0 = time.perf_counter()
+        gen_rbac(args.tuples, np.random.default_rng(args.seed + 1), store=store)
+        load_s = time.perf_counter() - t0
+    masked_spmv.masked_step.launches = 0  # this server's path starts here
+    t0 = time.perf_counter()
+    read_port, write_port = reg.start_all()
+    start_s = time.perf_counter() - t0
+    eng = reg.check_engine()
+
+    def info(_arg: str = "") -> dict:
+        return {
+            "read": read_port, "write": write_port, "pid": os.getpid(),
+            "store_s": store_s, "load_s": load_s, "start_s": start_s,
+            "boot_s": time.perf_counter() - t_boot if _arg == "boot" else None,
+            "version": store.version, "tuples": len(store),
+            "recovery": {
+                "checkpoint_version": rep.checkpoint_version,
+                "replayed": rep.replayed_deltas, "skipped": rep.skipped_records,
+                "final_version": rep.final_version, "gap": rep.gap,
+                "torn_tail_bytes": rep.torn_tail_bytes, "duration_s": rep.duration_s,
+                "checkpoint_s": rep.checkpoint_s, "replay_s": rep.replay_s,
+                "notes": rep.notes,
+            },
+            "csr_primed": reg.csr_primed, "host": eng.host_queries(),
+            "phases": {k: round(v, 4) for k, v in eng.last_build_phases.items()},
+            "b1": masked_spmv.masked_step.launches,
+        }
+
+    def oracle(arg: str) -> dict:
+        so = SetGraphOracle(store.inner)
+        return {"expect": so.batch([RelationTuple.from_dict(t) for t in json.loads(arg)])}
+
+    def reingest(_arg: str) -> dict:
+        src, dst, vocab, _ = store.inner.snapshot_ids()
+        keys = vocab.keys()
+        s_keys = [keys[i] for i in src.tolist()]
+        d_keys = [keys[i] for i in dst.tolist()]
+        t0 = time.perf_counter()
+        cold = ColumnarTupleStore()
+        cold.bulk_load_edges(s_keys, d_keys)
+        secs = time.perf_counter() - t0
+        require(len(cold) == len(store), "re-ingest row count")
+        return {"reingest_s": secs, "tuples": len(cold)}
+
+    def stop() -> dict:
+        reg.stop_all()
+        return {"stopped": True, "b1": masked_spmv.masked_step.launches,
+                "checkpoints": sorted(os.listdir(store.checkpoint_dir))}
+
+    harness.emit(info("boot"))
+    return harness.serve_commands({"info": info, "oracle": oracle, "reingest": reingest},
+                                  stop)
+
+
+def serve_durable(args, dev, card, sample) -> dict:
+    """[durable]: rbac1m on a columnar store with store.wal.dir and
+    checkpoint.dir, in a subprocess server (durable_server_main); 1000 acked
+    REST writes, SIGKILL, recovery, every acked write read back, the sample
+    against the host oracle over the recovered store; a cold re-ingest's
+    seconds beside it; a graceful stop whose final checkpoint carries the
+    CSR, and a third boot that primes it."""
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    harness = port("", "poolharness")
+    tag = "durable"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    root = tempfile.mkdtemp(prefix="keto-durable-")
+    argv = [sys.executable, str(Path(__file__).resolve()), "--durable-server", root,
+            "--seed", str(args.seed), "--tuples", str(args.tuples),
+            "--device", str(dev)]
+    out = {"launches": 0}
+
+    def boot(name: str):
+        t0 = time.perf_counter()
+        server = harness.PoolProcess(argv, name=f"durable server ({name})")
+        info = server.next_doc(900)
+        read = f"http://127.0.0.1:{info['read']}"
+        status, doc = http("POST", f"{read}/check/batch", [t.to_dict() for t in sample])
+        first_s = time.perf_counter() - t0
+        require(status == 200, f"[{tag}] first batch: {status}")
+        return server, info, read, f"http://127.0.0.1:{info['write']}", doc, first_s
+
+    server = None
+    try:
+        server, info, read, write, doc, first_s = boot("first")
+        out["launches"] += info["b1"]
+        require(info["recovery"]["checkpoint_version"] == 0 and info["b1"] > 0
+                and not info["host"], f"[{tag}] first boot {info}")
+        say(f"[{tag} {at()}] first boot: bulk load of {info['tuples']} tuples with its "
+            f"synchronous checkpoints {info['load_s']:.3f}s, start_all {info['start_s']:.3f}s "
+            f"({info['b1']} B1 launches), version {info['version']}")
+
+        # 1000 acked writes: grants to fresh users, group joins, and role ->
+        # role edges (interior), from 16 client threads
+        roles, resources, groups = durable_pools(args)
+        writes = []
+        for i in range(DURABLE_WRITES):
+            if i % 10 == 0:
+                a, b = roles[i % len(roles)], roles[(i * 7 + 3) % len(roles)]
+                if a == b:
+                    b = roles[(i * 7 + 4) % len(roles)]
+                writes.append(to_tuple(a, b))
+            elif i % 10 < 6:
+                writes.append(to_tuple(resources[i * 104_729 % len(resources)],
+                                       (f"durable-u{i}",)))
+            else:
+                writes.append(to_tuple(groups[i % len(groups)], (f"durable-u{i}",)))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as pool:
+            statuses = list(pool.map(lambda t: rest_write(write, "PUT", t), writes))
+        write_s = time.perf_counter() - t0
+        acked = [t for t, s in zip(writes, statuses) if s == 201]
+        require(len(acked) == len(writes), f"[{tag}] {len(writes) - len(acked)} writes "
+                f"not acked: {sorted(set(statuses))}")
+        pre = server.ask("info")
+        say(f"[{tag} {at()}] {len(acked)} acked writes over REST (sync always, 16 "
+            f"clients; {sum(1 for t in writes if not hasattr(t.subject, 'id'))} role -> "
+            f"role) in {write_s:.3f}s, {len(acked) / write_s:.0f} writes/s; version "
+            f"{pre['version']}")
+
+        os.killpg(server.proc.pid, signal.SIGKILL)
+        server.proc.wait(timeout=60)
+        server = None
+        server, info, read, write, doc, first_s = boot("after SIGKILL")
+        out["launches"] += info["b1"]
+        rec = info["recovery"]
+        require(not rec["gap"] and rec["replayed"] == len(acked)
+                and rec["final_version"] == pre["version"] and info["b1"] > 0,
+                f"[{tag}] recovery {rec}")
+        out.update(recovery=rec, restart_start_s=info["start_s"], first_batch_s=first_s,
+                   csr_primed_kill=info["csr_primed"], store_s=info["store_s"])
+        say(f"[{tag} {at()}] restart after SIGKILL: recovery from the checkpoint at "
+            f"version {rec['checkpoint_version']} + {rec['replayed']} WAL records replayed "
+            f"({rec['skipped']} inside the checkpoint), gap {rec['gap']}, torn tail "
+            f"{rec['torn_tail_bytes']} bytes; checkpoint load {rec['checkpoint_s']:.3f}s, "
+            f"replay {rec['replay_s']:.3f}s, recovery {rec['duration_s']:.3f}s; CSR primed "
+            f"{info['csr_primed']}; start_all {info['start_s']:.3f}s ({info['b1']} B1 "
+            f"launches); restart to the first {len(sample)}-check batch answered on the "
+            f"card {first_s:.3f}s ({card})")
+
+        def present(t) -> bool:
+            status, body = http("GET", f"{read}/relation-tuples?{tuple_query(t)}")
+            require(status == 200, f"GET /relation-tuples {status}")
+            return [x for x in body["relation_tuples"]] == [t.to_dict()]
+
+        with ThreadPoolExecutor(16) as pool:
+            back = list(pool.map(present, acked))
+        require(all(back), f"[{tag}] {back.count(False)} acked writes lost")
+        expect = server.ask("oracle " + json.dumps([t.to_dict() for t in sample]), 600)
+        require(doc["allowed"] == expect["expect"],
+                f"[{tag}] the recovered sample differs from the host oracle")
+        ri = server.ask("reingest", 600)
+        out["reingest_s"] = ri["reingest_s"]
+        say(f"[{tag} {at()}] every acked write read back over GET /relation-tuples "
+            f"({len(acked)}); the {len(sample)} sample equals the set-graph oracle over "
+            f"the recovered store; a cold re-ingest of the same {ri['tuples']} tuples "
+            f"(bulk_load_edges into a fresh columnar store) {ri['reingest_s']:.3f}s "
+            f"against recovery {rec['duration_s']:.3f}s ({card})")
+
+        done = server.stop(300)
+        server = None
+        require(done["stopped"], f"[{tag}] graceful stop {done}")
+        server, info, read, write, doc, first_s = boot("after a graceful stop")
+        out["launches"] += info["b1"]
+        rec3 = info["recovery"]
+        require(info["csr_primed"] and rec3["replayed"] == 0 and not rec3["gap"]
+                and doc["allowed"] == expect["expect"], f"[{tag}] third boot {info}")
+        out.update(csr_primed=info["csr_primed"], primed_start_s=info["start_s"],
+                   primed_first_s=first_s, primed_recovery_s=rec3["duration_s"])
+        say(f"[{tag} {at()}] graceful stop (final checkpoint {done['checkpoints'][-1]} "
+            f"with the CSR), third boot: recovery {rec3['duration_s']:.3f}s from the "
+            f"checkpoint alone, CSR primed {info['csr_primed']}, start_all "
+            f"{info['start_s']:.3f}s ({info['b1']} B1 launches), first batch after "
+            f"{first_s:.3f}s, the sample again the oracle's ({card})")
+        planes_idle(read, tag)
+        done = server.stop(300)
+        server = None
+    finally:
+        if server is not None:
+            server.kill_group()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def durable_pools(args):
+    """The role, resource and group key pools of gen_rbac at args.tuples
+    (the same sizes, no edges)."""
+    n_groups = min(max(args.tuples // 100, 20), 20_000)
+    n_roles = min(max(n_groups // 10, 5), 2_000)
+    n_resources = max(args.tuples // 3, 50)
+    roles = [("rbac", f"role{i}", "member") for i in range(n_roles)]
+    resources = [("rbac", f"res{i}", "view") for i in range(n_resources)]
+    groups = [("rbac", f"g{i}", "member") for i in range(n_groups)]
+    return roles, resources, groups
+
+
+class _TimedOracle:
+    """The registry's oracle (the host CheckEngine over the store) with the
+    seconds of each row it answered kept, and of each row it gave up at the
+    deadline, for the bounded-oracle drill."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.row_s: list[float] = []
+        self.cut_s: list[float] = []
+
+    def batch_check(self, requests, max_depth=0, depths=None):
+        t0 = time.perf_counter()
+        got = self.engine.batch_check(requests, max_depth, depths)
+        self.row_s.append((time.perf_counter() - t0) / max(1, len(requests)))
+        return got
+
+    def check_until(self, requested, max_depth, deadline):
+        t0 = time.perf_counter()
+        got = self.engine.check_until(requested, max_depth, deadline)
+        (self.cut_s if got is None else self.row_s).append(time.perf_counter() - t0)
+        return got
+
+    def subject_is_allowed(self, requested, max_depth=0):
+        return self.batch_check([requested], max_depth)[0]
+
+
+def bounded_oracle_drill(eng, store, sample, want, hbm) -> dict:
+    """The packed breaker's oracle, bounded: the registry's own oracle
+    (CheckEngine over the github10m store) behind a fresh breaker over the
+    packed engine; device.batch_nan x3 sends one len(sample)-row columnar
+    batch there with a BOUNDED_DEADLINE_S deadline. The oracle reads the
+    clock before every row and every page it asks the store for, so the
+    batch returns by the deadline plus one page (held to one second), each
+    answered row equal to the plain path's answer, the rest failed typed
+    (DeadlineExceeded)."""
+    CheckEngine = port("engine", "CheckEngine")
+    DeviceFallbackEngine = port("engine.fallback", "DeviceFallbackEngine")
+    CheckBatcher = port("engine.batcher", "CheckBatcher")
+    CheckColumns = port("relationtuple.columns", "CheckColumns")
+    DeadlineExceeded = port("utils.errors", "DeadlineExceeded")
+    FAULTS = port("faults", "FAULTS")
+
+    oracle = _TimedOracle(CheckEngine(store, max_depth=5))
+    t0 = time.perf_counter()
+    require(oracle.batch_check(sample[:1]) == want[:1], "the registry's oracle differs")
+    warm_s = time.perf_counter() - t0
+    oracle.row_s.clear()
+    breaker = DeviceFallbackEngine(
+        eng, fallback_factory=lambda: oracle, failure_threshold=3, cooldown_s=1.0,
+        health=_Readiness(),
+    )
+    batcher = CheckBatcher(breaker, pipeline_depth=2, encode_workers=2, hbm=hbm)
+    cols = CheckColumns.from_tuples(sample)
+    FAULTS.arm("device.batch_nan", times=3)
+    try:
+        t0 = time.monotonic()
+        try:
+            answers = batcher.check_batch_columnar(cols, deadline=t0 + BOUNDED_DEADLINE_S)
+            failed = False
+        except DeadlineExceeded as e:
+            answers, failed = e.answers, True
+        wall = time.monotonic() - t0
+    finally:
+        batcher.close()
+        FAULTS.disarm("device.batch_nan")
+    answered = [i for i, v in enumerate(answers) if v is not None]
+    max_row = max(oracle.row_s, default=0.0)
+    cut = max(oracle.cut_s, default=0.0)
+    require(len(answers) == len(sample) and breaker.n_fallback_batches == 1,
+            f"bounded drill: {len(answers)} answers, {breaker.n_fallback_batches} "
+            "oracle batches")
+    require(all(answers[i] == want[i] for i in answered),
+            "bounded drill: an answered row differs from the plain path")
+    require(failed == (len(answered) < len(sample))
+            and breaker.n_deadline_skips == len(sample) - len(answered),
+            f"bounded drill: {breaker.n_deadline_skips} skips")
+    require(wall <= BOUNDED_DEADLINE_S + 1.0,
+            f"bounded drill: {wall:.3f}s, past the {BOUNDED_DEADLINE_S}s deadline plus "
+            f"one second")
+    line = (f"[device] packed bounded oracle: device.batch_nan sent one {len(sample)}-row "
+            f"batch to the registry's oracle (CheckEngine over the store; warm-up row "
+            f"{warm_s:.3f}s) under a {BOUNDED_DEADLINE_S}s deadline: returned after "
+            f"{wall:.3f}s, {len(answered)} rows answered (each the plain path's; slowest "
+            f"{max_row:.3f}s), {len(sample) - len(answered)} failed typed "
+            f"(DeadlineExceeded; the row cut inside its search ran {cut:.3f}s)")
+    say(line)
+    return {"wall_s": wall, "answered": len(answered), "max_row_s": max_row,
+            "cut_s": cut, "warm_s": warm_s, "line": line}
+
+
+def serve_phases(args, dev, card, walls: dict) -> dict:
+    """Phases 6-9: the serving seam at rbac1m, the overload plane, the read
+    replicas and the wire workers. Returns the serve phase's numbers, with
+    the overload server's under "overload"."""
+    # -- 6. the serving seam at rbac1m --------------------------------------------
+    t0 = time.perf_counter()
+    serve = run_serve(args, dev, card)
+    walls["serve"] = time.perf_counter() - t0
+
+    # -- 7. the overload plane at saturation ---------------------------------------
+    t0 = time.perf_counter()
+    ov = serve_overload(args, serve, card)
+    walls["serve:overload"] = time.perf_counter() - t0
+    shares = ", ".join(f"{c} {ov['share'][c]:.4f}" for c in CLASSES)
+    lats = ", ".join(f"{c} {ov['p50'][c]:.3f}/{ov['p99'][c]:.3f}" for c in CLASSES)
+    say(f"[numbers] serve:overload ({card}; {ov['settings']}): 429 share {shares}; "
+        f"accepted p50/p99 ms {lats}; all accepted p50 {ov['p50_all']:.3f} p99 "
+        f"{ov['p99_all']:.3f} ms (the cache-off drive at 64 clients: p50 "
+        f"{serve['single_p50_ms']:.3f} p99 {serve['single_p99_ms']:.3f} ms); "
+        f"{ov['accepted']} accepted, {ov['accepted_rate']:.0f} accepted checks/s; "
+        f"transitions (drive and quiet spell) {ov['up']} up / {ov['down']} down, highest rung "
+        f"{ov['highest']}; final limit {ov['limit']}; culled {ov['culled']}, "
+        f"throttled {ov['throttled']}; mean batch {ov['mean_batch']:.2f}; "
+        f"B1 launches {ov['launches']}")
+
+    # -- 8. read replicas: the rbac1m read port from POOL_WORKERS processes ------
+    t0 = time.perf_counter()
+    pool_numbers = serve_pool(args, serve, card)
+    walls["serve:pool"] = time.perf_counter() - t0
+    pn = pool_numbers
+    say(f"[numbers] serve:pool ({card}; host os.cpu_count() {pn['cpus']}, "
+        f"{POOL_WORKERS} server processes, cache off): GET /check p50/p99 ms and "
+        f"checks/s: 64 clients in 1 process {pn['64x1'][0]:.3f}/{pn['64x1'][1]:.3f}, "
+        f"{pn['64x1'][2]:.0f}; 64 clients in 4 processes {pn['64x4'][0]:.3f}/"
+        f"{pn['64x4'][1]:.3f}, {pn['64x4'][2]:.0f}; 256 clients in 4 processes "
+        f"{pn['256x4'][0]:.3f}/{pn['256x4'][1]:.3f}, {pn['256x4'][2]:.0f} (the "
+        f"single-process cache-off server, 64 clients in 1 process: "
+        f"{serve['single_p50_ms']:.3f}/{serve['single_p99_ms']:.3f}, "
+        f"{serve['single_rate']:.0f}; in 4 processes: "
+        f"{serve['single4_p50_ms']:.3f}/{serve['single4_p99_ms']:.3f}, "
+        f"{serve['single4_rate']:.0f}; pool/single at 64x1 "
+        f"{pn['64x1'][2] / serve['single_rate']:.2f}, at 64x4 "
+        f"{pn['64x4'][2] / serve['single4_rate']:.2f}); host build {pn['phases'].get('kernel', 0):.3f}s "
+        f"({pn['workers']} threads), start_all {pn['start_s']:.3f}s; respawn "
+        f"{pn['respawn_s']:.3f}s; write-to-visible over the pool (the first / last "
+        f"of 24 agreeing answers after the write returned): leaf insert {pn['leaf'][0]:.3f}/{pn['leaf'][1]:.3f}s, "
+        f"role -> role delete {pn['delete'][0]:.3f}/{pn['delete'][1]:.3f}s; "
+        f"B1 0, B2 0")
+
+    # -- 9. wire workers: encoded frames from 4 processes into one batcher -------
+    t0 = time.perf_counter()
+    wn = serve_wire(args, serve, card)
+    walls["serve:wire"] = time.perf_counter() - t0
+    ww, w1 = wn["wire"], wn["single"]
+    say(f"[numbers] serve:wire ({card}; host os.cpu_count() {wn['cpus']}; host query "
+        f"mode, cache off; {args.checks} checks as frames of {WIRE_ROWS} rows x"
+        f"{WIRE_REPEATS} a drive, {WIRE_DRIVES} drives of each in turns, from 64 "
+        f"clients in 4 processes started together; frames/s the median drive's "
+        f"[slowest, fastest], p50/p99 over every drive): {WIRE_WORKERS} processes "
+        f"(wire_workers {WIRE_WORKERS}) {ww['frames_s']:.1f} frames/s "
+        f"[{ww['frames_s_range'][0]:.1f}, {ww['frames_s_range'][1]:.1f}], "
+        f"{ww['checks_s']:.0f} checks/s, drives {fmt_walls(ww['walls'])} s, p50/p99 "
+        f"{ww['p50']:.3f}/{ww['p99']:.3f} ms, {ww['ring']} of {ww['frames']} frames "
+        f"over the ring; one process {w1['frames_s']:.1f} frames/s "
+        f"[{w1['frames_s_range'][0]:.1f}, {w1['frames_s_range'][1]:.1f}], "
+        f"{w1['checks_s']:.0f} checks/s, drives {fmt_walls(w1['walls'])} s, p50/p99 "
+        f"{w1['p50']:.3f}/{w1['p99']:.3f} ms; wire/single (medians) "
+        f"{ww['checks_s'] / w1['checks_s']:.3f}; respawn {wn['respawn_s']:.3f}s; "
+        f"B1 0, B2 0")
+    serve["overload"] = ov
+    return serve
 
 
 def main() -> int:
@@ -3583,6 +4344,10 @@ def main() -> int:
                     help="the pool server's serve.read.wire_workers")
     ap.add_argument("--query-mode", default="auto",
                     help="the pool server's engine.query_mode")
+    ap.add_argument("--durable-server", default="",
+                    help="run the [durable] server over this directory (the smoke "
+                         "starts it)")
+    ap.add_argument("--device", default="cuda", help="the [durable] server's device")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3592,6 +4357,8 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     if args.pool_server:
         return pool_server_main(args)
+    if args.durable_server:
+        return durable_server_main(args)
     masked_spmv = port("engine", "masked_spmv")
     _m_pad_for = port("engine.closure", "_m_pad_for")
     pack_adjacency = port("ops.closure", "pack_adjacency")
@@ -3689,78 +4456,51 @@ def main() -> int:
     walls["main:packed"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    # -- 6. the serving seam at rbac1m --------------------------------------------
-    t0 = time.perf_counter()
-    serve = run_serve(args, dev, card)
-    walls["serve"] = time.perf_counter() - t0
+    serve = serve_phases(args, dev, card, walls)
 
-    # -- 7. the overload plane at saturation ---------------------------------------
+    # -- 10. persistence: rbac1m on sqlite, then spawned read workers ------------
     t0 = time.perf_counter()
-    ov = serve_overload(args, serve, card)
-    walls["serve:overload"] = time.perf_counter() - t0
-    shares = ", ".join(f"{c} {ov['share'][c]:.4f}" for c in CLASSES)
-    lats = ", ".join(f"{c} {ov['p50'][c]:.3f}/{ov['p99'][c]:.3f}" for c in CLASSES)
-    say(f"[numbers] serve:overload ({card}; {ov['settings']}): 429 share {shares}; "
-        f"accepted p50/p99 ms {lats}; all accepted p50 {ov['p50_all']:.3f} p99 "
-        f"{ov['p99_all']:.3f} ms (the cache-off drive at 64 clients: p50 "
-        f"{serve['single_p50_ms']:.3f} p99 {serve['single_p99_ms']:.3f} ms); "
-        f"{ov['accepted']} accepted, {ov['accepted_rate']:.0f} accepted checks/s; "
-        f"transitions (drive and quiet spell) {ov['up']} up / {ov['down']} down, highest rung "
-        f"{ov['highest']}; final limit {ov['limit']}; culled {ov['culled']}, "
-        f"throttled {ov['throttled']}; mean batch {ov['mean_batch']:.2f}; "
-        f"B1 launches {ov['launches']}")
+    persist = serve_persist(args, dev, card, serve)
+    walls["persist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn = serve_persist_spawn(args, dev, card, persist)
+    walls["persist:spawn"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
-    # -- 8. read replicas: the rbac1m read port from POOL_WORKERS processes ------
+    # -- 11. durability: the WAL, a SIGKILL and boot recovery --------------------
     t0 = time.perf_counter()
-    pool_numbers = serve_pool(args, serve, card)
-    walls["serve:pool"] = time.perf_counter() - t0
-    pn = pool_numbers
-    say(f"[numbers] serve:pool ({card}; host os.cpu_count() {pn['cpus']}, "
-        f"{POOL_WORKERS} server processes, cache off): GET /check p50/p99 ms and "
-        f"checks/s: 64 clients in 1 process {pn['64x1'][0]:.3f}/{pn['64x1'][1]:.3f}, "
-        f"{pn['64x1'][2]:.0f}; 64 clients in 4 processes {pn['64x4'][0]:.3f}/"
-        f"{pn['64x4'][1]:.3f}, {pn['64x4'][2]:.0f}; 256 clients in 4 processes "
-        f"{pn['256x4'][0]:.3f}/{pn['256x4'][1]:.3f}, {pn['256x4'][2]:.0f} (the "
-        f"single-process cache-off server, 64 clients in 1 process: "
-        f"{serve['single_p50_ms']:.3f}/{serve['single_p99_ms']:.3f}, "
-        f"{serve['single_rate']:.0f}; in 4 processes: "
-        f"{serve['single4_p50_ms']:.3f}/{serve['single4_p99_ms']:.3f}, "
-        f"{serve['single4_rate']:.0f}; pool/single at 64x1 "
-        f"{pn['64x1'][2] / serve['single_rate']:.2f}, at 64x4 "
-        f"{pn['64x4'][2] / serve['single4_rate']:.2f}); host build {pn['phases'].get('kernel', 0):.3f}s "
-        f"({pn['workers']} threads), start_all {pn['start_s']:.3f}s; respawn "
-        f"{pn['respawn_s']:.3f}s; write-to-visible over the pool (the first / last "
-        f"of 24 agreeing answers after the write returned): leaf insert {pn['leaf'][0]:.3f}/{pn['leaf'][1]:.3f}s, "
-        f"role -> role delete {pn['delete'][0]:.3f}/{pn['delete'][1]:.3f}s; "
-        f"B1 0, B2 0")
-
-    # -- 9. wire workers: encoded frames from 4 processes into one batcher -------
-    t0 = time.perf_counter()
-    wn = serve_wire(args, serve, card)
-    walls["serve:wire"] = time.perf_counter() - t0
-    ww, w1 = wn["wire"], wn["single"]
-    say(f"[numbers] serve:wire ({card}; host os.cpu_count() {wn['cpus']}; host query "
-        f"mode, cache off; {args.checks} checks as frames of {WIRE_ROWS} rows x"
-        f"{WIRE_REPEATS} a drive, {WIRE_DRIVES} drives of each in turns, from 64 "
-        f"clients in 4 processes started together; frames/s the median drive's "
-        f"[slowest, fastest], p50/p99 over every drive): {WIRE_WORKERS} processes "
-        f"(wire_workers {WIRE_WORKERS}) {ww['frames_s']:.1f} frames/s "
-        f"[{ww['frames_s_range'][0]:.1f}, {ww['frames_s_range'][1]:.1f}], "
-        f"{ww['checks_s']:.0f} checks/s, drives {fmt_walls(ww['walls'])} s, p50/p99 "
-        f"{ww['p50']:.3f}/{ww['p99']:.3f} ms, {ww['ring']} of {ww['frames']} frames "
-        f"over the ring; one process {w1['frames_s']:.1f} frames/s "
-        f"[{w1['frames_s_range'][0]:.1f}, {w1['frames_s_range'][1]:.1f}], "
-        f"{w1['checks_s']:.0f} checks/s, drives {fmt_walls(w1['walls'])} s, p50/p99 "
-        f"{w1['p50']:.3f}/{w1['p99']:.3f} ms; wire/single (medians) "
-        f"{ww['checks_s'] / w1['checks_s']:.3f}; respawn {wn['respawn_s']:.3f}s; "
-        f"B1 0, B2 0")
+    durable = serve_durable(args, dev, card, persist["sample"])
+    walls["durable"] = time.perf_counter() - t0
 
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")
     say("[numbers] phase wall seconds: "
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    pn, sp = persist, spawn
+    say(f"[numbers] persist ({card}): sqlite load {pn['load_s']:.3f}s for "
+        f"{args.tuples} tuples ({pn['db_mib']:.1f} MiB); start_all {pn['start_s']:.3f}s "
+        f"= SQL read {pn['read_s']:.3f}s + snapshot encode {pn['encode_s']:.3f}s + "
+        f"interior {pn['phases'].get('interior', 0):.3f}s + B1 build "
+        f"{pn['phases'].get('kernel', 0):.3f}s ({pn['start_launches']} launches) + the "
+        f"rest; sample batch {pn['batch_s'] * 1e3:.3f} ms; write-to-visible p50/p99 "
+        f"{pn['visible_p50']:.3f}/{pn['visible_p99']:.3f} ms; spawn pool "
+        f"({SPAWN_WORKERS} processes, host query mode): {sp['rate']:.0f} checks/s, "
+        f"p50/p99 {sp['p50']:.3f}/{sp['p99']:.3f} ms at 64 clients in 4 processes, "
+        f"worker boot s {[round(b, 3) for b in sp['boot_s']]}; B1 launches: the "
+        f"parent {sp['launches']}, the opt-in pool {sp['accel_launches']}")
+    dn = durable
+    rec = dn["recovery"]
+    say(f"[numbers] durable ({card}): recovery {rec['duration_s']:.3f}s (checkpoint "
+        f"{rec['checkpoint_s']:.3f}s + replay of {rec['replayed']} records "
+        f"{rec['replay_s']:.3f}s, gap {rec['gap']}); start_all after it "
+        f"{dn['restart_start_s']:.3f}s; restart to the first batch "
+        f"{dn['first_batch_s']:.3f}s; cold re-ingest {dn['reingest_s']:.3f}s; CSR "
+        f"primed after the SIGKILL {dn['csr_primed_kill']}, after a graceful stop "
+        f"{dn['csr_primed']} (start_all {dn['primed_start_s']:.3f}s); B1 launches "
+        f"over three boots {dn['launches']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    ov = serve["overload"]
     dv = serve["device"]
     say(f"[numbers] [device] ({card}): HBM budget {dv['budget_gib']:.3f} GiB; breaker "
         f"cost (batch_check of {args.checks}, p50 bare / breaker ms): device query mode "
@@ -3775,15 +4515,19 @@ def main() -> int:
     say(f"[numbers] B1 launches: main:closure {b1['launches']}, serve "
         f"{serve['launches']}, the list path's rebuild {serve['list_launches']}, "
         f"the cache server {serve['cache_launches']}, the overload server "
-        f"{ov['launches']}; B2 launches: main:packed with its batcher drives "
-        f"{b2['launches']}")
+        f"{ov['launches']}, persist {persist['launches']}, the spawn pool's parent "
+        f"{spawn['launches']}, the opt-in pool (parent and worker) "
+        f"{spawn['accel_launches']}, durable's three boots {durable['launches']}; B2 "
+        f"launches: main:packed with its batcher drives {b2['launches']}")
     say(f"[numbers] [device] drill launches, not in the kernels line: B1 "
         f"{dv['launches']}, B2 {b2['drill_launches']}")
     # the kernels line counts each kernel's launches over every phase's
     # drive of the main path, each counted from 0 just before its run; the
     # [device] drills are not the main path's run
     b1["launches"] += (serve["launches"] + serve["list_launches"]
-                       + serve["cache_launches"] + ov["launches"])
+                       + serve["cache_launches"] + ov["launches"]
+                       + persist["launches"] + spawn["launches"]
+                       + spawn["accel_launches"] + durable["launches"])
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,8 +13,10 @@ validated, by hand and with the reference's messages (no jsonschema); the
 ``debug`` objects are closed, as in the reference's schema, so a misspelt
 key is an error; other keys are carried and ignored. ``scrub.freeze_burn_rate``
 is validated and carried for the SLO freeze (ROADMAP 14.5), and
-``scrub.wal_segments_per_cycle`` and ``scrub.digest_chunk_size`` for the
-scrubber's WAL and replica kinds (14.2, 14.6). Environment overrides, hot reload and
+``scrub.digest_chunk_size`` for the scrubber's replica kind (14.6). The
+durable write plane's ``store.wal.{dir,sync,sync-interval-ms,segment-bytes}``
+and ``checkpoint.{dir,interval-versions,interval-s,keep}`` are closed
+objects too. Environment overrides, hot reload and
 namespace file watchers are not ported yet (ROADMAP 14.4).
 """
 
@@ -110,6 +112,14 @@ DEFAULTS = {
     "debug.enabled": True,
     "debug.token": "",
     "debug.profile_max_s": 30,
+    "store.wal.dir": "",
+    "store.wal.sync": "always",
+    "store.wal.sync-interval-ms": 50,
+    "store.wal.segment-bytes": 16 << 20,
+    "checkpoint.dir": "",
+    "checkpoint.interval-versions": 10000,
+    "checkpoint.interval-s": 300,
+    "checkpoint.keep": 2,
 }
 
 _ENGINE_MODES = [
@@ -191,6 +201,14 @@ _RULES: dict[str, tuple[str, Any]] = {
     "debug.enabled": ("boolean", None),
     "debug.token": ("string", None),
     "debug.profile_max_s": ("number", 0.1),
+    "store.wal.dir": ("string", None),
+    "store.wal.sync": ("enum", ["always", "interval", "off"]),
+    "store.wal.sync-interval-ms": ("number", 0),
+    "store.wal.segment-bytes": ("integer", 4096),
+    "checkpoint.dir": ("string", None),
+    "checkpoint.interval-versions": ("integer", 1),
+    "checkpoint.interval-s": ("number", 0),
+    "checkpoint.keep": ("integer", 1),
 }
 
 # upper bounds, checked after the lower ones (the reference's keyword order)
@@ -198,8 +216,13 @@ _MAXIMA = {"overload.decrease": 1, "engine.memory.hbm_budget_frac": 1}
 
 # objects whose schema admits no other property
 _CLOSED = {
-    obj: {key[len(obj) + 1:] for key in _RULES if key.startswith(obj + ".")}
-    for obj in ("overload", "engine.memory", "engine.failover", "scrub", "debug")
+    obj: {
+        key[len(obj) + 1:].split(".")[0] for key in _RULES if key.startswith(obj + ".")
+    }
+    for obj in (
+        "overload", "engine.memory", "engine.failover", "scrub", "debug",
+        "store", "store.wal", "checkpoint",
+    )
 }
 
 # the properties each per-namespace qos override may carry

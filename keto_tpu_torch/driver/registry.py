@@ -13,13 +13,22 @@ the caller passes ``device="cpu"``; without CUDA it raises. The sharded
 tiers, which this package does not have yet, fail with an error that names
 their roadmap item (12).
 
+The store is the DSN's (``store()``): ``memory``, ``columnar``, or a SQL
+database (``sqlite://``, ``postgres://``, ``cockroach://``, ``mysql://``;
+``persistence/``). With ``store.wal.dir`` set, the memory and columnar
+stores are wrapped in the durable write plane (``store/durable.py``: the
+WAL, checkpoints, boot recovery); ``start_all`` seeds the snapshot CSR from
+the recovered checkpoint and ``stop_all`` cuts a final checkpoint.
+
 ``serve.read.workers`` N > 1 serves the read port from N processes: after
 the warmup ``start_all`` forks N - 1 read replicas (``driver/replicas.py``)
 that share the read port through ``SO_REUSEPORT``, then binds its own
-planes. A forked child must not touch CUDA, so with ``engine.query_mode:
-auto`` the closure engine is built in host query mode; any other engine
-(a device query mode, the frontier engines, the host oracle) serves from
-one process, and ``start_all`` logs one line saying so.
+planes. A SQL store's state is the database, so it spawns N - 1 fresh
+worker interpreters instead (``driver/spawn_workers.py``). A forked child
+must not touch CUDA, so with ``engine.query_mode: auto`` the closure engine
+is built in host query mode; any other engine (a device query mode, the
+frontier engines, the host oracle) serves from one process when the store
+is process-private, and ``start_all`` logs one line saying so.
 
 The device-aware planes wrap every device engine as the reference's
 defaults do: ``checker()`` puts the circuit breaker
@@ -434,6 +443,8 @@ class Registry:
         self._ring_server = None
         self._ring_parent_front = None
         self._serving = False  # readiness: flips only after bring-up
+        # whether start_all seeded the snapshot CSR from a checkpoint
+        self.csr_primed = False
         # the device-aware planes: the breaker at the checker seam, the
         # supervisor on its lost-device hook, the memory admission, the
         # scrubber and the /debug context; the breaker clears _breaker_ok
@@ -462,20 +473,92 @@ class Registry:
             return self._namespace_manager
 
     def store(self):
+        """The tuple store the DSN names, as the reference's dispatch does:
+        ``memory``, ``columnar``, ``sqlite://<path>``, ``postgres://`` (and
+        ``postgresql://``), ``cockroach://`` and ``mysql://`` (or
+        ``mysql+fake://``, the in-tree shim). The memory and columnar stores
+        are wrapped in the durable write plane when ``store.wal.dir`` is
+        set (``_wrap_durable``)."""
         with self._lock:
             if self._store is None:
-                dsn = self.config.dsn()
-                if dsn in ("memory", "sqlite://:memory:", ""):
-                    cls = InMemoryTupleStore
-                elif dsn == "columnar":
-                    cls = ColumnarTupleStore
-                else:
-                    raise ErrMalformedInput(
-                        f"unsupported DSN {dsn!r}: keto_tpu_torch supports "
-                        "'memory' and 'columnar'"
-                    )
-                self._store = cls(namespace_manager=self.namespace_manager())
+                self._store = self._wrap_durable(self._open_store(self.config.dsn()))
             return self._store
+
+    def _open_store(self, dsn: str):
+        nsm = self.namespace_manager()
+        if dsn in ("memory", "sqlite://:memory:", ""):
+            return InMemoryTupleStore(namespace_manager=nsm)
+        if dsn == "columnar":
+            return ColumnarTupleStore(namespace_manager=nsm)
+        from ..persistence.dialect import dialect_for_dsn
+
+        try:
+            dialect, native = dialect_for_dsn(dsn)
+        except ValueError:
+            raise ErrMalformedInput(
+                f"unsupported DSN {dsn!r}: keto_tpu_torch supports 'memory', "
+                "'columnar', 'sqlite://<path>', 'postgres://...', "
+                "'cockroach://...' and 'mysql://...'"
+            ) from None
+        from ..persistence.sqlstore import SQLTupleStore
+
+        # a missing driver (mysql without pymysql, postgres behind a server
+        # that refuses the session) is a configuration error
+        try:
+            return SQLTupleStore(dialect, native, namespace_manager=nsm)
+        except RuntimeError as e:
+            raise ErrMalformedInput(str(e)) from e
+
+    def _wrap_durable(self, store):
+        """The durable write plane (store/durable.py: WAL append before ack,
+        atomic checkpoints, boot recovery) over the memory and columnar
+        stores when ``store.wal.dir`` is set. A SQL store is durable
+        already: the knob is logged and ignored, as the reference does (the
+        reference also skips the wrap on a replication follower, a role
+        this package does not have yet: ROADMAP 14.6)."""
+        wal_dir = str(self.config.get("store.wal.dir") or "")
+        if not wal_dir:
+            return store
+        if not getattr(store, "process_private", False):
+            _log.warning(
+                "store.wal.dir is set but the DSN %r is SQL-backed; the "
+                "database is already durable, ignoring the WAL config",
+                self.config.dsn(),
+            )
+            return store
+        from ..store.durable import DurableTupleStore
+        from ..store.wal import WalError
+
+        cfg = self.config
+        try:
+            durable = DurableTupleStore(
+                store,
+                wal_dir,
+                checkpoint_dir=str(cfg.get("checkpoint.dir") or "") or None,
+                sync=str(cfg.get("store.wal.sync")),
+                sync_interval_ms=float(cfg.get("store.wal.sync-interval-ms")),
+                segment_bytes=int(cfg.get("store.wal.segment-bytes")),
+                checkpoint_interval_versions=int(cfg.get("checkpoint.interval-versions")),
+                checkpoint_interval_s=float(cfg.get("checkpoint.interval-s")),
+                checkpoint_keep=int(cfg.get("checkpoint.keep")),
+            )
+        except WalError as e:
+            raise ErrMalformedInput(str(e)) from e
+        durable.append_error_cb = lambda err: _log.error(
+            "WAL append failed (errno %s): the write was not acked and the "
+            "durable store fail-stopped", err,
+        )
+        rep = durable.recovery
+        (_log.error if rep.gap else _log.info)(
+            "store recovery complete%s: checkpoint version %d, %d deltas "
+            "replayed, final version %d, %.3fs (checkpoint %.3fs, replay "
+            "%.3fs), torn tail %d bytes%s",
+            " WITH A WAL GAP, serving possibly-stale state" if rep.gap else "",
+            rep.checkpoint_version, rep.replayed_deltas, rep.final_version,
+            rep.duration_s, rep.checkpoint_s, rep.replay_s, rep.torn_tail_bytes,
+            (": " + "; ".join(rep.notes)) if rep.notes else "",
+        )
+        return durable
 
     def snapshots(self) -> SnapshotManager:
         with self._lock:
@@ -700,6 +783,8 @@ class Registry:
                 sample_rows=int(cfg.get("scrub.sample_rows")),
                 reservoir=int(cfg.get("scrub.reservoir")),
                 replay_per_cycle=int(cfg.get("scrub.replay_per_cycle")),
+                store_fn=lambda: self._store,
+                wal_segments_per_cycle=int(cfg.get("scrub.wal_segments_per_cycle")),
                 max_repairs_per_cycle=int(cfg.get("scrub.max_repairs_per_cycle")),
                 history=int(cfg.get("scrub.history")),
                 enabled_fn=lambda: bool(cfg.get("scrub.enabled")),
@@ -751,6 +836,21 @@ class Registry:
         hbm = self._hbm_admission
         if hbm is not None:
             out["hbm"] = hbm.snapshot()
+        rep = getattr(self._store, "recovery", None)
+        if rep is not None:
+            out["recovery"] = {
+                "checkpoint_version": rep.checkpoint_version,
+                "replayed_deltas": rep.replayed_deltas,
+                "skipped_records": rep.skipped_records,
+                "final_version": rep.final_version,
+                "gap": rep.gap,
+                "torn_tail_bytes": rep.torn_tail_bytes,
+                "duration_s": rep.duration_s,
+                "checkpoint_s": rep.checkpoint_s,
+                "replay_s": rep.replay_s,
+                "notes": list(rep.notes),
+                "csr_primed": self.csr_primed,
+            }
         return out
 
     def graph_panel(self) -> dict:
@@ -1125,17 +1225,35 @@ class Registry:
         """Warm the check engine up (the closure build, the query path at
         max_batch), fork the read replicas when serve.read.workers > 1, then
         start both planes; returns (read_port, write_port). Readiness flips
-        only after bring-up."""
+        only after bring-up. Workers of a SQL store are spawned first
+        instead: each builds its own residency from the database, so their
+        boots overlap this process's (the reference spawns them after its
+        warmup)."""
+        store = self.store()  # a SQL store's migrations run here, before any worker
+        spawned = not getattr(store, "process_private", False)
+        if spawned:
+            self._spawn_workers(*self._pool_sizes())
         engine = self.check_engine()
+        if hasattr(store, "recovery"):
+            # the durable write plane: seed the snapshot's CSR from the
+            # checkpoint (the warmup below then skips its derive when the
+            # versions line up) and let later checkpoints carry the CSR
+            self._prime_recovered_csr(store)
+            store.csr_provider = self._checkpoint_csr
         if hasattr(engine, "warmup"):
             engine.warmup(int(self.config.get("engine.max_batch")))
+        # the snapshot CSR the expand engine and the overlay walk: deriving
+        # it is an O(E log E) sort that belongs in warmup, not inside the
+        # first live Expand (as the reference does)
+        self.snapshots().snapshot().csr()
         # freeze the long-lived object graph (store rows, vocab keys,
         # closure artifacts) out of the cyclic GC: a full collection over
         # millions of immortal objects would land inside random requests
         # as tail latency
         gc.freeze()
-        # before checker(), the planes and the gRPC server start threads
-        self._start_replicas(engine)
+        if not spawned:
+            # before checker(), the planes and the gRPC server start threads
+            self._start_replicas(engine)
         read_port = self.read_plane().start()
         write_port = self.write_plane().start()
         if not self.grpc_enabled:
@@ -1145,6 +1263,55 @@ class Registry:
             self.scrubber().start()
         self.mark_serving()
         return read_port, write_port
+
+    def _prime_recovered_csr(self, store) -> None:
+        """Install the CSR arrays a checkpoint carried into the boot
+        snapshot: only when the checkpoint's CSR was derived at exactly this
+        version and the padded shapes agree (the padding buckets are the
+        reference's, deterministic in node and edge counts, so a match means
+        the same graph). ``csr_primed`` records whether it happened."""
+        rep = store.recovery
+        if rep.csr is None:
+            return
+        try:
+            import numpy as np
+
+            snap = self.snapshots().snapshot()
+            indptr, indices = rep.csr
+            if (
+                rep.csr_version == snap.version
+                and snap._csr is None
+                and len(indptr) == snap.padded_nodes + 1
+                and len(indices) == snap.padded_edges
+            ):
+                snap._csr = (
+                    np.asarray(indptr, dtype=np.int32),
+                    np.asarray(indices, dtype=np.int32),
+                )
+                snap._csr_edges = snap.num_edges
+                snap._csr_extra = None
+                self.csr_primed = True
+                _log.info("snapshot CSR primed from the checkpoint at version %d",
+                          snap.version)
+        except Exception as e:
+            _log.warning("checkpoint CSR priming failed; warmup derives it: %s", e)
+
+    def _checkpoint_csr(self):
+        """CSR provider for checkpoints: the current snapshot's fully derived
+        CSR, or None (never forces a derive: a checkpoint must not pay an
+        O(E log E) sort on the write path)."""
+        mgr = self._snapshots
+        if mgr is None:
+            return None
+        snap = mgr._snap
+        if (
+            snap is None
+            or snap.version != self.store().version
+            or snap._csr is None
+            or snap._csr_edges != snap.num_edges
+        ):
+            return None
+        return snap.version, snap._csr
 
     def mark_serving(self) -> None:
         """Readiness on: /health and the gRPC health service say SERVING
@@ -1163,10 +1330,7 @@ class Registry:
         log line, as does a fork the thread inventory refuses. With wire
         workers, the ring is built before the fork and its consumer started
         after it."""
-        n_workers = int(self.config.get("serve.read.workers"))
-        wire_workers = 1
-        if bool(self.config.get("serve.read.encoded")):
-            wire_workers = int(self.config.get("serve.read.wire_workers"))
+        n_workers, wire_workers = self._pool_sizes()
         n_pool = max(n_workers, wire_workers)
         if n_pool <= 1:
             return
@@ -1235,6 +1399,40 @@ class Registry:
             )
         self._shared_read_ports = (read_port, grpc_port)
 
+    def _pool_sizes(self) -> tuple[int, int]:
+        """(serve.read.workers, serve.read.wire_workers); wire workers count
+        only while serve.read.encoded is on."""
+        wire_workers = 1
+        if bool(self.config.get("serve.read.encoded")):
+            wire_workers = int(self.config.get("serve.read.wire_workers"))
+        return int(self.config.get("serve.read.workers")), wire_workers
+
+    def _spawn_workers(self, n_workers: int, wire_workers: int) -> None:
+        """A SQL-backed store scales its read plane out by spawning fresh
+        workers (driver/spawn_workers.py), never by forking: the database is
+        the shared state. Wire workers need the fork pool's ring, so they
+        are ignored here with one log line, as the reference does."""
+        from .replicas import resolve_free_ports
+        from .spawn_workers import SpawnWorkerPool
+
+        if wire_workers > 1:
+            _log.warning(
+                "serve.read.wire_workers needs the fork replica pool "
+                "(a process-private store); ignoring %d", wire_workers,
+            )
+        if n_workers <= 1:
+            return
+        host = self.config.read_api_host() or "0.0.0.0"
+        read_port, grpc_port = resolve_free_ports(
+            [(host, self.config.read_api_port()), ("127.0.0.1", 0)]
+        )
+        pool = SpawnWorkerPool(self, n_workers)
+        pool.start(read_port, grpc_port)
+        self._replica_pool = pool
+        self._shared_read_ports = (read_port, grpc_port)
+        _log.info("read workers spawned: %d processes on read port %d",
+                  n_workers, read_port)
+
     def stop_all(self) -> None:
         self._serving = False  # readiness first, so balancers stop routing
         if self._health is not None:
@@ -1260,5 +1458,9 @@ class Registry:
             self._checker.close()
         if self._device_supervisor is not None:
             self._device_supervisor.stop()
+        if self._store is not None and hasattr(self._store, "close_durable"):
+            # final checkpoint + WAL close: the next boot recovers from the
+            # checkpoint instead of replaying the whole log
+            self._store.close_durable()
         if self._snapshots is not None:
             self._snapshots.close()

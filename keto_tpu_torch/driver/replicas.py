@@ -56,8 +56,9 @@ replica outlives its parent. The fault sites (``faults.py``):
 replica (the resync fills the gap), ``replica.crash`` kills a replica with a
 delta in hand; a respawn command carries the parent's current armed state.
 The pool's metrics wait for ROADMAP 14.5.
-Only process-private stores reach this pool (every store the port accepts
-is one); SQL stores, which spawn workers instead, wait for ROADMAP 14.1.
+Only process-private stores (memory, columnar, and the durable wrapper
+over them) reach this pool; a SQL store's state is the database, and the
+registry spawns fresh workers for it instead (``driver/spawn_workers.py``).
 """
 
 from __future__ import annotations
@@ -135,11 +136,15 @@ def _reset_inherited_locks(registry, serving: bool = True) -> None:
     ``serving=False`` is the zygote's variant: locks only, no thread-starting
     re-arms, so the zygote stays single-threaded and its forks stay safe."""
     store = registry.store()
-    store._lock = threading.RLock()
-    store._deliver_lock = threading.Lock()
-    store._deliver_cv = threading.Condition()
-    store._deliver_owner = None
-    vocab = getattr(store, "vocab", None)
+    inner = getattr(store, "inner", store)  # the durable wrapper's store
+    if inner is not store:
+        store._mutate_lock = threading.Lock()
+        store._ckpt_lock = threading.Lock()
+    inner._lock = threading.RLock()
+    inner._deliver_lock = threading.Lock()
+    inner._deliver_cv = threading.Condition()
+    inner._deliver_owner = None
+    vocab = getattr(inner, "vocab", None)
     if vocab is not None:
         vocab._h_lock = threading.Lock()
     registry._lock = threading.RLock()

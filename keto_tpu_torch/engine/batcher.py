@@ -130,11 +130,25 @@ def dispatch_batched(
     return out
 
 
+def _raise_unanswered(answers: list) -> None:
+    """A caller-assembled batch whose rows the breaker's oracle did not reach
+    by the caller's deadline (None answers) fails typed as a whole; the
+    rows that were answered ride on the error as ``answers``."""
+    if any(v is None for v in answers):
+        err = DeadlineExceeded(
+            f"{sum(v is None for v in answers)} of {len(answers)} rows were "
+            "not answered by the deadline"
+        )
+        err.answers = answers
+        raise err
+
+
 def _merge(cached: list, miss: list, res) -> list[bool]:
-    """Cached answers with the misses' fresh answers filled in."""
+    """Cached answers with the misses' fresh answers filled in (a miss the
+    breaker's oracle did not reach stays None)."""
     out = [None if v is None else bool(v) for v in cached]
     for i, v in zip(miss, res):
-        out[i] = bool(v)
+        out[i] = None if v is None else bool(v)
     return out
 
 
@@ -442,14 +456,19 @@ class CheckBatcher:
             self._admit_overload(criticality)
         self._admit(min_version, timeout, deadline, relax=True)
         if self.cache is None:
-            return self._dispatch_direct(requests, max_depth)
+            return self._dispatch_direct(requests, max_depth, deadline)
         version = self.version_fn()
         keys = [(r, max_depth) for r in requests]
         cached = self.cache.get_many(version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
         if not miss:
             return [bool(v) for v in cached]
-        res = self._dispatch_direct([requests[i] for i in miss], max_depth)
+        try:
+            res = self._dispatch_direct([requests[i] for i in miss], max_depth, deadline)
+        except DeadlineExceeded as e:
+            if hasattr(e, "answers"):  # the whole batch's rows, hits included
+                e.answers = _merge(cached, miss, e.answers)
+            raise
         self.cache.put_many(version, [keys[i] for i in miss], res)
         return _merge(cached, miss, res)
 
@@ -461,16 +480,25 @@ class CheckBatcher:
             return self.max_batch
         return max(1, self.hbm.clamp_rows(self.max_batch))
 
-    def _dispatch_direct(self, requests, max_depth: int) -> list[bool]:
+    def _dispatch_direct(self, requests, max_depth: int, deadline=None) -> list[bool]:
         """A caller-assembled tuple batch on the caller's thread, in chunks
-        the admission accepts, tapped into the scrubber's reservoir."""
-        out: list[bool] = []
+        the admission accepts, tapped into the scrubber's reservoir. With a
+        deadline, an engine that bounds its host oracle by one
+        (``takes_deadline``, the breaker) gets it."""
+        kw = {}
+        if deadline is not None and getattr(self.engine, "takes_deadline", False):
+            kw["deadline"] = deadline
+        out: list = []
         i = 0
         while i < len(requests):
             step = self._admit_rows()
             chunk = requests[i : i + step]
-            out.extend(bool(v) for v in self.engine.batch_check(chunk, max_depth))
+            out.extend(
+                None if v is None else bool(v)
+                for v in self.engine.batch_check(chunk, max_depth, **kw)
+            )
             i += step
+        _raise_unanswered(out)
         self._tap(requests, out)
         return out
 
@@ -488,13 +516,18 @@ class CheckBatcher:
         max_depth: int = 0,
         min_version: int = 0,
         timeout: Optional[float] = None,
+        deadline: Optional[float] = None,
     ) -> list[bool]:
         """Columnar twin of ``check_batch``: the batch arrives as a
         ``CheckColumns`` and stays columnar through vocab encode and the
         engine. Engines with the columnar split API probe the encoded
         cache on the (start, target, depth) id triples; the others probe
         the result cache on flat string row keys. No ``RelationTuple``
-        objects are built on either path."""
+        objects are built on either path. A ``deadline`` (absolute
+        ``time.monotonic()``) bounds the admission and, on the encoded path,
+        the breaker's host oracle row by row: rows it has not answered by
+        then fail the batch with ``DeadlineExceeded``, whose ``answers``
+        holds the rows that were answered."""
         if self._closed:
             raise BatcherClosed()
         n = len(cols)
@@ -502,12 +535,13 @@ class CheckBatcher:
             return []
         if self.qos is not None:
             self._admit_counts(cols.namespaces)
-        self._admit(min_version, timeout, None)
+        self._admit(min_version, timeout, deadline)
         if getattr(self.engine, "encode_columns", None) is None:
             return self._columns_via_engine(cols, max_depth)
-        out: list[bool] = []
+        out: list = []
         for chunk in self._column_chunks(cols):
-            out.extend(self._dispatch_columns(chunk, max_depth))
+            out.extend(self._dispatch_columns(chunk, max_depth, deadline))
+        _raise_unanswered(out)
         return out
 
     def _column_chunks(self, cols):
@@ -520,13 +554,13 @@ class CheckBatcher:
             yield cols if i == 0 and n <= step else cols.select(range(i, min(i + step, n)))
             i += step
 
-    def _dispatch_columns(self, cols, max_depth: int) -> list[bool]:
+    def _dispatch_columns(self, cols, max_depth: int, deadline=None) -> list:
         """One encoded columnar dispatch: encode into staging, resolve cache
         hits, launch only the misses."""
         enc = self.engine.encode_columns(cols, max_depth)
         cache = self.encoded_cache
         if cache is None:
-            return self._launch_decode(enc)
+            return self._launch_decode(enc, deadline)
         keys = enc.keys()
         cached = cache.get_many(enc.version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
@@ -535,15 +569,19 @@ class CheckBatcher:
             return [bool(v) for v in cached]
         if len(miss) < len(keys):
             enc.compact(miss)
-        res = self._launch_decode(enc)
-        cache.put_many(enc.version, [keys[i] for i in miss], res)
+        res = self._launch_decode(enc, deadline)
+        live = [(i, v) for i, v in zip(miss, res) if v is not None]
+        cache.put_many(enc.version, [keys[i] for i, _ in live], [v for _, v in live])
         return _merge(cached, miss, res)
 
-    def _launch_decode(self, enc) -> list[bool]:
+    def _launch_decode(self, enc, deadline=None) -> list:
         """The device stage and the decode of one encoded batch, on the
-        caller's thread."""
+        caller's thread. A deadline reaches the breaker as the pipeline's
+        per-row deadlines do; a row its oracle skipped stays None."""
+        if deadline is not None:
+            enc.deadlines = [deadline] * enc.n
         return [
-            bool(v)
+            None if v is None else bool(v)
             for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
         ]
 

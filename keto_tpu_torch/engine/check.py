@@ -14,6 +14,9 @@ global cap clamp to the global cap.
 
 from __future__ import annotations
 
+import time
+from typing import Optional
+
 from ..relationtuple.definitions import (
     Manager,
     RelationQuery,
@@ -42,6 +45,22 @@ class CheckEngine:
     def subject_is_allowed(
         self, requested: RelationTuple, max_depth: int = 0
     ) -> bool:
+        return bool(self._search(requested, max_depth, None))
+
+    def check_until(
+        self, requested: RelationTuple, max_depth: int, deadline: float
+    ) -> Optional[bool]:
+        """``subject_is_allowed`` that gives up at ``deadline`` (absolute
+        ``time.monotonic()``): the clock is read before every page the
+        search asks the store for, and None comes back once it has passed.
+        An answer it does return is the search's full answer. The device
+        breaker bounds its host oracle with it (engine/fallback.py); the
+        reference's oracle has no such bound."""
+        return self._search(requested, max_depth, deadline)
+
+    def _search(
+        self, requested: RelationTuple, max_depth: int, deadline: Optional[float]
+    ) -> Optional[bool]:
         depth = clamp_depth(max_depth, self.global_max_depth)
         start = SubjectSet(
             namespace=requested.namespace,
@@ -63,6 +82,8 @@ class CheckEngine:
                 )
                 token = ""
                 while True:
+                    if deadline is not None and time.monotonic() >= deadline:
+                        return None
                     try:
                         page, token = self.manager.get_relation_tuples(
                             query, PaginationOptions(token=token)

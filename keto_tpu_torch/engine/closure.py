@@ -606,6 +606,7 @@ class ClosureCheckEngine:
                 ov is not None
                 and not ov.broken
                 and handed < store_version
+                and self._delta_in_flight(store_version)
                 and self._await_delta(store_version)
             ):
                 continue  # the write's delta was handed over since: drain it
@@ -614,6 +615,16 @@ class ClosureCheckEngine:
                 return state, pinned
             self._build_sync()
             # loop: re-read state AND overlay together for the fresh pin
+
+    def _delta_in_flight(self, version: int) -> bool:
+        """Whether this process's store enqueued the delta of ``version``
+        (``OrderedNotifier.enqueued_upto``), so that waiting for its
+        hand-over can succeed. A version written by another process on a
+        shared SQL database (a spawned read worker's store) has no delta
+        here: the engine rebuilds at once instead of waiting out
+        ``_DELIVERY_WAIT_S``."""
+        enqueued = getattr(self.snapshots.store, "enqueued_upto", None)
+        return enqueued is None or enqueued >= version
 
     def _await_delta(self, version: int) -> bool:
         """The store bumps its version under its lock and hands the write's

@@ -457,14 +457,23 @@ class DeviceFallbackEngine:
             fn = getattr(self.primary, name)
         return fn(*args)
 
+    #: ``batch_check`` takes a caller's ``deadline`` (the batcher's one
+    #: capability check before it passes one)
+    takes_deadline = True
+
     def batch_check(
         self,
         requests: Sequence[RelationTuple],
         max_depth: int = 0,
         depths: Optional[Sequence[int]] = None,
-    ) -> list[bool]:
+        deadline: Optional[float] = None,
+    ) -> list:
+        """The primary answers; when the host oracle must answer instead,
+        an absolute ``time.monotonic()`` ``deadline`` bounds it row by row,
+        and rows it has not reached by then come back None."""
         if not requests:
             return []
+        deadlines = None if deadline is None else [deadline] * len(requests)
         if self._use_primary():
             try:
                 results = self._primary_batch(
@@ -472,15 +481,15 @@ class DeviceFallbackEngine:
                 )
             except Exception as e:
                 self._note_failure(e)
-                return self._fallback_check(requests, max_depth, depths)
+                return self._fallback_check(requests, max_depth, depths, deadlines)
             answers = _answers(results, len(requests))
             if answers is None:
                 self._record_failure(None)
-                return self._fallback_check(requests, max_depth, depths)
+                return self._fallback_check(requests, max_depth, depths, deadlines)
             self._record_success()
             return answers
         self._refuse_open()
-        return self._fallback_check(requests, max_depth, depths)
+        return self._fallback_check(requests, max_depth, depths, deadlines)
 
     # -- pipelined surface (encode/launch/decode split) ------------------------
     #
@@ -701,27 +710,41 @@ class DeviceFallbackEngine:
     def _fallback_check(self, requests, max_depth, depths, deadlines=None) -> list:
         with self._lock:
             self.n_fallback_batches += 1
-        if deadlines is not None:
-            # rows whose caller deadline already passed are not re-answered
-            # — their slot comes back as None (the batcher's decode stage
-            # failed those futures typed; a None is never cached). The
-            # comparison clock is the batcher's (time.monotonic), not the
-            # breaker's injectable one.
-            now = time.monotonic()
-            live = [i for i, dl in enumerate(deadlines) if dl is None or now < dl]
-            if len(live) < len(requests):
-                with self._lock:
-                    self.n_deadline_skips += len(requests) - len(live)
-                sub = self._fallback_answer(
-                    [requests[i] for i in live],
-                    max_depth,
-                    None if depths is None else [depths[i] for i in live],
-                )
-                out = [None] * len(requests)
-                for i, v in zip(live, sub):
-                    out[i] = bool(v)
-                return out
-        return self._fallback_answer(requests, max_depth, depths)
+        if deadlines is None:
+            return self._fallback_answer(requests, max_depth, depths)
+        # The oracle is a host BFS per row and may take far longer than any
+        # caller's deadline (minutes a row on a ten-million-tuple columnar
+        # store), so the deadline is checked before EVERY row, not once per
+        # batch, and inside the row where the oracle can (CheckEngine's
+        # check_until reads the clock before each page it asks the store
+        # for): a row whose deadline passes comes back None (the batcher
+        # fails its caller typed; a None is never cached), and the batch
+        # returns by its latest deadline plus one page (one row, for an
+        # oracle without check_until). Every answered row is the oracle's
+        # full answer. The clock is the batcher's (time.monotonic), not the
+        # breaker's injectable one.
+        engine = self.fallback_engine()
+        until = getattr(engine, "check_until", None)
+        out: list = [None] * len(requests)
+        skipped = 0
+        for i, request in enumerate(requests):
+            dl = deadlines[i]
+            if dl is not None and time.monotonic() >= dl:
+                skipped += 1
+                continue
+            depth = max_depth if depths is None else depths[i]
+            if dl is not None and until is not None:
+                got = until(request, depth, dl)
+                if got is None:
+                    skipped += 1
+                    continue
+                out[i] = bool(got)
+            else:
+                out[i] = bool(engine.batch_check([request], depth)[0])
+        if skipped:
+            with self._lock:
+                self.n_deadline_skips += skipped
+        return out
 
     def _fallback_answer(self, requests, max_depth, depths) -> list[bool]:
         if not requests:

@@ -10,8 +10,8 @@ is not the allocator's:
   ``torch.cuda.mem_get_info``), re-sampled every 30 s;
 - every launched batch reserves its modeled bytes for the (bucket,
   snapshot-version) shape it dispatches; the model starts from a
-  conservative per-row constant and learns from observed
-  ``peak_bytes_in_use`` deltas (EMA) as real batches fly;
+  conservative per-row constant and learns each batch's own peak (a
+  per-batch peak window, below) by EMA as real batches fly;
 - :meth:`HbmAdmission.clamp_rows` clamps the batcher's chunk size, so an
   oversized caller batch is pre-split *before* encode instead of running
   out of memory in the launch, and :meth:`HbmAdmission.wait_for_headroom`
@@ -27,13 +27,21 @@ is exactly what the next batch's allocation reuses, and the allocator
 frees its cache and retries before it raises an out-of-memory error, so
 charging the reserve would count the same bytes twice.
 
-Peak deltas are read as the reference reads XLA's ``peak_bytes_in_use``: a
-high-water mark for the process, sampled at reserve and at release. A
-positive delta is what that batch added on top of every earlier peak and
-teaches the model; a zero delta (the batch fit under the mark) carries no
-information. The admission never calls ``torch.cuda.reset_peak_memory_stats``:
-the mark belongs to whoever measures the process, and a reset between a
-batch's two samples only makes its delta negative, which is ignored.
+A batch's bytes are its own peak, measured in a per-batch peak window
+(``DEVSTATS.window_enter``/``window_exit``: the allocator's peak is reset
+when a batch enters while no other is in flight, and each batch keeps the
+allocator's counts at its own entry). A positive charge teaches the model.
+This is a recorded difference from the reference, which reads XLA's
+``peak_bytes_in_use`` as a process high-water mark at reserve and release:
+after any earlier, larger peak every delta there is 0 and the model never
+learns. Overlapping pipelined batches share one window, and each is
+charged the smaller of the window's peak over its own entry's bytes in use
+plus the bytes freed while it flew, and the bytes allocated while it flew
+(``telemetry/devstats.py``). Both are at least its own rise, so the charge
+is never an underestimate; its neighbours' bytes can make it an
+overestimate, which only makes admission split earlier. The high-water
+mark that ``/debug/device`` reports is the running maximum ``DEVSTATS``
+keeps across the resets, so it never falls.
 
 Where no device reports memory statistics (a CPU process, or a forked read
 replica, which may not touch CUDA) every admission question degrades to
@@ -85,9 +93,9 @@ class HbmAdmission:
         self._model: dict[tuple[int, int], float] = {}
         # device-resident reverse closure D^T (list serving)
         self._reverse_residency = 0.0
-        # token -> (modeled cost, shape key, peak sample at reserve time —
+        # token -> (modeled cost, shape key, the batch's peak-window entry —
         # None when no device reports memory stats)
-        self._inflight: dict[int, tuple[float, tuple[int, int], Optional[float]]] = {}
+        self._inflight: dict[int, tuple[float, tuple[int, int], Optional[tuple]]] = {}
         self._inflight_bytes = 0.0
         self._next_token = 0
         self.n_splits = 0  # caller chunks pre-split at admission
@@ -132,9 +140,9 @@ class HbmAdmission:
             return self._modeled_bytes_locked(bucket, version)
 
     def _observe_peak_delta(self, key: tuple[int, int], delta_bytes: float) -> None:
-        """Fold an observed peak delta for one batch into the per-shape
-        model and the per-row EMA. Zero deltas (the batch fit under the
-        existing high-water mark) carry no information."""
+        """Fold one batch's charge from its peak window into the per-shape
+        model and the per-row EMA. A zero charge (the batch allocated
+        nothing) carries no information."""
         if delta_bytes <= 0:
             return
         with self._lock:
@@ -151,16 +159,18 @@ class HbmAdmission:
                 (1 - _EMA_ALPHA) * self._bytes_per_row + _EMA_ALPHA * per_row
             )
 
-    def _peak_bytes(self) -> Optional[float]:
-        """The card's ``peak_bytes_in_use`` (``max_memory_allocated``), or
-        None when no device reports memory stats (a peak of 0 is a real
-        sample). One allocator read per call: reserve and release run it
-        once each per batch, so it must not sample the whole device list."""
+    def _window_enter(self) -> Optional[tuple]:
         try:
-            peak = self._devstats.peak_bytes()
+            return self._devstats.window_enter()
         except Exception:
             return None
-        return None if peak is None else float(peak)
+
+    def _window_exit(self, entry: tuple) -> Optional[float]:
+        try:
+            charge = self._devstats.window_exit(entry)
+        except Exception:
+            return None
+        return None if charge is None else float(charge)
 
     # -- admission -------------------------------------------------------------
 
@@ -201,10 +211,10 @@ class HbmAdmission:
             self._next_token += 1
             token = self._next_token
             self._inflight[token] = (cost, (bucket, version), None)
-        peak = self._peak_bytes()
+        entry = self._window_enter()
         with self._lock:
             if token in self._inflight:
-                self._inflight[token] = (cost, (bucket, version), peak)
+                self._inflight[token] = (cost, (bucket, version), entry)
                 self._inflight_bytes += cost
         return token
 
@@ -215,12 +225,14 @@ class HbmAdmission:
             entry = self._inflight.pop(token, None)
             if entry is None:
                 return
-            cost, key, peak_before = entry
+            cost, key, window = entry
             self._inflight_bytes = max(0.0, self._inflight_bytes - cost)
             self._headroom_wake.notify_all()
-        peak_after = self._peak_bytes()
-        if peak_before is not None and peak_after is not None:
-            self._observe_peak_delta(key, peak_after - peak_before)
+        if window is None:
+            return  # no window was entered: nothing to leave or learn
+        charge = self._window_exit(window)
+        if charge is not None:
+            self._observe_peak_delta(key, charge)
 
     # -- rebuild gating --------------------------------------------------------
 

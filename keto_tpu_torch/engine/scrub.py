@@ -22,11 +22,18 @@ Per cycle, in escalation order:
   tapped off the batcher (``CheckBatcher.scrub_observer``), is replayed
   through the host BFS oracle. Only entries observed at the current
   answering version are replayed.
-The reference's other kinds — **WAL segments**, **checkpoints** and
-**replica anti-entropy** — come with the modules they read: the WAL and
-checkpoints with ROADMAP 14.2, replication and its digest with 14.6. The
-config keys they read (``scrub.wal_segments_per_cycle``,
-``scrub.digest_chunk_size``) are accepted for parity and unused until then.
+- **sealed WAL segments** — up to ``wal_segments_per_cycle`` sealed
+  segments of a durable store's log (round-robin) are rescanned frame by
+  frame and their CRCs rechecked (``store/wal.py verify_segment``).
+  Damage → a fresh checkpoint (``checkpoint_now``), which prunes every
+  sealed segment at or below its version, the damaged one included.
+- **checkpoints** — the newest checkpoint's payload is re-hashed against
+  its recorded sha256 (``graph/checkpoint.py load_checkpoint``). Damage →
+  the file is removed and a fresh checkpoint cut.
+
+The reference's **replica anti-entropy** kind comes with replication and
+its digest (ROADMAP 14.6); ``scrub.digest_chunk_size`` is accepted for
+parity and unused until then.
 
 Remediation is a ladder, rate-limited by ``max_repairs_per_cycle`` and
 frozen while any injected guard (breaker open, HBM pressure) gives a
@@ -56,10 +63,13 @@ _log = logging.getLogger("keto_tpu_torch.engine")
 # mismatch kinds (the keto_scrub_mismatches_total label values)
 KIND_DEVICE = "device"
 KIND_REPLAY = "replay"
+KIND_WAL = "wal"
+KIND_CHECKPOINT = "checkpoint"
 
 # repair actions (the keto_scrub_repairs_total label values)
 ACTION_RESET_RESIDENCY = "reset_residency"
 ACTION_CACHE_FLUSH = "cache_flush"
+ACTION_CHECKPOINT_REBUILD = "checkpoint_rebuild"
 
 
 class _ReservoirEntry:
@@ -86,10 +96,12 @@ class ScrubDaemon:
         repair_fn: Optional[Callable[[], None]] = None,  # residency seam
         cache_flush_fn: Optional[Callable[[], None]] = None,
         version_fn: Optional[Callable[[], int]] = None,
+        store_fn: Optional[Callable[[], object]] = None,  # durable or plain
         interval_s: float = 5.0,
         sample_rows: int = 64,
         reservoir: int = 256,
         replay_per_cycle: int = 32,
+        wal_segments_per_cycle: int = 4,
         max_repairs_per_cycle: int = 2,
         history: int = 256,
         enabled_fn: Optional[Callable[[], bool]] = None,
@@ -102,10 +114,13 @@ class ScrubDaemon:
         self._repair_fn = repair_fn
         self._cache_flush_fn = cache_flush_fn
         self._version_fn = version_fn
+        self._store_fn = store_fn
         self.interval_s = float(interval_s)
         self.sample_rows = max(1, int(sample_rows))
         self.reservoir_capacity = max(1, int(reservoir))
         self.replay_per_cycle = max(0, int(replay_per_cycle))
+        self.wal_segments_per_cycle = max(0, int(wal_segments_per_cycle))
+        self._wal_cursor = 0
         self.max_repairs_per_cycle = max(0, int(max_repairs_per_cycle))
         self._enabled_fn = enabled_fn
         self._guards = list(guards)
@@ -227,6 +242,8 @@ class ScrubDaemon:
         for kind, check in (
             (KIND_DEVICE, self._scrub_device_rows),
             (KIND_REPLAY, self._scrub_replay),
+            (KIND_WAL, self._scrub_wal),
+            (KIND_CHECKPOINT, self._scrub_checkpoint),
         ):
             try:
                 report = check(repair)
@@ -349,6 +366,86 @@ class ScrubDaemon:
             "bad": bad[:8],
         }
 
+    # -- (c) sealed WAL segments ------------------------------------------------
+
+    def _scrub_wal(self, repair) -> Optional[dict]:
+        if self.wal_segments_per_cycle <= 0:
+            return None
+        store = self._store_fn() if self._store_fn is not None else None
+        wal = getattr(store, "wal", None)
+        if wal is None:
+            return None
+        from ..store.wal import inject_bitrot, sealed_segments, verify_segment
+
+        directory = wal.directory
+        if FAULTS.should_fire("wal.bitrot"):
+            # the drill: flip one byte inside a sealed segment's frame
+            # region on disk; the rescan below must now detect it
+            inject_bitrot(directory)
+        sealed = sealed_segments(directory)
+        if not sealed:
+            return None
+        n = min(self.wal_segments_per_cycle, len(sealed))
+        start = self._wal_cursor % len(sealed)
+        picked = [sealed[(start + i) % len(sealed)] for i in range(n)]
+        self._wal_cursor = (start + n) % max(1, len(sealed))
+        bad = []
+        for first_version, path in picked:
+            res = verify_segment(path)
+            if not res["ok"]:
+                bad.append({"path": path, "first_version": first_version, **res})
+        if bad:
+            # re-anchor durability past the damage: a fresh checkpoint at
+            # the current version prunes every sealed segment at or below
+            # it, the damaged one included
+            checkpoint_now = getattr(store, "checkpoint_now", None)
+            if checkpoint_now is not None:
+                repair(ACTION_CHECKPOINT_REBUILD, lambda: checkpoint_now())
+        return {
+            "scanned": len(picked),
+            "sealed": len(sealed),
+            "mismatches": len(bad),
+            "bad": bad,
+        }
+
+    # -- (d) checkpoint sha256 --------------------------------------------------
+
+    def _scrub_checkpoint(self, repair) -> Optional[dict]:
+        store = self._store_fn() if self._store_fn is not None else None
+        ckpt_dir = getattr(store, "checkpoint_dir", None)
+        if not ckpt_dir:
+            return None
+        from ..graph.checkpoint import (
+            CheckpointError,
+            list_checkpoints,
+            load_checkpoint,
+        )
+
+        ckpts = list_checkpoints(ckpt_dir)
+        if not ckpts:
+            return None
+        path = ckpts[-1][1]
+        try:
+            ck = load_checkpoint(path)  # verifies the payload sha256
+            ck.close()
+            return {"path": path, "mismatches": 0}
+        except (CheckpointError, OSError) as e:
+            err = str(e)
+
+        def _rebuild():
+            import os
+
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            checkpoint_now = getattr(store, "checkpoint_now", None)
+            if checkpoint_now is not None:
+                checkpoint_now()
+
+        repair(ACTION_CHECKPOINT_REBUILD, _rebuild)
+        return {"path": path, "mismatches": 1, "error": err}
+
     # -- guards -----------------------------------------------------------------
 
     def _frozen_reason(self) -> Optional[str]:
@@ -398,5 +495,6 @@ class ScrubDaemon:
             "reservoir_observed": observed,
             "sample_rows": self.sample_rows,
             "replay_per_cycle": self.replay_per_cycle,
+            "wal_segments_per_cycle": self.wal_segments_per_cycle,
             "max_repairs_per_cycle": self.max_repairs_per_cycle,
         }

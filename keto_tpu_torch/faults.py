@@ -2,8 +2,8 @@
 
 Named fault sites sit on the production failure-handling seams: the check
 batcher's stage loops, the device engine's launch, the list path's reverse
-gathers, the replica pool's delta broadcast and the supervisor's backend
-probe. Each is armed per process through :data:`FAULTS` or the
+gathers, the replica pool's delta broadcast, the supervisor's backend
+probe, the WAL's append and the checkpoint writer. Each is armed per process through :data:`FAULTS` or the
 ``KETO_FAULTS`` environment knob, and the recovery paths that guard those
 seams (the batcher's watchdog, the device breaker in
 ``engine/fallback.py``, the device supervisor in ``driver/registry.py``,
@@ -55,6 +55,24 @@ site                          effect when armed
 ``scrub.device_bitflip``      one element of the serving closure matrix is
                               poisoned in place; the scrubber must detect and
                               repair it (engine/closure.py)
+``wal.torn_write``            a WAL append writes half its frame to disk, then
+                              "the process dies": replay truncates the
+                              unacked torn tail (store/wal.py)
+``wal.corrupt_crc``           a WAL append lands framed with a flipped CRC;
+                              replay refuses the record (store/wal.py)
+``wal.crash_after_append``    a WAL append completes durably, then the process
+                              dies before acking: recovery may surface the
+                              durable-but-unacked write (store/wal.py)
+``wal.enospc``                a WAL append raises ENOSPC before any byte
+                              lands; the write is never acked and the durable
+                              wrapper fail-stops (store/wal.py)
+``wal.bitrot``                one byte of a sealed WAL segment flips on disk;
+                              the scrubber's rescan flags it and checkpoints
+                              past the damage (store/wal.py, fired from
+                              engine/scrub.py)
+``checkpoint.crash_mid_write`` the checkpoint writer dies with a half-written
+                              tmp file before the atomic rename; readers keep
+                              the previous checkpoint (graph/checkpoint.py)
 ============================  =================================================
 
 Slowness sites (:meth:`FaultRegistry.arm_slow`, consumed with
@@ -75,9 +93,7 @@ disarmed (``stuck``) instead of raising:
 Sites of modules this package does not have yet keep their names here so
 that a ``KETO_FAULTS`` string written for the reference parses the same;
 nothing calls them until their module arrives: ``client.unavailable``
-(ROADMAP 14.3, the client); ``wal.torn_write``, ``wal.corrupt_crc``,
-``wal.crash_after_append``, ``wal.bitrot``, ``wal.enospc`` and
-``checkpoint.crash_mid_write`` (14.2, durability); ``shard.launch_fail``
+(ROADMAP 14.3, the client); ``shard.launch_fail``
 and ``shard.launch_slow`` (12, the multi-device tiers);
 ``election.split_heartbeat``, ``election.lease_stall``,
 ``replica.promote_fail`` and ``replica.skip_delta`` (14.6, the fleet).

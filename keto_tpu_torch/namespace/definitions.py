@@ -26,6 +26,9 @@ class NamespaceManager(abc.ABC):
     def get_namespace_by_name(self, name: str) -> Namespace:
         """Raises ErrNamespaceNotFound for unknown names."""
 
+    @abc.abstractmethod
+    def namespaces(self) -> list[Namespace]: ...
+
 
 class MemoryNamespaceManager(NamespaceManager):
     """In-memory, thread-safe namespace registry."""
@@ -55,3 +58,7 @@ class MemoryNamespaceManager(NamespaceManager):
                 return self._by_name[name]
             except KeyError:
                 raise ErrNamespaceNotFound(name) from None
+
+    def namespaces(self) -> list[Namespace]:
+        with self._lock:
+            return list(self._by_name.values())

@@ -125,6 +125,15 @@ class RelationTuple:
             d["subject_set"] = self.subject.to_dict()
         return d
 
+    def to_query(self) -> "RelationQuery":
+        """The query that matches exactly this tuple."""
+        return RelationQuery(
+            namespace=self.namespace,
+            object=self.object,
+            relation=self.relation,
+            subject=self.subject,
+        )
+
     @classmethod
     def from_dict(cls, d: Mapping) -> "RelationTuple":
         try:

@@ -69,6 +69,10 @@ class _StringPool:
 
 
 class ColumnarTupleStore(OrderedNotifier, Manager):
+    # the replica pool may fork this store: its state is process memory
+    # (a SQL store's is the database, and it is spawned instead)
+    process_private = True
+
     def __init__(
         self,
         namespace_manager: NamespaceManager | None = None,

@@ -27,6 +27,10 @@ class InMemoryTupleStore(OrderedNotifier, Manager):
     """Insertion-ordered, deduplicated, thread-safe tuple store. Writing an
     already-existing tuple is an idempotent no-op."""
 
+    # the replica pool may fork this store: its state is process memory
+    # (a SQL store's is the database, and it is spawned instead)
+    process_private = True
+
     def __init__(
         self,
         namespace_manager: NamespaceManager | None = None,

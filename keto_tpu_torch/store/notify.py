@@ -43,6 +43,10 @@ class OrderedNotifier:
         self._deliver_cv = threading.Condition()
         self._deliver_owner: Optional[int] = None
         self._delivered_upto = 0
+        # the newest version whose delta THIS process enqueued: a version
+        # past it was written elsewhere (another process on a shared SQL
+        # database), and no delta for it will ever be handed over here
+        self.enqueued_upto = 0
 
     def subscribe_deltas(self, fn: DeltaListener) -> None:
         """Register ``fn(version, inserted, deleted)`` — the feed the
@@ -66,6 +70,7 @@ class OrderedNotifier:
         self._pending_notifications.append(
             (version, inserted or [], deleted or [])
         )
+        self.enqueued_upto = max(self.enqueued_upto, version)
 
     def _drain_notifications(self, upto: Optional[int] = None) -> None:
         """Deliver pending notifications in version order, then — when

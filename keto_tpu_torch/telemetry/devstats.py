@@ -11,7 +11,9 @@ JAX's ``memory_stats()`` that the reference reads:
 
 - ``bytes_limit``       ``torch.cuda.mem_get_info()[1]`` (the card's total);
 - ``bytes_in_use``      ``torch.cuda.memory_allocated()``;
-- ``peak_bytes_in_use`` ``torch.cuda.max_memory_allocated()``;
+- ``peak_bytes_in_use`` the process's high-water mark: the larger of
+  ``torch.cuda.max_memory_allocated()`` and every mark folded in before a
+  peak window reset it (see below), so the reported mark never falls;
 - ``bytes_reserved``    ``torch.cuda.memory_reserved()`` (the caching
   allocator's hold, which has no JAX counterpart).
 
@@ -20,6 +22,29 @@ replica inherits the parent's ``torch`` state but may not touch the card
 ("Cannot re-initialize CUDA in forked subprocess"), and a CPU process has
 no card. Those get no device entries, which ``HbmAdmission`` reads as
 "admission off", as the reference does on a CPU backend.
+
+Per-batch peak windows (``window_enter``/``window_exit``): HBM admission
+learns a batch's bytes from the allocator's peak over the batch, not from a
+rise of the process's high-water mark, which an earlier, larger peak hides
+for good. The first batch to enter while no other is in flight folds the
+mark into the running maximum and resets the allocator's peak
+(``torch.cuda.reset_peak_memory_stats``); batches that enter while the
+window is open share it. Each batch keeps its own entry: the bytes in use
+and the allocator's cumulative allocated and freed bytes at that moment.
+Its charge at exit is the smaller of two bounds on its own rise:
+
+- the window's peak over its own entry's bytes in use, plus every byte
+  freed since it entered (a neighbour's or any other free while it is in
+  flight can only have offset its own bytes by that much);
+- every byte allocated since it entered (its own allocations are among
+  them).
+
+Each bound is at least the batch's own rise, so the charge is never an
+underestimate; a neighbour's allocations and the batch's own frees make it
+an overestimate, which is safe. The window is one per process, because the
+allocator's peak is: a reader of ``max_memory_allocated`` in such a process
+sees the current window only, so reports read :meth:`peak_bytes`, and a
+report of one span resets through :meth:`reset_peak`.
 
 Kernel builds replace JAX's compilation events: ``utils/kernels.py`` calls
 :meth:`DeviceStatsCollector.record_compile` with each nvcc build's seconds
@@ -42,6 +67,13 @@ def cuda_ready() -> bool:
     return torch.cuda.is_initialized()
 
 
+def _allocator_bytes() -> tuple[float, float, float]:
+    """The caching allocator's bytes in use and its cumulative allocated
+    and freed bytes on the current card."""
+    stats = torch.cuda.memory_stats_as_nested_dict()["allocated_bytes"]["all"]
+    return float(stats["current"]), float(stats["allocated"]), float(stats["freed"])
+
+
 class DeviceStatsCollector:
     def __init__(self):
         self._lock = threading.Lock()
@@ -50,6 +82,13 @@ class DeviceStatsCollector:
         self._compiles = 0
         self._compile_seconds = 0.0
         self._graph_panel_fn = None
+        # the per-batch peak window: batches inside it, and the high-water
+        # marks folded in before each reset: the process's, and the span's
+        # since the last ``reset_peak``
+        self._window_lock = threading.Lock()
+        self._window_depth = 0
+        self._hwm = 0.0
+        self._span = 0.0
 
     def set_graph_panel(self, fn) -> None:
         """The zero-arg callable behind the panel's ``graph`` entry (the
@@ -91,7 +130,7 @@ class DeviceStatsCollector:
                 entry["memory_stats"] = {
                     "bytes_in_use": torch.cuda.memory_allocated(i),
                     "bytes_limit": torch.cuda.mem_get_info(i)[1],
-                    "peak_bytes_in_use": torch.cuda.max_memory_allocated(i),
+                    "peak_bytes_in_use": self._mark(torch.cuda.max_memory_allocated(i)),
                     "bytes_reserved": torch.cuda.memory_reserved(i),
                 }
             except Exception:
@@ -99,17 +138,71 @@ class DeviceStatsCollector:
             out.append(entry)
         return out
 
-    def peak_bytes(self):
+    def _mark(self, peak: float, span: bool = False) -> float:
+        with self._window_lock:
+            return max(self._span if span else self._hwm, float(peak))
+
+    def _fold_locked(self) -> None:
+        peak = float(torch.cuda.max_memory_allocated())
+        self._hwm = max(self._hwm, peak)
+        self._span = max(self._span, peak)
+
+    def peak_bytes(self, span: bool = False):
         """This process's high-water mark of allocated bytes on the current
-        card (``max_memory_allocated``): the one number the admission reads
-        per batch, with no other call into the driver. None where this
-        process may not ask."""
+        card: ``max_memory_allocated`` with the marks that peak windows
+        reset folded in, so it never falls; with ``span`` the mark since
+        the last :meth:`reset_peak`. None where this process may not ask."""
         if not cuda_ready():
             return None
         try:
-            return torch.cuda.max_memory_allocated()
+            return self._mark(torch.cuda.max_memory_allocated(), span)
         except Exception:
             return None  # a sick context: no sample
+
+    def reset_peak(self) -> None:
+        """Start a new span for ``peak_bytes(span=True)``: the one reset of
+        the allocator's peak outside the windows, which the process mark
+        survives. While a batch is in flight the allocator's peak is left
+        alone (its charge reads it), so the span also holds that window's
+        earlier peak."""
+        if not cuda_ready():
+            return
+        with self._window_lock:
+            self._fold_locked()
+            self._span = 0.0
+            if self._window_depth == 0:
+                torch.cuda.reset_peak_memory_stats()
+
+    def window_enter(self):
+        """A batch enters the per-batch peak window (see the module
+        docstring); returns its entry for :meth:`window_exit`, or None
+        where this process may not ask."""
+        if not cuda_ready():
+            return None
+        try:
+            with self._window_lock:
+                if self._window_depth == 0:
+                    self._fold_locked()
+                    torch.cuda.reset_peak_memory_stats()
+                self._window_depth += 1
+                return _allocator_bytes()
+        except Exception:
+            return None  # a sick context: no window
+
+    def window_exit(self, entry):
+        """A batch leaves the window; returns its charge in bytes (see the
+        module docstring), or None where this process may not ask."""
+        if entry is None or not cuda_ready():
+            return None
+        try:
+            with self._window_lock:
+                self._window_depth = max(0, self._window_depth - 1)
+                peak = float(torch.cuda.max_memory_allocated())
+                in_use, allocated, freed = _allocator_bytes()
+            in_use0, allocated0, freed0 = entry
+            return min(peak - in_use0 + (freed - freed0), allocated - allocated0)
+        except Exception:
+            return None
 
     def panel(self) -> dict:
         """The /debug/graph payload: graph shape, device samples and the

@@ -192,7 +192,7 @@ def test_config_files(tmp_path, monkeypatch):
     [
         ({"engine": {"mode": "sharded"}}, "item 12"),
         ({"engine": {"sharding": {"enabled": True}}}, "item 12"),
-        ({"dsn": "postgres://db"}, "supports 'memory' and 'columnar'"),
+        ({"dsn": "redis://db"}, "unsupported DSN 'redis://db'"),
     ],
 )
 def test_unported_paths_name_their_roadmap_item(values, item):

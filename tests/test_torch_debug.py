@@ -127,12 +127,9 @@ def test_device_payload_keys_match(gated):
 
 
 def test_scrub_overload_graph_and_config_keys_match(gated):
-    # the scrubber's WAL kind, and its snapshot key, come with the WAL
-    # (ROADMAP 14.2)
-    unported = {"/debug/scrub": {"wal_segments_per_cycle"}}
     for route in ("/debug/scrub", "/debug/overload", "/debug/graph"):
         jd, td = (_doc(s, route, {"X-Debug-Token": TOKEN}) for s in gated)
-        assert set(td) == set(jd) - unported.get(route, set()), route
+        assert set(td) == set(jd), route
     jd, td = (_doc(s, "/debug/scrub?n=5") for s in gated)
     assert (td["enabled"], td["running"], td["history"]) == (True, True, [])
     assert (td["enabled"], td["running"]) == (jd["enabled"], jd["running"])

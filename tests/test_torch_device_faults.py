@@ -520,9 +520,20 @@ def test_sticky_error_keeps_retrying_reinit():
 
 
 class _FakeDevstats:
-    def __init__(self, limit=1_000_000, peak=0):
+    """One card's allocator as both packages' admissions read it: the
+    reference samples ``peak`` at reserve and release, the port opens a
+    per-batch peak window (``window_enter`` resets ``peak`` to the bytes in
+    use while no batch is in flight and returns the batch's entry counts,
+    ``window_exit`` charges it as ``telemetry/devstats.py`` does)."""
+
+    def __init__(self, limit=1_000_000, peak=0, in_use=0):
         self.limit = limit
         self.peak = peak
+        self.in_use = in_use
+        self.allocated = in_use
+        self.freed = 0
+        self.depth = 0
+        self.hwm = peak
 
     def sample_devices(self):
         if self.limit is None:
@@ -533,8 +544,33 @@ class _FakeDevstats:
         }}]
 
     def peak_bytes(self):
-        # the port's per-batch read: the same peak, without the device list
-        return None if self.limit is None else self.peak
+        return None if self.limit is None else max(self.hwm, self.peak)
+
+    def window_enter(self):
+        if self.limit is None:
+            return None
+        if self.depth == 0:
+            self.hwm = max(self.hwm, self.peak)
+            self.peak = self.in_use
+        self.depth += 1
+        return (self.in_use, self.allocated, self.freed)
+
+    def window_exit(self, entry):
+        if self.limit is None:
+            return None
+        self.depth -= 1
+        in_use0, allocated0, freed0 = entry
+        return min(self.peak - in_use0 + self.freed - freed0,
+                   self.allocated - allocated0)
+
+    def alloc(self, nbytes):
+        self.in_use += nbytes
+        self.allocated += nbytes
+        self.peak = max(self.peak, self.in_use)
+
+    def free(self, nbytes):
+        self.in_use -= nbytes
+        self.freed += nbytes
 
 
 def _both_hbm(**kw):
@@ -560,7 +596,7 @@ def test_hbm_admission_matches_under_one_fake_devstats():
         t1 = hbm.reserve(4096, 1)
         trace += [hbm.clamp_rows(4096), hbm.clamp_rows(8)]
         t2 = hbm.reserve(128, 1)
-        stats.peak = 64_000
+        stats.alloc(64_000)
         hbm.release(t2)
         trace += [hbm.modeled_bytes(128, 1), hbm.clamp_rows(4096)]
         hbm.release(t1)
@@ -600,3 +636,229 @@ def test_a_cpu_process_samples_no_device():
 
     assert DEVSTATS.sample_devices() == []
     assert thbm.HbmAdmission().budget_bytes() is None
+
+
+# -- the two repairs: a bounded oracle, a per-batch HBM peak ------------------------
+
+
+class _GarbageEngine:
+    """A primary whose every answer is invalid, as ``device.batch_nan``
+    makes the card's: every batch goes to the breaker's oracle."""
+
+    def batch_check(self, requests, max_depth=0, depths=None):
+        return [float("nan")] * len(requests)
+
+
+class _SlowStore:
+    """A store whose every page costs ``page_s`` more: the registry's
+    oracle (``CheckEngine`` over the store) made slow, as a full-column
+    scan per query makes it at ten million tuples."""
+
+    page_s = 0.005
+
+    def __init__(self, store):
+        self.store = store
+        self.calls = 0
+
+    def get_relation_tuples(self, query, pagination=None):
+        self.calls += 1
+        time.sleep(self.page_s)
+        return self.store.get_relation_tuples(query, pagination)
+
+
+def _bounded_rig(seed=3):
+    from tests.test_torch_device_engine import random_requests, random_tuples
+
+    rng = random.Random(seed)
+    import numpy as np
+
+    nrng = np.random.default_rng(seed)
+    lines = random_tuples(nrng, 30, 12, 120)
+    reqs = random_requests(nrng, 30, 12, k=64)
+    rng.shuffle(reqs)
+    tstore, jstore = TStore(), JStore()
+    tstore.write_relation_tuples(*[TTuple.from_string(x) for x in lines])
+    jstore.write_relation_tuples(*[JTuple.from_string(x) for x in lines])
+    want = JCheck(jstore).batch_check([JTuple.from_string(r) for r in reqs])
+    oracle = TCheck(_SlowStore(tstore))
+    breaker = tfb.DeviceFallbackEngine(
+        _GarbageEngine(), fallback_factory=lambda: oracle, failure_threshold=3,
+        cooldown_s=1.0,
+    )
+    return breaker, [TTuple.from_string(r) for r in reqs], want
+
+
+def test_a_slow_oracle_returns_by_the_deadline_plus_one_row():
+    """A 64-row batch whose every answer the oracle must give (5 ms a store
+    page, ~20 pages a row), under a 0.3 s deadline through the batcher:
+    the batch fails typed by 0.3 s + one page (the oracle reads the clock
+    before each page), so well inside one row's time, and every row it
+    answered is the reference's answer."""
+    from keto_tpu_torch.utils.errors import DeadlineExceeded
+
+    breaker, reqs, want = _bounded_rig()
+    batcher = CheckBatcher(breaker, window_s=0, pipeline_depth=0)
+    budget = 0.3
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(DeadlineExceeded) as err:
+            batcher.check_batch(reqs, deadline=t0 + budget)
+        wall = time.monotonic() - t0
+    finally:
+        batcher.close()
+    answers = err.value.answers
+    answered = [i for i, v in enumerate(answers) if v is not None]
+    assert wall <= budget + _SlowStore.page_s + 0.15, wall
+    assert 0 < len(answered) < len(reqs)
+    assert answered == list(range(len(answered)))  # in order, then cut
+    assert [answers[i] for i in answered] == [want[i] for i in answered]
+    assert breaker.n_deadline_skips == len(reqs) - len(answered)
+    # with time enough, the same batch is answered whole, exactly
+    batcher = CheckBatcher(breaker, window_s=0, pipeline_depth=0)
+    try:
+        assert batcher.check_batch(reqs, deadline=time.monotonic() + 60) == want
+    finally:
+        batcher.close()
+
+
+def test_a_row_is_cut_inside_its_search():
+    """One row whose search needs many pages at 0.1 s a page, under a 0.05 s
+    deadline: the oracle gives up at its next page, so the row comes back
+    None after about one page, not after the whole search; with time
+    enough the same search answers as the reference."""
+    breaker, reqs, want = _bounded_rig(seed=5)
+    oracle = breaker.fallback_engine()
+    pages = {}
+    oracle.manager.page_s = 0.0
+    for r in reqs:  # the row whose search asks for the most pages
+        before = oracle.manager.calls
+        oracle.subject_is_allowed(r)
+        pages[r] = oracle.manager.calls - before
+    row = max(reqs, key=pages.get)
+    assert pages[row] >= 4
+    oracle.manager.page_s = 0.1
+    t0 = time.monotonic()
+    got = breaker._fallback_check([row], 0, None, [t0 + 0.05])
+    wall = time.monotonic() - t0
+    assert got == [None] and wall < 0.35, wall
+    oracle.manager.page_s = 0.0
+    assert oracle.check_until(row, 0, time.monotonic() + 60) is want[reqs.index(row)]
+
+
+def test_the_oracle_checks_every_rows_own_deadline():
+    """Per-row deadlines (the pipeline's shape): a passed deadline skips its
+    row, a None deadline never does, and the rows answered are exact."""
+    breaker, reqs, want = _bounded_rig(seed=4)
+    now = time.monotonic()
+    deadlines = [None if i % 3 == 0 else (now - 1 if i % 3 == 1 else now + 60)
+                 for i in range(len(reqs))]
+    got = breaker._fallback_check(reqs, 0, None, deadlines)
+    for i, v in enumerate(got):
+        assert v is None if i % 3 == 1 else v == want[i]
+
+
+def test_a_batch_teaches_admission_under_a_larger_earlier_peak():
+    """An earlier 10 GB peak, then a batch that allocates 2 GB over 1 GB in
+    use: the reference's process-peak delta is 0 and learns nothing; the
+    port's per-batch window learns 2 GB for the shape. Its reported high
+    water mark never falls below the earlier peak."""
+    gb = 1 << 30
+    learned = {}
+    for hbm, stats in _both_hbm(limit=80 * gb, bytes_per_row=4096):
+        stats.alloc(10 * gb)
+        stats.free(9 * gb)  # 1 GB stays resident; the mark stays at 10 GB
+        token = hbm.reserve(4096, 7)
+        stats.alloc(2 * gb)
+        stats.free(2 * gb)
+        hbm.release(token)
+        learned[hbm.__module__] = (hbm.modeled_bytes(4096, 7), hbm.snapshot()["modeled_shapes"])
+        assert stats.peak_bytes() == 10 * gb
+    assert learned[jhbm.__name__] == (4096 * 4096, 0)  # the reference: nothing
+    assert learned[thbm.__name__] == (2 * gb, 1)
+
+
+def test_devstats_windows_keep_the_high_water_mark(monkeypatch):
+    """The collector's per-batch window over a fake CUDA allocator: the
+    window resets the allocator's peak only while no batch is in flight,
+    overlapping batches share it, each is charged at least its own rise
+    (also when bytes in use before the window are freed while it is open),
+    and the reported mark never falls."""
+    import torch
+
+    from keto_tpu_torch.telemetry import devstats
+
+    gb = 1 << 30
+    alloc = {"in_use": 0, "peak": 0, "allocated": 0, "freed": 0, "resets": 0}
+
+    def reset():
+        alloc["peak"] = alloc["in_use"]
+        alloc["resets"] += 1
+
+    def grow(n):
+        alloc["in_use"] += n
+        alloc["allocated" if n > 0 else "freed"] += abs(n)
+        alloc["peak"] = max(alloc["peak"], alloc["in_use"])
+
+    def nested():
+        return {"allocated_bytes": {"all": {
+            "current": alloc["in_use"], "allocated": alloc["allocated"],
+            "freed": alloc["freed"],
+        }}}
+
+    monkeypatch.setattr(devstats, "cuda_ready", lambda: True)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: alloc["peak"])
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: alloc["in_use"])
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: alloc["in_use"])
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", lambda *a: nested())
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: reset())
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "fake")
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (70 * gb, 80 * gb))
+    col = devstats.DeviceStatsCollector()
+    hbm = thbm.HbmAdmission(devstats=col, bytes_per_row=4096)
+    marks = []
+
+    def mark():
+        marks.append(col.peak_bytes())
+        assert col.sample_devices()[0]["memory_stats"]["peak_bytes_in_use"] == marks[-1]
+
+    grow(12 * gb)
+    grow(-11 * gb)
+    mark()
+    a = hbm.reserve(4096, 1)  # opens the window: one reset
+    grow(3 * gb)
+    b = hbm.reserve(1024, 1)  # inside the open window: no reset
+    grow(1 * gb)
+    mark()
+    grow(-4 * gb)
+    hbm.release(b)
+    hbm.release(a)
+    mark()
+    assert alloc["resets"] == 1
+    # each overlapping batch is charged its own rise: a 3 GB plus b's 1 GB
+    # (a neighbour's bytes: an overestimate), b its own 1 GB
+    assert hbm.modeled_bytes(4096, 1) == 4 * gb and hbm.modeled_bytes(1024, 1) == 1 * gb
+    c = hbm.reserve(4096, 2)  # a new window
+    grow(2 * gb)
+    grow(-2 * gb)
+    hbm.release(c)
+    mark()
+    assert alloc["resets"] == 2 and hbm.modeled_bytes(4096, 2) == 2 * gb
+    # a window that never closes: 10 GB in use when it opens, d's 1 GB
+    # peak, then e enters and 8 GB in use before the window are freed (a
+    # residency swap) while e allocates 5 GB. The window's peak (11 GB)
+    # is over e's entry, yet e is charged its whole 5 GB.
+    grow(9 * gb)
+    d = hbm.reserve(4096, 3)
+    grow(1 * gb)
+    e = hbm.reserve(2048, 3)
+    grow(-8 * gb)
+    grow(5 * gb)
+    hbm.release(e)
+    grow(-1 * gb)
+    hbm.release(d)
+    mark()
+    assert hbm.modeled_bytes(2048, 3) == 5 * gb
+    assert hbm.modeled_bytes(4096, 3) == 6 * gb  # its 1 GB and e's 5 GB
+    assert alloc["resets"] == 3
+    assert marks == [12 * gb] * 5 and hbm.snapshot()["modeled_shapes"] == 5

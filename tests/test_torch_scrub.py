@@ -268,11 +268,10 @@ def test_repair_budget_defers_the_second_repair():
 
 
 def test_the_snapshot_keys_match_the_reference():
-    """Every key of the reference's snapshot but the WAL kind's, which
-    comes with the WAL (ROADMAP 14.2)."""
+    """Every key of the reference's snapshot, the WAL kind's included."""
     rigs = _rigs()
     snaps = [rig.daemon().snapshot() for rig in rigs]
-    assert set(snaps[1]) == set(snaps[0]) - {"wal_segments_per_cycle"}
+    assert set(snaps[1]) == set(snaps[0])
 
 
 def test_cache_clear_drops_entries_and_the_version_stamp():
