@@ -197,6 +197,27 @@ Phases, in order; any failure exits non-zero:
             set-graph oracle over the recovered store, a cold re-ingest of
             the same tuples timed beside it; then a graceful stop (the final
             checkpoint carries the CSR) and a third boot whose CSR is primed
+12. cli     the CLI and the client SDK: `migrate status -c` on the [persist]
+            database (nothing pending); an rbac1m server over it started by
+            the CLI's own `serve -c` (this script re-run with --cli-server
+            CFG, a fresh interpreter), 135 B1 launches at boot, REST + gRPC;
+            the client verbs (status --block, check of an allowed and a
+            denied sample tuple, relation-tuple create - and get --format
+            json, version) each as a `python -m keto_tpu_torch.cli` process
+            and in process in a fresh interpreter (--cli-client PLAN),
+            seconds beside seconds, the same output and exit codes, and no
+            CUDA context in the client's interpreter; the 4096 sample
+            through RestClient (tuples, columns, encoded frames) and
+            GrpcClient (tuples, columns), every answer equal and the first 64
+            the host CheckEngine's over the SQL store; 256 serial single
+            checks per client on one keep-alive connection (p50/p99), 64
+            check_hedged calls (hedges fired, won, wasted), one expand and
+            one list_objects equal through both clients; `debug snapshot`
+            (its file list, and errors.txt naming exactly the routes not
+            served yet); SIGTERM, serve's B1 launches over its life;
+            `doctor` over [durable]'s WAL and checkpoints as a process,
+            alongside the server's boot: no gap, the digest's count the
+            tuples [durable] read back
 
 [device]    the device-aware planes (breaker, HBM admission, supervisor,
             scrubber, /debug), on by default as in the reference. Every
@@ -1484,19 +1505,12 @@ class SetGraphOracle:
 
 
 def http(method: str, url: str, body=None, timeout: float = 120.0):
-    """One request with urllib; (status, parsed JSON body or None)."""
-    import urllib.error
-    import urllib.request
-
+    """One request (the port's urllib helper); (status, parsed JSON body or
+    None)."""
+    fetch = port("utils.urlfetch", "fetch")
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(
-        url, data=data, method=method, headers={"Content-Type": "application/json"}
-    )
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            status, raw = resp.status, resp.read()
-    except urllib.error.HTTPError as e:
-        status, raw = e.code, e.read()
+    status, raw, _ = fetch(url, data, {"Content-Type": "application/json"}, timeout,
+                           method)
     return status, (json.loads(raw) if raw else None)
 
 
@@ -1522,7 +1536,8 @@ def rest_check(read: str, t, depth: int = 0) -> bool:
 
 
 def _run_clients(parts: list[dict]) -> tuple[list[dict], float]:
-    """One client process (client_main) per part, run at the same time:
+    """One client process (poolharness.client_main, which imports no torch)
+    per part, run at the same time:
     each reads its part, sets up and says it is ready; once every process
     is ready, one line to each starts them together. Their result documents
     in order, and the drive's wall time, from the first process's start to
@@ -1532,7 +1547,8 @@ def _run_clients(parts: list[dict]) -> tuple[list[dict], float]:
 
     code = (
         "import sys; sys.path.insert(0, sys.argv[1]); "
-        "import chip_smoke; chip_smoke.client_main()"
+        "import importlib; "
+        "importlib.import_module('keto_tpu_torch.poolharness').client_main()"
     )
     procs = [
         subprocess.Popen(
@@ -1602,68 +1618,6 @@ def frame_clients(read: str, frames: list[bytes], clients: int, procs: int):
         for i in range(procs)
     ])
     return _merged(docs, len(frames)), wall
-
-
-def client_main() -> None:
-    """The client side of _run_clients: its part on stdin's first line,
-    "ready" on stdout, then the drive once stdin's next line comes; the
-    results, with the drive's start and end on the monotonic clock, on
-    stdout."""
-    import urllib.error
-    import urllib.request
-    from concurrent.futures import ThreadPoolExecutor
-
-    req = json.loads(sys.stdin.readline())
-    # one opener for every thread: urlopen builds its own on first use, and
-    # 64 threads doing so at once parse the CA bundle 64 times
-    urllib.request.install_opener(urllib.request.build_opener())
-
-    def one(url):
-        t0 = time.perf_counter()
-        status, _ = http("GET", url)
-        return status, time.perf_counter() - t0
-
-    def one_with(args):
-        url, hdrs = args
-        t0 = time.perf_counter()
-        try:
-            with urllib.request.urlopen(
-                urllib.request.Request(url, headers=hdrs), timeout=120
-            ) as resp:
-                status, retry = resp.status, resp.headers.get("Retry-After")
-                resp.read()
-        except urllib.error.HTTPError as e:
-            status, retry = e.code, e.headers.get("Retry-After")
-            e.read()
-        return status, time.perf_counter() - t0, retry
-
-    def one_frame(frame_hex):
-        # POST /check/batch-encoded: (status, seconds, answer bits or "")
-        body = bytes.fromhex(frame_hex)
-        t0 = time.perf_counter()
-        status, raw = post_frame(req["read"], body, timeout=120.0)
-        sec = time.perf_counter() - t0
-        bits = ""
-        if status == 200:
-            bits = "".join("1" if v else "0" for v in decode_check_response(raw)[0])
-        return status, sec, bits
-
-    if req.get("frames") is not None:
-        decode_check_response = port("api.wirecodec", "decode_check_response")
-        post_frame = port("client.vocabcache", "post_frame")
-
-    with ThreadPoolExecutor(req["clients"]) as pool:
-        print("ready", flush=True)
-        sys.stdin.readline()
-        start = time.monotonic()
-        if req.get("frames") is not None:
-            results = list(pool.map(one_frame, req["frames"]))
-        elif req.get("headers") is None:
-            results = list(pool.map(one, req["urls"]))
-        else:
-            results = list(pool.map(one_with, zip(req["urls"], req["headers"])))
-        end = time.monotonic()
-    json.dump({"results": results, "start": start, "end": end}, sys.stdout)
 
 
 def fmt_walls(walls) -> str:
@@ -2774,8 +2728,8 @@ def _profile_kernels(read: str, urls: list[str], batcher) -> tuple[int, int, flo
     import io
     import tarfile
     import threading
-    import urllib.request
 
+    fetch = port("utils.urlfetch", "fetch")
     drive = {}
 
     def run():
@@ -2789,8 +2743,8 @@ def _profile_kernels(read: str, urls: list[str], batcher) -> tuple[int, int, flo
         while batcher.n_dispatched < start + 64 and time.monotonic() < deadline:
             time.sleep(0.01)  # the client process is up and driving
         t0 = time.perf_counter()
-        with urllib.request.urlopen(f"{read}/debug/profile?seconds=1", timeout=120) as r:
-            status, ctype, body = r.status, r.headers.get("Content-Type"), r.read()
+        status, body, headers = fetch(f"{read}/debug/profile?seconds=1")
+        ctype = headers.get("Content-Type")
         secs = time.perf_counter() - t0
     finally:
         t.join()
@@ -4138,7 +4092,8 @@ def serve_durable(args, dev, card, sample) -> dict:
         require(info["csr_primed"] and rec3["replayed"] == 0 and not rec3["gap"]
                 and doc["allowed"] == expect["expect"], f"[{tag}] third boot {info}")
         out.update(csr_primed=info["csr_primed"], primed_start_s=info["start_s"],
-                   primed_first_s=first_s, primed_recovery_s=rec3["duration_s"])
+                   primed_first_s=first_s, primed_recovery_s=rec3["duration_s"],
+                   root=root, tuples=info["tuples"], version=info["version"])
         say(f"[{tag} {at()}] graceful stop (final checkpoint {done['checkpoints'][-1]} "
             f"with the CSR), third boot: recovery {rec3['duration_s']:.3f}s from the "
             f"checkpoint alone, CSR primed {info['csr_primed']}, start_all "
@@ -4256,6 +4211,342 @@ def bounded_oracle_drill(eng, store, sample, want, hbm) -> dict:
             "cut_s": cut, "warm_s": warm_s, "line": line}
 
 
+# -- [cli]: the CLI and the client SDK against an rbac1m server on sqlite --------
+
+CLI_SERIAL = 256  # serial single checks per client, keep-alive
+CLI_HEDGED = 64  # check_hedged calls
+CLI_BATCH_REPS = 5  # timed batches of the sample per transport
+CLI_ORACLE = 64  # the sample's prefix held to the host CheckEngine over SQL
+CLI_NEW = 3  # tuples `relation-tuple create -` writes
+
+
+def cli_tuples() -> list:
+    RelationTuple = port("relationtuple", "RelationTuple")
+    return [RelationTuple.from_string(f"rbac:cli-doc{i}#view@cli-user{i}")
+            for i in range(CLI_NEW)]
+
+
+def cli_plan(read_remote: str, write_remote: str, allowed, denied) -> dict:
+    """The client verbs each run as a process and in process: name ->
+    (argv, stdin)."""
+    remotes = ["--read-remote", read_remote, "--write-remote", write_remote]
+
+    def check_argv(t):
+        return remotes + ["check", str(t.subject), t.relation, t.namespace, t.object]
+
+    return {
+        "status": (remotes + ["status", "--block", "--timeout", "60"], ""),
+        "check allowed": (check_argv(allowed), ""),
+        "check denied": (check_argv(denied), ""),
+        "create": (remotes + ["relation-tuple", "create", "-"],
+                   json.dumps([t.to_dict() for t in cli_tuples()])),
+        "get": (remotes + ["relation-tuple", "get", "--namespace", "rbac", "--object",
+                           "cli-doc0", "--format", "json"], ""),
+        "version": (remotes + ["version"], ""),
+    }
+
+
+def cli_in_process(cli, argv, stdin: str = ""):
+    """One cli.main(argv) in this interpreter: (rc, stdout, seconds)."""
+    import contextlib
+    import io
+
+    buf, old = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(a) for a in argv])
+    finally:
+        sys.stdin = old
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_server_main(args) -> int:
+    """The [cli] server, in a fresh interpreter (this script with --cli-server
+    CFG): the port's own entry point, cli.main(["serve", "-c", CFG]), on the
+    card. One POOL line when start_all returns (its ports and the B1
+    launches of the boot), and one when serve returns on SIGTERM (the
+    process's B1 launches)."""
+    cli = port("cli", "main")
+    Registry = port("driver", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    harness = port("", "poolharness")
+    start_all = Registry.start_all
+    t_boot = time.perf_counter()
+
+    def reported(self):
+        ports = start_all(self)
+        harness.emit({"read": ports[0], "write": ports[1], "grpc": self.grpc_enabled,
+                      "host": self.check_engine().host_queries(),
+                      "b1": masked_spmv.masked_step.launches,
+                      "start_s": time.perf_counter() - t_boot})
+        return ports
+
+    Registry.start_all = reported
+    masked_spmv.masked_step.launches = 0  # this server's path starts here
+    rc = cli.main(["serve", "-c", args.cli_server])
+    harness.emit({"rc": rc, "b1": masked_spmv.masked_step.launches})
+    return rc
+
+
+def cli_client_main(args) -> int:
+    """The client verbs in process, in a fresh interpreter (this script with
+    --cli-client PLAN): each cli.main(argv) timed after the CLI's modules
+    are imported, then whether anything initialised CUDA."""
+    cli = port("cli", "main")
+    port("cli", "remote")  # the gRPC verbs' imports, before the clock starts
+    port("", "client")
+    harness = port("", "poolharness")
+    out = {}
+    for name, (argv, stdin) in json.loads(args.cli_client).items():
+        rc, text, secs = cli_in_process(cli, argv, stdin)
+        out[name] = {"rc": rc, "s": secs, "stdout": text}
+    harness.emit({"verbs": out, "cuda_initialized": torch.cuda.is_initialized()})
+    return 0
+
+
+def run_cli_process(repo: Path, argv, stdin: str = "", timeout: float = 600):
+    """One `python -m keto_tpu_torch.cli ...` process: (rc, stdout, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(repo), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "keto_tpu_torch.cli", *argv],
+                          cwd=repo, env=env, input=stdin, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0, proc.stderr
+
+
+def serve_cli(args, card: str, persist: dict, durable: dict) -> dict:
+    """[cli]: `migrate status` on the [persist] database, an rbac1m server
+    over it started by the CLI's own `serve` in a subprocess on the card,
+    the client verbs as `python -m keto_tpu_torch.cli` processes and in
+    process, the 4096 sample through every SDK transport, serial and hedged
+    single checks, `debug snapshot` against the server, and `doctor` over
+    the [durable] directories (alongside the server's boot)."""
+    import signal
+    import tarfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    harness = port("", "poolharness")
+    cli = port("cli", "main")
+    RestClient, Hedger, HedgePolicy = port("client", "RestClient", "Hedger", "HedgePolicy")
+    GrpcClient = port("client.grpc_client", "GrpcClient")
+    CheckEngine = port("engine", "CheckEngine")
+    SQLiteTupleStore = port("persistence", "SQLiteTupleStore")
+    MemoryNamespaceManager = port("namespace", "MemoryNamespaceManager")
+    SubjectSet = port("relationtuple", "SubjectSet")
+    repo = Path(__file__).resolve().parent
+    tag = "cli"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    out = {"launches": 0}
+    sample, want = persist["sample"], persist["want"]
+    cfg = os.path.join(persist["dir"], "cli.json")
+    with open(cfg, "w") as f:
+        json.dump(persist_config(persist["dsn"]), f)
+
+    # 1. migrations: nothing pending on the [persist] database
+    rc, text, _ = cli_in_process(cli, ["migrate", "status", "-c", cfg])
+    require(rc == 0 and text.strip() and "pending" not in text,
+            f"[{tag}] migrate status: {rc} {text!r}")
+    say(f"[{tag} {at()}] migrate status -c on {persist['dsn']}: "
+        f"{len(text.strip().splitlines())} migrations, all applied")
+
+    # 5. doctor over the [durable] directories, a process of its own that
+    # runs alongside the server's boot (read after the server stops)
+    root = durable["root"]
+    doctor_pool = ThreadPoolExecutor(1)
+    doctor = doctor_pool.submit(run_cli_process, repo, [
+        "doctor", "--wal-dir", os.path.join(root, "wal"), "--checkpoint-dir",
+        os.path.join(root, "checkpoints"), "--format", "json"])
+    doctor_pool.shutdown(wait=False)
+
+    # 2. the server, through the CLI's own serve, on the card
+    argv = [sys.executable, str(Path(__file__).resolve()), "--cli-server", cfg]
+    t0 = time.perf_counter()
+    server = harness.PoolProcess(argv, name="cli server")
+    try:
+        info = server.next_doc(900)
+        out["boot_s"] = time.perf_counter() - t0
+        out["boot_launches"] = info["b1"]
+        require(info["b1"] == 135 and not info["host"],
+                f"[{tag}] serve booted with {info['b1']} B1 launches (host {info['host']})")
+        require(info["grpc"], f"[{tag}] the gRPC plane is off on the serve process")
+        rp, wp = info["read"], info["write"]
+        read, write = f"http://127.0.0.1:{rp}", f"http://127.0.0.1:{wp}"
+        say(f"[{tag} {at()}] `serve -c` in a fresh interpreter: serving after "
+            f"{out['boot_s']:.3f}s (start_all returned at {info['start_s']:.3f}s of it), "
+            f"{info['b1']} B1 launches at boot, REST + gRPC ({card})")
+
+        # 3. the client verbs: processes, then in process in a fresh interpreter
+        allowed = sample[want.index(True)]
+        denied = sample[want.index(False)]
+        plan = cli_plan(f"127.0.0.1:{rp}", f"127.0.0.1:{wp}", allowed, denied)
+        expect_rc = {"check denied": 1}
+        procs = {}
+        for name, (vargv, stdin) in plan.items():
+            rc, text, secs, err = run_cli_process(repo, vargv, stdin)
+            require(rc == expect_rc.get(name, 0), f"[{tag}] `{name}` exited {rc}: {err[-2000:]}")
+            procs[name] = (secs, text)
+        require(procs["status"][1] == "SERVING\n", f"[{tag}] status {procs['status'][1]!r}")
+        require(procs["check allowed"][1] == "Allowed\n"
+                and procs["check denied"][1] == "Denied\n", f"[{tag}] check output")
+        got = json.loads(procs["get"][1])["relation_tuples"]
+        require(got == [cli_tuples()[0].to_dict()], f"[{tag}] get after create: {got}")
+        client = harness.PoolProcess(
+            [sys.executable, str(Path(__file__).resolve()), "--cli-client",
+             json.dumps(plan)],
+            name="cli client")
+        doc = client.next_doc(600)
+        client.proc.wait(timeout=60)
+        require(not doc["cuda_initialized"], f"[{tag}] a client verb initialised CUDA")
+        for name, v in doc["verbs"].items():
+            require(v["rc"] == expect_rc.get(name, 0) and v["stdout"] == procs[name][1],
+                    f"[{tag}] in-process `{name}`: {v}")
+        out["verbs"] = {name: (procs[name][0], doc["verbs"][name]["s"]) for name in plan}
+        say(f"[{tag} {at()}] the client verbs, process / in process s: "
+            + ", ".join(f"{k} {p:.3f}/{i:.4f}" for k, (p, i) in out["verbs"].items())
+            + "; exit codes 0, Allowed 0 / Denied 1; `get` shows the created "
+            "tuple; torch.cuda.is_initialized() False after every in-process verb")
+
+        # 4. the SDK: the sample through every transport
+        rest = RestClient(read, write)
+        grpc_client = GrpcClient(f"127.0.0.1:{rp}", f"127.0.0.1:{wp}")
+        try:
+            t0 = time.perf_counter()
+            cache = rest.vocab_cache()
+            cache.bootstrap()
+            out["vocab_s"] = time.perf_counter() - t0
+            transports = {
+                "rest tuples": lambda: rest.batch_check(sample),
+                "rest columns": lambda: rest.batch_check_columns(sample),
+                "rest encoded": lambda: rest.batch_check_encoded(cache, sample),
+                "grpc tuples": lambda: grpc_client.batch_check(sample),
+                "grpc columns": lambda: grpc_client.batch_check_columns(sample),
+            }
+            batch_ms = {k: [] for k in transports}
+            for _ in range(CLI_BATCH_REPS):
+                for name, fn in transports.items():
+                    t0 = time.perf_counter()
+                    answers = fn()
+                    batch_ms[name].append(time.perf_counter() - t0)
+                    require(answers == want, f"[{tag}] {name}: the sample's answers differ")
+            out["batch_p50"] = {k: pct(v, 50) for k, v in batch_ms.items()}
+            nsm = MemoryNamespaceManager()
+            for ns in ("rbac", "videos"):
+                nsm.add(ns)
+            sql = SQLiteTupleStore(persist["dsn"][len("sqlite://"):], namespace_manager=nsm)
+            t0 = time.perf_counter()
+            require(CheckEngine(sql, max_depth=5).batch_check(sample[:CLI_ORACLE])
+                    == want[:CLI_ORACLE], f"[{tag}] the host CheckEngine over SQL disagrees")
+            oracle_s = time.perf_counter() - t0
+            sql.close()
+            say(f"[{tag} {at()}] the {len(sample)} sample equal across REST tuples, REST "
+                f"columns, REST encoded (vocab bootstrap {out['vocab_s']:.3f}s), gRPC tuples "
+                f"and gRPC columns, x{CLI_BATCH_REPS}: p50 ms "
+                + ", ".join(f"{k} {v:.3f}" for k, v in out["batch_p50"].items())
+                + f"; the first {CLI_ORACLE} equal the host CheckEngine over the SQL store "
+                f"({oracle_s:.1f}s) ({card})")
+
+            serial = {"rest": [], "grpc": []}
+            for name, c in (("rest", rest), ("grpc", grpc_client)):
+                for t, w in zip(sample[:CLI_SERIAL], want[:CLI_SERIAL]):
+                    t0 = time.perf_counter()
+                    ok = c.check(t).allowed
+                    serial[name].append(time.perf_counter() - t0)
+                    require(ok == w, f"[{tag}] {name} single check {t}")
+            out["serial"] = {k: (pct(v, 50), pct(v, 99)) for k, v in serial.items()}
+
+            class Count:
+                value = 0
+
+                def inc(self, v=1):
+                    self.value += v
+
+            counts = tuple(Count() for _ in range(4))
+            hedged = []
+            with Hedger(HedgePolicy(), counters=counts) as h:
+                for t, w in zip(sample[:CLI_HEDGED], want[:CLI_HEDGED]):
+                    t0 = time.perf_counter()
+                    call = rest.check_hedged(t, h)
+                    hedged.append(time.perf_counter() - t0)
+                    require(call.result.allowed == w, f"[{tag}] hedged check {t}")
+            out["hedged"] = (pct(hedged, 50), pct(hedged, 99), [c.value for c in counts])
+            say(f"[{tag} {at()}] {CLI_SERIAL} serial single checks on one keep-alive client, "
+                f"p50/p99 ms: RestClient {out['serial']['rest'][0]:.3f}/"
+                f"{out['serial']['rest'][1]:.3f}, GrpcClient {out['serial']['grpc'][0]:.3f}/"
+                f"{out['serial']['grpc'][1]:.3f}; {CLI_HEDGED} check_hedged p50/p99 "
+                f"{out['hedged'][0]:.3f}/{out['hedged'][1]:.3f} ms, hedges fired/won/"
+                f"wasted/suppressed {out['hedged'][2]}; every answer the sample's ({card})")
+
+            t = allowed
+            ss = SubjectSet(t.namespace, t.object, t.relation)
+            trees = [str(c.expand(ss)) for c in (rest, grpc_client)]
+            lists = [c.list_objects(t.subject.id, t.relation, t.namespace).items
+                     for c in (rest, grpc_client)]
+            require(trees[0] == trees[1] and trees[0] != "None", f"[{tag}] expand differs")
+            require(lists[0] == lists[1] and t.object in lists[0],
+                    f"[{tag}] list_objects differs or misses {t.object}")
+            say(f"[{tag} {at()}] expand {ss} ({trees[0].count(chr(10)) + 1} lines) and "
+                f"list_objects of {t.subject} ({len(lists[0])} objects) equal through both "
+                f"clients")
+        finally:
+            rest.close()
+            grpc_client.close()
+
+        # 6. debug snapshot against the server
+        bundle = os.path.join(persist["dir"], "debug.tar.gz")
+        rc, text, snap_s = cli_in_process(cli, ["--read-remote", f"127.0.0.1:{rp}",
+                                                "debug", "snapshot", "-o", bundle])
+        with tarfile.open(bundle) as tar:
+            names = tar.getnames()
+            errors = [e.split(":")[0] for e in
+                      tar.extractfile("errors.txt").read().decode().splitlines()]
+        require(rc == 0 and names == ["stacks.txt", "config.json", "graph.json",
+                                      "pipeline.json", "version.json", "errors.txt"]
+                and errors == ["/debug/flight", "/debug/traces", "/metrics"],
+                f"[{tag}] debug snapshot: {rc} {names} {errors}")
+        say(f"[{tag} {at()}] debug snapshot in {snap_s:.3f}s: {names}; errors.txt names "
+            f"{errors}, the routes not served yet")
+        planes_idle(read, tag)
+    finally:
+        if server.proc.poll() is None:
+            os.kill(server.proc.pid, signal.SIGTERM)
+        try:
+            last = server.next_doc(120)
+            server.proc.wait(timeout=60)
+        except Exception:
+            server.kill_group()
+            raise
+    require(last.get("rc") == 0, f"[{tag}] serve exited {last}")
+    out["launches"] = last["b1"]
+    require("shutting down gracefully...\n" in server.lines
+            and any(line.startswith(f"read API serving on :{rp} (REST + gRPC)")
+                    for line in server.lines), f"[{tag}] serve's output {server.lines[-5:]}")
+    say(f"[{tag} {at()}] SIGTERM: serve returned 0 after 'shutting down gracefully...'; "
+        f"{out['launches']} B1 launches in the serve process")
+
+    rc, text, out["doctor_s"], err = doctor.result(timeout=600)
+    report = json.loads(text)
+    rec, digest = report["recovery"], report["digest"]
+    require(rc == 0 and report["ok"] and not rec["gap"]
+            and digest["count"] == durable["tuples"]
+            and rec["final_version"] == durable["version"],
+            f"[{tag}] doctor: rc {rc}, {json.dumps(rec)[:400]}, digest count "
+            f"{digest and digest['count']} vs {durable['tuples']}: {err[-1000:]}")
+    say(f"[{tag} {at()}] doctor over [durable]'s WAL ({len(report['wal']['segments'])} "
+        f"segments) and checkpoints ({len(report['checkpoints']['files'])}): CLEAN, no gap, "
+        f"version {rec['final_version']}, digest {digest['count']} tuples in "
+        f"{len(digest['chunks'])} chunks, the count [durable] read back; "
+        f"{out['doctor_s']:.3f}s as a process, alongside the server's boot ({card})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def serve_phases(args, dev, card, walls: dict) -> dict:
     """Phases 6-9: the serving seam at rbac1m, the overload plane, the read
     replicas and the wire workers. Returns the serve phase's numbers, with
@@ -4348,6 +4639,11 @@ def main() -> int:
                     help="run the [durable] server over this directory (the smoke "
                          "starts it)")
     ap.add_argument("--device", default="cuda", help="the [durable] server's device")
+    ap.add_argument("--cli-server", default="",
+                    help="run the [cli] server, `serve -c` of this config (the smoke "
+                         "starts it)")
+    ap.add_argument("--cli-client", default="",
+                    help="run these client verbs in process (the smoke starts it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4359,6 +4655,10 @@ def main() -> int:
         return pool_server_main(args)
     if args.durable_server:
         return durable_server_main(args)
+    if args.cli_server:
+        return cli_server_main(args)
+    if args.cli_client:
+        return cli_client_main(args)
     masked_spmv = port("engine", "masked_spmv")
     _m_pad_for = port("engine.closure", "_m_pad_for")
     pack_adjacency = port("ops.closure", "pack_adjacency")
@@ -4472,6 +4772,11 @@ def main() -> int:
     durable = serve_durable(args, dev, card, persist["sample"])
     walls["durable"] = time.perf_counter() - t0
 
+    # -- 12. the CLI and the client SDK against rbac1m on sqlite ---------------
+    t0 = time.perf_counter()
+    cn = serve_cli(args, card, persist, durable)
+    walls["cli"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")
     say("[numbers] phase wall seconds: "
@@ -4498,6 +4803,17 @@ def main() -> int:
         f"primed after the SIGKILL {dn['csr_primed_kill']}, after a graceful stop "
         f"{dn['csr_primed']} (start_all {dn['primed_start_s']:.3f}s); B1 launches "
         f"over three boots {dn['launches']}")
+    say(f"[numbers] cli ({card}): the client verbs, process / in process s: "
+        + ", ".join(f"{k} {p:.3f}/{i:.4f}" for k, (p, i) in cn["verbs"].items())
+        + "; the 4096 sample, p50 ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cn["batch_p50"].items())
+        + f"; serial single checks p50/p99 ms: RestClient {cn['serial']['rest'][0]:.3f}/"
+        f"{cn['serial']['rest'][1]:.3f}, GrpcClient {cn['serial']['grpc'][0]:.3f}/"
+        f"{cn['serial']['grpc'][1]:.3f}; {CLI_HEDGED} check_hedged p50/p99 "
+        f"{cn['hedged'][0]:.3f}/{cn['hedged'][1]:.3f} ms, fired/won/wasted/suppressed "
+        f"{cn['hedged'][2]}; doctor {cn['doctor_s']:.3f}s over {durable['tuples']} "
+        f"tuples; serve boot {cn['boot_s']:.3f}s with {cn['boot_launches']} B1 "
+        f"launches, {cn['launches']} over its life")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ov = serve["overload"]
@@ -4517,7 +4833,8 @@ def main() -> int:
         f"the cache server {serve['cache_launches']}, the overload server "
         f"{ov['launches']}, persist {persist['launches']}, the spawn pool's parent "
         f"{spawn['launches']}, the opt-in pool (parent and worker) "
-        f"{spawn['accel_launches']}, durable's three boots {durable['launches']}; B2 "
+        f"{spawn['accel_launches']}, durable's three boots {durable['launches']}, the "
+        f"[cli] server {cn['launches']}; B2 "
         f"launches: main:packed with its batcher drives {b2['launches']}")
     say(f"[numbers] [device] drill launches, not in the kernels line: B1 "
         f"{dv['launches']}, B2 {b2['drill_launches']}")
@@ -4527,7 +4844,8 @@ def main() -> int:
     b1["launches"] += (serve["launches"] + serve["list_launches"]
                        + serve["cache_launches"] + ov["launches"]
                        + persist["launches"] + spawn["launches"]
-                       + spawn["accel_launches"] + durable["launches"])
+                       + spawn["accel_launches"] + durable["launches"]
+                       + cn["launches"])
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -40,6 +40,10 @@ _PEEK_TIMEOUT_S = 10.0  # a client that opens a connection and says nothing
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
+    # TCP_NODELAY: a response leaves in two writes (headers, then body), and
+    # with Nagle on, the body waits for the ACK of the headers, which a
+    # keep-alive client delays by up to 40 ms
+    disable_nagle_algorithm = True
     router: Router  # set on the per-server subclass
 
     def _serve(self) -> None:

@@ -1,6 +1,6 @@
 """Client-side versioned vocab cache for the id-native wire tier
 (counterpart of ``keto_tpu/client/vocabcache.py``, on ``urllib.request``
-instead of httpx).
+instead of httpx: ``utils/urlfetch.py``).
 
 A trusted client (sidecar, gateway, load generator) that wants the encoded
 ``POST /check/batch-encoded`` path must encode tuples to node ids with the
@@ -27,15 +27,14 @@ error (409), whose details carry the resync hint ``sync()`` follows (delta
 catch-up within a lineage, full re-bootstrap across a vocab change).
 
 ``batch_check_encoded(cache, tuples)`` is the whole round trip: encode,
-send the frame, and on a 409 sync and resend.
+send the frame, and on a 409 sync and resend. It is
+``RestClient.batch_check_encoded`` on a client of the cache's read URL.
 """
 
 from __future__ import annotations
 
 import json
-import urllib.error
-import urllib.request
-from typing import Optional, Sequence
+from typing import Sequence
 from urllib.parse import urlencode
 
 import numpy as np
@@ -44,21 +43,8 @@ from ..api import wirecodec
 from ..graph.vocab import subject_node_key
 from ..graph.vocabsync import NS_UNKNOWN, NamespaceTable
 from ..relationtuple.definitions import RelationTuple
-from ..utils.errors import ErrUnavailable, ErrVocabEpochMismatch, KetoError
-
-
-def _request(url: str, data: Optional[bytes], timeout: float, headers=None):
-    """(status, body bytes) of one request; HTTP errors are returned, not
-    raised."""
-    req = urllib.request.Request(
-        url, data=data, method="GET" if data is None else "POST",
-        headers=headers or {},
-    )
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, resp.read()
-    except urllib.error.HTTPError as e:
-        return e.code, e.read()
+from ..utils.errors import ErrVocabEpochMismatch, KetoError
+from ..utils.urlfetch import fetch
 
 
 class VocabCache:
@@ -84,8 +70,8 @@ class VocabCache:
     # -- sync ------------------------------------------------------------------
 
     def _get_json(self, path: str, params: dict) -> dict:
-        status, raw = _request(
-            f"{self.read_url}{path}?{urlencode(params)}", None, self.timeout
+        status, raw, _ = fetch(
+            f"{self.read_url}{path}?{urlencode(params)}", timeout=self.timeout
         )
         if status == 409:
             try:
@@ -197,10 +183,11 @@ class VocabCache:
 
 def post_frame(read_url: str, frame: bytes, timeout: float = 30.0):
     """POST one encoded frame to ``/check/batch-encoded``: (status, body)."""
-    return _request(
-        f"{read_url.rstrip('/')}/check/batch-encoded", frame, timeout,
-        {"Content-Type": "application/octet-stream"},
+    status, body, _ = fetch(
+        f"{read_url.rstrip('/')}/check/batch-encoded", frame,
+        {"Content-Type": "application/octet-stream"}, timeout,
     )
+    return status, body
 
 
 def batch_check_encoded(
@@ -209,22 +196,15 @@ def batch_check_encoded(
     max_resyncs: int = 2,
     **kw,
 ) -> list[bool]:
-    """The id-native round trip: encode ``tuples`` against ``cache``, POST
-    the frame, decode the bitset. A write landing between encode and send
-    bumps the server's vocab epoch; the typed 409 makes the cache re-sync
-    and the batch is re-encoded and re-sent (at most ``max_resyncs``
-    times)."""
-    for attempt in range(max_resyncs + 1):
-        status, body = post_frame(cache.read_url, cache.frame(tuples, **kw),
-                                  cache.timeout)
-        if status == 200:
-            allowed, _ = wirecodec.decode_check_response(body)
-            return [bool(v) for v in allowed]
-        if status == 409 and attempt < max_resyncs:
-            cache.sync()
-            continue
-        raise KetoError(f"encoded batch check failed: HTTP {status} {body[:200]!r}")
-    raise ErrUnavailable("encoded batch check exhausted resyncs")
+    """The id-native round trip on a one-call ``RestClient`` of the cache's
+    read URL: encode ``tuples`` against ``cache``, POST the frame, decode
+    the bitset, and on a 409 re-sync and resend (at most ``max_resyncs``
+    times). ``kw`` (``snaptoken``, ``traceparent``) goes to
+    ``RestClient.batch_check_encoded``."""
+    from . import RestClient  # the client package imports this module
+
+    with RestClient(cache.read_url, timeout=cache.timeout) as client:
+        return client.batch_check_encoded(cache, tuples, max_resyncs=max_resyncs, **kw)
 
 
 __all__ = ["VocabCache", "NS_UNKNOWN", "batch_check_encoded", "post_frame"]

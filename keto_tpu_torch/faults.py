@@ -92,8 +92,9 @@ disarmed (``stuck``) instead of raising:
 
 Sites of modules this package does not have yet keep their names here so
 that a ``KETO_FAULTS`` string written for the reference parses the same;
-nothing calls them until their module arrives: ``client.unavailable``
-(ROADMAP 14.3, the client); ``shard.launch_fail``
+nothing calls them until their module arrives. ``client.unavailable`` keeps
+its name only: no module calls it, here or in the reference, whose client
+never fires it either. ``shard.launch_fail``
 and ``shard.launch_slow`` (12, the multi-device tiers);
 ``election.split_heartbeat``, ``election.lease_stall``,
 ``replica.promote_fail`` and ``replica.skip_delta`` (14.6, the fleet).

@@ -10,8 +10,17 @@ its stdin, one per line (``serve_commands``); ``PoolProcess`` is the side
 that starts it and asks. The server, its zygote and its replicas share one
 process group, so ``PoolProcess.kill_group`` ends all of them.
 
-Standard library only, so that a ``keto_tpu`` pool server (the reference
-in the parity tests) can use it without importing torch.
+``client_main`` is one client process of a timed drive: its part (URLs to
+GET, with or without headers, or encoded frames to POST) on stdin's first
+line, ``ready`` on stdout, the drive from many threads once stdin's next
+line comes, then its results with the drive's start and end on the
+monotonic clock.
+
+Standard library only (with ``utils/urlfetch.py``, the drive's one
+request helper), so that a ``keto_tpu`` pool server (the reference
+in the parity tests) can use it without importing torch, and a drive's
+client processes start without it (the frame drive's decoder imports
+numpy).
 """
 
 from __future__ import annotations
@@ -23,7 +32,12 @@ import signal
 import subprocess
 import sys
 import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
+
+from .utils.urlfetch import fetch
 
 PREFIX = "POOL "
 
@@ -142,3 +156,53 @@ class PoolProcess:
         except ProcessLookupError:
             pass
         self.proc.wait(timeout=60)
+
+
+def client_main() -> None:
+    """One client process of a drive (see the module docstring). Each GET
+    answers (status, seconds), with headers (status, seconds, Retry-After),
+    and each frame (status, seconds, the answer bits or "")."""
+    req = json.loads(sys.stdin.readline())
+    # one opener for every thread: urlopen builds its own on first use, and
+    # 64 threads doing so at once parse the CA bundle 64 times
+    urllib.request.install_opener(urllib.request.build_opener())
+
+    def one(url):
+        t0 = time.perf_counter()
+        status, body, _ = fetch(url, headers={"Content-Type": "application/json"})
+        if body:
+            json.loads(body)
+        return status, time.perf_counter() - t0
+
+    def one_with(args):
+        url, hdrs = args
+        t0 = time.perf_counter()
+        status, _, headers = fetch(url, headers=hdrs)
+        return status, time.perf_counter() - t0, headers.get("Retry-After")
+
+    def one_frame(frame_hex):
+        body = bytes.fromhex(frame_hex)
+        t0 = time.perf_counter()
+        status, raw, _ = fetch(f"{req['read'].rstrip('/')}/check/batch-encoded", body,
+                               {"Content-Type": "application/octet-stream"})
+        sec = time.perf_counter() - t0
+        bits = ""
+        if status == 200:
+            bits = "".join("1" if v else "0" for v in decode_check_response(raw)[0])
+        return status, sec, bits
+
+    if req.get("frames") is not None:
+        from .api.wirecodec import decode_check_response
+
+    with ThreadPoolExecutor(req["clients"]) as pool:
+        print("ready", flush=True)
+        sys.stdin.readline()
+        start = time.monotonic()
+        if req.get("frames") is not None:
+            results = list(pool.map(one_frame, req["frames"]))
+        elif req.get("headers") is None:
+            results = list(pool.map(one, req["urls"]))
+        else:
+            results = list(pool.map(one_with, zip(req["urls"], req["headers"])))
+        end = time.monotonic()
+    json.dump({"results": results, "start": start, "end": end}, sys.stdout)

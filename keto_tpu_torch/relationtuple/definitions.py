@@ -13,13 +13,15 @@ Mirrors the reference's domain layer (internal/relationtuple/definitions.go):
 - ``RelationQuery``: partial-match filter over tuples (definitions.go:45-65).
 - ``Manager``: the storage contract the engines depend on
   (definitions.go:28-34).
+- ``parse_tuples_text`` and ``relation_collection_table``: the CLI's
+  ``relation-tuple parse`` input and ``relation-tuple get`` table.
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Mapping, Optional, Sequence, Union
+from typing import Iterable, Mapping, Optional, Sequence, Union
 
 from ..utils.errors import ErrInvalidTuple, ErrMalformedInput
 from ..utils.pagination import PaginationOptions
@@ -221,3 +223,31 @@ class Manager(abc.ABC):
         delete: Sequence[RelationTuple],
     ) -> None:
         """Atomically insert and delete; either all or none are applied."""
+
+
+def parse_tuples_text(text: str) -> list[RelationTuple]:
+    """Parse newline-separated human-readable tuples; '//'-comments and blank
+    lines are skipped (reference cmd/relationtuple/parse.go:47-88)."""
+    out = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("//"):
+            continue
+        if "//" in line:  # a trailing comment
+            line = line.split("//", 1)[0].strip()
+        out.append(RelationTuple.from_string(line))
+    return out
+
+
+def relation_collection_table(tuples: Iterable[RelationTuple]) -> str:
+    """Human-readable table of tuples (reference definitions.go:555-642)."""
+    header = ("NAMESPACE", "OBJECT", "RELATION NAME", "SUBJECT")
+    rows = [(t.namespace, t.object, t.relation, str(t.subject)) for t in tuples]
+    widths = [
+        max(len(header[i]), *(len(r[i]) for r in rows)) if rows else len(header[i])
+        for i in range(4)
+    ]
+    lines = ["\t".join(h.ljust(widths[i]) for i, h in enumerate(header))]
+    for r in rows:
+        lines.append("\t".join(c.ljust(widths[i]) for i, c in enumerate(r)))
+    return "\n".join(lines)

@@ -149,6 +149,15 @@ class ErrVocabEpochMismatch(KetoError):
         return doc
 
 
+class ErrForbidden(KetoError):
+    """The client's status map spells a 403 that is not a check answer
+    (a protected ``/debug`` route) as this."""
+
+    status_code = 403
+    status = "Forbidden"
+    grpc_code = "PERMISSION_DENIED"
+
+
 class ErrUnavailable(KetoError):
     """A freshness/availability condition, not a server bug."""
 

@@ -22,6 +22,8 @@ import torch
 from keto_tpu.driver import Config as JConfig
 from keto_tpu.utils.errors import ErrMalformedInput as JMalformed
 from keto_tpu_torch.cli import main as cli_main
+from keto_tpu_torch.cli.main import CliError
+from keto_tpu_torch.client import ReplicatedRestClient
 from keto_tpu_torch.driver import Config as TConfig
 from keto_tpu_torch.driver import Registry, registry as registry_mod
 from keto_tpu_torch.driver.config import DEFAULTS
@@ -187,15 +189,28 @@ def test_config_files(tmp_path, monkeypatch):
         TConfig(config_file=str(as_yaml))
 
 
+def _run_verb(argv):
+    args = cli_main.build_parser().parse_args(argv)
+    return args.func(args)
+
+
 @pytest.mark.parametrize(
     "values,item",
     [
         ({"engine": {"mode": "sharded"}}, "item 12"),
         ({"engine": {"sharding": {"enabled": True}}}, "item 12"),
         ({"dsn": "redis://db"}, "unsupported DSN 'redis://db'"),
+        # the fleet's client and CLI paths: a callable that must refuse
+        (lambda: _run_verb(["status", "--cluster"]), "item 14.6"),
+        (lambda: _run_verb(["debug", "snapshot", "--cluster"]), "item 14.6"),
+        (lambda: ReplicatedRestClient(["http://127.0.0.1:4466"]), "item 14.6"),
     ],
 )
 def test_unported_paths_name_their_roadmap_item(values, item):
+    if callable(values):
+        with pytest.raises((CliError, NotImplementedError), match=item):
+            values()
+        return
     reg = Registry(TConfig(values=values), device="cpu")
     with pytest.raises(TMalformed, match=item):
         reg.store()

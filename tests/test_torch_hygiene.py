@@ -28,7 +28,10 @@ GRPC_PLANE = {
     API / name
     for name in ("services.py", "interceptors.py", "reflection.py", "convert.py",
                  "grpc_servers.py")
-} | set(GEN_FILES)
+} | set(GEN_FILES) | {
+    REPO / "keto_tpu_torch" / "client" / "grpc_client.py",
+    REPO / "keto_tpu_torch" / "cli" / "remote.py",
+}
 
 
 def imported_modules(path):

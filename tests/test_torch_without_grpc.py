@@ -8,6 +8,11 @@ CLI's ``__main__``, which would run the CLI), then brings a
 off and why, no module of the gRPC plane may have been imported, and a
 config that sets a ``grpc-max-message-size`` must raise naming the missing
 package instead of being ignored.
+
+The client and the CLI, in a second subprocess with the same two packages
+hidden: ``keto_tpu_torch.client`` imports, ``RestClient`` checks against a
+REST-only server, ``GrpcClient`` is the one name that fails (naming grpc),
+and ``cli check`` exits non-zero with a message naming grpc.
 """
 
 import json
@@ -28,7 +33,10 @@ sys.path.insert(0, str(repo))
 
 api = repo / "keto_tpu_torch" / "api"
 plane = {api / n for n in ("services.py", "interceptors.py", "reflection.py",
-                           "convert.py", "grpc_servers.py")}
+                           "convert.py", "grpc_servers.py")} | {
+    repo / "keto_tpu_torch" / "client" / "grpc_client.py",
+    repo / "keto_tpu_torch" / "cli" / "remote.py",
+}
 imported = 0
 for path in sorted((repo / "keto_tpu_torch").rglob("*.py")):
     if path in plane or (api / "gen") in path.parents or path.name == "__main__.py":
@@ -88,7 +96,8 @@ print(json.dumps({
     "plane_loaded": sorted(m for m in sys.modules if m.startswith((
         "keto_tpu_torch.api.services", "keto_tpu_torch.api.grpc_servers",
         "keto_tpu_torch.api.convert", "keto_tpu_torch.api.gen",
-        "keto_tpu_torch.api.reflection", "keto_tpu_torch.api.interceptors"))),
+        "keto_tpu_torch.api.reflection", "keto_tpu_torch.api.interceptors",
+        "keto_tpu_torch.client.grpc_client", "keto_tpu_torch.cli.remote"))),
     "answers": answers,
     "raised": raised,
 }))
@@ -113,3 +122,56 @@ def test_the_port_serves_rest_alone_without_grpc_and_protobuf():
     ]
     assert doc["raised"] and "serve.read.grpc-max-message-size" in doc["raised"]
     assert "grpc" in doc["raised"]
+
+
+CLIENT_SCRIPT = r"""
+import contextlib, io, json, sys
+from pathlib import Path
+
+for name in ("grpc", "google.protobuf"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+
+import keto_tpu_torch.client as client
+from keto_tpu_torch.cli.main import main
+from keto_tpu_torch.driver import Config, Registry
+
+reg = Registry(Config(values={
+    "namespaces": [{"id": 1, "name": "videos"}],
+    "serve": {"read": {"port": 0, "host": "127.0.0.1"},
+              "write": {"port": 0, "host": "127.0.0.1"}},
+}), device="cpu")
+read, write = reg.start_all()
+try:
+    with client.RestClient(f"http://127.0.0.1:{read}", f"http://127.0.0.1:{write}") as c:
+        c.create_relation_tuple("videos:/cats#owner@cat lady")
+        answers = [c.check("videos:/cats#owner@cat lady").allowed,
+                   c.check("videos:/cats#owner@dog guy").allowed]
+    try:
+        client.GrpcClient
+        grpc_client = None
+    except ImportError as e:
+        grpc_client = str(e)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(["--read-remote", f"127.0.0.1:{read}",
+                   "check", "cat lady", "owner", "videos", "/cats"])
+finally:
+    reg.stop_all()
+print(json.dumps({"answers": answers, "grpc_client": grpc_client, "rc": rc,
+                  "stderr": err.getvalue(), "grpc_enabled": reg.grpc_enabled}))
+"""
+
+
+def test_the_client_and_the_cli_without_grpc_and_protobuf():
+    proc = subprocess.run(
+        [sys.executable, "-c", CLIENT_SCRIPT, str(REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert doc["grpc_enabled"] is False
+    assert doc["answers"] == [True, False]
+    assert doc["grpc_client"] and "grpc" in doc["grpc_client"]
+    assert doc["rc"] != 0
+    assert doc["stderr"].startswith("Error: ") and "grpc" in doc["stderr"]
