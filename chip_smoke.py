@@ -218,6 +218,25 @@ Phases, in order; any failure exits non-zero:
             `doctor` over [durable]'s WAL and checkpoints as a process,
             alongside the server's boot: no gap, the digest's count the
             tuples [durable] read back
+13. config  config and the public port: `serve -c` in a fresh interpreter
+            (this script re-run with --config-server CFG) over the [persist]
+            database, its namespaces a watched directory (rbac, videos), TLS
+            on both planes from tests/fixtures/tls, CORS for one origin, and
+            KETO_SERVE_READ_PORT in its environment, which the read plane
+            must bind; 135 B1 launches at boot, plaintext HTTP refused; the
+            4096 sample as HTTPS /check/batch (RestClient with the fixture's
+            CA) and as gRPC BatchCheck on a TLS channel to the same port,
+            equal to [cli]'s answers and its host oracle's 64-prefix (p50
+            beside [cli]'s plaintext p50); a CORS preflight, an allowed and a
+            disallowed origin; a namespace file added while serving (404
+            before, 201 after, seconds until visible); engine.pipeline_depth,
+            engine.encode_workers and serve.read.max_freshness_wait_s edited
+            in the file under CONFIG_CLIENTS HTTPS clients: no request
+            fails, every answer the sample's, "hot knob reloaded" logged for
+            each engine knob, /debug/config showing the new values; a dsn
+            edit logged as immutable and an invalid file refused, the server
+            still answering; SIGTERM, rc 0, no watcher thread left; B1
+            launches at boot and over the server's life
 
 [device]    the device-aware planes (breaker, HBM admission, supervisor,
             scrubber, /debug), on by default as in the reference. Every
@@ -1504,13 +1523,13 @@ class SetGraphOracle:
         return [self.check(t, depth) for t in tuples]
 
 
-def http(method: str, url: str, body=None, timeout: float = 120.0):
+def http(method: str, url: str, body=None, timeout: float = 120.0, verify=True):
     """One request (the port's urllib helper); (status, parsed JSON body or
-    None)."""
+    None). ``verify`` is the https check (a CA path for the TLS fixture)."""
     fetch = port("utils.urlfetch", "fetch")
     data = None if body is None else json.dumps(body).encode()
     status, raw, _ = fetch(url, data, {"Content-Type": "application/json"}, timeout,
-                           method)
+                           method, verify=verify)
     return status, (json.loads(raw) if raw else None)
 
 
@@ -2677,11 +2696,11 @@ SCRUB = {"enabled": True, "interval_s": 0.5, "sample_rows": 1024,
 DRILL_ROWS = 256  # rows of each packed drill batch
 
 
-def planes_idle(read: str, tag: str) -> dict:
+def planes_idle(read: str, tag: str, verify=True) -> dict:
     """/debug/device at the end of a phase without drills: the breaker
     closed with no failure and no oracle-answered batch, no quarantined
     shape, the card serving and no failover event."""
-    status, doc = http("GET", f"{read}/debug/device")
+    status, doc = http("GET", f"{read}/debug/device", verify=verify)
     require(status == 200, f"[{tag}] GET /debug/device: {status}")
     br = doc.get("breaker") or {}
     require(br.get("open") is False and br.get("failures") == 0
@@ -2754,6 +2773,13 @@ def _profile_kernels(read: str, urls: list[str], batcher) -> tuple[int, int, flo
     events = trace.get("traceEvents", [])
     kernels = [e for e in events if e.get("cat") == "kernel"]
     require(all(s in (200, 403) for s, _ in drive["results"]), "GET /check during the profile")
+    if not kernels:  # what the capture did hold, for the failure's message
+        from collections import Counter
+
+        cats = Counter(e.get("cat") for e in events).most_common(8)
+        names = Counter(e.get("name") for e in events).most_common(8)
+        say(f"[device] the profile's events by category {cats}; by name {names}; "
+            f"the drive's {len(drive['results'])} answers in {drive['wall']:.3f}s")
     return len(kernels), len(events), secs
 
 
@@ -3648,10 +3674,10 @@ def persist_writes(pools, edges) -> list:
     return out
 
 
-def rest_write(write: str, method: str, t) -> int:
+def rest_write(write: str, method: str, t, verify=True) -> int:
     if method == "PUT":
-        return http("PUT", f"{write}/relation-tuples", t.to_dict())[0]
-    return http("DELETE", f"{write}/relation-tuples?{tuple_query(t)}")[0]
+        return http("PUT", f"{write}/relation-tuples", t.to_dict(), verify=verify)[0]
+    return http("DELETE", f"{write}/relation-tuples?{tuple_query(t)}", verify=verify)[0]
 
 
 def serve_persist(args, dev, card, serve: dict) -> dict:
@@ -4262,12 +4288,15 @@ def cli_in_process(cli, argv, stdin: str = ""):
     return rc, buf.getvalue(), time.perf_counter() - t0
 
 
-def cli_server_main(args) -> int:
-    """The [cli] server, in a fresh interpreter (this script with --cli-server
-    CFG): the port's own entry point, cli.main(["serve", "-c", CFG]), on the
-    card. One POOL line when start_all returns (its ports and the B1
-    launches of the boot), and one when serve returns on SIGTERM (the
-    process's B1 launches)."""
+def cli_server_main(cfg: str) -> int:
+    """The [cli] and [config] servers, each in a fresh interpreter (this
+    script with --cli-server or --config-server CFG): the port's own entry
+    point, cli.main(["serve", "-c", CFG]), on the card. One POOL line when
+    start_all returns (its ports and the B1 launches of the boot), and one
+    when serve returns on SIGTERM (the process's B1 launches and the threads
+    still alive)."""
+    import threading
+
     cli = port("cli", "main")
     Registry = port("driver", "Registry")
     masked_spmv = port("engine", "masked_spmv")
@@ -4285,8 +4314,9 @@ def cli_server_main(args) -> int:
 
     Registry.start_all = reported
     masked_spmv.masked_step.launches = 0  # this server's path starts here
-    rc = cli.main(["serve", "-c", args.cli_server])
-    harness.emit({"rc": rc, "b1": masked_spmv.masked_step.launches})
+    rc = cli.main(["serve", "-c", cfg])
+    harness.emit({"rc": rc, "b1": masked_spmv.masked_step.launches,
+                  "threads": sorted(t.name for t in threading.enumerate())})
     return rc
 
 
@@ -4436,13 +4466,15 @@ def serve_cli(args, card: str, persist: dict, durable: dict) -> dict:
                     batch_ms[name].append(time.perf_counter() - t0)
                     require(answers == want, f"[{tag}] {name}: the sample's answers differ")
             out["batch_p50"] = {k: pct(v, 50) for k, v in batch_ms.items()}
+            out["answers"] = answers
             nsm = MemoryNamespaceManager()
             for ns in ("rbac", "videos"):
                 nsm.add(ns)
             sql = SQLiteTupleStore(persist["dsn"][len("sqlite://"):], namespace_manager=nsm)
             t0 = time.perf_counter()
-            require(CheckEngine(sql, max_depth=5).batch_check(sample[:CLI_ORACLE])
-                    == want[:CLI_ORACLE], f"[{tag}] the host CheckEngine over SQL disagrees")
+            out["oracle"] = CheckEngine(sql, max_depth=5).batch_check(sample[:CLI_ORACLE])
+            require(out["oracle"] == want[:CLI_ORACLE],
+                    f"[{tag}] the host CheckEngine over SQL disagrees")
             oracle_s = time.perf_counter() - t0
             sql.close()
             say(f"[{tag} {at()}] the {len(sample)} sample equal across REST tuples, REST "
@@ -4547,6 +4579,319 @@ def serve_cli(args, card: str, persist: dict, durable: dict) -> dict:
     return out
 
 
+CONFIG_CLIENTS = 64  # HTTPS GET /check clients across the hot-knob reload
+CONFIG_ORIGIN = "https://app.example"  # the one origin CORS allows
+CONFIG_KNOBS = {"engine.pipeline_depth": 1, "engine.encode_workers": 3,
+                "serve.read.max_freshness_wait_s": 12.5}
+
+
+def config_values(dsn: str, ns_dir: str, tls: dict) -> dict:
+    """[config]'s file: [cli]'s rbac1m server on the [persist] database, its
+    namespaces a watched directory, TLS on both planes, CORS for one origin
+    on the read plane, and a read port the environment replaces."""
+    values = persist_config(dsn)
+    values["namespaces"] = "file://" + ns_dir
+    values["serve"]["read"].update(
+        port=4466, tls=tls,
+        cors={"enabled": True, "allowed_origins": [CONFIG_ORIGIN]})
+    values["serve"]["write"]["tls"] = tls
+    return values
+
+
+def write_config(path: str, values: dict) -> None:
+    """Write the config file; the mtime moves at least a second, so the
+    server's one-second poll never misses an edit."""
+    prev = os.stat(path).st_mtime if os.path.exists(path) else 0.0
+    with open(path, "w") as f:
+        json.dump(values, f)
+    t = max(time.time(), prev + 1.0)
+    os.utime(path, (t, t))
+
+
+def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
+    """[config]: `serve -c` in a fresh interpreter over the [persist] rbac1m
+    database, with KETO_SERVE_READ_PORT in its environment, namespaces from a
+    watched directory, TLS on both planes and CORS; the sample over HTTPS
+    REST and TLS gRPC, CORS, a namespace added while serving, the hot knobs
+    reloaded under 64 HTTPS clients, a dsn edit and an invalid file refused,
+    SIGTERM."""
+    import signal
+    import ssl
+    import threading
+
+    harness = port("", "poolharness")
+    RestClient, RelationTuple = port("client", "RestClient"), port("relationtuple", "RelationTuple")
+    resolve_free_ports = port("driver.replicas", "resolve_free_ports")
+    repo = Path(__file__).resolve().parent
+    cert = str(repo / "tests" / "fixtures" / "tls" / "tls.crt")
+    tls = {"cert": {"path": cert}, "key": {"path": cert[:-3] + "key"}}
+    tag = "config"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    out = {}
+    sample, want = persist["sample"], persist["want"]
+    root = os.path.join(persist["dir"], "config")
+    ns_dir = os.path.join(root, "namespaces")
+    os.makedirs(ns_dir, exist_ok=True)
+    for nid, name in ((1, "rbac"), (2, "videos")):
+        with open(os.path.join(ns_dir, f"{name}.json"), "w") as f:
+            json.dump({"id": nid, "name": name}, f)
+    cfg = os.path.join(root, "keto.json")
+    values = config_values(persist["dsn"], ns_dir, tls)
+    write_config(cfg, values)
+    (env_port,) = resolve_free_ports([("127.0.0.1", 0)])
+    env = dict(os.environ, KETO_SERVE_READ_PORT=str(env_port))
+
+    # 1. boot: the env's port, 135 B1 launches, plaintext refused
+    t0 = time.perf_counter()
+    server = harness.PoolProcess(
+        [sys.executable, str(Path(__file__).resolve()), "--config-server", cfg],
+        name="config server", env=env)
+    try:
+        info = server.next_doc(900)
+        out["boot_s"] = time.perf_counter() - t0
+        out["boot_launches"] = info["b1"]
+        require(info["b1"] == 135 and not info["host"] and info["grpc"],
+                f"[{tag}] serve booted with {info['b1']} B1 launches (host "
+                f"{info['host']}, gRPC {info['grpc']})")
+        require(info["read"] == env_port,
+                f"[{tag}] the read plane bound {info['read']}, not KETO_SERVE_READ_PORT "
+                f"{env_port}")
+        rp, wp = info["read"], info["write"]
+        read, write = f"https://127.0.0.1:{rp}", f"https://127.0.0.1:{wp}"
+        try:
+            port("utils.urlfetch", "fetch")(f"http://127.0.0.1:{rp}/health/alive",
+                                            timeout=10)
+            plaintext = "answered"
+        except OSError as e:
+            plaintext = type(e).__name__
+        require(plaintext != "answered", f"[{tag}] plaintext HTTP to the TLS port answered")
+        say(f"[{tag} {at()}] `serve -c` with KETO_SERVE_READ_PORT={env_port}: serving on it "
+            f"after {out['boot_s']:.3f}s, {info['b1']} B1 launches at boot, REST + gRPC "
+            f"over TLS on both planes, plaintext HTTP refused ({plaintext}) ({card})")
+
+        # 2. the sample over HTTPS REST and TLS gRPC
+        grpc = importlib.import_module("grpc")
+        pb = port("api.gen.ory.keto.acl.v1alpha1", "check_service_pb2")
+        CheckServiceStub = port("api.services", "CheckServiceStub")
+        subject_to_proto = port("api.convert", "subject_to_proto")
+        options = port("api.grpc_servers", "grpc_message_options")(64 << 20)
+        with open(cert, "rb") as f:
+            creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+        channel = grpc.secure_channel(f"127.0.0.1:{rp}", creds, options=options)
+        rest = RestClient(read, write, verify=cert)
+        try:
+            stub = CheckServiceStub(channel)
+
+            def grpc_batch() -> list:
+                # the request is built inside the clock, as GrpcClient's
+                # batch_check builds it in [cli]'s plaintext timing
+                request = pb.BatchCheckRequest(tuples=[
+                    pb.CheckRequestTuple(namespace=t.namespace, object=t.object,
+                                         relation=t.relation,
+                                         subject=subject_to_proto(t.subject))
+                    for t in sample])
+                return list(stub.BatchCheck(request, timeout=120).allowed)
+
+            ms = {"rest": [], "grpc": []}
+            for _ in range(CLI_BATCH_REPS):
+                for name, fn in (("rest", lambda: rest.batch_check(sample)),
+                                 ("grpc", grpc_batch)):
+                    t0 = time.perf_counter()
+                    answers = fn()
+                    ms[name].append(time.perf_counter() - t0)
+                    require(answers == cn["answers"] == want,
+                            f"[{tag}] TLS {name}: the sample's answers differ from [cli]'s")
+                    require(answers[:CLI_ORACLE] == cn["oracle"],
+                            f"[{tag}] TLS {name}: the {CLI_ORACLE}-prefix differs from the oracle")
+            out["p50"] = {k: pct(v, 50) for k, v in ms.items()}
+            say(f"[{tag} {at()}] the {len(sample)} sample over TLS equal to [cli]'s answers "
+                f"and the first {CLI_ORACLE} to its host CheckEngine, x{CLI_BATCH_REPS}: p50 ms "
+                f"HTTPS /check/batch {out['p50']['rest']:.3f} ([cli] plaintext "
+                f"{cn['batch_p50']['rest tuples']:.3f}), TLS gRPC BatchCheck "
+                f"{out['p50']['grpc']:.3f} ([cli] plaintext "
+                f"{cn['batch_p50']['grpc tuples']:.3f}) ({card})")
+        finally:
+            channel.close()
+
+        # 3. CORS
+        ctx = ssl.create_default_context(cafile=cert)
+        http_client = importlib.import_module("http.client")
+
+        def https(method, path, headers):
+            conn = http_client.HTTPSConnection("127.0.0.1", rp, timeout=60, context=ctx)
+            try:
+                conn.request(method, path, headers=headers)
+                resp = conn.getresponse()
+                resp.read()
+                return resp.status, {k: resp.getheader(k) for k in (
+                    "Access-Control-Allow-Origin", "Access-Control-Allow-Methods",
+                    "Access-Control-Allow-Headers")}
+            finally:
+                conn.close()
+
+        pre = https("OPTIONS", "/check", {
+            "Origin": CONFIG_ORIGIN, "Access-Control-Request-Method": "GET"})
+        got = https("GET", "/health/alive", {"Origin": CONFIG_ORIGIN})
+        other = https("GET", "/health/alive", {"Origin": "https://other.example"})
+        require(pre[0] == 204 and pre[1]["Access-Control-Allow-Origin"] == CONFIG_ORIGIN
+                and pre[1]["Access-Control-Allow-Methods"] and pre[1]["Access-Control-Allow-Headers"],
+                f"[{tag}] preflight {pre}")
+        require(got[0] == 200 and got[1]["Access-Control-Allow-Origin"] == CONFIG_ORIGIN,
+                f"[{tag}] GET with the allowed origin {got}")
+        require(other[0] == 200 and not any(other[1].values()),
+                f"[{tag}] a disallowed origin got allow headers {other}")
+        say(f"[{tag} {at()}] CORS: the preflight 204 with {pre[1]}; a GET with the origin "
+            f"carries Access-Control-Allow-Origin; another origin gets no allow header")
+
+        # 4. a namespace added while serving
+        doc = RelationTuple.from_string("docs:d1#view@config-user")
+        require(rest_write(write, "PUT", doc, verify=cert) == 404,
+                f"[{tag}] a PUT to an unknown namespace did not answer 404")
+        t0 = time.perf_counter()
+        with open(os.path.join(ns_dir, "docs.json"), "w") as f:
+            json.dump({"id": 3, "name": "docs"}, f)
+        status = 404
+        while status == 404 and time.perf_counter() - t0 < 30:
+            time.sleep(0.05)
+            status = rest_write(write, "PUT", doc, verify=cert)
+        out["ns_visible_s"] = time.perf_counter() - t0
+        require(status == 201, f"[{tag}] the added namespace: PUT answered {status}")
+        require(rest.check(doc).allowed, f"[{tag}] the check in the added namespace")
+        say(f"[{tag} {at()}] a namespace file written into the watched directory: the PUT "
+            f"answered 201 after {out['ns_visible_s']:.3f}s (404 before it), its check allowed")
+
+        # 5. the hot knobs, edited under 64 HTTPS clients
+        stop = threading.Event()
+        lat, errors, served = [], [], [0]
+        lock = threading.Lock()
+
+        def client(k: int) -> None:
+            mine = []
+            i = k
+            while not stop.is_set():
+                t, w = sample[i % len(sample)], want[i % len(sample)]
+                t0 = time.perf_counter()
+                try:
+                    ok = rest.check(t).allowed
+                except Exception as e:
+                    with lock:
+                        errors.append(repr(e))
+                    continue
+                mine.append(time.perf_counter() - t0)
+                if ok != w:
+                    with lock:
+                        errors.append(f"{t}: {ok} != {w}")
+                i += CONFIG_CLIENTS
+            with lock:
+                lat.extend(mine)
+                served[0] += len(mine)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(CONFIG_CLIENTS)]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            time.sleep(1.0)
+            hot = json.loads(json.dumps(values))
+            hot["engine"]["pipeline_depth"] = CONFIG_KNOBS["engine.pipeline_depth"]
+            hot["engine"]["encode_workers"] = CONFIG_KNOBS["engine.encode_workers"]
+            hot["serve"]["read"]["max_freshness_wait_s"] = CONFIG_KNOBS[
+                "serve.read.max_freshness_wait_s"]
+            t0 = time.perf_counter()
+            write_config(cfg, hot)
+
+            def reloaded() -> bool:
+                text = "".join(server.lines)
+                return all(f"hot knob reloaded key={k}" in text
+                           for k in ("engine.pipeline_depth", "engine.encode_workers"))
+
+            while not reloaded() and time.perf_counter() - t0 < 30:
+                time.sleep(0.05)
+            out["reload_s"] = time.perf_counter() - t0
+            require(reloaded(), f"[{tag}] no 'hot knob reloaded' for each engine knob: "
+                    + "".join(server.lines[-20:]))
+            time.sleep(1.0)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        load_s = time.perf_counter() - t_load
+        require(not errors and served[0] > 0,
+                f"[{tag}] {len(errors)} failed or wrong answers across the reload: {errors[:5]}")
+        out["load"] = (served[0], served[0] / load_s, pct(lat, 50), pct(lat, 99))
+        status, dbg = http("GET", f"{read}/debug/config", verify=cert)
+        live = dbg["config"] if status == 200 else {}
+        seen = {}
+        for key in CONFIG_KNOBS:
+            node = live
+            for part in key.split("."):
+                node = node.get(part, {}) if isinstance(node, dict) else None
+            seen[key] = node
+        require(seen == CONFIG_KNOBS, f"[{tag}] /debug/config shows {seen}")
+        say(f"[{tag} {at()}] {CONFIG_CLIENTS} HTTPS clients across the reload of "
+            + ", ".join(f"{k} -> {v}" for k, v in CONFIG_KNOBS.items())
+            + f": 'hot knob reloaded' logged for both engine knobs {out['reload_s']:.3f}s "
+            f"after the edit, /debug/config shows the new values; {served[0]} checks in "
+            f"{load_s:.1f}s ({out['load'][1]:.0f}/s), p50/p99 {out['load'][2]:.3f}/"
+            f"{out['load'][3]:.3f} ms, none failed, every answer the sample's ({card})")
+
+        # 6. edits that must not apply: the dsn, then an invalid file
+        frozen = json.loads(json.dumps(hot))
+        frozen["dsn"] = "sqlite://" + os.path.join(root, "other.db")
+        n_lines = len(server.lines)
+        write_config(cfg, frozen)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 30 and not any(
+                "immutable after boot" in line and "key=dsn" in line
+                for line in server.lines[n_lines:]):
+            time.sleep(0.05)
+        require(any("immutable after boot" in line and "key=dsn" in line
+                    for line in server.lines[n_lines:]), f"[{tag}] the dsn edit was not refused")
+        n_lines = len(server.lines)
+        with open(cfg, "w") as f:
+            f.write('{"engine": {"pipeline_depth": -1}}')
+        os.utime(cfg, (time.time() + 2, time.time() + 2))
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 30 and not any(
+                "config reload failed" in line for line in server.lines[n_lines:]):
+            time.sleep(0.05)
+        require(any("config reload failed" in line for line in server.lines[n_lines:]),
+                f"[{tag}] the invalid file was not refused")
+        status, dbg = http("GET", f"{read}/debug/config", verify=cert)
+        require(status == 200 and dbg["config"]["dsn"] == persist["dsn"]
+                and dbg["config"]["engine"]["pipeline_depth"] == 1,
+                f"[{tag}] the config moved: {status}")
+        require(rest.batch_check(sample) == want, f"[{tag}] the sample after the refused edits")
+        say(f"[{tag} {at()}] the dsn edit logged as immutable and ignored; the invalid file "
+            f"logged and refused; the server still answers the sample from {persist['dsn']}")
+        planes_idle(read, tag, verify=cert)
+        rest.close()
+    finally:
+        if server.proc.poll() is None:
+            os.kill(server.proc.pid, signal.SIGTERM)
+        try:
+            last = server.next_doc(120)
+            server.proc.wait(timeout=60)
+        except Exception:
+            server.kill_group()
+            raise
+
+    # 7-8. SIGTERM: rc 0, the watcher threads gone; B1 over the server's life
+    require(last.get("rc") == 0, f"[{tag}] serve exited {last}")
+    left = [t for t in last["threads"] if t in ("namespace-watcher", "config-watcher")]
+    require(not left, f"[{tag}] threads alive after stop_all: {left}")
+    out["launches"] = last["b1"]
+    say(f"[{tag} {at()}] SIGTERM: serve returned 0, no watcher thread left; B1 launches in "
+        f"the serve process {out['launches']} (boot {out['boot_launches']}, "
+        f"{out['launches'] - out['boot_launches']} after the namespace add and the reloads)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def serve_phases(args, dev, card, walls: dict) -> dict:
     """Phases 6-9: the serving seam at rbac1m, the overload plane, the read
     replicas and the wire workers. Returns the serve phase's numbers, with
@@ -4642,6 +4987,9 @@ def main() -> int:
     ap.add_argument("--cli-server", default="",
                     help="run the [cli] server, `serve -c` of this config (the smoke "
                          "starts it)")
+    ap.add_argument("--config-server", default="",
+                    help="run the [config] server, `serve -c` of this config (the "
+                         "smoke starts it)")
     ap.add_argument("--cli-client", default="",
                     help="run these client verbs in process (the smoke starts it)")
     args = ap.parse_args()
@@ -4655,8 +5003,8 @@ def main() -> int:
         return pool_server_main(args)
     if args.durable_server:
         return durable_server_main(args)
-    if args.cli_server:
-        return cli_server_main(args)
+    if args.cli_server or args.config_server:
+        return cli_server_main(args.cli_server or args.config_server)
     if args.cli_client:
         return cli_client_main(args)
     masked_spmv = port("engine", "masked_spmv")
@@ -4777,6 +5125,11 @@ def main() -> int:
     cn = serve_cli(args, card, persist, durable)
     walls["cli"] = time.perf_counter() - t0
 
+    # -- 13. config and the public port: env, watched namespaces, TLS, reload --
+    t0 = time.perf_counter()
+    cf = serve_config_plane(args, card, persist, cn)
+    walls["config"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")
     say("[numbers] phase wall seconds: "
@@ -4814,6 +5167,15 @@ def main() -> int:
         f"{cn['hedged'][2]}; doctor {cn['doctor_s']:.3f}s over {durable['tuples']} "
         f"tuples; serve boot {cn['boot_s']:.3f}s with {cn['boot_launches']} B1 "
         f"launches, {cn['launches']} over its life")
+    say(f"[numbers] config ({card}): serve boot {cf['boot_s']:.3f}s with "
+        f"{cf['boot_launches']} B1 launches, {cf['launches']} over its life; the 4096 "
+        f"sample p50 ms over TLS: HTTPS /check/batch {cf['p50']['rest']:.3f}, gRPC "
+        f"BatchCheck {cf['p50']['grpc']:.3f} ([cli] plaintext: "
+        f"{cn['batch_p50']['rest tuples']:.3f}, {cn['batch_p50']['grpc tuples']:.3f}); "
+        f"namespace visible after {cf['ns_visible_s']:.3f}s; hot knobs reloaded "
+        f"{cf['reload_s']:.3f}s after the edit; {CONFIG_CLIENTS} HTTPS clients: "
+        f"{cf['load'][0]} checks, {cf['load'][1]:.0f}/s, p50/p99 {cf['load'][2]:.3f}/"
+        f"{cf['load'][3]:.3f} ms, none failed")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ov = serve["overload"]
@@ -4834,7 +5196,7 @@ def main() -> int:
         f"{ov['launches']}, persist {persist['launches']}, the spawn pool's parent "
         f"{spawn['launches']}, the opt-in pool (parent and worker) "
         f"{spawn['accel_launches']}, durable's three boots {durable['launches']}, the "
-        f"[cli] server {cn['launches']}; B2 "
+        f"[cli] server {cn['launches']}, the [config] server {cf['launches']}; B2 "
         f"launches: main:packed with its batcher drives {b2['launches']}")
     say(f"[numbers] [device] drill launches, not in the kernels line: B1 "
         f"{dv['launches']}, B2 {b2['drill_launches']}")
@@ -4845,7 +5207,7 @@ def main() -> int:
                        + serve["cache_launches"] + ov["launches"]
                        + persist["launches"] + spawn["launches"]
                        + spawn["accel_launches"] + durable["launches"]
-                       + cn["launches"])
+                       + cn["launches"] + cf["launches"])
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -19,15 +19,28 @@ process, every one bound to the same fixed public and gRPC ports with
 connections over the processes; the HTTP/2 pipe reaches whichever
 process's gRPC listener the kernel picks, and any replica may answer.
 
+With an ``ssl_context`` (``serve.<plane>.tls``) the public port is the TLS
+terminator for both protocols, as the reference's mux is: the handshake
+runs on the connection's own thread (a client that stalls its handshake
+holds that thread alone, never the accept loop), the sniff reads the
+decrypted opening bytes (a TLS socket cannot peek), and those bytes are
+replayed: into the pipe to the gRPC backend, or ahead of the REST handler's
+``rfile``. The loopback gRPC backend stays plaintext. ``expose_backends``
+(``serve.<plane>.expose_backend_ports``) binds the gRPC backend on the
+public host instead of loopback, for protocol-aware balancers; never under
+TLS, which that would bypass.
+
 The gRPC server is any object with ``add_insecure_port``, ``start`` and
 ``stop`` (``api/grpc_servers.py`` builds them); this module imports no
-grpc. TLS on the public port is not ported.
+grpc.
 """
 
 from __future__ import annotations
 
+import io
 import select
 import socket
+import ssl
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -46,6 +59,15 @@ class _Handler(BaseHTTPRequestHandler):
     disable_nagle_algorithm = True
     router: Router  # set on the per-server subclass
 
+    def setup(self) -> None:
+        super().setup()
+        head = getattr(self.request, "_keto_head", b"")
+        if head:
+            # the bytes the TLS sniff consumed come first; the stock reader
+            # is closed so it holds no reference that defers the close
+            self.rfile.close()
+            self.rfile = io.BufferedReader(_Replay(head, self.connection))
+
     def _serve(self) -> None:
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length > 0 else b""
@@ -61,10 +83,53 @@ class _Handler(BaseHTTPRequestHandler):
         if resp.status != 204:
             self.wfile.write(resp.body)
 
-    do_GET = do_POST = do_PUT = do_DELETE = do_PATCH = _serve
+    do_GET = do_POST = do_PUT = do_DELETE = do_PATCH = do_OPTIONS = _serve
 
     def log_message(self, format, *args) -> None:
         pass  # request logging is not ported yet (ROADMAP 14.5)
+
+
+class _Replay(io.RawIOBase):
+    """A connection's bytes with ``head`` put back in front."""
+
+    def __init__(self, head: bytes, conn):
+        self._head = head
+        self._conn = conn
+
+    def readable(self) -> bool:
+        return True
+
+    def readinto(self, buf) -> int:
+        if self._head:
+            n = min(len(buf), len(self._head))
+            buf[:n] = self._head[:n]
+            self._head = self._head[n:]
+            return n
+        return self._conn.recv_into(buf)
+
+
+def _tls_accept(conn: socket.socket, context: ssl.SSLContext):
+    """The server side of the handshake, then the decrypted opening bytes
+    (up to four, fewer when they cannot open an HTTP/2 preface): (the TLS
+    socket, head), or None when the handshake or the read fails."""
+    try:
+        tls = context.wrap_socket(conn, server_side=True, do_handshake_on_connect=False)
+    except (OSError, ValueError):
+        return None
+    try:
+        tls.settimeout(_PEEK_TIMEOUT_S)
+        tls.do_handshake()
+        head = b""
+        while len(head) < 4 and _H2_PREFACE_HEAD.startswith(head):
+            chunk = tls.recv(4 - len(head))
+            if not chunk:
+                break
+            head += chunk
+        tls.settimeout(None)
+    except (OSError, ValueError):
+        tls.close()
+        return None
+    return tls, head
 
 
 def _opens_http2(conn: socket.socket) -> bool:
@@ -83,29 +148,44 @@ def _opens_http2(conn: socket.socket) -> bool:
     return head == _H2_PREFACE_HEAD
 
 
-def _pipe(client: socket.socket, backend_port: int) -> None:
+def _pipe(client: socket.socket, backend_port: int, head: bytes = b"") -> None:
     """Relay one connection to the loopback backend until both directions
-    have closed; a half-close on one side is passed on to the other."""
+    have closed; a half-close on one side is passed on to the other. ``head``
+    (bytes already read from the client) goes to the backend first. A TLS
+    client cannot be half-closed without losing its session, so the
+    backend's close ends a TLS relay."""
     try:
         backend = socket.create_connection(("127.0.0.1", backend_port))
     except OSError:
         return
+    tls = isinstance(client, ssl.SSLSocket)
     by_fd = {client.fileno(): (client, backend), backend.fileno(): (backend, client)}
     poller = select.poll()  # not select(): descriptors may pass FD_SETSIZE
     for fd in by_fd:
         poller.register(fd, select.POLLIN)
     live = len(by_fd)
     try:
+        if tls and client.pending():
+            # the rest of the record the sniff read from: poll cannot see it
+            head += client.recv(client.pending())
+        if head:
+            backend.sendall(head)
         while live:
             for fd, _ in poller.poll():
                 src, dst = by_fd[fd]
                 try:
                     chunk = src.recv(65536)
+                    # a TLS record decrypted past the read stays buffered
+                    # where poll cannot see it
+                    while src is client and tls and client.pending():
+                        chunk += client.recv(client.pending())
                 except OSError:
                     chunk = b""
                 if chunk:
                     dst.sendall(chunk)
                     continue
+                if tls and src is backend:
+                    return
                 poller.unregister(fd)
                 live -= 1
                 try:
@@ -125,13 +205,32 @@ class _Server(ThreadingHTTPServer):
     # burst of concurrent clients, which then retry after a second
     request_queue_size = 1024
     grpc_port = 0  # the loopback gRPC backend; 0 = REST only
+    ssl_context: Optional[ssl.SSLContext] = None
 
     def finish_request(self, request, client_address) -> None:
         # runs on the connection's own thread
-        if self.grpc_port and _opens_http2(request):
+        if self.ssl_context is not None:
+            self._finish_tls(request, client_address)
+        elif self.grpc_port and _opens_http2(request):
             _pipe(request, self.grpc_port)
-            return
-        super().finish_request(request, client_address)
+        else:
+            super().finish_request(request, client_address)
+
+    def _finish_tls(self, request, client_address) -> None:
+        accepted = _tls_accept(request, self.ssl_context)
+        if accepted is None:
+            return  # a failed handshake (plaintext to a TLS port) ends here
+        tls, head = accepted
+        try:
+            if not head:
+                return
+            if self.grpc_port and head == _H2_PREFACE_HEAD:
+                _pipe(tls, self.grpc_port, head)
+                return
+            tls._keto_head = head
+            super().finish_request(tls, client_address)
+        finally:
+            tls.close()
 
 
 class _ReusePortServer(_Server):
@@ -150,10 +249,14 @@ class PlaneServer:
         grpc_server=None,
         grpc_port: int = 0,
         reuse_port: bool = False,
+        ssl_context: Optional[ssl.SSLContext] = None,
+        expose_backends: bool = False,
     ):
         self.router = router
         self.host = host
         self.port = port
+        self.ssl_context = ssl_context
+        self.expose_backends = expose_backends
         self.grpc_server = grpc_server
         # the direct (loopback) gRPC port: fixed for a replica pool, else
         # bound free at start
@@ -164,10 +267,17 @@ class PlaneServer:
 
     def start(self) -> int:
         if self.grpc_server is not None:
+            # the plaintext backend stays on loopback unless exposed, and is
+            # never exposed under TLS
+            backend_host = (
+                self.host or "0.0.0.0"
+                if self.expose_backends and self.ssl_context is None
+                else "127.0.0.1"
+            )
             # grpcio sets SO_REUSEPORT on its listeners by default, so a
             # fixed port is all a replica needs to share it
             self.grpc_port = self.grpc_server.add_insecure_port(
-                f"127.0.0.1:{self.grpc_port}"
+                f"{backend_host}:{self.grpc_port}"
             )
             if self.grpc_port == 0:
                 raise OSError("gRPC backend port bind failed")
@@ -176,6 +286,7 @@ class PlaneServer:
         server_cls = _ReusePortServer if self.reuse_port else _Server
         self._server = server_cls((self.host, self.port), handler)
         self._server.grpc_port = self.grpc_port
+        self._server.ssl_context = self.ssl_context
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever,

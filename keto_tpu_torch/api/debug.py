@@ -172,8 +172,9 @@ class DebugAPI:
         payload = {"config": None, "flag_overrides": None}
         if cfg is not None:
             payload["config"] = redact_config(getattr(cfg, "_data", None))
-            # flag overrides arrive with the CLI's config flags (ROADMAP 14.4)
-            payload["flag_overrides"] = {}
+            payload["flag_overrides"] = redact_config(
+                dict(getattr(cfg, "_overrides", {}) or {})
+            )
             payload["config_file"] = getattr(cfg, "config_file", None)
         return _json(payload)
 

@@ -48,9 +48,17 @@ a shed check is a 429 with ``Retry-After``.
 The ``/debug/*`` routes (``api/debug.py``) are registered on the read
 port by the registry, behind ``debug.enabled`` and ``debug.token``.
 
+CORS (``serve.<plane>.cors``, reference rs/cors options) wraps dispatch as
+the reference's middleware does: with ``enabled`` and an ``Origin`` header,
+an ``OPTIONS`` preflight (it carries ``Access-Control-Request-Method``) is
+answered 204 without reaching a route, and an allowed origin gets the
+``Access-Control-Allow-{Origin,Methods,Headers}`` headers on every answer,
+errors included; a disallowed origin gets none. Without an ``Origin``, or
+with CORS off, requests pass through untouched.
+
 Each request runs on its connection's thread, so concurrent single checks
 meet in the check batcher. Not ported yet, and so not registered: the
-metrics, replication and cluster routes, and CORS.
+metrics, replication and cluster routes.
 """
 
 from __future__ import annotations
@@ -134,6 +142,9 @@ class Response:
     body: bytes = b""
     content_type: str = "application/json"
     headers: dict = field(default_factory=dict)
+    # a 404 or 405 of the route table itself: the reference's router raises
+    # these past its CORS middleware, so they carry no CORS headers
+    unrouted: bool = False
 
 
 def json_response(doc, status: int = 200, headers: Optional[dict] = None) -> Response:
@@ -149,26 +160,63 @@ def json_error(err: KetoError) -> Response:
     return json_response(err.envelope(), err.status_code, headers)
 
 
+class Cors:
+    """The ``serve.<plane>.cors`` subtree with the reference's defaults
+    (``make_cors_middleware``: every origin, the five write-capable methods,
+    Authorization and Content-Type)."""
+
+    def __init__(self, cfg: Optional[dict] = None):
+        cfg = cfg or {}
+        self.enabled = bool(cfg.get("enabled", False))
+        self.allowed_origins = cfg.get("allowed_origins", ["*"])
+        self.allowed_methods = cfg.get(
+            "allowed_methods", ["GET", "POST", "PUT", "PATCH", "DELETE"]
+        )
+        self.allowed_headers = cfg.get(
+            "allowed_headers", ["Authorization", "Content-Type"]
+        )
+
+    def wrap(self, req: Request, handle) -> Response:
+        origin = req.headers.get("origin")
+        if not self.enabled or not origin:
+            return handle(req)
+        if req.method == "OPTIONS" and "access-control-request-method" in req.headers:
+            resp = Response(204)  # the preflight never reaches a route
+        else:
+            resp = handle(req)
+        if resp.unrouted:
+            return resp
+        if "*" in self.allowed_origins or origin in self.allowed_origins:
+            resp.headers["Access-Control-Allow-Origin"] = origin
+            resp.headers["Access-Control-Allow-Methods"] = ", ".join(self.allowed_methods)
+            resp.headers["Access-Control-Allow-Headers"] = ", ".join(self.allowed_headers)
+        return resp
+
+
 class Router:
     """(method, path) -> handler; dispatch maps errors to the wire exactly
-    as the reference's error middleware does."""
+    as the reference's error middleware does, inside the CORS wrap."""
 
-    def __init__(self):
+    def __init__(self, cors: Optional[dict] = None):
         self._routes: dict[tuple[str, str], Callable[[Request], Response]] = {}
+        self.cors = Cors(cors)
 
     def add(self, method: str, path: str, handler) -> None:
         self._routes[(method, path)] = handler
 
     def dispatch(self, req: Request) -> Response:
+        return self.cors.wrap(req, self._route)
+
+    def _route(self, req: Request) -> Response:
         handler = self._routes.get((req.method, req.path))
         if handler is None:
             allowed = sorted(m for m, p in self._routes if p == req.path)
             if allowed:
                 return Response(
                     405, b"405: Method Not Allowed", "text/plain",
-                    {"Allow": ",".join(allowed)},
+                    {"Allow": ",".join(allowed)}, unrouted=True,
                 )
-            return Response(404, b"404: Not Found", "text/plain")
+            return Response(404, b"404: Not Found", "text/plain", unrouted=True)
         try:
             return handler(req)
         except KetoError as e:
@@ -315,7 +363,7 @@ class ReadAPI:
         expand_engine=None,
         list_engine=None,
         version_waiter=None,
-        max_freshness_wait_s: float = 30.0,
+        max_freshness_wait_s=30.0,  # seconds, or a zero-argument callable
         encoded_front=None,
         default_criticality: str = "default",
     ):
@@ -357,7 +405,8 @@ class ReadAPI:
         freshness cap and the caller's deadline."""
         if self.version_waiter is None or min_version <= 0:
             return
-        timeout = self.max_freshness_wait_s
+        cap = self.max_freshness_wait_s
+        timeout = float(cap() if callable(cap) else cap)
         if deadline is not None:
             timeout = min(timeout, max(0.0, deadline - time.monotonic()))
         self.version_waiter(min_version, timeout_s=timeout)
@@ -662,18 +711,19 @@ def register_common(router: Router, version: str, healthy_fn=None) -> None:
 
 
 def build_read_router(
-    manager, checker, snaptoken_fn, version: str, healthy_fn=None, **read_kw
+    manager, checker, snaptoken_fn, version: str, healthy_fn=None,
+    cors: Optional[dict] = None, **read_kw,
 ):
     """The read plane's routes; ``read_kw`` goes to ReadAPI (the expand and
     list engines, the list routes' snaptoken gate)."""
-    router = Router()
+    router = Router(cors)
     ReadAPI(manager, checker, snaptoken_fn, **read_kw).register(router)
     register_common(router, version, healthy_fn)
     return router
 
 
-def build_write_router(manager, version: str, healthy_fn=None):
-    router = Router()
+def build_write_router(manager, version: str, healthy_fn=None, cors: Optional[dict] = None):
+    router = Router(cors)
     WriteAPI(manager).register(router)
     register_common(router, version, healthy_fn)
     return router

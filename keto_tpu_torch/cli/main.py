@@ -103,8 +103,9 @@ def serve(args) -> int:
     threads are not captured."""
     from ..driver import Config, Registry
 
-    values = {"serve": {"read": {"workers": args.workers}}} if args.workers > 0 else None
-    config = Config(values=values, config_file=args.config_file)
+    config = Config(config_file=args.config_file)
+    if args.workers > 0:
+        config.set_override("serve.read.workers", args.workers)
 
     def run() -> None:
         registry = Registry(config)

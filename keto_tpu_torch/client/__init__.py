@@ -27,7 +27,6 @@ import http.client
 import json
 import re
 import select
-import ssl
 import threading
 from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence
@@ -58,6 +57,7 @@ from ..utils.errors import (
     ErrUnavailable,
     KetoError,
 )
+from ..utils.urlfetch import ssl_context
 from .hedge import EndpointRouter, HedgePolicy, Hedger
 from .retry import RETRYABLE_HTTP_STATUS, RetryBudget, RetryPolicy, run_with_retry
 from .vocabcache import VocabCache, batch_check_encoded
@@ -222,18 +222,17 @@ class _Pool:
     def __init__(self, timeout: float, verify):
         self.timeout = timeout
         self.verify = verify
+        self._ssl = None  # built at the first https connection
         self._local = threading.local()
         self._all: list = []
         self._lock = threading.Lock()
 
     def _connect(self, scheme: str, host: str, port: int):
         if scheme == "https":
-            ctx = ssl.create_default_context()
-            if self.verify is False:
-                ctx.check_hostname = False
-                ctx.verify_mode = ssl.CERT_NONE
+            if self._ssl is None:
+                self._ssl = ssl_context(self.verify)
             return http.client.HTTPSConnection(host, port, timeout=self.timeout,
-                                               context=ctx)
+                                               context=self._ssl)
         return http.client.HTTPConnection(host, port, timeout=self.timeout)
 
     def _conn(self, key):
@@ -286,7 +285,9 @@ class _Pool:
 
 class RestClient:
     """The REST surface over ``http.client``. ``read_url``/``write_url``
-    like ``http://127.0.0.1:4466`` (no trailing slash needed)."""
+    like ``http://127.0.0.1:4466`` (no trailing slash needed), or
+    ``https://``; ``verify`` is httpx's: True (the system's CAs), False, a CA
+    bundle file or directory, or an ``ssl.SSLContext``."""
 
     def __init__(
         self,
@@ -505,8 +506,9 @@ class RestClient:
         raise ErrUnavailable("encoded batch check exhausted resyncs")
 
     def vocab_cache(self, **kw) -> VocabCache:
-        """A VocabCache over this client's read plane."""
+        """A VocabCache over this client's read plane, with its ``verify``."""
         kw.setdefault("timeout", self.timeout)
+        kw.setdefault("verify", self._http.verify)
         return VocabCache(self.read_url, **kw)
 
     def expand(self, subject_set: SubjectSet, max_depth: int = 0) -> Optional[Tree]:

@@ -53,10 +53,12 @@ class VocabCache:
     cache or serialize access externally."""
 
     def __init__(
-        self, read_url: str, timeout: float = 30.0, page_size: int = 200_000
+        self, read_url: str, timeout: float = 30.0, page_size: int = 200_000,
+        verify=True,  # httpx's: True, False, a CA path or an SSLContext
     ):
         self.read_url = read_url.rstrip("/")
         self.timeout = timeout
+        self.verify = verify
         self.page_size = int(page_size)
         self.lineage: str = ""
         self.epoch: int = 0
@@ -71,7 +73,8 @@ class VocabCache:
 
     def _get_json(self, path: str, params: dict) -> dict:
         status, raw, _ = fetch(
-            f"{self.read_url}{path}?{urlencode(params)}", timeout=self.timeout
+            f"{self.read_url}{path}?{urlencode(params)}", timeout=self.timeout,
+            verify=self.verify,
         )
         if status == 409:
             try:
@@ -181,11 +184,11 @@ class VocabCache:
         )
 
 
-def post_frame(read_url: str, frame: bytes, timeout: float = 30.0):
+def post_frame(read_url: str, frame: bytes, timeout: float = 30.0, verify=True):
     """POST one encoded frame to ``/check/batch-encoded``: (status, body)."""
     status, body, _ = fetch(
         f"{read_url.rstrip('/')}/check/batch-encoded", frame,
-        {"Content-Type": "application/octet-stream"}, timeout,
+        {"Content-Type": "application/octet-stream"}, timeout, verify=verify,
     )
     return status, body
 
@@ -203,7 +206,7 @@ def batch_check_encoded(
     ``RestClient.batch_check_encoded``."""
     from . import RestClient  # the client package imports this module
 
-    with RestClient(cache.read_url, timeout=cache.timeout) as client:
+    with RestClient(cache.read_url, timeout=cache.timeout, verify=cache.verify) as client:
         return client.batch_check_encoded(cache, tuples, max_resyncs=max_resyncs, **kw)
 
 

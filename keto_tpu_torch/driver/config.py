@@ -2,9 +2,11 @@
 
 The same key tree as the reference — ``dsn``, ``serve.read.{host,port,
 max-depth,max_freshness_wait_s,workers,wire_workers,list,encoded,
-grpc-max-message-size}``,
-``serve.write.{host,port,grpc-max-message-size}``, ``namespaces`` (an
-inline array of ``{id, name}``), the ``engine`` subtree,
+grpc-max-message-size,tls,cors,expose_backend_ports}``,
+``serve.write.{host,port,grpc-max-message-size,tls,cors,
+expose_backend_ports}``, ``log.{level,format}``, ``namespaces`` (an inline
+array of ``{id, name}``, or a string URI: ``file://``, a bare path, a
+directory, ``ws://``), the ``engine`` subtree,
 ``qos.{enabled,rate,burst,overrides}``, and the ``overload``, ``scrub`` and
 ``debug`` subtrees — from a JSON or TOML file (YAML where PyYAML is
 installed) merged with ``values``. Only the keys this package reads are
@@ -16,12 +18,28 @@ is validated and carried for the SLO freeze (ROADMAP 14.5), and
 ``scrub.digest_chunk_size`` for the scrubber's replica kind (14.6). The
 durable write plane's ``store.wal.{dir,sync,sync-interval-ms,segment-bytes}``
 and ``checkpoint.{dir,interval-versions,interval-s,keep}`` are closed
-objects too. Environment overrides, hot reload and
-namespace file watchers are not ported yet (ROADMAP 14.4).
+objects too.
+
+Lookup order, as in the reference: a flag override (``flag_overrides``,
+``set_override``, ``set_hot``), then ``KETO_<KEY>``, then the unprefixed
+``<KEY>`` in ``env`` (``os.environ`` unless given; ``serve.read.port`` ->
+``SERVE_READ_PORT``: dots and dashes to underscores, uppercased; the value
+parses as JSON, else stays a string, and is not validated), then the file
+and values, then the defaults.
+
+``reload()`` re-reads the file while serving (reference provider.go:58-104):
+``dsn`` and ``serve`` stay frozen at their boot values, except the
+``HOT_SERVE_KEYS`` carve-outs; a changed ``namespaces`` refreshes the
+namespace manager in place; a file that fails validation raises and leaves
+the previous config serving. ``HOT_ENGINE_KEYS`` are the knobs a live server
+re-applies (``driver/registry.py``); ``set_hot`` is their validated write
+path.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Optional
 
 from ..namespace.definitions import MemoryNamespaceManager, Namespace, NamespaceManager
@@ -52,6 +70,8 @@ DEFAULTS = {
     "serve.write.port": 4467,
     "serve.write.host": "",
     "serve.write.grpc-max-message-size": 64 << 20,
+    "log.level": "info",
+    "log.format": "text",
     "namespaces": [],
     "engine.mode": "closure",
     "engine.max_batch": 4096,
@@ -62,6 +82,7 @@ DEFAULTS = {
     "engine.strong_freshness_edges": 1 << 21,
     "engine.rebuild_debounce_ms": 50,
     "engine.sharding.enabled": False,
+    "engine.sharding.escalation_budget": 0.05,
     "engine.reverse_index": True,
     "engine.closure_builder": "auto",
     "engine.closure_block_workers": 0,
@@ -127,7 +148,21 @@ _ENGINE_MODES = [
 ]
 
 # dotted key -> (type, constraint): "enum" with its values, a minimum, or
-# ("exclusive", bound) for an exclusive minimum
+# ("exclusive", bound) for an exclusive minimum; "array" holds strings
+_PLANE_RULES: dict[str, tuple[str, Any]] = {
+    "tls": ("object", None),
+    "tls.cert": ("object", None),
+    "tls.cert.path": ("string", None),
+    "tls.key": ("object", None),
+    "tls.key.path": ("string", None),
+    "cors": ("object", None),
+    "cors.enabled": ("boolean", None),
+    "cors.allowed_origins": ("array", None),
+    "cors.allowed_methods": ("array", None),
+    "cors.allowed_headers": ("array", None),
+    "expose_backend_ports": ("boolean", None),
+}
+
 _RULES: dict[str, tuple[str, Any]] = {
     "dsn": ("string", None),
     "serve.read.port": ("integer", None),
@@ -142,6 +177,14 @@ _RULES: dict[str, tuple[str, Any]] = {
     "serve.write.port": ("integer", None),
     "serve.write.host": ("string", None),
     "serve.write.grpc-max-message-size": ("integer", 0),
+    **{
+        f"serve.{plane}.{key}": rule
+        for plane in ("read", "write")
+        for key, rule in _PLANE_RULES.items()
+    },
+    "log": ("object", None),
+    "log.level": ("enum", ["trace", "debug", "info", "warn", "error", "fatal"]),
+    "log.format": ("enum", ["json", "text"]),
     "engine.mode": ("enum", _ENGINE_MODES),
     "engine.max_batch": ("integer", 1),
     "engine.max_queue": ("integer", 0),
@@ -151,6 +194,7 @@ _RULES: dict[str, tuple[str, Any]] = {
     "engine.strong_freshness_edges": ("integer", 0),
     "engine.rebuild_debounce_ms": ("number", 0),
     "engine.sharding.enabled": ("boolean", None),
+    "engine.sharding.escalation_budget": ("number", 0),
     "engine.reverse_index": ("boolean", None),
     "engine.closure_builder": ("enum", ["auto", "matmul", "semiring"]),
     "engine.closure_block_workers": ("integer", 0),
@@ -212,7 +256,11 @@ _RULES: dict[str, tuple[str, Any]] = {
 }
 
 # upper bounds, checked after the lower ones (the reference's keyword order)
-_MAXIMA = {"overload.decrease": 1, "engine.memory.hbm_budget_frac": 1}
+_MAXIMA = {
+    "overload.decrease": 1,
+    "engine.memory.hbm_budget_frac": 1,
+    "engine.sharding.escalation_budget": 1,
+}
 
 # objects whose schema admits no other property
 _CLOSED = {
@@ -238,6 +286,8 @@ def _is_type(value: Any, kind: str) -> bool:
         return isinstance(value, bool)
     if kind == "object":
         return isinstance(value, dict)
+    if kind == "array":
+        return isinstance(value, list)
     if isinstance(value, bool):
         return False  # JSON Schema: a boolean is neither integer nor number
     if kind == "integer":
@@ -258,44 +308,51 @@ def _dig(data: dict, key: str) -> Any:
     return node
 
 
+def _violation(key: str, value: Any) -> Optional[tuple[str, str]]:
+    """The reference's jsonschema message and its path suffix for ``value``
+    under ``key``'s rule, or None when it passes."""
+    kind, rule = _RULES[key]
+    if kind == "enum":
+        return None if value in rule else (f"{value!r} is not one of {rule!r}", "")
+    if not _is_type(value, kind):
+        return f"{value!r} is not of type {kind!r}", ""
+    if kind == "array":
+        for i, item in enumerate(value):
+            if not isinstance(item, str):
+                return f"{item!r} is not of type 'string'", f"/{i}"
+        return None
+    if isinstance(rule, tuple):
+        if value <= rule[1]:
+            return f"{value!r} is less than or equal to the minimum of {rule[1]!r}", ""
+    elif rule is not None and value < rule:
+        return f"{value!r} is less than the minimum of {rule!r}", ""
+    if key in _MAXIMA and value > _MAXIMA[key]:
+        return f"{value!r} is greater than the maximum of {_MAXIMA[key]!r}", ""
+    return None
+
+
 def validate(data: dict) -> None:
     """Check the keys this package reads; raise ErrMalformedInput with the
     reference's jsonschema wording on the first violation."""
     if not isinstance(data, dict):
         raise _invalid(f"{data!r} is not of type 'object'", "")
-    for key, (kind, rule) in _RULES.items():
+    for key in _RULES:
         value = _dig(data, key)
         if value is _MISSING:
             continue
-        path = key.replace(".", "/")
-        if kind == "enum":
-            if value not in rule:
-                raise _invalid(f"{value!r} is not one of {rule!r}", path)
-            continue
-        if not _is_type(value, kind):
-            raise _invalid(f"{value!r} is not of type {kind!r}", path)
-        if isinstance(rule, tuple):
-            if value <= rule[1]:
-                raise _invalid(
-                    f"{value!r} is less than or equal to the minimum of {rule[1]!r}",
-                    path,
-                )
-        elif rule is not None and value < rule:
-            raise _invalid(f"{value!r} is less than the minimum of {rule!r}", path)
-        if key in _MAXIMA and value > _MAXIMA[key]:
-            raise _invalid(
-                f"{value!r} is greater than the maximum of {_MAXIMA[key]!r}", path
-            )
+        bad = _violation(key, value)
+        if bad is not None:
+            raise _invalid(bad[0], key.replace(".", "/") + bad[1])
     for key, allowed in _CLOSED.items():
         node = _dig(data, key)
         if isinstance(node, dict):
             _no_extra(node, allowed, key.replace(".", "/"))
     _validate_qos_overrides(_dig(data, "qos.overrides"))
     spec = data.get(KEY_NAMESPACES, _MISSING)
-    if spec is _MISSING:
-        return
+    if spec is _MISSING or isinstance(spec, str):
+        return  # a string is a file, directory or ws:// URI
     if not isinstance(spec, list):
-        raise _invalid(f"{spec!r} is not of type 'array'", "namespaces")
+        raise _invalid(f"{spec!r} is not valid under any of the given schemas", "namespaces")
     for i, ns in enumerate(spec):
         # the reference reports namespace errors relative to the array
         # (the failing branch of its oneOf), so the path starts at the index
@@ -354,11 +411,115 @@ def load_config_file(path: str) -> dict:
     return data
 
 
+def _flatten_env_key(key: str) -> str:
+    return key.replace(".", "_").replace("-", "_").upper()
+
+
+def _parse_env_value(raw: str) -> Any:
+    try:
+        return json.loads(raw)
+    except json.JSONDecodeError:
+        return raw
+
+
+# keys frozen after boot: a changed DSN or serve block on reload is ignored
+# with a warning (reference provider.go:70 immutable settings)
+IMMUTABLE_KEYS = ("dsn", "serve")
+
+# carve-outs from the frozen ``serve`` block: knobs safe to change on a live
+# server (no socket rebinds); reload() grafts their fresh values in
+HOT_SERVE_KEYS = ("serve.read.max_freshness_wait_s",)
+
+# the registered hot knobs: each may change on a live server (a file reload
+# or an operator's set_hot) and is re-applied through a component seam
+# (driver/registry.py's appliers). engine.sharding.escalation_budget has no
+# applier until the sharded tier exists (ROADMAP item 12)
+HOT_ENGINE_KEYS = (
+    "engine.pipeline_depth",
+    "engine.encode_workers",
+    "engine.encoded_cache_size",
+    "engine.expand_page_size",
+    "engine.sharding.escalation_budget",
+    "engine.memory.hbm_budget_frac",
+)
+HOT_KNOB_KEYS = HOT_SERVE_KEYS + HOT_ENGINE_KEYS
+
+
+def knob_schema(key: str) -> Optional[dict]:
+    """A key's rule as the reference's JSON-schema fragment (None when the
+    key has no rule)."""
+    if key not in _RULES:
+        return None
+    kind, rule = _RULES[key]
+    if kind == "enum":
+        return {"enum": list(rule)}
+    out: dict = {"type": kind}
+    if isinstance(rule, tuple):
+        out["exclusiveMinimum"] = rule[1]
+    elif rule is not None:
+        out["minimum"] = rule
+    if key in _MAXIMA:
+        out["maximum"] = _MAXIMA[key]
+    return out
+
+
+def validate_knob(key: str, value: Any) -> None:
+    """Validate one hot-knob value against its bounds before it is grafted
+    or applied anywhere: ErrMalformedInput for an unregistered key or an
+    out-of-range value, with the reference's messages."""
+    if key not in HOT_KNOB_KEYS:
+        raise ErrMalformedInput(
+            f"{key} is not a registered hot knob "
+            f"(HOT_KNOB_KEYS: {', '.join(HOT_KNOB_KEYS)})"
+        )
+    if key not in _RULES:
+        raise ErrMalformedInput(f"hot knob {key} has no schema entry")
+    bad = _violation(key, value)
+    if bad is not None:
+        raise ErrMalformedInput(f"invalid value for hot knob {key}: {bad[0]}")
+
+
+def _graft(data: dict, parts: list[str], value: Any) -> None:
+    """Set (or, for _MISSING, remove) one nested key, copying each dict on
+    the way: the boot subtree is shared and must not change."""
+    cur = data
+    for p in parts[:-1]:
+        nxt = cur.get(p)
+        nxt = dict(nxt) if isinstance(nxt, dict) else {}
+        cur[p] = nxt
+        cur = nxt
+    if value is _MISSING:
+        cur.pop(parts[-1], None)
+    else:
+        cur[parts[-1]] = value
+
+
+def _strip_hot(block: Any, prefix: str) -> Any:
+    """A top-level block without its HOT_SERVE_KEYS, for comparison: a serve
+    diff confined to hot knobs must not trip the immutability warning."""
+    if not isinstance(block, dict):
+        return block
+    out = json.loads(json.dumps(block))  # deep copy; config is plain JSON
+    for dotted in HOT_SERVE_KEYS:
+        top, _, rest = dotted.partition(".")
+        if top == prefix:
+            _graft(out, rest.split("."), _MISSING)
+    return out
+
+
+def _warn(message: str, **fields) -> None:
+    from ..telemetry.logging import get_logger
+
+    get_logger("config").warn(message, **fields)
+
+
 class Config:
     def __init__(
         self,
         values: Optional[dict] = None,
         config_file: Optional[str] = None,
+        env: Optional[dict] = None,
+        flag_overrides: Optional[dict[str, Any]] = None,
     ):
         data: dict = {}
         if config_file:
@@ -368,9 +529,101 @@ class Config:
         validate(data)
         self._data = data
         self.config_file = config_file
-        self._namespace_manager: Optional[NamespaceManager] = None
+        self._values = dict(values or {})
+        self._env = dict(env if env is not None else os.environ)
+        self._overrides: dict[str, Any] = dict(flag_overrides or {})
+        self._namespace_manager: Optional[_SwappableNamespaceManager] = None
+
+    def reload(self) -> list[str]:
+        """Re-read the config file; returns the sorted changed keys that
+        were APPLIED (top-level keys, and each HOT_SERVE_KEYS entry).
+        ``dsn`` and ``serve`` keep their boot values, with a warning; a
+        changed ``namespaces`` refreshes the namespace manager in place.
+        Raises ErrMalformedInput when the file fails validation, and the
+        previous config keeps serving."""
+        if not self.config_file:
+            return []
+        fresh = load_config_file(self.config_file)
+        if self._values:
+            fresh = _deep_merge(fresh, self._values)
+        validate(fresh)
+        old = self._data
+        applied = []
+        for key in set(old) | set(fresh):
+            if old.get(key) == fresh.get(key):
+                continue
+            if key in IMMUTABLE_KEYS:
+                if _strip_hot(old.get(key), key) != _strip_hot(fresh.get(key), key):
+                    # say so, or the operator believes the new DSN or ports
+                    # are live
+                    _warn(
+                        "config key is immutable after boot; keeping the boot "
+                        "value (restart to apply)",
+                        key=key,
+                    )
+                continue
+            applied.append(key)
+        merged = dict(fresh)
+        for key in IMMUTABLE_KEYS:
+            if key in old:
+                merged[key] = old[key]
+            else:
+                merged.pop(key, None)
+        # the hot carve-outs: graft each changed value into the frozen boot
+        # subtree, validated again as set_hot would
+        for dotted in HOT_SERVE_KEYS:
+            new_v = _dig(fresh, dotted)
+            if new_v == _dig(old, dotted):
+                continue
+            if new_v is not _MISSING:
+                try:
+                    validate_knob(dotted, new_v)
+                except ErrMalformedInput as e:
+                    _warn(
+                        "hot knob reload value rejected; keeping the previous "
+                        "value",
+                        key=dotted,
+                        error=str(e),
+                    )
+                    continue
+            _graft(merged, dotted.split("."), new_v)
+            applied.append(dotted)
+        self._data = merged
+        if "namespaces" in applied:
+            self._refresh_namespace_manager()
+        return sorted(applied)
+
+    def _refresh_namespace_manager(self) -> None:
+        wrapper = self._namespace_manager
+        if wrapper is None:
+            return  # nothing built yet: the first namespace_manager() reads fresh
+        from ..namespace.watcher import NamespaceWatcher, uri_to_path
+
+        inner = wrapper.inner
+        spec = self.get(KEY_NAMESPACES)
+        if isinstance(inner, MemoryNamespaceManager) and isinstance(spec, list):
+            inner.replace_all(_inline_namespaces(spec))
+        elif (
+            isinstance(inner, NamespaceWatcher)
+            and isinstance(spec, str)
+            and uri_to_path(spec) == inner.path
+        ):
+            pass  # the same URI: the watcher's own poll picks up content
+        else:
+            # an inline <-> URI flip, or a new URI: swap the wrapped manager;
+            # stores hold the stable wrapper, so they see the new set
+            if hasattr(inner, "close"):
+                inner.close()
+            wrapper.inner = self._build_namespace_manager()
 
     def get(self, key: str, default: Any = _UNSET) -> Any:
+        if key in self._overrides:
+            return self._overrides[key]
+        env_val = self._env.get("KETO_" + _flatten_env_key(key))
+        if env_val is None:
+            env_val = self._env.get(_flatten_env_key(key))
+        if env_val is not None:
+            return _parse_env_value(env_val)
         value = _dig(self._data, key)
         if value is not _MISSING:
             return value
@@ -380,8 +633,35 @@ class Config:
         return DEFAULTS.get(key)
 
     def is_set(self, key: str) -> bool:
-        """Whether the file or the values name ``key`` (a default does not)."""
-        return _dig(self._data, key) is not _MISSING
+        """Whether an override, the environment, the file or the values
+        name ``key`` (a default does not)."""
+        flat = _flatten_env_key(key)
+        return (
+            key in self._overrides
+            or "KETO_" + flat in self._env
+            or flat in self._env
+            or _dig(self._data, key) is not _MISSING
+        )
+
+    def set_override(self, key: str, value: Any) -> None:
+        self._overrides[key] = value
+
+    def file_value(self, key: str) -> Any:
+        """The file's (and values') value for ``key``, else its default,
+        ignoring the override layer: how the reload watcher tells an
+        operator's edit of a hot knob from a set_hot override."""
+        value = _dig(self._data, key)
+        return DEFAULTS.get(key) if value is _MISSING else value
+
+    def set_hot(self, key: str, value: Any) -> None:
+        """Validated live write to a registered hot knob: the value lands in
+        the override layer, so a later reload of other keys keeps it."""
+        validate_knob(key, value)
+        self._overrides[key] = value
+
+    def clear_hot(self, key: str) -> None:
+        """Drop a hot-knob override: the key returns to its file value."""
+        self._overrides.pop(key, None)
 
     # -- typed accessors (reference provider.go) ------------------------------
 
@@ -403,19 +683,57 @@ class Config:
     def read_api_max_depth(self) -> int:
         return int(self.get(KEY_READ_MAX_DEPTH))
 
+    def cors(self, plane: str) -> Optional[dict]:
+        return self.get(f"serve.{plane}.cors", default={}) or None
+
     def engine_mode(self) -> str:
         return self.get("engine.mode")
 
     def namespace_manager(self) -> NamespaceManager:
-        """The inline ``namespaces`` array as a memory manager."""
+        """An inline array -> a memory manager; a string URI -> a file or
+        directory watcher, or a ws:// watcher (reference provider.go:190-218).
+        Behind a stable wrapper, so a reload can swap the manager under the
+        stores that hold it."""
         if self._namespace_manager is None:
-            self._namespace_manager = MemoryNamespaceManager(
-                *(
-                    Namespace(name=n["name"], id=int(n.get("id", 0)))
-                    for n in self.get(KEY_NAMESPACES) or []
-                )
+            self._namespace_manager = _SwappableNamespaceManager(
+                self._build_namespace_manager()
             )
         return self._namespace_manager
+
+    def _build_namespace_manager(self) -> NamespaceManager:
+        spec = self.get(KEY_NAMESPACES)
+        if isinstance(spec, str):
+            from ..namespace.watcher import NamespaceWatcher, WsNamespaceWatcher
+
+            if spec.startswith("ws://"):
+                return WsNamespaceWatcher(spec)
+            return NamespaceWatcher(spec)
+        return MemoryNamespaceManager(*_inline_namespaces(spec or []))
+
+
+def _inline_namespaces(spec: list) -> list[Namespace]:
+    return [
+        Namespace(name=n["name"], id=int(n.get("id", 0)), config=n.get("config", {}) or {})
+        for n in spec
+    ]
+
+
+class _SwappableNamespaceManager(NamespaceManager):
+    """Stable handle over a replaceable NamespaceManager: a reload swaps
+    ``inner``; stores and engines keep this wrapper."""
+
+    def __init__(self, inner: NamespaceManager):
+        self.inner = inner
+
+    def get_namespace_by_name(self, name: str) -> Namespace:
+        return self.inner.get_namespace_by_name(name)
+
+    def namespaces(self) -> list[Namespace]:
+        return self.inner.namespaces()
+
+    def close(self) -> None:
+        if hasattr(self.inner, "close"):
+            self.inner.close()
 
 
 def _deep_merge(base: dict, extra: dict) -> dict:

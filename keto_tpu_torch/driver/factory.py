@@ -1,11 +1,12 @@
 """Registry factories (counterpart of ``keto_tpu/driver/factory.py``;
 reference internal/driver/registry_factory.go).
 
-``new_registry`` builds a Registry from a config file with flag overrides;
-the ``*_test_registry`` constructors build pre-wired registries on
-ephemeral stores with quiet logging and free loopback ports, for tests and
-embedding. Overrides are dotted keys (``serve.read.workers=3``), as the
-reference's ``set_override`` takes them. ``device`` passes through to the
+``new_registry`` builds a Registry from a config file with flag overrides
+(the config's override layer, above the environment and the file); the
+``*_test_registry`` constructors build pre-wired registries on ephemeral
+stores with quiet logging and free loopback ports, for tests and embedding,
+with no environment. Overrides are dotted keys (``serve.read.workers=3``),
+as ``Config.set_override`` takes them. ``device`` passes through to the
 Registry: the CUDA card unless the caller asks for the CPU.
 """
 
@@ -17,27 +18,14 @@ from .config import Config, _deep_merge
 from .registry import Registry
 
 
-def _nested(overrides: Optional[dict[str, Any]]) -> dict:
-    """``{"a.b": v}`` -> ``{"a": {"b": v}}``."""
-    out: dict = {}
-    for key, value in (overrides or {}).items():
-        node = out
-        *parents, leaf = key.split(".")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-    return out
-
-
 def new_registry(
     config_file: Optional[str] = None,
     flag_overrides: Optional[dict[str, Any]] = None,
     device=None,
 ) -> Registry:
-    """The production constructor: file + flag overrides, validated."""
+    """The production constructor: file + env + flag overrides, validated."""
     return Registry(
-        Config(values=_nested(flag_overrides) or None, config_file=config_file),
-        device=device,
+        Config(config_file=config_file, flag_overrides=flag_overrides), device=device
     )
 
 
@@ -51,8 +39,9 @@ def _test_config(values: Optional[dict] = None, **overrides) -> Config:
         },
         "log": {"level": "error"},
     }
-    merged = _deep_merge(_deep_merge(base, values or {}), _nested(overrides))
-    return Config(values=merged)
+    return Config(
+        values=_deep_merge(base, values or {}), env={}, flag_overrides=overrides
+    )
 
 
 def _namespaces(values: Optional[dict], namespaces: tuple[str, ...]) -> dict:

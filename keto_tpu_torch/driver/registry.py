@@ -41,6 +41,20 @@ engine's background rebuild share one ``HbmAdmission``
 port serves ``/debug`` (``api/debug.py``, ``debug.*``). The breaker drives
 readiness: REST ``/health/ready`` and, with gRPC, the health service.
 
+Config and the public port: ``start_all`` applies ``log.level`` and
+``log.format`` (``telemetry/logging.py``), serves each plane's port with TLS
+when ``serve.<plane>.tls.{cert,key}.path`` are set (``_ssl_context``, ALPN
+``h2`` and ``http/1.1``) and CORS from ``serve.<plane>.cors``, and, with a
+config file, starts the config watcher (``_start_config_watcher``): a
+changed file reloads (``Config.reload``); a reload of ``log`` re-applies
+it, an edited hot engine knob reaches its live component through
+``_hot_knob_appliers`` (the batcher's ``reconfigure``, the encoded cache's
+``resize``, HBM admission's ``set_budget_frac``, the expand and list page
+size), ``scrub.enabled`` turned on starts the scrubber, and
+``overload.enabled`` is read per decision (a live kill switch).
+``serve.read.max_freshness_wait_s`` is read per wait. Reloads of
+``tracing`` and ``autotune`` wait for ROADMAP 14.5 and 14.7.
+
 ``serve.read.wire_workers`` W > 1 (while ``serve.read.encoded`` is on)
 makes the pool max(N, W) processes whose encoded routes funnel into this
 process's one batcher over a shared-memory ring (``engine/shmring.py``):
@@ -55,6 +69,7 @@ from __future__ import annotations
 
 import gc
 import logging
+import os
 import threading
 import time
 from typing import Optional
@@ -83,6 +98,8 @@ _GRPC_SIZE_KEYS = (
 )
 
 _log = logging.getLogger("keto_tpu_torch")
+
+_CONFIG_POLL_S = 1.0  # the config watcher's mtime poll
 
 # how long start_all waits for transient threads (a closure rebuild, the
 # overlay's groupings warm) to end before forking read replicas, and how
@@ -463,6 +480,8 @@ class Registry:
         self._grpc_api = None
         self.grpc_off_reason = ""
         self._health = None
+        self._config_watcher: Optional[threading.Thread] = None
+        self._config_watch_stop = threading.Event()
 
     # -- providers -------------------------------------------------------------
 
@@ -639,9 +658,7 @@ class Registry:
                         engine,
                         max_batch=max_batch,
                         max_queue=int(cfg.get("engine.max_queue")),
-                        max_freshness_wait_s=float(
-                            cfg.get("serve.read.max_freshness_wait_s")
-                        ),
+                        max_freshness_wait_s=self._freshness_cap_s,
                         cache=(
                             CheckResultCache(cache_size) if cache_size > 0 else None
                         ),
@@ -654,6 +671,52 @@ class Registry:
                         hbm=self.hbm_admission(),
                     )
             return self._checker
+
+    def _freshness_cap_s(self) -> float:
+        """The live freshness-wait cap, handed as a callable to the batcher
+        and the servers: serve.read.max_freshness_wait_s is hot-reloadable."""
+        return float(self.config.get("serve.read.max_freshness_wait_s"))
+
+    def _hot_knob_appliers(self) -> dict:
+        """Key -> the callable that installs a new value of a registered hot
+        engine knob (config.HOT_ENGINE_KEYS) on the live component. Rebuilt
+        per call, so components built late are picked up; a key whose
+        component does not exist in this serving mode is absent
+        (engine.sharding.escalation_budget until the sharded tier exists,
+        ROADMAP item 12)."""
+        out: dict = {}
+        batcher = self._checker
+        if isinstance(batcher, CheckBatcher):
+            out["engine.pipeline_depth"] = lambda v: batcher.reconfigure(
+                pipeline_depth=int(v)
+            )
+            out["engine.encode_workers"] = lambda v: batcher.reconfigure(
+                encode_workers=int(v)
+            )
+            if batcher.encoded_cache is not None:
+                out["engine.encoded_cache_size"] = (
+                    lambda v: batcher.encoded_cache.resize(int(v))
+                )
+        hbm = self._hbm_admission
+        if hbm is not None:
+            out["engine.memory.hbm_budget_frac"] = lambda v: hbm.set_budget_frac(float(v))
+
+        def _apply_page_size(v):
+            for e in (self._expand_engine, self._list_engine):
+                if e is not None and hasattr(e, "default_page_size"):
+                    e.default_page_size = int(v)
+
+        out["engine.expand_page_size"] = _apply_page_size
+        return out
+
+    def _apply_hot_knob(self, key: str, value) -> None:
+        """A validated write to a hot knob: the config's override first (so
+        /debug/config and a restart agree with the live component), then
+        the component's seam."""
+        self.config.set_hot(key, value)
+        fn = self._hot_knob_appliers().get(key)
+        if fn is not None:
+            fn(value)
 
     def _wrap_breaker(self, engine):
         from ..engine.fallback import DeviceFallbackEngine
@@ -893,8 +956,9 @@ class Registry:
         """The overload-control plane (engine/overload.py): the AIMD limit
         and CoDel discipline at the batcher's admission, the criticality
         brownout ladder and the accepts/requests throttle. None unless
-        overload.enabled (the reference's live kill switch waits for hot
-        reload, ROADMAP 14.4)."""
+        overload.enabled; the controller re-reads overload.enabled per
+        decision, so turning it off in a reloaded file makes it admit
+        everything (a live kill switch)."""
         with self._lock:
             if self._overload is None and bool(self.config.get("overload.enabled")):
                 from ..engine.overload import (
@@ -934,6 +998,7 @@ class Registry:
                     limiter=limiter,
                     brownout=brownout,
                     throttle=throttle,
+                    enabled_fn=lambda: bool(self.config.get("overload.enabled")),
                 )
             return self._overload
 
@@ -982,9 +1047,7 @@ class Registry:
                 self.snapshots(), self.checker(), validate=False
             )
         req = wirecodec.decode_check_request(frame)
-        allowed = front.check(
-            req, timeout=float(self.config.get("serve.read.max_freshness_wait_s"))
-        )
+        allowed = front.check(req, timeout=self._freshness_cap_s())
         return wirecodec.encode_check_response(allowed, self.read_snaptoken())
 
     def expand_engine(self):
@@ -1141,10 +1204,9 @@ class Registry:
                     version_waiter=getattr(
                         self.check_engine(), "wait_for_version", None
                     ),
-                    max_freshness_wait_s=float(
-                        self.config.get("serve.read.max_freshness_wait_s")
-                    ),
+                    max_freshness_wait_s=self._freshness_cap_s,
                     default_criticality=self.default_criticality(),
+                    cors=self.config.cors("read"),
                 )
                 from ..api.debug import DebugAPI
 
@@ -1163,9 +1225,7 @@ class Registry:
                         max_message_bytes=int(
                             self.config.get("serve.read.grpc-max-message-size")
                         ),
-                        max_freshness_wait_s=float(
-                            self.config.get("serve.read.max_freshness_wait_s")
-                        ),
+                        max_freshness_wait_s=self._freshness_cap_s,
                         encoded_front=self.encoded_front(),
                         list_engine=self.list_engine(),
                         list_version_waiter=getattr(
@@ -1178,6 +1238,10 @@ class Registry:
                     router, self.config.read_api_host(),
                     read_port or self.config.read_api_port(), grpc_server,
                     grpc_port=grpc_port, reuse_port=read_port != 0,
+                    ssl_context=self._ssl_context("read"),
+                    expose_backends=bool(
+                        self.config.get("serve.read.expose_backend_ports", default=False)
+                    ),
                 )
             return self._read_plane
 
@@ -1193,7 +1257,8 @@ class Registry:
         with self._lock:
             if self._write_plane is None:
                 router = build_write_router(
-                    self.store(), self.version, healthy_fn=self.is_serving
+                    self.store(), self.version, healthy_fn=self.is_serving,
+                    cors=self.config.cors("write"),
                 )
                 api = self._grpc()
                 grpc_server = None
@@ -1210,14 +1275,31 @@ class Registry:
                 self._write_plane = PlaneServer(
                     router, self.config.write_api_host(),
                     self.config.write_api_port(), grpc_server,
+                    ssl_context=self._ssl_context("write"),
+                    expose_backends=bool(
+                        self.config.get("serve.write.expose_backend_ports", default=False)
+                    ),
                 )
             return self._write_plane
+
+    def _ssl_context(self, plane: str):
+        """TLS termination at the plane's public port when
+        serve.<plane>.tls.{cert,key}.path are set; ALPN offers h2 (gRPC
+        clients require it) and http/1.1."""
+        cert = self.config.get(f"serve.{plane}.tls.cert.path", default=None)
+        key = self.config.get(f"serve.{plane}.tls.key.path", default=None)
+        if not cert or not key:
+            return None
+        import ssl
+
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(cert, key)
+        ctx.set_alpn_protocols(["h2", "http/1.1"])
+        return ctx
 
     def _grpc_workers(self) -> int:
         # every in-flight check holds a worker: size the pool so a batch
         # can fill, capped (as the reference)
-        import os
-
         cap = max(64, 32 * (os.cpu_count() or 1))
         return min(int(self.config.get("engine.max_batch")), cap, 512)
 
@@ -1229,6 +1311,7 @@ class Registry:
         instead: each builds its own residency from the database, so their
         boots overlap this process's (the reference spawns them after its
         warmup)."""
+        self.apply_log_config()
         store = self.store()  # a SQL store's migrations run here, before any worker
         spawned = not getattr(store, "process_private", False)
         if spawned:
@@ -1261,8 +1344,99 @@ class Registry:
         if bool(self.config.get("scrub.enabled")):
             # the scrubber's thread, after the fork like every thread
             self.scrubber().start()
+        self._start_config_watcher()
         self.mark_serving()
         return read_port, write_port
+
+    def apply_log_config(self) -> None:
+        """log.level and log.format onto the package logger."""
+        from ..telemetry.logging import configure_logging
+
+        configure_logging(
+            level=str(self.config.get("log.level")),
+            format=str(self.config.get("log.format")),
+        )
+
+    def _start_config_watcher(self, poll_interval_s: float = _CONFIG_POLL_S) -> None:
+        """Hot-reload the config FILE while serving (reference
+        provider.go:58-104): a changed mtime reloads; a file that fails
+        validation is logged and the previous config keeps serving."""
+        if not self.config.config_file or self._config_watcher is not None:
+            return
+        self._config_watch_stop = threading.Event()
+        self._config_watcher = threading.Thread(
+            target=self._watch_config,
+            args=(self.config.config_file, poll_interval_s, self._config_watch_stop),
+            name="config-watcher",
+            daemon=True,
+        )
+        self._config_watcher.start()
+
+    def _watch_config(self, path: str, poll_interval_s: float, stop) -> None:
+        from ..telemetry.logging import get_logger
+        from .config import HOT_ENGINE_KEYS
+
+        log = get_logger("server")
+        try:
+            last = os.stat(path).st_mtime
+        except OSError:
+            last = 0.0
+        # the hot engine knobs' file values at boot: a reload applies a knob
+        # only when the operator edited it, never over a set_hot value on a
+        # mere touch of the file
+        knob_file = {k: self.config.file_value(k) for k in HOT_ENGINE_KEYS}
+        while not stop.wait(poll_interval_s):
+            try:
+                mtime = os.stat(path).st_mtime
+            except OSError:
+                continue
+            if mtime == last:
+                continue
+            last = mtime
+            try:
+                applied = self.config.reload()
+            except Exception as e:
+                log.warn("config reload failed; keeping previous config", error=str(e))
+                continue
+            if not applied:
+                continue
+            log.info("config reloaded", changed=applied)
+            if "log" in applied:
+                self.apply_log_config()
+            if "engine" in applied:
+                self._reload_hot_knobs(knob_file, log)
+            if "scrub" in applied and bool(self.config.get("scrub.enabled")):
+                # turned on after boot: build and start it now (turned off,
+                # its own cycle sees enabled_fn false)
+                try:
+                    self.scrubber().start()
+                except Exception as e:
+                    log.warn("scrubber start failed", error=str(e))
+            # overload.enabled needs no step: the controller reads it per
+            # decision. tracing and autotune reloads wait for ROADMAP 14.5
+            # and 14.7
+
+    def _reload_hot_knobs(self, knob_file: dict, log) -> None:
+        """Each hot engine knob the file edit changed, through the same
+        appliers set_hot's path uses; the operator's edit outranks (and
+        drops) a set_hot override."""
+        from .config import HOT_ENGINE_KEYS
+
+        appliers = self._hot_knob_appliers()
+        for key in HOT_ENGINE_KEYS:
+            new_v = self.config.file_value(key)
+            if new_v == knob_file.get(key):
+                continue
+            knob_file[key] = new_v
+            self.config.clear_hot(key)
+            fn = appliers.get(key)
+            if fn is None:
+                continue
+            try:
+                fn(new_v)
+                log.info("hot knob reloaded", key=key, value=new_v)
+            except Exception as e:
+                log.warn("hot knob reload apply failed", key=key, error=str(e))
 
     def _prime_recovered_csr(self, store) -> None:
         """Install the CSR arrays a checkpoint carried into the boot
@@ -1450,6 +1624,10 @@ class Registry:
             self._wire_ring = None
         if self._scrubber is not None:
             self._scrubber.stop()
+        if self._config_watcher is not None:
+            self._config_watch_stop.set()
+            self._config_watcher.join(timeout=5)
+            self._config_watcher = None
         if self._read_plane is not None:
             self._read_plane.stop()
         if self._write_plane is not None:
@@ -1464,3 +1642,7 @@ class Registry:
             self._store.close_durable()
         if self._snapshots is not None:
             self._snapshots.close()
+        if self._namespace_manager is not None and hasattr(
+            self._namespace_manager, "close"
+        ):
+            self._namespace_manager.close()  # a watcher's thread

@@ -31,8 +31,16 @@ raises; nothing catches that into another path.
 Fork discipline: the fork happens before the parent creates any gRPC
 server, check batcher or plane thread, at a quiesced moment (warmup done,
 no in-flight writes); ``_enforce_fork_inventory`` refuses to fork with any
-other live Python thread. Bulk store loads after the pool starts are not
-supported (the delta stream cannot describe them).
+other live Python thread (the namespace watchers and the config watcher are
+admitted). Bulk store loads after the pool starts are not supported (the
+delta stream cannot describe them).
+
+Config: a serving replica re-arms a watched namespace source (a file, a
+directory or ``ws://``; ``restart_after_fork``), so every process sees a
+namespace added after the fork. The config file is watched by the parent
+alone, as in the reference: a reloaded hot knob (``engine.pipeline_depth``
+and the rest) reaches the parent's batcher only, and each replica keeps the
+knobs it was forked with.
 
 Self-healing:
 
@@ -167,6 +175,14 @@ def _reset_inherited_locks(registry, serving: bool = True) -> None:
         if serving:
             # the parent's warm thread (if any) did not survive the fork
             ov.warm_groupings_async()
+    if not serving:
+        return
+    # a namespace watcher lost its poll or reader thread at the fork: re-arm
+    # it, so the replica keeps tracking namespace changes (the config file
+    # itself is watched by the parent alone)
+    inner = getattr(registry.config._namespace_manager, "inner", None)
+    if inner is not None and hasattr(inner, "restart_after_fork"):
+        inner.restart_after_fork()
 
 
 class _Link:
@@ -186,13 +202,22 @@ class _Link:
 class ReplicaPool:
     """Forks `n_replicas - 1` children (the parent serves as replica 0)."""
 
-    # Python threads a quiesced serve boot may have alive at fork time. Any
-    # other thread is a liveness hazard for the children (a thread inside a
-    # critical section is cloned holding its lock) and refuses the fork: the
-    # check batcher's dispatcher and encode workers, the overlay's groupings
-    # warm, the closure rebuild worker, the plane and gRPC threads all must
-    # not exist yet. The store's notifier has no thread.
-    FORK_SAFE_THREADS = ("MainThread", "pydev")
+    # Python threads a quiesced serve boot may have alive at fork time: the
+    # namespace watchers and the config watcher are permanent loops whose
+    # locks a serving replica re-arms after the fork (a watched namespace
+    # directory must not cost the pool). Any other thread is a liveness
+    # hazard for the children (a thread inside a critical section is cloned
+    # holding its lock) and refuses the fork: the check batcher's dispatcher
+    # and encode workers, the overlay's groupings warm, the closure rebuild
+    # worker, the plane and gRPC threads all must not exist yet. The store's
+    # notifier has no thread.
+    FORK_SAFE_THREADS = (
+        "MainThread",
+        "pydev",
+        "namespace-watcher",
+        "namespace-ws-watcher",
+        "config-watcher",
+    )
 
     # a replica that cannot drain its delta socket within this budget is
     # killed: the write path must never block on a sick reader

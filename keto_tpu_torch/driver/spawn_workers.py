@@ -59,6 +59,18 @@ def worker_values(registry, allow_accel: bool) -> dict:
     return values
 
 
+def worker_overrides(registry, allow_accel: bool) -> dict:
+    """The worker's flag overrides: the parent's, with the same pins. An
+    override outranks the environment the worker inherits, so a
+    ``KETO_SERVE_READ_WORKERS`` there cannot make a worker spawn a pool of
+    its own."""
+    overrides = dict(registry.config._overrides)
+    overrides["serve.read.workers"] = 1
+    if not allow_accel:
+        overrides["engine.query_mode"] = "host"
+    return overrides
+
+
 class SpawnWorkerPool:
     """Spawns ``n_workers - 1`` fresh worker processes (parent is worker 0)."""
 
@@ -73,9 +85,12 @@ class SpawnWorkerPool:
         allow_accel = os.environ.get("KETO_WORKER_ALLOW_ACCEL") == "1"
         spec = {
             "config": worker_values(self.registry, allow_accel),
+            "overrides": worker_overrides(self.registry, allow_accel),
             "device": str(self.registry.device),
             "ports": [read_port, grpc_port],
         }
+        # the parent's environment, KETO_* settings included, reaches the
+        # worker's config as it reached the parent's
         env = dict(os.environ)
         env["KETO_WORKER_SPEC"] = json.dumps(spec)
         # the worker imports this very package, wherever the parent runs from

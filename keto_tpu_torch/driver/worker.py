@@ -2,8 +2,9 @@
 (counterpart of ``keto_tpu/driver/worker.py``).
 
 Reads the JSON spec from ``KETO_WORKER_SPEC`` (written by
-``spawn_workers.SpawnWorkerPool``: the config values, the parent's device
-and the pool's shared ports), builds its own registry — its own database
+``spawn_workers.SpawnWorkerPool``: the config values, the parent's flag
+overrides with the worker's pins, the parent's device and the pool's shared
+ports), builds its own registry over the environment it inherited — its own database
 connection, its own snapshot and engine residency — warms the engine up,
 and serves the read plane on the pool's SO_REUSEPORT ports. Freshness comes
 from the engine's own ``store.version`` checks against the shared database;
@@ -40,7 +41,9 @@ def main() -> int:
     from .spawn_workers import READY_PREFIX
 
     try:
-        reg = Registry(Config(values=spec["config"]), device=spec["device"])
+        cfg = Config(values=spec["config"], flag_overrides=spec.get("overrides"))
+        reg = Registry(cfg, device=spec["device"])
+        reg.apply_log_config()
         engine = reg.check_engine()
         if hasattr(engine, "warmup"):
             engine.warmup(int(reg.config.get("engine.max_batch")))

@@ -186,7 +186,9 @@ class CheckBatcher:
         max_batch: int = 4096,
         window_s: float = 0.0002,
         max_queue: int = 0,  # 0 -> 8 * max_batch
-        max_freshness_wait_s: float = 30.0,  # snaptoken catch-up cap
+        # snaptoken catch-up cap: seconds, or a zero-argument callable read
+        # per wait (serve.read.max_freshness_wait_s is hot-reloadable)
+        max_freshness_wait_s=30.0,
         cache: Optional[CheckResultCache] = None,  # None disables
         version_fn=None,  # ANSWERING-version supplier for cache stamping
         pipeline_depth: int = 0,  # 0 -> serial dispatch (one batch in flight)
@@ -200,7 +202,7 @@ class CheckBatcher:
         self.max_batch = max_batch
         self.window_s = window_s
         self.max_queue = max_queue if max_queue > 0 else 8 * max_batch
-        self.max_freshness_wait_s = max_freshness_wait_s
+        self._max_freshness_wait_s = max_freshness_wait_s
         self.cache = cache
         self.version_fn = version_fn
         self.qos = qos
@@ -327,6 +329,12 @@ class CheckBatcher:
                 min_version,
                 timeout_s=timeout if timeout is not None else self.max_freshness_wait_s,
             )
+
+    @property
+    def max_freshness_wait_s(self) -> float:
+        """The current freshness-wait cap (resolves the hot-reload callable)."""
+        cap = self._max_freshness_wait_s
+        return float(cap() if callable(cap) else cap)
 
     def _timeout_for(self, deadline: Optional[float], timeout: Optional[float]):
         if deadline is None:

@@ -1,8 +1,9 @@
 """Namespace model (counterpart of ``keto_tpu/namespace/definitions.py``;
 reference internal/namespace/definitions.go:8-23).
 
-A namespace is ``{id: int32, name: str}``; tuples may only be written into
-known namespaces (unknown namespace -> NotFound, reference
+A namespace is ``{id: int32, name: str}``, plus the ``config`` document a
+namespace file may carry (kept, never compared); tuples may only be written
+into known namespaces (unknown namespace -> NotFound, reference
 manager_requirements.go:58-66).
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import abc
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..utils.errors import ErrNamespaceNotFound
 
@@ -19,6 +20,7 @@ from ..utils.errors import ErrNamespaceNotFound
 class Namespace:
     name: str
     id: int = 0
+    config: dict = field(default_factory=dict, compare=False, hash=False)
 
 
 class NamespaceManager(abc.ABC):
@@ -31,7 +33,8 @@ class NamespaceManager(abc.ABC):
 
 
 class MemoryNamespaceManager(NamespaceManager):
-    """In-memory, thread-safe namespace registry."""
+    """In-memory, thread-safe namespace registry; ``replace_all`` swaps the
+    whole set (a config reload, a namespace watcher)."""
 
     def __init__(self, *namespaces: Namespace):
         self._lock = threading.RLock()
@@ -48,9 +51,15 @@ class MemoryNamespaceManager(NamespaceManager):
                 nid = 1
                 while nid in used:
                     nid += 1
-                ns = Namespace(name=ns.name, id=nid)
+                ns = Namespace(name=ns.name, id=nid, config=ns.config)
             self._by_name[ns.name] = ns
         return ns
+
+    def replace_all(self, namespaces: list[Namespace]) -> None:
+        with self._lock:
+            self._by_name = {}
+            for ns in namespaces:
+                self.add(ns)
 
     def get_namespace_by_name(self, name: str) -> Namespace:
         with self._lock:

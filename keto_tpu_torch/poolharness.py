@@ -109,11 +109,11 @@ class PoolProcess:
     POOL documents in order, and commands written to its stdin."""
 
     def __init__(self, argv: Sequence[str], cwd: Optional[str] = None,
-                 name: str = "pool server"):
+                 name: str = "pool server", env: Optional[dict] = None):
         self.name = name
         self.proc = subprocess.Popen(
             list(argv), cwd=cwd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True, env=env,
         )
         self.lines: list[str] = []
         self._docs: queue.Queue = queue.Queue()

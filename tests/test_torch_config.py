@@ -152,6 +152,19 @@ def test_keys_match_the_reference(values):
         {"debug": {"token": 5}},
         {"debug": {"profile_max_s": 0.05}},
         {"debug": {"pprof": True}},
+        {"log": {"level": "loud"}},
+        {"log": {"format": "xml"}},
+        {"log": 5},
+        {"namespaces": 42},
+        {"serve": {"read": {"cors": 5}}},
+        {"serve": {"read": {"cors": {"enabled": "yes"}}}},
+        {"serve": {"write": {"cors": {"allowed_origins": "*"}}}},
+        {"serve": {"read": {"cors": {"allowed_headers": [5]}}}},
+        {"serve": {"read": {"tls": "on"}}},
+        {"serve": {"write": {"tls": {"cert": "x"}}}},
+        {"serve": {"read": {"tls": {"key": {"path": 5}}}}},
+        {"serve": {"write": {"expose_backend_ports": "yes"}}},
+        {"engine": {"sharding": {"escalation_budget": 2}}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):
@@ -356,3 +369,68 @@ def test_registry_wires_the_batch_tiers():
         b.close()
     reg = Registry(TConfig(values={"engine": {"mode": "host"}}), device="cpu")
     assert reg.encoded_front() is None  # the host oracle has no id path
+
+
+ENV_CASES = [
+    ({}, {"KETO_SERVE_READ_PORT": "9999"}, None),
+    ({}, {"KETO_SERVE_READ_PORT": "9999"}, {"serve.read.port": 1111}),
+    ({"serve": {"read": {"port": 1234}}}, {"SERVE_READ_PORT": "4321"}, None),
+    ({}, {"KETO_SERVE_READ_PORT": "1", "SERVE_READ_PORT": "2"}, None),
+    ({}, {"KETO_ENGINE_SHARDING_ENABLED": "true"}, None),
+    ({}, {"KETO_DSN": "sqlite:///tmp/x.db", "KETO_SERVE_READ_MAX_DEPTH": "7"}, None),
+    ({}, {"KETO_NAMESPACES": '[{"id": 1, "name": "a"}]'}, None),
+    ({}, {"KETO_ENGINE_MODE": "warp", "LOG_LEVEL": "debug"}, None),  # not validated
+    (VALUES, {"KETO_SERVE_READ_HOST": "0.0.0.0", "ENGINE_MAX_BATCH": "[1"}, None),
+    (VALUES, {}, {"engine.mode": "host", "serve.write.port": 7}),
+]
+
+
+@pytest.mark.parametrize("values,env,overrides", ENV_CASES)
+def test_env_and_flag_overrides_match_the_reference(values, env, overrides):
+    """The lookup order: a flag override, KETO_<KEY>, <KEY>, the values,
+    the defaults; env values parse as JSON, else stay strings."""
+    j = JConfig(values=values, env=env, flag_overrides=overrides)
+    t = TConfig(values=values, env=env, flag_overrides=overrides)
+    for key in list(DEFAULTS) + ["no.such.key"]:
+        assert t.get(key) == j.get(key), key
+    for accessor in ("dsn", "read_api_host", "read_api_port", "write_api_host",
+                     "write_api_port", "read_api_max_depth", "engine_mode"):
+        assert getattr(t, accessor)() == getattr(j, accessor)(), accessor
+
+
+def test_the_process_environment_is_the_default_env(monkeypatch):
+    """Without ``env``, the process's: a container configured by KETO_*
+    variables gets them, and the read plane binds the env's port."""
+    from keto_tpu_torch.driver.replicas import resolve_free_ports
+
+    (port,) = resolve_free_ports([("127.0.0.1", 0)])
+    monkeypatch.setenv("KETO_SERVE_READ_PORT", str(port))
+    monkeypatch.setenv("SERVE_WRITE_HOST", "127.0.0.1")
+    assert TConfig().read_api_port() == JConfig().read_api_port() == port
+    assert TConfig(env={}).read_api_port() == 4466
+    cfg = TConfig(values={"serve": {"read": {"host": "127.0.0.1"},
+                                    "write": {"port": 0}}, "log": {"level": "error"}})
+    reg = Registry(cfg, device="cpu")
+    read_port, _ = reg.start_all()
+    try:
+        assert read_port == port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health/alive", timeout=30) as r:
+            assert r.status == 200
+    finally:
+        reg.stop_all()
+
+
+def test_new_registry_puts_flags_in_the_override_layer(tmp_path, monkeypatch):
+    from keto_tpu.driver.factory import new_registry as jnew
+    from keto_tpu_torch.driver.factory import new_registry
+
+    cfg = tmp_path / "keto.json"
+    cfg.write_text(json.dumps({"serve": {"read": {"workers": 2, "port": 5}}}))
+    monkeypatch.setenv("KETO_SERVE_READ_WORKERS", "6")
+    flags = {"serve.read.workers": 3}
+    t = new_registry(str(cfg), flag_overrides=flags, device="cpu").config
+    j = jnew(str(cfg), flag_overrides=flags).config
+    assert t._overrides == j._overrides == flags
+    assert t.get("serve.read.workers") == j.get("serve.read.workers") == 3
+    assert t.file_value("serve.read.workers") == j.file_value("serve.read.workers") == 2
+    assert t.read_api_port() == j.read_api_port() == 5
