@@ -1533,6 +1533,39 @@ def http(method: str, url: str, body=None, timeout: float = 120.0, verify=True):
     return status, (json.loads(raw) if raw else None)
 
 
+def scrape(read: str, openmetrics: bool = False, verify=True):
+    """GET /metrics as Prometheus text, or as OpenMetrics, parsed with the
+    port's parser; a format error fails the phase."""
+    fetch = port("utils.urlfetch", "fetch")
+    parse_text = port("telemetry.openmetrics", "parse_text")
+    headers = {"Accept": "application/openmetrics-text"} if openmetrics else {}
+    status, raw, _ = fetch(f"{read}/metrics", None, headers, 60.0, "GET", verify=verify)
+    require(status == 200, f"/metrics: {status}")
+    doc = parse_text(raw.decode(), openmetrics=openmetrics)
+    require(not doc.errors and doc.saw_eof == openmetrics,
+            f"/metrics ({'OpenMetrics' if openmetrics else 'text'}): {doc.errors[:3]}")
+    return doc
+
+
+def is_request_line(line: str) -> bool:
+    """A server's per-request log line (REST ``http``, gRPC ``grpc``, a
+    debug-level ``span``), as opposed to its events."""
+    return any(f"keto_tpu_torch.server: {w} " in line for w in ("http", "grpc", "span"))
+
+
+def counter_sum(doc, name: str, **labels) -> float:
+    """The sum of a family's samples whose labels hold ``labels``."""
+    return sum(s.value for s in doc.samples_named(name)
+               if all(s.labels.get(k) == v for k, v in labels.items()))
+
+
+def attribution_shares(doc: dict) -> str:
+    """/debug/attribution's stages as "stage share" pairs."""
+    a = doc["attribution"]
+    return (f"{a['requests']} requests, coverage {a['coverage']}: "
+            + ", ".join(f"{s} {v['share_of_wall']:.4f}" for s, v in a["stages"].items()))
+
+
 def tuple_query(t) -> str:
     from urllib.parse import urlencode
 
@@ -1699,9 +1732,120 @@ def chain_sample(rng, pools, edges, k: int):
     return [mixed[i] for i in rng.permutation(len(mixed))], member_of
 
 
-def run_serve(args, dev, card) -> dict:
+def serve_telemetry(reg, eng, read, before, k, m_pad, sample, want, at) -> dict:
+    """[serve]'s telemetry, right after the first 64-client GET /check drive
+    (``before`` is the scrape just ahead of it): the /metrics deltas, builds
+    and device gauges, /debug/attribution, then the same drive with the read
+    API's check telemetry swapped for the no-op (as the reference's ReadAPI
+    has when no registry wires one in), with the router's per-request log
+    line off, once more live, and a live drive under /debug/pprof."""
+    DEVSTATS = port("telemetry.devstats", "DEVSTATS")
+    NOOP = port("telemetry.flight", "NOOP_CHECK_TELEMETRY")
+    out = {}
+    after = scrape(read)
+    om = scrape(read, openmetrics=True)
+    sent = {
+        "check": counter_sum(after, "keto_check_requests_total", transport="rest")
+        - counter_sum(before, "keto_check_requests_total", transport="rest"),
+        "http": counter_sum(after, "keto_http_requests_total", route="/check",
+                            method="GET")
+        - counter_sum(before, "keto_http_requests_total", route="/check", method="GET"),
+    }
+    require(sent == {"check": k, "http": k},
+            f"/metrics deltas over the drive {sent}, the drive sent {k}")
+    builds = counter_sum(after, "keto_closure_builds_total", kind="full")
+    require(builds == eng.n_full_builds == 1,
+            f"keto_closure_builds_total full {builds}, the engine's {eng.n_full_builds}")
+    in_use = after.value("keto_device_hbm_bytes_in_use", {"device": "cuda:0"})
+    require(in_use is not None and in_use >= m_pad * m_pad,
+            f"keto_device_hbm_bytes_in_use {in_use} under D's {m_pad * m_pad} bytes")
+    peak_doc = scrape(read)
+    peak = DEVSTATS.peak_bytes()
+    scraped = peak_doc.value("keto_device_hbm_peak_bytes", {"device": "cuda:0"})
+    require(scraped == float(peak), f"keto_device_hbm_peak_bytes {scraped}, "
+            f"DEVSTATS.peak_bytes() {peak}")
+    exemplars = [s.exemplar for s in om.samples_named("keto_check_duration_seconds_bucket")
+                 if s.exemplar and "trace_id" in s.exemplar]
+    require(exemplars, "no trace-id exemplar on keto_check_duration_seconds")
+    status, attribution = http("GET", f"{read}/debug/attribution")
+    require(status == 200 and attribution["attribution"]["stages"],
+            f"/debug/attribution {status}")
+    say(f"[serve {at()}] /metrics over the drive, as text and as OpenMetrics ({len(after.families)} "
+        f"families, no format error): keto_check_requests_total{{transport=rest}} "
+        f"+{sent['check']:.0f}, keto_http_requests_total{{route=/check}} "
+        f"+{sent['http']:.0f} = the {k} sent; keto_closure_builds_total{{kind=full}} "
+        f"{builds:.0f}; keto_device_hbm_bytes_in_use{{device=cuda:0}} {in_use:.0f} >= D "
+        f"{m_pad * m_pad}; keto_device_hbm_peak_bytes {scraped:.0f} = "
+        f"DEVSTATS.peak_bytes(); {len(exemplars)} trace-id exemplars")
+    say(f"[serve {at()}] /debug/attribution: {attribution_shares(attribution)}")
+    out["attribution"] = attribution["attribution"]
+    router = reg.read_plane().router
+    api = router._routes[("GET", "/check")].__self__
+    live, logger = api.telemetry, router.logger
+    urls = [f"{read}/check?{tuple_query(t)}" for t in sample]
+    for name in ("noop", "nolog", "live"):
+        api.telemetry = NOOP if name == "noop" else live
+        router.logger = None if name == "nolog" else logger
+        try:
+            singles, wall = http_clients(urls, 64)
+        finally:
+            api.telemetry, router.logger = live, logger
+        require([status == 200 for status, _ in singles] == want,
+                f"GET /check answers ({name} telemetry) differ from the oracle")
+        lat = [s for _, s in singles]
+        out[name] = (k / wall, pct(lat, 50), pct(lat, 99))
+    out["pprof"] = profile_drive(read, urls[: k // 2], at)
+    return out
+
+
+def profile_drive(read: str, urls: list, at) -> dict:
+    """A live GET /check drive with /debug/pprof capturing the server while
+    it runs: where the request threads' samples fall, by module."""
+    import threading
+
+    fetch = port("utils.urlfetch", "fetch")
+    done = {}
+    drive = threading.Thread(target=lambda: done.update(r=http_clients(urls, 64)))
+    drive.start()
+    time.sleep(1.5)  # the client process's start, before the capture
+    status, folded, _ = fetch(f"{read}/debug/pprof?seconds=2.5&format=folded", timeout=60)
+    drive.join()
+    require(status == 200 and folded.strip(), f"/debug/pprof during a drive: {status}")
+    idle = ("threading:wait", "socket:readinto", "selectors:select")
+    groups = {"telemetry": 0, "log line": 0, "http": 0, "batcher and engine": 0, "other": 0}
+    for line in folded.decode().splitlines():
+        stack, n = line.rsplit(" ", 1)
+        frames = stack.split(";")
+        # the request threads and the serial dispatcher, while not waiting
+        if not (frames[0].endswith("(process_request_thread)")
+                or frames[0] == "check-batcher"):
+            continue
+        if any(frames[-1].startswith(i) for i in idle) or "api/debug:get_pprof" in stack:
+            continue
+        if any("telemetry/logging" in f for f in frames):
+            groups["log line"] += int(n)
+        elif any("keto_tpu_torch/telemetry/" in f for f in frames):
+            groups["telemetry"] += int(n)
+        elif any("keto_tpu_torch/engine/" in f for f in frames):
+            groups["batcher and engine"] += int(n)
+        elif any(f.startswith(("server:", "socketserver:", "client:", "socket:",
+                               "keto_tpu_torch/api/")) for f in frames):
+            groups["http"] += int(n)
+        else:
+            groups["other"] += int(n)
+    total = sum(groups.values()) or 1
+    shares = {g: n / total for g, n in groups.items()}
+    say(f"[serve {at()}] /debug/pprof over 2.5 s of a {len(urls)}-check live drive: "
+        f"{total} busy samples of the request threads and the dispatcher: "
+        + ", ".join(f"{g} {s:.3f}" for g, s in shares.items()))
+    return {"samples": total, "shares": shares}
+
+
+def run_serve(args, dev, card, b1_ms: float) -> dict:
     """The serving seam at rbac1m: Registry -> REST planes -> CheckBatcher ->
-    ClosureCheckEngine on the card, driven over HTTP."""
+    ClosureCheckEngine on the card, driven over HTTP. ``b1_ms`` is B1's
+    per-launch time that [main:closure] measured: the boot build's
+    ``closure.semiring`` span must cover the launches."""
     DEVSTATS = port("telemetry.devstats", "DEVSTATS")
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1745,6 +1889,18 @@ def run_serve(args, dev, card) -> dict:
         f":{write_port}")
     rng = np.random.default_rng(args.seed + 2)
     try:
+        # 0. the boot build's span: read before the drives push it out of
+        # the tracer's ring; it closes after the card ran the last launch
+        status, doc = http("GET", f"{read}/debug/traces?name=closure.semiring")
+        spans = doc["spans"] if status == 200 else []
+        floor_ms = 0.9 * expected * b1_ms
+        require(spans and max(s["duration_ms"] for s in spans) >= floor_ms,
+                f"closure.semiring spans {spans} under 0.9 x {expected} x {b1_ms:.4f} ms")
+        numbers["semiring_span_ms"] = max(s["duration_ms"] for s in spans)
+        say(f"[serve {at()}] /debug/traces: the boot build's closure.semiring span "
+            f"{numbers['semiring_span_ms']:.3f} ms >= 0.9 x {expected} launches x "
+            f"{b1_ms:.4f} ms = {floor_ms:.3f} ms (last_build_phases kernel "
+            f"{eng.last_build_phases.get('kernel', 0) * 1e3:.3f} ms)")
         # 1. the cat-videos drive over REST, Expand included
         for path in sorted(
             (Path(__file__).resolve().parent
@@ -1805,6 +1961,7 @@ def run_serve(args, dev, card) -> dict:
             warm = list(pool.map(lambda t: rest_check(read, t), sample[:256]))
         require(warm == want[:256], "GET /check answers differ from oracle")
         batcher.n_batches = batcher.n_dispatched = 0
+        before = scrape(read)
         singles, wall = http_clients(
             [f"{read}/check?{tuple_query(t)}" for t in sample], 64
         )
@@ -1816,6 +1973,8 @@ def run_serve(args, dev, card) -> dict:
         numbers["single_p99_ms"] = pct(single_lat, 99)
         numbers["single_rate"] = k / wall
         numbers["mean_batch"] = batcher.mean_batch_size()
+        numbers["telemetry"] = serve_telemetry(
+            reg, eng, read, before, k, m_pad, sample, want, at)
         # the same 64 clients split over 4 processes: the client setup of the
         # pool's drives, so the pool's rate is compared like for like
         singles, wall = http_clients(
@@ -2037,6 +2196,17 @@ def run_serve(args, dev, card) -> dict:
         f"{numbers['mean_batch']:.2f}; the same 64 clients in 4 processes: p50 "
         f"{numbers['single4_p50_ms']:.3f} ms, p99 {numbers['single4_p99_ms']:.3f} "
         f"ms, {numbers['single4_rate']:.0f} checks/s")
+    tel = numbers["telemetry"]
+    say(f"[numbers] serve ({card}): GET /check at 64 clients (one client process), "
+        f"checks/s and p50/p99 ms: check telemetry live {numbers['single_rate']:.0f}, "
+        f"{numbers['single_p50_ms']:.3f}/{numbers['single_p99_ms']:.3f}; no-op "
+        f"{tel['noop'][0]:.0f}, {tel['noop'][1]:.3f}/{tel['noop'][2]:.3f}; live without "
+        f"the request log line {tel['nolog'][0]:.0f}, {tel['nolog'][1]:.3f}/"
+        f"{tel['nolog'][2]:.3f}; live again {tel['live'][0]:.0f}, {tel['live'][1]:.3f}/"
+        f"{tel['live'][2]:.3f}; live/no-op {numbers['single_rate'] / tel['noop'][0]:.3f} "
+        f"and {tel['live'][0] / tel['noop'][0]:.3f}, no log line/live "
+        f"{2 * tel['nolog'][0] / (numbers['single_rate'] + tel['live'][0]):.3f}; "
+        f"closure.semiring span {numbers['semiring_span_ms']:.3f} ms")
     say(f"[numbers] serve ({card}): /check/batch of {k}: p50 "
         f"{numbers['batch_p50_ms']:.3f} ms, {numbers['batch_rate']:.0f} checks/s")
     say(f"[numbers] serve ({card}): write-to-visible and overlay apply "
@@ -2388,8 +2558,10 @@ def serve_pool(args, serve: dict, card: str) -> dict:
          "--seed", str(args.seed), "--tuples", str(args.tuples)],
     )
 
-    def server_log() -> list[str]:  # its log lines, not its POOL documents
-        return [line for line in server.lines if not line.startswith("POOL ")]
+    def server_log() -> list[str]:
+        # its log lines: not its POOL documents, nor a request's http line
+        return [line for line in server.lines
+                if not line.startswith("POOL ") and not is_request_line(line)]
 
     out = {}
     try:
@@ -2458,6 +2630,14 @@ def serve_pool(args, serve: dict, card: str) -> dict:
             f"in {out['respawn_s']:.3f}s (alive {doc['alive']}, children {kids}, "
             f"respawns {doc['respawns']}); "
             f"1024 checks after it equal the oracle")
+        pool_doc = scrape(read)
+        out["pool_metrics"] = {
+            f"{s.name}{s.labels or ''}": s.value for s in pool_doc.samples_named(
+                "keto_replica_respawns_total") + pool_doc.samples_named(
+                "keto_replica_resyncs_total") + pool_doc.samples_named(
+                "keto_replica_children")}
+        say(f"[{tag} {at()}] one /metrics scrape over the pool after the kill (whichever "
+            f"process the kernel picked): {out['pool_metrics']}")
 
         plan = server.ask("plan")
         leaf, leaf_probe = (RelationTuple.from_dict(plan[k])
@@ -2610,6 +2790,23 @@ def serve_wire(args, serve: dict, card: str) -> dict:
             f"from 64 clients in 4 client processes started together: every answer "
             f"the oracle's; {out['wire']['ring']} of {out['wire']['frames']} "
             f"wire-server frames crossed the ring")
+
+        # where a wire worker and the parent spend a frame: each process's
+        # /debug/attribution, over fresh connections; a worker's ledger holds
+        # the parent's stages shipped back over the ring and the transit as
+        # "queue"
+        seen = {}
+        for _ in range(16):
+            status, doc = http("GET", f"{reads['wire']}/debug/attribution")
+            require(status == 200 and doc["attribution"]["stages"],
+                    f"[{tag}] /debug/attribution with no stage: {status} {doc}")
+            seen.setdefault(doc["attribution"]["requests"], doc)
+        shipped = [d for d in seen.values() if "queue" in d["attribution"]["stages"]]
+        require(shipped, f"[{tag}] no process's ledger holds ring-shipped stages: "
+                f"{[d['attribution']['stages'] for d in seen.values()]}")
+        out["attribution"] = [d["attribution"] for d in seen.values()]
+        for d in seen.values():
+            say(f"[{tag} {at()}] /debug/attribution of one process: {attribution_shares(d)}")
 
         srv, read = servers["wire"], reads["wire"]
         write = f"http://127.0.0.1:{w['write']}"
@@ -4536,14 +4733,19 @@ def serve_cli(args, card: str, persist: dict, durable: dict) -> dict:
                                                 "debug", "snapshot", "-o", bundle])
         with tarfile.open(bundle) as tar:
             names = tar.getnames()
-            errors = [e.split(":")[0] for e in
-                      tar.extractfile("errors.txt").read().decode().splitlines()]
+            flight = json.loads(tar.extractfile("flight.json").read())
+            traces = json.loads(tar.extractfile("traces.json").read())
+            prom = tar.extractfile("metrics.prom").read().decode()
         require(rc == 0 and names == ["stacks.txt", "config.json", "graph.json",
-                                      "pipeline.json", "version.json", "errors.txt"]
-                and errors == ["/debug/flight", "/debug/traces", "/metrics"],
-                f"[{tag}] debug snapshot: {rc} {names} {errors}")
-        say(f"[{tag} {at()}] debug snapshot in {snap_s:.3f}s: {names}; errors.txt names "
-            f"{errors}, the routes not served yet")
+                                      "flight.json", "traces.json", "metrics.prom",
+                                      "pipeline.json", "version.json"],
+                f"[{tag}] debug snapshot: {rc} {names}")
+        require(traces["spans"] and "checks" in flight
+                and "keto_check_requests_total" in prom,
+                f"[{tag}] debug snapshot: empty traces, flight or metrics")
+        say(f"[{tag} {at()}] debug snapshot in {snap_s:.3f}s: {names}, no errors.txt; "
+            f"{len(traces['spans'])} spans, {flight['checks']['checks']} checks in "
+            f"flight.json, {len(prom.splitlines())} lines of metrics")
         planes_idle(read, tag)
     finally:
         if server.proc.poll() is None:
@@ -4608,13 +4810,58 @@ def write_config(path: str, values: dict) -> None:
     os.utime(path, (t, t))
 
 
+class _Collector:
+    """A loopback OTLP/HTTP collector on a thread: every POSTed body, by
+    path."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        received = self.received = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                received.append((self.path, body))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def span_names(self) -> set:
+        names = set()
+        for path, body in list(self.received):
+            if path != "/v1/traces":
+                continue
+            for rs in json.loads(body)["resourceSpans"]:
+                for ss in rs["scopeSpans"]:
+                    names.update(s["name"] for s in ss["spans"])
+        return names
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
 def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
     """[config]: `serve -c` in a fresh interpreter over the [persist] rbac1m
     database, with KETO_SERVE_READ_PORT in its environment, namespaces from a
-    watched directory, TLS on both planes and CORS; the sample over HTTPS
-    REST and TLS gRPC, CORS, a namespace added while serving, the hot knobs
-    reloaded under 64 HTTPS clients, a dsn edit and an invalid file refused,
-    SIGTERM."""
+    watched directory, TLS on both planes and CORS, spans shipped over OTLP to
+    a loopback collector and the sampling profiler on; the sample over HTTPS
+    REST and TLS gRPC, the collector's check.request spans, CORS, a namespace
+    added while serving, the hot knobs reloaded under 64 HTTPS clients, a
+    reload of tracing to the log, /debug/pprof, a dsn edit and an invalid
+    file refused, SIGTERM."""
     import signal
     import ssl
     import threading
@@ -4641,6 +4888,9 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
             json.dump({"id": nid, "name": name}, f)
     cfg = os.path.join(root, "keto.json")
     values = config_values(persist["dsn"], ns_dir, tls)
+    collector = _Collector()
+    values["tracing"] = {"provider": "otlp", "otlp": {"endpoint": collector.url}}
+    values["telemetry"] = {"profiler": {"enabled": True}}
     write_config(cfg, values)
     (env_port,) = resolve_free_ports([("127.0.0.1", 0)])
     env = dict(os.environ, KETO_SERVE_READ_PORT=str(env_port))
@@ -4716,6 +4966,15 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
                 f"{cn['batch_p50']['grpc tuples']:.3f}) ({card})")
         finally:
             channel.close()
+        t0 = time.perf_counter()
+        while ("check.request" not in collector.span_names()
+               and time.perf_counter() - t0 < 15):
+            time.sleep(0.1)
+        names = collector.span_names()
+        require("check.request" in names,
+                f"[{tag}] the OTLP collector received no check.request span: {names}")
+        say(f"[{tag} {at()}] OTLP: the loopback collector received "
+            f"{len(collector.received)} POSTs to /v1/traces, spans {sorted(names)}")
 
         # 3. CORS
         ctx = ssl.create_default_context(cafile=cert)
@@ -4839,8 +5098,43 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
             f"{load_s:.1f}s ({out['load'][1]:.0f}/s), p50/p99 {out['load'][2]:.3f}/"
             f"{out['load'][3]:.3f} ms, none failed, every answer the sample's ({card})")
 
+        # 5b. tracing reloaded to the log (at debug, where span lines go)
+        traced = json.loads(json.dumps(hot))
+        traced["tracing"] = {"provider": "log"}
+        traced["log"] = {"level": "debug"}
+        n_lines = len(server.lines)
+        t0 = time.perf_counter()
+        write_config(cfg, traced)
+        while time.perf_counter() - t0 < 30 and not any(
+                "config reloaded" in line and "tracing" in line
+                for line in server.lines[n_lines:]):
+            time.sleep(0.05)
+        require(rest.check(sample[0]).allowed == want[0], f"[{tag}] a check after the reload")
+        while time.perf_counter() - t0 < 30 and not any(
+                " span span=check.request" in line for line in server.lines[n_lines:]):
+            time.sleep(0.05)
+        spans = [line.strip() for line in server.lines[n_lines:]
+                 if " span span=check.request" in line]
+        require(spans, f"[{tag}] no span line in the log after the reload to log: "
+                + "".join(server.lines[-10:]))
+        out["log_span_s"] = time.perf_counter() - t0
+        say(f"[{tag} {at()}] tracing reloaded to log: a check's span in the log "
+            f"{out['log_span_s']:.3f}s after the edit: {spans[0][:160]}")
+        fetch = port("utils.urlfetch", "fetch")
+        status, folded, _ = fetch(f"{read}/debug/pprof?format=folded", timeout=60,
+                                  verify=cert)
+        require(status == 200 and folded.strip(), f"[{tag}] /debug/pprof folded: {status}")
+        status, pprof = http("GET", f"{read}/debug/pprof", verify=cert)
+        require(status == 200 and pprof["profiler"]["running"], f"[{tag}] /debug/pprof {status}")
+        out["pprof"] = pprof["profiler"]
+        say(f"[{tag} {at()}] /debug/pprof: the profiler ran {out['pprof']['elapsed_s']}s, "
+            f"{out['pprof']['samples']} samples, {out['pprof']['unique_stacks']} stacks, "
+            f"self_overhead {out['pprof']['self_overhead']}; folded "
+            f"{len(folded.splitlines())} lines, the heaviest "
+            f"{folded.splitlines()[0].decode()[-160:]}")
+
         # 6. edits that must not apply: the dsn, then an invalid file
-        frozen = json.loads(json.dumps(hot))
+        frozen = json.loads(json.dumps(traced))
         frozen["dsn"] = "sqlite://" + os.path.join(root, "other.db")
         n_lines = len(server.lines)
         write_config(cfg, frozen)
@@ -4871,6 +5165,7 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
         planes_idle(read, tag, verify=cert)
         rest.close()
     finally:
+        collector.close()
         if server.proc.poll() is None:
             os.kill(server.proc.pid, signal.SIGTERM)
         try:
@@ -4892,13 +5187,13 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
     return out
 
 
-def serve_phases(args, dev, card, walls: dict) -> dict:
+def serve_phases(args, dev, card, walls: dict, b1_ms: float) -> dict:
     """Phases 6-9: the serving seam at rbac1m, the overload plane, the read
     replicas and the wire workers. Returns the serve phase's numbers, with
     the overload server's under "overload"."""
     # -- 6. the serving seam at rbac1m --------------------------------------------
     t0 = time.perf_counter()
-    serve = run_serve(args, dev, card)
+    serve = run_serve(args, dev, card, b1_ms)
     walls["serve"] = time.perf_counter() - t0
 
     # -- 7. the overload plane at saturation ---------------------------------------
@@ -5104,7 +5399,7 @@ def main() -> int:
     walls["main:packed"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    serve = serve_phases(args, dev, card, walls)
+    serve = serve_phases(args, dev, card, walls, b1["ms"])
 
     # -- 10. persistence: rbac1m on sqlite, then spawned read workers ------------
     t0 = time.perf_counter()

@@ -38,6 +38,7 @@ grpc.
 from __future__ import annotations
 
 import io
+import logging
 import select
 import socket
 import ssl
@@ -49,6 +50,8 @@ from .rest import Request, Router
 
 _H2_PREFACE_HEAD = b"PRI "
 _PEEK_TIMEOUT_S = 10.0  # a client that opens a connection and says nothing
+
+_http_log = logging.getLogger("keto_tpu_torch.http")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -85,8 +88,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     do_GET = do_POST = do_PUT = do_DELETE = do_PATCH = do_OPTIONS = _serve
 
+    def log_request(self, code="-", size="-") -> None:
+        pass  # the router logs each request it dispatched, with its route
+
     def log_message(self, format, *args) -> None:
-        pass  # request logging is not ported yet (ROADMAP 14.5)
+        # what http.server reports on its own (a malformed request line, a
+        # timed-out read): onto the package logger, not stderr
+        _http_log.info("http: %s %s", self.address_string(), format % args)
 
 
 class _Replay(io.RawIOBase):

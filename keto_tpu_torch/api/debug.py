@@ -6,6 +6,17 @@ Routes (GET, read port only):
 - ``/debug/stacks``   every thread's Python stack, plain text
 - ``/debug/graph``    graph panel, device memory samples and the transfer,
   stage and kernel-build tallies (``telemetry/devstats.py``)
+- ``/debug/flight``   the request flight recorder's ring, newest first
+  (``?n=``), with the SLO snapshot and the check outcome counts
+- ``/debug/traces``   the tracer's finished spans, newest first, with hex
+  ids (``?name=``, ``?n=``); ``?trace_id=`` keeps one trace and adds its
+  flight records
+- ``/debug/attribution`` where check wall time goes: the attribution
+  ledger's stages (seconds, share of wall, coverage) and the last closure
+  build's phases
+- ``/debug/pprof``    the sampling profiler: a flamegraph tree and its
+  stats as JSON, or ``?format=folded`` folded stacks; ``?seconds=N`` runs
+  a bounded capture when the profiler is not running already
 - ``/debug/config``   effective config with secret redaction
 - ``/debug/profile``  ``?seconds=N`` (capped by ``debug.profile_max_s``): a
   ``torch.profiler`` capture with CPU and CUDA activity, returned as a
@@ -17,9 +28,10 @@ Routes (GET, read port only):
 - ``/debug/scrub``    integrity plane: cycle/mismatch/repair totals,
   last-clean version, freeze reason, newest-first history (``?n=``)
 
-Not registered, because their planes are not ported: ``/debug/flight``,
-``/debug/traces``, ``/debug/attribution`` and ``/debug/pprof`` (telemetry,
-ROADMAP 14.5), ``/debug/autotune`` (14.7) and ``/debug/cluster`` (14.6).
+Not registered, because their planes are not ported: ``/debug/autotune``
+(ROADMAP 14.7) and ``/debug/cluster`` (14.6). ``/debug/traces`` answers from
+this process alone: the reference's fan-out of ``?trace_id=`` to the
+cluster's members waits for 14.6.
 
 Gating: ``debug.enabled: false`` hides the whole surface as 404 (the routes
 do not exist as far as a prober can tell); ``debug.token`` set requires
@@ -104,11 +116,25 @@ class DebugContext:
         device_status_fn=None,
         scrub_fn=None,
         overload_fn=None,
+        flight=None,
+        tracer=None,
+        slo=None,
+        check_telemetry=None,
+        attribution=None,
+        profiler=None,
+        build_phases_fn=None,
     ):
         self.config = config
         self.enabled = bool(enabled)
         self.token = token or ""
         self.profile_max_s = float(profile_max_s)
+        self.flight = flight
+        self.tracer = tracer
+        self.slo = slo
+        self.check_telemetry = check_telemetry
+        self.attribution = attribution
+        self.profiler = profiler
+        self.build_phases_fn = build_phases_fn
         self.device_status_fn = device_status_fn
         self.scrub_fn = scrub_fn
         self.overload_fn = overload_fn
@@ -134,6 +160,10 @@ class DebugAPI:
         for path, handler in (
             ("/debug/stacks", self.get_stacks),
             ("/debug/graph", self.get_graph),
+            ("/debug/flight", self.get_flight),
+            ("/debug/traces", self.get_traces),
+            ("/debug/attribution", self.get_attribution),
+            ("/debug/pprof", self.get_pprof),
             ("/debug/config", self.get_config),
             ("/debug/profile", self.get_profile),
             ("/debug/scrub", self.get_scrub),
@@ -166,6 +196,90 @@ class DebugAPI:
 
     def get_graph(self, req: Request) -> Response:
         return _json(DEVSTATS.panel())
+
+    def get_flight(self, req: Request) -> Response:
+        flight = self.ctx.flight
+        n = _n(req, 100)
+        payload = {
+            "stats": flight.stats() if flight is not None else None,
+            "records": flight.records(n) if flight is not None else [],
+        }
+        if self.ctx.slo is not None:
+            payload["slo"] = self.ctx.slo.snapshot()
+        if self.ctx.check_telemetry is not None:
+            payload["checks"] = self.ctx.check_telemetry.stats()
+        return _json(payload)
+
+    def get_traces(self, req: Request) -> Response:
+        name = req.query.get("name") or None
+        trace_id = (req.query.get("trace_id") or "").strip().lower() or None
+        n = _n(req, 100)
+        tracer = self.ctx.tracer
+        spans = []
+        if tracer is not None:
+            for s in tracer.finished(name):
+                tid = f"{s.trace_id:032x}"
+                if trace_id is not None and tid != trace_id:
+                    continue
+                spans.append(
+                    {
+                        "name": s.name,
+                        "trace_id": tid,
+                        "span_id": f"{s.span_id:016x}",
+                        "parent_id": f"{s.parent_id:016x}" if s.parent_id else None,
+                        "start": s.start,
+                        "duration_ms": round((s.duration or 0) * 1000, 3),
+                        "attrs": dict(s.attrs),
+                        "instance": None,
+                    }
+                )
+        spans = spans[-n:]
+        spans.reverse()  # newest first, as /debug/flight
+        payload: dict = {"spans": spans}
+        if trace_id is not None:
+            flight = self.ctx.flight
+            payload["flight"] = [
+                dict(rec, instance=None)
+                for rec in (flight.records(None) if flight is not None else [])
+                if rec.get("trace_id") == trace_id
+            ]
+        return _json(payload)
+
+    def get_attribution(self, req: Request) -> Response:
+        attribution = self.ctx.attribution
+        payload = {
+            "attribution": attribution.snapshot() if attribution is not None else None,
+        }
+        if self.ctx.build_phases_fn is not None:
+            try:
+                payload["closure_build_phases"] = dict(self.ctx.build_phases_fn() or {})
+            except Exception:
+                payload["closure_build_phases"] = None
+        return _json(payload)
+
+    def get_pprof(self, req: Request) -> Response:
+        prof = self.ctx.profiler
+        if prof is None:
+            return _json({"error": "sampling profiler not wired"}, 503)
+        seconds_q = req.query.get("seconds")
+        if seconds_q is not None and not prof.running:
+            try:
+                seconds = float(seconds_q)
+            except ValueError:
+                seconds = 1.0
+            seconds = max(0.1, min(seconds, self.ctx.profile_max_s))
+            if not self._profile_lock.acquire(blocking=False):
+                return _json({"error": "a profile capture is already running"}, 409)
+            try:
+                prof.reset()
+                prof.start()
+                time.sleep(seconds)
+                prof.stop()
+            finally:
+                self._profile_lock.release()
+        if req.query.get("format") == "folded":
+            return Response(200, prof.folded_text().encode(), "text/plain")
+        return _json({"profiler": prof.snapshot(), "tree": prof.tree()})
 
     def get_config(self, req: Request) -> Response:
         cfg = self.ctx.config

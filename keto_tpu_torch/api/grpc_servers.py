@@ -14,7 +14,7 @@ from concurrent import futures
 
 import grpc
 
-from .interceptors import ErrorInterceptor
+from .interceptors import TelemetryInterceptor
 from .reflection import add_reflection_service
 from .services import (
     _PKG,
@@ -61,13 +61,16 @@ def grpc_message_options(max_message_bytes: int) -> list:
     ]
 
 
-def _server(plane: str, max_workers: int, max_message_bytes: int) -> grpc.Server:
+def _server(
+    plane: str, max_workers: int, max_message_bytes: int,
+    logger=None, metrics=None, tracer=None,
+) -> grpc.Server:
     executor = futures.ThreadPoolExecutor(
         max_workers=max_workers, thread_name_prefix=f"keto-grpc-{plane}"
     )
     server = grpc.server(
         executor,
-        interceptors=(ErrorInterceptor(),),
+        interceptors=(TelemetryInterceptor(plane, logger, metrics, tracer),),
         options=grpc_message_options(max_message_bytes),
     )
     server._keto_executor = executor  # shut down by PlaneServer.stop
@@ -88,15 +91,20 @@ def build_read_grpc_server(
     list_engine=None,  # reverse-index list serving (engine/listing.py), or None
     list_version_waiter=None,  # the list service's snaptoken gate
     default_criticality: str = "default",  # overload.default_criticality
+    logger=None,
+    metrics=None,
+    tracer=None,
+    telemetry=None,  # the check telemetry (telemetry/flight.CheckTelemetry)
 ) -> grpc.Server:
     """Read-plane gRPC: Check, Expand, Read, Version, Health and reflection,
     plus List when the reverse-index tier is on."""
-    server = _server("read", max_workers, max_message_bytes)
+    server = _server("read", max_workers, max_message_bytes, logger, metrics, tracer)
     add_check_service(
         server,
         CheckServicer(
             checker, snaptoken_fn, max_freshness_wait_s=max_freshness_wait_s,
             encoded_front=encoded_front, default_criticality=default_criticality,
+            telemetry=telemetry,
         ),
     )
     add_expand_service(server, ExpandServicer(expand_engine))
@@ -107,7 +115,7 @@ def build_read_grpc_server(
             server,
             ListServicer(
                 list_engine, snaptoken_fn, version_waiter=list_version_waiter,
-                max_freshness_wait_s=max_freshness_wait_s,
+                max_freshness_wait_s=max_freshness_wait_s, telemetry=telemetry,
             ),
         )
         services = services + (f"{_PKG}.ListService",)
@@ -124,9 +132,12 @@ def build_write_grpc_server(
     health: HealthServicer,
     max_workers: int = 32,
     max_message_bytes: int = 0,
+    logger=None,
+    metrics=None,
+    tracer=None,
 ) -> grpc.Server:
     """Write-plane gRPC: Write, Version, Health and reflection."""
-    server = _server("write", max_workers, max_message_bytes)
+    server = _server("write", max_workers, max_message_bytes, logger, metrics, tracer)
     add_write_service(server, WriteServicer(manager, snaptoken_fn))
     add_version_service(server, VersionServicer(version))
     add_health_service(server, health)

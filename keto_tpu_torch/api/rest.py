@@ -31,7 +31,10 @@ Write port:
 - DELETE /relation-tuples   delete by query -> 204
 - PATCH  /relation-tuples   [{action: insert|delete, relation_tuple}] -> 204
 
-Both ports: /health/alive, /health/ready, /version. Errors use the
+Both ports: /health/alive, /health/ready, /version and, with a metrics
+registry, /metrics (Prometheus text, or OpenMetrics with exemplars and
+``# EOF`` when the scraper sends ``Accept: application/openmetrics-text``).
+Errors use the
 herodot envelope {"error": {code, status, message}}: unknown namespaces are
 404, malformed input 400, a shed or throttled request 429 (with
 Retry-After), an unavailable snapshot 503, a passed deadline 504, a list
@@ -58,7 +61,21 @@ with CORS off, requests pass through untouched.
 
 Each request runs on its connection's thread, so concurrent single checks
 meet in the check batcher. Not ported yet, and so not registered: the
-metrics, replication and cluster routes.
+replication and cluster routes (ROADMAP 14.6).
+
+Telemetry, as the reference's middleware and read API: the router counts
+``keto_http_requests_total{plane,method,route,code}`` and observes
+``keto_http_request_duration_seconds{plane}``, with ``route`` the matched
+route pattern or ``unmatched``, never the raw path, and logs one ``http``
+line per request at info. Every check route runs inside the check
+telemetry's record (``telemetry/flight.py CheckTelemetry``): a
+``check.request`` span that joins the caller's ``traceparent``, the
+``keto_check_duration_seconds`` histogram with a trace-id exemplar,
+``keto_check_requests_total{transport,outcome}``, the SLO, the flight
+recorder and the attribution ledger, whose ``serialize`` stage covers the
+response body. The transports are labelled as in the reference: ``rest``,
+``rest_batch``, ``rest-encoded`` and ``rest_list``. ``x-keto-hedge: 1``
+tags a client's hedged duplicate.
 """
 
 from __future__ import annotations
@@ -81,6 +98,8 @@ from ..relationtuple.definitions import (
     SubjectID,
     SubjectSet,
 )
+from ..telemetry.flight import NOOP_CHECK_TELEMETRY
+from ..telemetry.tracing import HEDGE_HEADER, TRACEPARENT_HEADER
 from ..utils.errors import DeadlineExceeded, ErrMalformedInput, KetoError
 from ..utils.pagination import PaginationOptions
 from . import wirecodec
@@ -195,17 +214,55 @@ class Cors:
 
 class Router:
     """(method, path) -> handler; dispatch maps errors to the wire exactly
-    as the reference's error middleware does, inside the CORS wrap."""
+    as the reference's error middleware does, inside the CORS wrap, and,
+    outermost, counts and logs the request under its ``plane`` (the
+    reference's telemetry middleware)."""
 
-    def __init__(self, cors: Optional[dict] = None):
+    def __init__(
+        self, cors: Optional[dict] = None, plane: str = "", metrics=None, logger=None
+    ):
         self._routes: dict[tuple[str, str], Callable[[Request], Response]] = {}
+        self._paths: set[str] = set()
         self.cors = Cors(cors)
+        self.plane = plane
+        self.logger = logger
+        self._m_requests = self._m_duration = None
+        if metrics is not None:
+            self._m_requests = metrics.counter(
+                "keto_http_requests_total",
+                "HTTP requests by plane/method/route/code",
+                labelnames=("plane", "method", "route", "code"),
+            )
+            self._m_duration = metrics.histogram(
+                "keto_http_request_duration_seconds",
+                "HTTP request duration",
+                labelnames=("plane",),
+            )
 
     def add(self, method: str, path: str, handler) -> None:
         self._routes[(method, path)] = handler
+        self._paths.add(path)
 
     def dispatch(self, req: Request) -> Response:
-        return self.cors.wrap(req, self._route)
+        t0 = time.perf_counter()
+        resp = self.cors.wrap(req, self._route)
+        if self._m_requests is not None or self.logger is not None:
+            elapsed = time.perf_counter() - t0
+            # the matched route pattern, never the raw path: raw paths
+            # are unbounded-cardinality label values
+            route = req.path if req.path in self._paths else "unmatched"
+            if self._m_requests is not None:
+                self._m_requests.labels(
+                    plane=self.plane, method=req.method, route=route,
+                    code=str(resp.status),
+                ).inc()
+                self._m_duration.labels(plane=self.plane).observe(elapsed)
+            if self.logger is not None:
+                self.logger.info(
+                    "http", plane=self.plane, method=req.method, route=route,
+                    code=resp.status, ms=round(1000 * elapsed, 2),
+                )
+        return resp
 
     def _route(self, req: Request) -> Response:
         handler = self._routes.get((req.method, req.path))
@@ -354,6 +411,15 @@ def _dead_on_arrival(deadline: Optional[float]) -> None:
         raise DeadlineExceeded()
 
 
+def _trace_from_headers(req: Request) -> tuple[Optional[str], bool]:
+    """(the raw W3C traceparent, whether this is a hedged duplicate) off the
+    request headers, for the check telemetry's record."""
+    return (
+        req.headers.get(TRACEPARENT_HEADER),
+        req.headers.get(HEDGE_HEADER) == "1",
+    )
+
+
 class ReadAPI:
     def __init__(
         self,
@@ -366,8 +432,12 @@ class ReadAPI:
         max_freshness_wait_s=30.0,  # seconds, or a zero-argument callable
         encoded_front=None,
         default_criticality: str = "default",
+        telemetry=None,
     ):
         self.manager = manager
+        # the per-request check telemetry (span, exemplar, SLO, flight
+        # record, attribution ledger); the no-op when none is wired in
+        self.telemetry = telemetry or NOOP_CHECK_TELEMETRY
         # the id-native wire tier (api/encoded.EncodedCheckFront); None when
         # serve.read.encoded is off, and then its routes are not registered
         self.encoded_front = encoded_front
@@ -451,15 +521,23 @@ class ReadAPI:
             raise ErrMalformedInput("page_size must be an integer") from None
         deadline = deadline_from_headers(req)
         _dead_on_arrival(deadline)
-        self._await_freshness(min_version, deadline)
-        page = run(size, p.get("page_token", ""), deadline)
-        return json_response(
-            {
-                items_key: page.items,
-                "next_page_token": page.next_page_token,
-                "snaptoken": self.snaptoken_fn(),
-            }
-        )
+        traceparent, hedge = _trace_from_headers(req)
+        with self.telemetry.record_check(
+            "rest_list", deadline=deadline,
+            detail={"namespace": p.get("namespace", "")},
+            traceparent=traceparent, hedge=hedge,
+        ) as rec:
+            self._await_freshness(min_version, deadline)
+            page = run(size, p.get("page_token", ""), deadline, rec)
+            body = json.dumps(
+                {
+                    items_key: page.items,
+                    "next_page_token": page.next_page_token,
+                    "snaptoken": self.snaptoken_fn(),
+                }
+            ).encode()
+            rec.mark("serialize")
+        return Response(200, body)
 
     def get_list_objects(self, req: Request) -> Response:
         p = req.query
@@ -469,7 +547,7 @@ class ReadAPI:
         return self._list_response(
             req,
             "objects",
-            lambda size, token, deadline: self.list_engine.list_objects(
+            lambda size, token, deadline, rec: self.list_engine.list_objects(
                 subject=subject,
                 relation=p["relation"],
                 namespace=p["namespace"],
@@ -477,6 +555,7 @@ class ReadAPI:
                 page_size=size,
                 page_token=token,
                 deadline=deadline,
+                rec=rec,
             ),
         )
 
@@ -487,7 +566,7 @@ class ReadAPI:
         return self._list_response(
             req,
             "subject_ids",
-            lambda size, token, deadline: self.list_engine.list_subjects(
+            lambda size, token, deadline, rec: self.list_engine.list_subjects(
                 namespace=p["namespace"],
                 object=p["object"],
                 relation=p["relation"],
@@ -495,6 +574,7 @@ class ReadAPI:
                 page_size=size,
                 page_token=token,
                 deadline=deadline,
+                rec=rec,
             ),
         )
 
@@ -546,19 +626,26 @@ class ReadAPI:
         min_version = _min_version_from_query(p)
         deadline = deadline_from_headers(req)
         _dead_on_arrival(deadline)
+        traceparent, hedge = _trace_from_headers(req)
         if isinstance(body, dict) and "namespaces" in body:
             cols = CheckColumns.from_rest_body(body)
             max_depth = int(body.get("max_depth", max_depth) or max_depth)
             run = getattr(self.checker, "check_batch_columnar", None)
-            if run is None:
-                allowed = self.checker.check_batch(
-                    cols.materialize(), max_depth, min_version=min_version
-                )
-            else:
-                allowed = run(cols, max_depth, min_version=min_version)
-            return json_response(
-                {"allowed": allowed, "snaptoken": self.snaptoken_fn()}
-            )
+            with self.telemetry.record_check(
+                "rest_batch", batch_size=len(cols), deadline=deadline,
+                traceparent=traceparent, hedge=hedge,
+            ) as rec:
+                if run is None:
+                    allowed = self.checker.check_batch(
+                        cols.materialize(), max_depth, min_version=min_version
+                    )
+                else:
+                    allowed = run(cols, max_depth, min_version=min_version)
+                # the body is serialized inside the record: the ledger's
+                # serialize stage covers the json dump
+                out = json.dumps({"allowed": allowed, "snaptoken": self.snaptoken_fn()})
+                rec.mark("serialize")
+            return Response(200, out.encode())
         if isinstance(body, dict):
             items = body.get("tuples")
             max_depth = int(body.get("max_depth", max_depth) or max_depth)
@@ -567,11 +654,17 @@ class ReadAPI:
         if not isinstance(items, list):
             raise ErrMalformedInput("expected a json array of relation tuples")
         tuples = [RelationTuple.from_dict(d) for d in items]
-        allowed = self.checker.check_batch(
-            tuples, max_depth, min_version=min_version, deadline=deadline,
-            criticality=criticality_from_headers(req, self.default_criticality),
-        )
-        return json_response({"allowed": allowed, "snaptoken": self.snaptoken_fn()})
+        with self.telemetry.record_check(
+            "rest_batch", batch_size=len(tuples), deadline=deadline,
+            traceparent=traceparent, hedge=hedge,
+        ) as rec:
+            allowed = self.checker.check_batch(
+                tuples, max_depth, min_version=min_version, deadline=deadline,
+                criticality=criticality_from_headers(req, self.default_criticality),
+            )
+            out = json.dumps({"allowed": allowed, "snaptoken": self.snaptoken_fn()})
+            rec.mark("serialize")
+        return Response(200, out.encode())
 
     def post_check_batch_encoded(self, req: Request) -> Response:
         """The id-native wire tier: the body is a raw ``wirecodec`` frame of
@@ -583,12 +676,16 @@ class ReadAPI:
         deadline = deadline_from_headers(req)
         _dead_on_arrival(deadline)
         timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
-        allowed = self.encoded_front.check(frame, timeout=timeout)
-        return Response(
-            200,
-            wirecodec.encode_check_response(allowed, self.snaptoken_fn()),
-            "application/octet-stream",
-        )
+        # the bitset frame is packed inside the record, so the ledger's
+        # serialize stage covers it
+        with self.telemetry.record_check(
+            "rest-encoded", batch_size=len(frame.start), deadline=deadline,
+            traceparent=frame.traceparent,
+        ) as rec:
+            allowed = self.encoded_front.check(frame, timeout=timeout)
+            payload = wirecodec.encode_check_response(allowed, self.snaptoken_fn())
+            rec.mark("serialize")
+        return Response(200, payload, "application/octet-stream")
 
     def get_vocab_snapshot(self, req: Request) -> Response:
         """Vocab bootstrap for encoded-wire clients: one page of the
@@ -627,13 +724,21 @@ class ReadAPI:
     def _check_response(
         self, req: Request, tup: RelationTuple, max_depth: int, min_version: int
     ) -> Response:
-        allowed = self.checker.check(
-            tup, max_depth, min_version=min_version,
-            deadline=deadline_from_headers(req),
-            criticality=criticality_from_headers(req, self.default_criticality),
-        )
+        deadline = deadline_from_headers(req)
+        criticality = criticality_from_headers(req, self.default_criticality)
+        traceparent, hedge = _trace_from_headers(req)
+        with self.telemetry.record_check(
+            "rest", deadline=deadline, detail={"namespace": tup.namespace},
+            traceparent=traceparent, hedge=hedge,
+        ) as rec:
+            allowed = self.checker.check(
+                tup, max_depth, min_version=min_version, deadline=deadline,
+                criticality=criticality,
+            )
+            body = json.dumps({"allowed": allowed}).encode()
+            rec.mark("serialize")
         # 200 when allowed, 403 when denied — both carry the body
-        return json_response({"allowed": allowed}, 200 if allowed else 403)
+        return Response(200 if allowed else 403, body)
 
 
 class WriteAPI:
@@ -691,8 +796,9 @@ def _tuple_location_query(t: RelationTuple) -> str:
     return urlencode(q)
 
 
-def register_common(router: Router, version: str, healthy_fn=None) -> None:
-    """/health/alive, /health/ready and /version on both ports."""
+def register_common(router: Router, version: str, healthy_fn=None, metrics=None) -> None:
+    """/health/alive, /health/ready and /version on both ports, and /metrics
+    with a metrics registry."""
 
     def alive(_req):
         return json_response({"status": "ok"})
@@ -708,22 +814,39 @@ def register_common(router: Router, version: str, healthy_fn=None) -> None:
     router.add("GET", "/health/alive", alive)
     router.add("GET", "/health/ready", ready)
     router.add("GET", "/version", get_version)
+    if metrics is None:
+        return
+
+    def get_metrics(req):
+        # OpenMetrics (exemplars and "# EOF") only when the scraper asks
+        # for it: a plain text scrape stays Prometheus text 0.0.4
+        if "application/openmetrics-text" in req.headers.get("accept", ""):
+            return Response(
+                200, metrics.expose(openmetrics=True).encode(),
+                "application/openmetrics-text; version=1.0.0; charset=utf-8",
+            )
+        return Response(200, metrics.expose().encode(), "text/plain; charset=utf-8")
+
+    router.add("GET", "/metrics", get_metrics)
 
 
 def build_read_router(
     manager, checker, snaptoken_fn, version: str, healthy_fn=None,
-    cors: Optional[dict] = None, **read_kw,
+    cors: Optional[dict] = None, metrics=None, logger=None, **read_kw,
 ):
     """The read plane's routes; ``read_kw`` goes to ReadAPI (the expand and
-    list engines, the list routes' snaptoken gate)."""
-    router = Router(cors)
+    list engines, the list routes' snaptoken gate, the check telemetry)."""
+    router = Router(cors, plane="read", metrics=metrics, logger=logger)
     ReadAPI(manager, checker, snaptoken_fn, **read_kw).register(router)
-    register_common(router, version, healthy_fn)
+    register_common(router, version, healthy_fn, metrics)
     return router
 
 
-def build_write_router(manager, version: str, healthy_fn=None, cors: Optional[dict] = None):
-    router = Router(cors)
+def build_write_router(
+    manager, version: str, healthy_fn=None, cors: Optional[dict] = None,
+    metrics=None, logger=None,
+):
+    router = Router(cors, plane="write", metrics=metrics, logger=logger)
     WriteAPI(manager).register(router)
-    register_common(router, version, healthy_fn)
+    register_common(router, version, healthy_fn, metrics)
     return router

@@ -14,9 +14,13 @@ version it was answered at, and a request's snaptoken or ``latest`` makes
 the batcher catch up first. The criticality class of a check rides the
 ``x-keto-criticality`` metadata into the overload plane's admission.
 
-``Check`` carries the ``replica.slow`` fault site (``faults.py``). Left
-out: the per-request check telemetry and trace metadata (ROADMAP 14.5),
-and the follower's read-only write plane (ROADMAP 14.6).
+``Check`` carries the ``replica.slow`` fault site (``faults.py``). Each
+check and list RPC runs inside the check telemetry's record
+(``telemetry/flight.py``), labelled ``grpc``, ``grpc_batch``,
+``grpc-encoded`` and ``grpc_list`` as in the reference, and joins the
+caller's trace from the ``traceparent`` metadata (``x-keto-hedge: 1`` tags
+a hedged duplicate). Left out: the follower's read-only write plane
+(ROADMAP 14.6).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from ..faults import FAULTS
 from ..engine.tree import NodeType, Tree
 from ..relationtuple.columns import CheckColumns, proto_has_columns
 from ..relationtuple.definitions import RelationTuple, SubjectID, subject_from_dict
+from ..telemetry.flight import NOOP_CHECK_TELEMETRY
+from ..telemetry.tracing import HEDGE_HEADER, TRACEPARENT_HEADER
 from ..utils.errors import ErrMalformedInput, KetoError
 from ..utils.pagination import PaginationOptions
 from . import wirecodec
@@ -112,6 +118,23 @@ def _abort(context: grpc.ServicerContext, err: Exception):
     context.abort(grpc.StatusCode.INTERNAL, str(err))
 
 
+def _trace_from_metadata(context) -> tuple:
+    """(traceparent, hedge) off the call's invocation metadata (keys arrive
+    lower-cased, as the gRPC spec has them)."""
+    traceparent = None
+    hedge = False
+    try:
+        metadata = context.invocation_metadata() or ()
+    except Exception:
+        return None, False
+    for key, value in metadata:
+        if key == TRACEPARENT_HEADER:
+            traceparent = value
+        elif key == HEDGE_HEADER:
+            hedge = value == "1"
+    return traceparent, hedge
+
+
 class CheckServicer:
     """``checker`` is a CheckBatcher or a DirectChecker; ``snaptoken_fn``
     yields the version checks are answered at. ``max_freshness_wait_s``
@@ -124,10 +147,14 @@ class CheckServicer:
         max_freshness_wait_s=30.0,
         encoded_front=None,
         default_criticality: str = "default",
+        telemetry=None,
     ):
         self.checker = checker
         self.snaptoken_fn = snaptoken_fn
         self._freshness_cap = max_freshness_wait_s
+        # the per-request check telemetry, entered on the handler thread so
+        # its span is the ambient parent inside checker.check()
+        self.telemetry = telemetry or NOOP_CHECK_TELEMETRY
         # the id-native wire tier (api/encoded.EncodedCheckFront); None when
         # serve.read.encoded is off or the checker has no encoded path
         self.encoded_front = encoded_front
@@ -158,21 +185,28 @@ class CheckServicer:
             # RPC termination (the client gone) cancels the queued entry
             entries: list = []
             context.add_callback(lambda: [f.cancel() for f in entries])
-            # the check telemetry record is not ported (ROADMAP 14.5)
-            allowed = self.checker.check(
-                tup,
-                request.max_depth,
-                timeout=timeout,
-                min_version=min_version,
-                deadline=deadline,
-                entry_hook=entries.append,
-                criticality=_criticality_from_metadata(
-                    context, self.default_criticality
-                ),
-            )
-            return check_service_pb2.CheckResponse(
-                allowed=allowed, snaptoken=self.snaptoken_fn()
-            )
+            traceparent, hedge = _trace_from_metadata(context)
+            criticality = _criticality_from_metadata(context, self.default_criticality)
+            # the response is built inside the record, so its construction
+            # is the ledger's serialize stage
+            with self.telemetry.record_check(
+                "grpc", deadline=deadline, detail={"namespace": request.namespace},
+                traceparent=traceparent, hedge=hedge,
+            ) as rec:
+                allowed = self.checker.check(
+                    tup,
+                    request.max_depth,
+                    timeout=timeout,
+                    min_version=min_version,
+                    deadline=deadline,
+                    entry_hook=entries.append,
+                    criticality=criticality,
+                )
+                resp = check_service_pb2.CheckResponse(
+                    allowed=allowed, snaptoken=self.snaptoken_fn()
+                )
+                rec.mark("serialize")
+            return resp
         except Exception as e:
             _abort(context, e)
 
@@ -183,23 +217,29 @@ class CheckServicer:
         try:
             timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
             min_version = min_version_from(request.snaptoken, request.latest)
-            # the check telemetry record is not ported (ROADMAP 14.5)
+            traceparent, hedge = _trace_from_metadata(context)
             if proto_has_columns(request):
                 cols = CheckColumns.from_proto(request)
                 run = getattr(self.checker, "check_batch_columnar", None)
-                if run is not None:
-                    allowed = run(
-                        cols, request.max_depth, min_version=min_version,
-                        timeout=timeout,
+                with self.telemetry.record_check(
+                    "grpc_batch", batch_size=len(cols), deadline=deadline,
+                    traceparent=traceparent, hedge=hedge,
+                ) as rec:
+                    if run is not None:
+                        allowed = run(
+                            cols, request.max_depth, min_version=min_version,
+                            timeout=timeout,
+                        )
+                    else:
+                        allowed = self.checker.check_batch(
+                            cols.materialize(), request.max_depth,
+                            min_version=min_version, timeout=timeout,
+                        )
+                    resp = check_service_pb2.BatchCheckResponse(
+                        allowed=allowed, snaptoken=self.snaptoken_fn()
                     )
-                else:
-                    allowed = self.checker.check_batch(
-                        cols.materialize(), request.max_depth,
-                        min_version=min_version, timeout=timeout,
-                    )
-                return check_service_pb2.BatchCheckResponse(
-                    allowed=allowed, snaptoken=self.snaptoken_fn()
-                )
+                    rec.mark("serialize")
+                return resp
             tuples = []
             for item in request.tuples:
                 subject = subject_from_proto(
@@ -215,19 +255,25 @@ class CheckServicer:
                         subject=subject,
                     )
                 )
-            allowed = self.checker.check_batch(
-                tuples,
-                request.max_depth,
-                min_version=min_version,
-                timeout=timeout,
-                deadline=deadline,
-                criticality=_criticality_from_metadata(
-                    context, self.default_criticality
-                ),
-            )
-            return check_service_pb2.BatchCheckResponse(
-                allowed=allowed, snaptoken=self.snaptoken_fn()
-            )
+            with self.telemetry.record_check(
+                "grpc_batch", batch_size=len(tuples), deadline=deadline,
+                traceparent=traceparent, hedge=hedge,
+            ) as rec:
+                allowed = self.checker.check_batch(
+                    tuples,
+                    request.max_depth,
+                    min_version=min_version,
+                    timeout=timeout,
+                    deadline=deadline,
+                    criticality=_criticality_from_metadata(
+                        context, self.default_criticality
+                    ),
+                )
+                resp = check_service_pb2.BatchCheckResponse(
+                    allowed=allowed, snaptoken=self.snaptoken_fn()
+                )
+                rec.mark("serialize")
+            return resp
         except Exception as e:
             _abort(context, e)
 
@@ -244,9 +290,15 @@ class CheckServicer:
                     "the encoded check tier is disabled (serve.read.encoded)",
                 )
             req = wirecodec.decode_check_request(request)
-            timeout, _ = _timeout_and_deadline(self._freshness_cap, context)
-            allowed = self.encoded_front.check(req, timeout=timeout)
-            return wirecodec.encode_check_response(allowed, self.snaptoken_fn())
+            timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
+            with self.telemetry.record_check(
+                "grpc-encoded", batch_size=len(req.start), deadline=deadline,
+                traceparent=req.traceparent,
+            ) as rec:
+                allowed = self.encoded_front.check(req, timeout=timeout)
+                resp = wirecodec.encode_check_response(allowed, self.snaptoken_fn())
+                rec.mark("serialize")
+            return resp
         except Exception as e:
             _abort(context, e)
 
@@ -374,11 +426,13 @@ class ListServicer:
         snaptoken_fn: Callable[[], str],
         version_waiter=None,
         max_freshness_wait_s=30.0,
+        telemetry=None,
     ):
         self.list_engine = list_engine
         self.snaptoken_fn = snaptoken_fn
         self.version_waiter = version_waiter
         self._freshness_cap = max_freshness_wait_s
+        self.telemetry = telemetry or NOOP_CHECK_TELEMETRY
 
     def _decode(self, request: bytes) -> dict:
         try:
@@ -397,21 +451,28 @@ class ListServicer:
             )
             timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
             _await_freshness(self.version_waiter, min_version, timeout)
-            # the check telemetry record is not ported (ROADMAP 14.5)
-            page = run(body, deadline)
-            return json.dumps(
-                {
-                    items_key: page.items,
-                    "next_page_token": page.next_page_token,
-                    "snaptoken": self.snaptoken_fn(),
-                },
-                separators=(",", ":"),
-            ).encode()
+            traceparent, hedge = _trace_from_metadata(context)
+            with self.telemetry.record_check(
+                "grpc_list", deadline=deadline,
+                detail={"namespace": body.get("namespace", "")},
+                traceparent=traceparent, hedge=hedge,
+            ) as rec:
+                page = run(body, deadline, rec)
+                resp = json.dumps(
+                    {
+                        items_key: page.items,
+                        "next_page_token": page.next_page_token,
+                        "snaptoken": self.snaptoken_fn(),
+                    },
+                    separators=(",", ":"),
+                ).encode()
+                rec.mark("serialize")
+            return resp
         except Exception as e:
             _abort(context, e)
 
     def ListObjects(self, request, context):
-        def run(body, deadline):
+        def run(body, deadline, rec):
             if body.get("subject_id") is not None:
                 subject = SubjectID(id=body["subject_id"])
             elif body.get("subject_set") is not None:
@@ -429,12 +490,13 @@ class ListServicer:
                 page_size=int(body.get("page_size", 0) or 0),
                 page_token=body.get("page_token", ""),
                 deadline=deadline,
+                rec=rec,
             )
 
         return self._serve(request, context, "objects", run)
 
     def ListSubjects(self, request, context):
-        def run(body, deadline):
+        def run(body, deadline, rec):
             for key in ("namespace", "object", "relation"):
                 if body.get(key) is None:
                     raise ErrMalformedInput(f"missing field {key}")
@@ -446,6 +508,7 @@ class ListServicer:
                 page_size=int(body.get("page_size", 0) or 0),
                 page_token=body.get("page_token", ""),
                 deadline=deadline,
+                rec=rec,
             )
 
         return self._serve(request, context, "subject_ids", run)

@@ -381,9 +381,8 @@ def doctor(args) -> int:
 
 # -- debug snapshot ------------------------------------------------------------
 
-#: bundle file -> route; the port serves /debug/{stacks,config,graph},
-#: /pipeline and /version, and its error list names the others (the flight
-#: recorder, the traces and /metrics wait for ROADMAP 14.5)
+#: bundle file -> route, the reference's set: a server answers every one
+#: of them, and an endpoint that fails lands in the bundle's errors.txt
 SNAPSHOT_ENDPOINTS = (
     ("stacks.txt", "/debug/stacks"),
     ("config.json", "/debug/config"),
@@ -398,7 +397,8 @@ SNAPSHOT_ENDPOINTS = (
 
 def debug_snapshot(args) -> int:
     """Bundle a support tarball from a live server: thread stacks, redacted
-    config, the graph panel with device stats, pipeline occupancy and the
+    config, the graph panel with device stats, the flight recorder, the
+    recent traces, the metrics exposition, pipeline occupancy and the
     version; every endpoint that failed is listed in ``errors.txt``. Safe
     to attach to a ticket — /debug/config redacts secrets server-side."""
     import io

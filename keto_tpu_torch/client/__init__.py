@@ -673,8 +673,7 @@ class RestClient:
         return self._http.request("GET", f"{self.read_url}/health/ready").status_code == 200
 
     def metrics(self) -> str:
-        """``GET /metrics``; the port's server has no metrics route until
-        ROADMAP 14.5, so against it this raises ErrNotFound."""
+        """``GET /metrics``: the server's Prometheus text exposition."""
         return self._request("GET", f"{self.read_url}/metrics").text
 
 

@@ -7,15 +7,19 @@ grpc-max-message-size,tls,cors,expose_backend_ports}``,
 expose_backend_ports}``, ``log.{level,format}``, ``namespaces`` (an inline
 array of ``{id, name}``, or a string URI: ``file://``, a bare path, a
 directory, ``ws://``), the ``engine`` subtree,
-``qos.{enabled,rate,burst,overrides}``, and the ``overload``, ``scrub`` and
-``debug`` subtrees — from a JSON or TOML file (YAML where PyYAML is
-installed) merged with ``values``. Only the keys this package reads are
-validated, by hand and with the reference's messages (no jsonschema); the
-``overload``, ``engine.memory``, ``engine.failover``, ``scrub`` and
-``debug`` objects are closed, as in the reference's schema, so a misspelt
-key is an error; other keys are carried and ignored. ``scrub.freeze_burn_rate``
-is validated and carried for the SLO freeze (ROADMAP 14.5), and
-``scrub.digest_chunk_size`` for the scrubber's replica kind (14.6). The
+``qos.{enabled,rate,burst,overrides}``, ``tracing.{provider,otlp}``, and the
+``telemetry``, ``overload``, ``scrub`` and ``debug`` subtrees — from a JSON
+or TOML file (YAML where PyYAML is installed) merged with ``values``. Only
+the keys this package reads are validated, by hand and with the reference's
+messages (no jsonschema); the ``telemetry`` object and each of its
+``flight``, ``slo``, ``attribution`` and ``profiler`` objects,
+``tracing.otlp``, and the ``overload``, ``engine.memory``,
+``engine.failover``, ``scrub`` and ``debug`` objects are closed, as in the
+reference's schema, so a misspelt key is an error; ``tracing.provider`` is
+one of ``""``, ``log`` and ``otlp``; other keys are carried and ignored.
+``scrub.freeze_burn_rate`` is the scrubber's SLO freeze threshold (0 means
+``telemetry.slo.alert_burn_rate``), and ``scrub.digest_chunk_size`` is
+carried for the scrubber's replica kind (ROADMAP 14.6). The
 durable write plane's ``store.wal.{dir,sync,sync-interval-ms,segment-bytes}``
 and ``checkpoint.{dir,interval-versions,interval-s,keep}`` are closed
 objects too.
@@ -72,6 +76,7 @@ DEFAULTS = {
     "serve.write.grpc-max-message-size": 64 << 20,
     "log.level": "info",
     "log.format": "text",
+    "tracing.provider": "",
     "namespaces": [],
     "engine.mode": "closure",
     "engine.max_batch": 4096,
@@ -130,6 +135,22 @@ DEFAULTS = {
     "scrub.digest_chunk_size": 1024,
     "scrub.freeze_burn_rate": 0.0,
     "scrub.history": 256,
+    "telemetry.flight.capacity": 512,
+    "telemetry.flight.slow_ms": 250,
+    "telemetry.flight.dir": "",
+    "telemetry.flight.flush_interval_s": 2.0,
+    "telemetry.slo.objective": 0.999,
+    "telemetry.slo.latency_target_ms": 250,
+    "telemetry.slo.fast_window_s": 300,
+    "telemetry.slo.slow_window_s": 3600,
+    "telemetry.slo.alert_burn_rate": 2.0,
+    "telemetry.slo.alert_cooldown_s": 300,
+    "telemetry.attribution.enabled": True,
+    "telemetry.profiler.enabled": False,
+    # 67 Hz: off-round so sampling never phase-locks with 10 ms-periodic
+    # work (batch windows, flush timers) and under-counts it
+    "telemetry.profiler.hz": 67.0,
+    "telemetry.profiler.max_stacks": 10000,
     "debug.enabled": True,
     "debug.token": "",
     "debug.profile_max_s": 30,
@@ -242,6 +263,26 @@ _RULES: dict[str, tuple[str, Any]] = {
     "scrub.digest_chunk_size": ("integer", 1),
     "scrub.freeze_burn_rate": ("number", 0),
     "scrub.history": ("integer", 1),
+    "tracing": ("object", None),
+    "tracing.provider": ("enum", ["", "log", "otlp"]),
+    "tracing.otlp": ("object", None),
+    "tracing.otlp.endpoint": ("string", None),
+    "tracing.otlp.service_name": ("string", None),
+    "telemetry": ("object", None),
+    "telemetry.flight.capacity": ("integer", 1),
+    "telemetry.flight.slow_ms": ("number", 0),
+    "telemetry.flight.dir": ("string", None),
+    "telemetry.flight.flush_interval_s": ("number", 0.1),
+    "telemetry.slo.objective": ("number", ("exclusive", 0)),
+    "telemetry.slo.latency_target_ms": ("number", 0),
+    "telemetry.slo.fast_window_s": ("number", 1),
+    "telemetry.slo.slow_window_s": ("number", 1),
+    "telemetry.slo.alert_burn_rate": ("number", 0),
+    "telemetry.slo.alert_cooldown_s": ("number", 0),
+    "telemetry.attribution.enabled": ("boolean", None),
+    "telemetry.profiler.enabled": ("boolean", None),
+    "telemetry.profiler.hz": ("number", ("exclusive", 0)),
+    "telemetry.profiler.max_stacks": ("integer", 1),
     "debug.enabled": ("boolean", None),
     "debug.token": ("string", None),
     "debug.profile_max_s": ("number", 0.1),
@@ -255,11 +296,14 @@ _RULES: dict[str, tuple[str, Any]] = {
     "checkpoint.keep": ("integer", 1),
 }
 
-# upper bounds, checked after the lower ones (the reference's keyword order)
+# upper bounds, checked after the lower ones (the reference's keyword
+# order); ("exclusive", m) is an exclusiveMaximum
 _MAXIMA = {
     "overload.decrease": 1,
     "engine.memory.hbm_budget_frac": 1,
     "engine.sharding.escalation_budget": 1,
+    "telemetry.slo.objective": ("exclusive", 1),
+    "telemetry.profiler.hz": 1000,
 }
 
 # objects whose schema admits no other property
@@ -269,7 +313,9 @@ _CLOSED = {
     }
     for obj in (
         "overload", "engine.memory", "engine.failover", "scrub", "debug",
-        "store", "store.wal", "checkpoint",
+        "store", "store.wal", "checkpoint", "tracing.otlp", "telemetry",
+        "telemetry.flight", "telemetry.slo", "telemetry.attribution",
+        "telemetry.profiler",
     )
 }
 
@@ -326,8 +372,12 @@ def _violation(key: str, value: Any) -> Optional[tuple[str, str]]:
             return f"{value!r} is less than or equal to the minimum of {rule[1]!r}", ""
     elif rule is not None and value < rule:
         return f"{value!r} is less than the minimum of {rule!r}", ""
-    if key in _MAXIMA and value > _MAXIMA[key]:
-        return f"{value!r} is greater than the maximum of {_MAXIMA[key]!r}", ""
+    top = _MAXIMA.get(key)
+    if isinstance(top, tuple):
+        if value >= top[1]:
+            return f"{value!r} is greater than or equal to the maximum of {top[1]!r}", ""
+    elif top is not None and value > top:
+        return f"{value!r} is greater than the maximum of {top!r}", ""
     return None
 
 

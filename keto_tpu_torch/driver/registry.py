@@ -52,8 +52,19 @@ it, an edited hot engine knob reaches its live component through
 ``resize``, HBM admission's ``set_budget_frac``, the expand and list page
 size), ``scrub.enabled`` turned on starts the scrubber, and
 ``overload.enabled`` is read per decision (a live kill switch).
-``serve.read.max_freshness_wait_s`` is read per wait. Reloads of
-``tracing`` and ``autotune`` wait for ROADMAP 14.5 and 14.7.
+``serve.read.max_freshness_wait_s`` is read per wait; a reload of
+``tracing`` reconfigures the live tracer (``Tracer.reconfigure``). The
+``autotune`` reload waits for ROADMAP 14.7.
+
+Telemetry (``telemetry/``), as the reference wires it: ``metrics()`` is the
+one ``MetricsRegistry`` every component reports into (with the store
+gauges, the recovery families, ``DEVSTATS.bind`` and the WAL's
+append-error counter), served at ``GET /metrics`` on both planes;
+``tracer()`` (``tracing.*``), ``flight()``, ``slo()``, ``attribution()``
+and ``check_telemetry()`` (``telemetry.*``) make the per-request seam the
+REST read API and the gRPC servicers open around each check; ``profiler()``
+is the sampling profiler behind ``/debug/pprof``, whose thread ``start_all``
+starts after any fork and only with ``telemetry.profiler.enabled``.
 
 ``serve.read.wire_workers`` W > 1 (while ``serve.read.encoded`` is on)
 makes the pool max(N, W) processes whose encoded routes funnel into this
@@ -170,8 +181,16 @@ class DeviceSupervisor:
         home_platform: str = "cuda",
         clock=time.monotonic,
         on_change=None,
+        metrics=None,
+        flight=None,
     ):
         self.engine = engine
+        self._flight = flight
+        self._m_failovers = self._m_recovery = None
+        if metrics is not None:
+            from ..telemetry.metrics import device_failover_metrics
+
+            self._m_failovers, self._m_recovery = device_failover_metrics(metrics)
         self._on_change = on_change
         self._recovering = False
         self.warm_batch = max(1, int(warm_batch))
@@ -219,6 +238,8 @@ class DeviceSupervisor:
                 daemon=True,
             )
             worker = self._worker
+        if self._m_failovers is not None:
+            self._m_failovers.inc()
         self._event("device_lost", error=str(err))
         _log.warning("device lost (%s); recovering", err)
         self._changed()
@@ -251,6 +272,8 @@ class DeviceSupervisor:
                     self.backend = self.home_platform
                     recovery_s = self._clock() - t_lost
                     self._last_recovery_s = recovery_s
+                    if self._m_recovery is not None:
+                        self._m_recovery.observe(recovery_s)
                     self._event(
                         "recovered",
                         backend=self.home_platform,
@@ -401,6 +424,11 @@ class DeviceSupervisor:
         with self._lock:
             self._timeline.append(entry)
             del self._timeline[: -self._TIMELINE_CAP]
+        if self._flight is not None:
+            try:
+                self._flight.record(kind="device_failover", **entry)
+            except Exception:
+                pass
 
     def status(self) -> dict:
         with self._lock:
@@ -482,6 +510,218 @@ class Registry:
         self._health = None
         self._config_watcher: Optional[threading.Thread] = None
         self._config_watch_stop = threading.Event()
+        # telemetry (telemetry/): each built on first use
+        self._logger = None
+        self._tracer = None
+        self._metrics = None
+        self._flight = None
+        self._slo = None
+        self._attribution = None
+        self._profiler = None
+        self._check_telemetry = None
+
+    # -- telemetry providers ---------------------------------------------------
+
+    def logger(self):
+        """The package's structured ``server`` logger (``log.*`` applies to
+        it at start_all)."""
+        if self._logger is None:
+            from ..telemetry.logging import get_logger
+
+            self._logger = get_logger("server")
+        return self._logger
+
+    def tracer(self):
+        """The span tracer (``tracing.provider``: "" keeps spans in the
+        in-process ring, "log" also logs each at debug, "otlp" also ships
+        them to ``tracing.otlp.endpoint``)."""
+        with self._lock:
+            if self._tracer is None:
+                from ..telemetry.tracing import Tracer
+
+                self._tracer = Tracer(logger=self.logger(), **self._tracing_config())
+            return self._tracer
+
+    def _tracing_config(self) -> dict:
+        cfg = self.config
+        return {
+            "provider": str(cfg.get("tracing.provider", default="") or ""),
+            "otlp_endpoint": str(cfg.get("tracing.otlp.endpoint", default="") or ""),
+            "service_name": str(
+                cfg.get("tracing.otlp.service_name", default="keto-tpu") or "keto-tpu"
+            ),
+        }
+
+    def metrics(self):
+        """The metrics registry every component reports into, with the
+        store's gauges, the durable store's recovery families and the
+        device collector (``DEVSTATS.bind``, which repoints at the newest
+        registry) registered here."""
+        with self._lock:
+            if self._metrics is None:
+                from ..telemetry.devstats import DEVSTATS
+                from ..telemetry.metrics import MetricsRegistry, recovery_metrics
+
+                m = MetricsRegistry()
+                store = self.store()
+                m.gauge(
+                    "keto_store_version",
+                    "monotonic store write version (the snaptoken)",
+                    fn=lambda: store.version,
+                )
+                m.gauge(
+                    "keto_store_tuples",
+                    "live relation tuples in the store",
+                    fn=lambda: len(store),
+                )
+                m.gauge(
+                    "keto_check_staleness_versions",
+                    "store versions the check engine lags behind (bounded "
+                    "freshness rebuilds in progress)",
+                    fn=self._staleness,
+                )
+                if hasattr(store, "recovery"):
+                    replayed, seconds, _age, gap = recovery_metrics(
+                        m, checkpoint_age_fn=store.checkpoint_age_s
+                    )
+                    rep = store.recovery
+                    replayed.inc(rep.replayed_deltas)
+                    seconds.set(rep.duration_s)
+                    gap.set(1.0 if rep.gap else 0.0)
+                    # registered here, not in _wrap_durable (the reference's
+                    # place): the store is built before the metrics
+                    append_errors = m.counter(
+                        "keto_wal_append_errors_total",
+                        "WAL append failures (the write was NOT acked and the "
+                        "durable wrapper fail-stopped), by errno",
+                        labelnames=("errno",),
+                    )
+                    log_error = store.append_error_cb
+
+                    def _append_error(err):
+                        append_errors.labels(
+                            errno=str(err) if err is not None else "none"
+                        ).inc()
+                        if log_error is not None:
+                            log_error(err)
+
+                    store.append_error_cb = _append_error
+                DEVSTATS.bind(m, graph_panel_fn=self.graph_panel, platform=self.device.type)
+                self._metrics = m
+            return self._metrics
+
+    def _staleness(self) -> int:
+        served = getattr(self._check_engine, "served_version", None)
+        if served is None:
+            return 0
+        return max(0, self.store().version - served())
+
+    def flight(self):
+        """The request flight recorder (``telemetry.flight.*``); with a dump
+        directory the fatal-path dump (faulthandler and a ring flush) is
+        armed too."""
+        with self._lock:
+            if self._flight is None:
+                from ..telemetry.flight import FlightRecorder
+
+                cfg = self.config
+                self._flight = FlightRecorder(
+                    capacity=int(cfg.get("telemetry.flight.capacity")),
+                    dump_dir=str(cfg.get("telemetry.flight.dir") or ""),
+                    flush_interval_s=float(cfg.get("telemetry.flight.flush_interval_s")),
+                )
+                if self._flight.dump_dir:
+                    self._flight.install_fatal_dump()
+            return self._flight
+
+    def slo(self):
+        """The check SLO's burn-rate tracker (``telemetry.slo.*``)."""
+        with self._lock:
+            if self._slo is None:
+                from ..telemetry.slo import SLOTracker
+
+                cfg = self.config
+                self._slo = SLOTracker(
+                    metrics=self.metrics(),
+                    logger=self.logger(),
+                    objective=float(cfg.get("telemetry.slo.objective")),
+                    latency_target_s=float(cfg.get("telemetry.slo.latency_target_ms")) / 1e3,
+                    fast_window_s=float(cfg.get("telemetry.slo.fast_window_s")),
+                    slow_window_s=float(cfg.get("telemetry.slo.slow_window_s")),
+                    alert_burn_rate=float(cfg.get("telemetry.slo.alert_burn_rate")),
+                    alert_cooldown_s=float(cfg.get("telemetry.slo.alert_cooldown_s")),
+                )
+            return self._slo
+
+    def attribution(self):
+        """The wall-clock attribution aggregate: every finished check folds
+        its stage ledger in (``keto_time_attribution_seconds_total`` and
+        ``/debug/attribution``)."""
+        with self._lock:
+            if self._attribution is None:
+                from ..telemetry.attribution import AttributionLedger
+
+                enabled = bool(self.config.get("telemetry.attribution.enabled"))
+                self._attribution = AttributionLedger(
+                    metrics=self.metrics() if enabled else None
+                )
+            return self._attribution
+
+    def profiler(self):
+        """The sampling profiler behind ``/debug/pprof``. Its thread starts
+        in start_all, after any replica fork, and only with
+        ``telemetry.profiler.enabled``."""
+        with self._lock:
+            if self._profiler is None:
+                from ..telemetry.profiler import SamplingProfiler
+
+                self._profiler = SamplingProfiler(
+                    hz=float(self.config.get("telemetry.profiler.hz")),
+                    max_stacks=int(self.config.get("telemetry.profiler.max_stacks")),
+                )
+            return self._profiler
+
+    def check_telemetry(self):
+        """The per-request seam (span, exemplar, SLO, flight record,
+        attribution ledger) the REST read API and the gRPC servicers open
+        around each check."""
+        with self._lock:
+            if self._check_telemetry is None:
+                from ..telemetry.flight import CheckTelemetry
+
+                self._check_telemetry = CheckTelemetry(
+                    metrics=self.metrics(),
+                    tracer=self.tracer(),
+                    flight=self.flight(),
+                    slo=self.slo(),
+                    slow_s=float(self.config.get("telemetry.flight.slow_ms")) / 1e3,
+                    stages_fn=self._stage_percentiles,
+                    attribution=self.attribution(),
+                )
+            return self._check_telemetry
+
+    def _stage_percentiles(self):
+        """Per-stage p50/p95 from the pipeline histogram: the stage timings
+        a flight record carries."""
+        m = self._metrics
+        h = m.get("keto_pipeline_stage_seconds") if m is not None else None
+        if h is None:
+            return None
+        out = {}
+        for labels, child in h._series():
+            if child.count == 0:
+                continue
+            out[labels.get("stage", "?")] = {
+                "p50_ms": round(child.percentile(0.50) * 1000, 3),
+                "p95_ms": round(child.percentile(0.95) * 1000, 3),
+                "count": child.count,
+            }
+        return out or None
+
+    def _build_phases(self):
+        """The last closure build's phase seconds (``last_build_phases``):
+        ``/debug/attribution``'s view of the one-off build cost."""
+        return getattr(self._check_engine, "last_build_phases", None)
 
     # -- providers -------------------------------------------------------------
 
@@ -626,6 +866,8 @@ class Registry:
                     else None
                 ),
                 device=self.device,
+                tracer=self.tracer(),
+                metrics=self.metrics(),
             )
         from ..engine.device import DeviceCheckEngine
 
@@ -660,7 +902,8 @@ class Registry:
                         max_queue=int(cfg.get("engine.max_queue")),
                         max_freshness_wait_s=self._freshness_cap_s,
                         cache=(
-                            CheckResultCache(cache_size) if cache_size > 0 else None
+                            CheckResultCache(cache_size, self.metrics())
+                            if cache_size > 0 else None
                         ),
                         version_fn=self._answering_version,
                         pipeline_depth=int(cfg.get("engine.pipeline_depth")),
@@ -669,6 +912,8 @@ class Registry:
                         qos=self.qos(),
                         overload=self.overload(),
                         hbm=self.hbm_admission(),
+                        metrics=self.metrics(),
+                        tracer=self.tracer(),
                     )
             return self._checker
 
@@ -733,6 +978,7 @@ class Registry:
             on_device_lost=(
                 supervisor.notify_device_lost if supervisor is not None else None
             ),
+            metrics=self.metrics(),
         )
         if supervisor is not None:
             # recovery ends with a forced half-open probe on this breaker
@@ -755,6 +1001,7 @@ class Registry:
                 self._hbm_admission = HbmAdmission(
                     budget_frac=float(self.config.get("engine.memory.hbm_budget_frac")),
                     bytes_per_row=int(self.config.get("engine.memory.bytes_per_row")),
+                    metrics=self.metrics(),
                 )
             return self._hbm_admission
 
@@ -780,6 +1027,8 @@ class Registry:
                     allow_cpu_failover=bool(cfg.get("engine.failover.allow_cpu")),
                     home_platform=self.device.type,
                     on_change=self._sync_health,
+                    metrics=self.metrics(),
+                    flight=self.flight(),
                 )
             return self._device_supervisor
 
@@ -852,6 +1101,10 @@ class Registry:
                 history=int(cfg.get("scrub.history")),
                 enabled_fn=lambda: bool(cfg.get("scrub.enabled")),
                 guards=(_breaker_guard, _hbm_guard),
+                slo=self.slo(),
+                freeze_burn_rate=float(cfg.get("scrub.freeze_burn_rate")),
+                metrics=self.metrics(),
+                flight=self.flight(),
             )
             if isinstance(self._checker, CheckBatcher):
                 # tap answered live batches into the replay reservoir
@@ -863,15 +1116,21 @@ class Registry:
         with self._lock:
             if self._debug_context is None:
                 from ..api.debug import DebugContext
-                from ..telemetry.devstats import DEVSTATS
 
-                DEVSTATS.set_graph_panel(self.graph_panel)
+                self.metrics()  # binds DEVSTATS and its graph panel
                 cfg = self.config
                 self._debug_context = DebugContext(
                     config=cfg,
                     enabled=bool(cfg.get("debug.enabled")),
                     token=str(cfg.get("debug.token") or ""),
                     profile_max_s=float(cfg.get("debug.profile_max_s")),
+                    flight=self.flight(),
+                    tracer=self.tracer(),
+                    slo=self.slo(),
+                    check_telemetry=self.check_telemetry(),
+                    attribution=self.attribution(),
+                    profiler=self.profiler(),
+                    build_phases_fn=self._build_phases,
                     device_status_fn=self._device_status,
                     # getters, not instances: /debug observes a plane and
                     # never constructs one
@@ -933,9 +1192,13 @@ class Registry:
             out["vocab_size"] = len(snap.vocab)
             out["padded_nodes"] = snap.padded_nodes
             out["padded_edges"] = snap.padded_edges
+            out["csr_derived"] = snap._csr is not None
         engine = self._check_engine
         if engine is not None:
             out["engine"] = type(engine).__name__
+            built = getattr(engine, "closure_built_at", None)
+            if built:
+                out["closure_age_s"] = round(time.time() - built, 1)
         return out
 
     def qos(self):
@@ -949,6 +1212,7 @@ class Registry:
                     rate=float(self.config.get("qos.rate")),
                     burst=float(self.config.get("qos.burst")),
                     overrides=dict(self.config.get("qos.overrides") or {}),
+                    metrics=self.metrics(),
                 )
             return self._qos
 
@@ -983,11 +1247,12 @@ class Registry:
                     interval_s=float(cfg.get("overload.interval_ms")) / 1e3,
                     tolerance=float(cfg.get("overload.tolerance")),
                 )
-                # the flight recorder and the logger wait for ROADMAP 14.5
                 brownout = BrownoutController(
                     hysteresis_s=float(cfg.get("overload.hysteresis_ms")) / 1e3,
                     min_dwell_s=float(cfg.get("overload.dwell_ms")) / 1e3,
                     history=int(cfg.get("overload.history")),
+                    flight=self.flight(),
+                    logger=self.logger(),
                 )
                 throttle = AdaptiveThrottle(
                     window_s=float(cfg.get("overload.throttle_window_s")),
@@ -999,6 +1264,7 @@ class Registry:
                     brownout=brownout,
                     throttle=throttle,
                     enabled_fn=lambda: bool(self.config.get("overload.enabled")),
+                    metrics=self.metrics(),
                 )
             return self._overload
 
@@ -1207,6 +1473,9 @@ class Registry:
                     max_freshness_wait_s=self._freshness_cap_s,
                     default_criticality=self.default_criticality(),
                     cors=self.config.cors("read"),
+                    metrics=self.metrics(),
+                    logger=self.logger(),
+                    telemetry=self.check_telemetry(),
                 )
                 from ..api.debug import DebugAPI
 
@@ -1232,6 +1501,10 @@ class Registry:
                             self.check_engine(), "wait_for_version", None
                         ),
                         default_criticality=self.default_criticality(),
+                        logger=self.logger(),
+                        metrics=self.metrics(),
+                        tracer=self.tracer(),
+                        telemetry=self.check_telemetry(),
                     )
                 read_port, grpc_port = self._shared_read_ports
                 self._read_plane = PlaneServer(
@@ -1259,6 +1532,8 @@ class Registry:
                 router = build_write_router(
                     self.store(), self.version, healthy_fn=self.is_serving,
                     cors=self.config.cors("write"),
+                    metrics=self.metrics(),
+                    logger=self.logger(),
                 )
                 api = self._grpc()
                 grpc_server = None
@@ -1271,6 +1546,9 @@ class Registry:
                         max_message_bytes=int(
                             self.config.get("serve.write.grpc-max-message-size")
                         ),
+                        logger=self.logger(),
+                        metrics=self.metrics(),
+                        tracer=self.tracer(),
                     )
                 self._write_plane = PlaneServer(
                     router, self.config.write_api_host(),
@@ -1344,6 +1622,10 @@ class Registry:
         if bool(self.config.get("scrub.enabled")):
             # the scrubber's thread, after the fork like every thread
             self.scrubber().start()
+        if bool(self.config.get("telemetry.profiler.enabled")):
+            # the continuous sampling profiler: started here, after any
+            # replica fork, so its thread never meets the fork inventory
+            self.profiler().start()
         self._start_config_watcher()
         self.mark_serving()
         return read_port, write_port
@@ -1412,9 +1694,10 @@ class Registry:
                     self.scrubber().start()
                 except Exception as e:
                     log.warn("scrubber start failed", error=str(e))
+            if "tracing" in applied and self._tracer is not None:
+                self._tracer.reconfigure(**self._tracing_config())
             # overload.enabled needs no step: the controller reads it per
-            # decision. tracing and autotune reloads wait for ROADMAP 14.5
-            # and 14.7
+            # decision. The autotune reload waits for ROADMAP 14.7
 
     def _reload_hot_knobs(self, knob_file: dict, log) -> None:
         """Each hot engine knob the file edit changed, through the same
@@ -1624,6 +1907,8 @@ class Registry:
             self._wire_ring = None
         if self._scrubber is not None:
             self._scrubber.stop()
+        if self._profiler is not None:
+            self._profiler.stop()
         if self._config_watcher is not None:
             self._config_watch_stop.set()
             self._config_watcher.join(timeout=5)
@@ -1646,3 +1931,9 @@ class Registry:
             self._namespace_manager, "close"
         ):
             self._namespace_manager.close()  # a watcher's thread
+        if self._flight is not None:
+            self._flight.close()  # the final ring flush, faulthandler off
+        if self._tracer is not None:
+            # ship the last partial OTLP batch, then end the exporter
+            self._tracer.flush(timeout_s=3.0)
+            self._tracer.close()

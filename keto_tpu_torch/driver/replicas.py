@@ -63,7 +63,11 @@ replica outlives its parent. The fault sites (``faults.py``):
 ``delta.slow`` stalls a broadcast, ``delta.drop`` skips one frame for one
 replica (the resync fills the gap), ``replica.crash`` kills a replica with a
 delta in hand; a respawn command carries the parent's current armed state.
-The pool's metrics wait for ROADMAP 14.5.
+The pool exports the reference's families: ``keto_replica_respawns_total``,
+``keto_replica_resyncs_total`` and the ``keto_replica_children`` gauge. Each
+replica rebuilds its tracer's OTLP exporter after the fork
+(``Tracer.restart_after_fork``), and ``otlp-exporter`` is a thread the fork
+inventory admits, as in the reference.
 Only process-private stores (memory, columnar, and the durable wrapper
 over them) reach this pool; a SQL store's state is the database, and the
 registry spawns fresh workers for it instead (``driver/spawn_workers.py``).
@@ -183,6 +187,10 @@ def _reset_inherited_locks(registry, serving: bool = True) -> None:
     inner = getattr(registry.config._namespace_manager, "inner", None)
     if inner is not None and hasattr(inner, "restart_after_fork"):
         inner.restart_after_fork()
+    # the OTLP exporter's flusher thread is gone too: rebuild it, so the
+    # spans a replica serves still reach the collector
+    if registry._tracer is not None:
+        registry._tracer.restart_after_fork()
 
 
 class _Link:
@@ -216,6 +224,7 @@ class ReplicaPool:
         "pydev",
         "namespace-watcher",
         "namespace-ws-watcher",
+        "otlp-exporter",
         "config-watcher",
     )
 
@@ -243,6 +252,7 @@ class ReplicaPool:
         self._wake_r: Optional[socket.socket] = None
         self._wake_w: Optional[socket.socket] = None
         self.n_respawns = 0
+        self._m_respawns = self._m_resyncs = None
         # the wire workers' shared-memory ring (engine/shmring.py), set by
         # the registry before fork_replicas when serve.read.wire_workers > 1
         self.wire_ring = None
@@ -281,6 +291,21 @@ class ReplicaPool:
         # childless pool pickling every future write
         self._enforce_fork_inventory()
         self._ports = (read_port, grpc_port)
+        metrics = self.registry.metrics()
+        self._m_respawns = metrics.counter(
+            "keto_replica_respawns_total",
+            "dead read replicas replaced by the supervisor (zygote forks)",
+        )
+        self._m_resyncs = metrics.counter(
+            "keto_replica_resyncs_total",
+            "delta-log replays served to lagging or freshly-spawned "
+            "replicas",
+        )
+        metrics.gauge(
+            "keto_replica_children",
+            "live forked read replicas (excludes the parent, replica 0)",
+            fn=lambda: len(self._children),
+        )
         store = self.registry.store()
         if self.n_replicas > 1:
             store.subscribe_deltas(self._broadcast)
@@ -552,6 +577,8 @@ class ReplicaPool:
                 self._kill_link(link)
                 self._respawn()
             return
+        if self._m_resyncs is not None:
+            self._m_resyncs.inc()
         try:
             for _v, payload in frames:
                 self._send_to(link, payload)
@@ -606,6 +633,8 @@ class ReplicaPool:
             _log.warning("zygote unreachable; pool capacity permanently reduced")
         else:
             self.n_respawns += 1
+            if self._m_respawns is not None:
+                self._m_respawns.inc()
         finally:
             child_sock.close()
 

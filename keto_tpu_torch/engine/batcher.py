@@ -63,8 +63,18 @@ scrubber's ``observe_batch``, ``engine/scrub.py``) taps answered batches
 into its replay reservoir. ``reconfigure`` resizes the pipeline on a live
 batcher: in-flight batches drain first, queued requests wait out the swap.
 Every stage loop carries the ``batcher.*`` fault sites (``faults.py``),
-and the stage seconds go to ``DEVSTATS`` (``/debug/graph``). Tracing and
-metrics wait for ROADMAP 14.5.
+and the stage seconds go to ``DEVSTATS`` (``/debug/graph``).
+
+Telemetry, as in the reference: with a metrics registry the batcher exports
+``keto_batcher_*``, ``keto_deadline_expired_total``,
+``keto_check_cancelled_total`` and, pipelined, the queue-depth gauges and
+``keto_pipeline_stage_seconds``; with a tracer each dispatch or stage runs
+under a span (``batcher.dispatch``, ``batcher.encode``, ``batcher.launch``,
+``batcher.decode``) that joins one caller's trace. The caller's attribution
+ledger (``telemetry/attribution.py``) and span context ride each queue
+entry, so the stage threads charge queue, encode, launch, kernel and decode
+time to the request that waited for them; the caller-assembled batches mark
+the ambient ledger on the caller's thread.
 """
 
 from __future__ import annotations
@@ -80,7 +90,10 @@ import numpy as np
 
 from ..faults import FAULTS
 from ..relationtuple.definitions import RelationTuple
+from ..telemetry.attribution import current_ledger, ledger_mark
 from ..telemetry.devstats import DEVSTATS
+from ..telemetry.metrics import deadline_expired_counter, pipeline_stage_histogram
+from ..telemetry.tracing import _current_span
 from ..utils.errors import (
     DeadlineExceeded,
     ErrInternal,
@@ -159,7 +172,8 @@ class _PBatch:
     __slots__ = ("items", "enc", "launched", "keys", "t_encoded", "hbm_token")
 
     def __init__(self, items):
-        # [(request, depth, Future, t_enqueued, deadline, criticality), ...]
+        # [(request, depth, Future, t_enqueued, deadline, criticality, ledger,
+        #   span_ctx), ...]
         self.items = items
         self.enc = None  # EncodedBatch after the encode stage
         self.launched = None  # LaunchedBatch after the launch stage
@@ -197,8 +211,11 @@ class CheckBatcher:
         qos=None,  # NamespaceQos: per-namespace token-bucket admission
         overload=None,  # OverloadController: adaptive admission + brownout
         hbm=None,  # HbmAdmission: device-memory budget; None disables
+        metrics=None,
+        tracer=None,  # stage spans join the caller's trace when set
     ):
         self.engine = engine
+        self.tracer = tracer
         self.max_batch = max_batch
         self.window_s = window_s
         self.max_queue = max_queue if max_queue > 0 else 8 * max_batch
@@ -221,13 +238,53 @@ class CheckBatcher:
         # the columnar batches and the encoded batches, so it only needs a
         # capable engine, not the pipeline threads
         self.encoded_cache = (
-            CheckResultCache(encoded_cache_size, name="encoded")
+            CheckResultCache(encoded_cache_size, metrics, name="encoded")
             if capable and encoded_cache_size > 0
             else None
         )
+        self._metrics = metrics
+        self._m_batch_size = None
+        self._m_shed = None
+        self._m_restarts = None
+        self._m_stage = None
+        self._m_columnar = None
+        self._m_deadline = None
+        self._m_cancelled = None
+        if metrics is not None:
+            self._m_batch_size = metrics.histogram(
+                "keto_batcher_batch_size",
+                "requests coalesced per dispatched batch",
+                buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096),
+            )
+            self._m_shed = metrics.counter(
+                "keto_batcher_shed_total",
+                "check requests rejected because the dispatch queue was full",
+            )
+            self._m_restarts = metrics.counter(
+                "keto_batcher_dispatcher_restarts_total",
+                "dispatch stage thread deaths recovered by the watchdog",
+            )
+            self._m_columnar = metrics.counter(
+                "keto_batcher_columnar_batches_total",
+                "caller-assembled batches served through the columnar "
+                "zero-object path",
+            )
+            self._m_deadline = deadline_expired_counter(metrics)
+            self._m_cancelled = metrics.counter(
+                "keto_check_cancelled_total",
+                "check requests dropped because the caller disconnected "
+                "before an answer, labeled by the stage that freed the slot",
+                labelnames=("stage",),
+            )
+            metrics.gauge(
+                "keto_batcher_queue_depth",
+                "check requests waiting for dispatch",
+                fn=lambda: len(self._queue),
+            )
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        # (request, depth, Future, t_enqueued, deadline, criticality)
+        # (request, depth, Future, t_enqueued, deadline, criticality, ledger,
+        #  span_ctx)
         self._queue: list[tuple] = []
         # serial mode: the batch the dispatcher popped but has not answered
         # yet — the watchdog fails exactly these on a dispatcher death, and
@@ -264,9 +321,29 @@ class CheckBatcher:
                 maxsize=max(1, pipeline_depth)
             )
             self._encoders_live = self.encode_workers
+            self._register_pipeline_metrics()
             self._threads = self._spawn_pipeline()
         else:
             self._threads = [self._spawn_dispatcher()]
+
+    def _register_pipeline_metrics(self) -> None:
+        """The queue-depth gauges and the stage histogram of the pipelined
+        shape. The gauges sample through lambdas, not bound queue methods,
+        so a reconfigure() that swaps the queues keeps them live; a second
+        registration after a serial -> pipelined transition finds the same
+        metrics and rebinds their samplers."""
+        metrics = self._metrics
+        if metrics is None:
+            return
+        metrics.gauge(
+            "keto_pipeline_launch_queue_depth",
+            "encoded batches waiting for kernel dispatch",
+        ).set_fn(lambda: self._launch_q.qsize())
+        metrics.gauge(
+            "keto_pipeline_decode_queue_depth",
+            "launched batches in flight awaiting decode",
+        ).set_fn(lambda: self._decode_q.qsize())
+        self._m_stage = pipeline_stage_histogram(metrics)
 
     def _pipeline_capable(self) -> bool:
         # a wrapper (the device breaker) says whether its primary pipelines
@@ -374,6 +451,8 @@ class CheckBatcher:
         shed is the typed 429 naming its reason."""
         reason = self.overload.admit(len(self._queue), criticality)
         if reason is not None:
+            if self._m_shed is not None:
+                self._m_shed.inc()
             raise BatcherOverloaded(
                 f"The server is overloaded ({reason}, "
                 f"criticality={criticality}); retry with backoff."
@@ -407,6 +486,14 @@ class CheckBatcher:
             if cached is not None:
                 return cached
         f: Future = Future()
+        # the request's ledger and span context ride the queue entry: the
+        # stage threads mark queue/encode/launch/kernel/decode on the ledger
+        # and parent their spans to the caller's trace. Everything up to
+        # the enqueue is "admission" (transport, freshness wait, cache)
+        led = current_ledger()
+        if led is not None:
+            led.mark("admission")
+        span_ctx = _current_span.get()
         with self._cv:
             if self._closed:
                 raise BatcherClosed()
@@ -420,10 +507,12 @@ class CheckBatcher:
                 # only converts overload into latency for every caller.
                 # The hard backstop: it sheds even critical traffic, which
                 # the overload ladder never does
+                if self._m_shed is not None:
+                    self._m_shed.inc()
                 raise BatcherOverloaded()
             self._queue.append(
                 (request, max_depth, f, time.perf_counter(), deadline,
-                 criticality)
+                 criticality, led, span_ctx)
             )
             self._cv.notify()
         if entry_hook is not None:
@@ -464,11 +553,17 @@ class CheckBatcher:
             self._admit_overload(criticality)
         self._admit(min_version, timeout, deadline, relax=True)
         if self.cache is None:
-            return self._dispatch_direct(requests, max_depth, deadline)
+            ledger_mark("admission")
+            res = self._dispatch_direct(requests, max_depth, deadline)
+            ledger_mark("kernel")
+            return res
         version = self.version_fn()
         keys = [(r, max_depth) for r in requests]
         cached = self.cache.get_many(version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
+        # admission covers the transport, the freshness wait and the bulk
+        # cache probe; the engine has not run yet
+        ledger_mark("admission")
         if not miss:
             return [bool(v) for v in cached]
         try:
@@ -477,8 +572,11 @@ class CheckBatcher:
             if hasattr(e, "answers"):  # the whole batch's rows, hits included
                 e.answers = _merge(cached, miss, e.answers)
             raise
+        ledger_mark("kernel")
         self.cache.put_many(version, [keys[i] for i in miss], res)
-        return _merge(cached, miss, res)
+        out = _merge(cached, miss, res)
+        ledger_mark("decode")
+        return out
 
     def _admit_rows(self) -> int:
         """The chunk size the HBM admission currently accepts: max_batch
@@ -492,7 +590,14 @@ class CheckBatcher:
         """A caller-assembled tuple batch on the caller's thread, in chunks
         the admission accepts, tapped into the scrubber's reservoir. With a
         deadline, an engine that bounds its host oracle by one
-        (``takes_deadline``, the breaker) gets it."""
+        (``takes_deadline``, the breaker) gets it. Runs under a
+        ``batcher.dispatch`` span that joins the caller's trace."""
+        if self.tracer is not None:
+            with self.tracer.span("batcher.dispatch", batch_size=len(requests)):
+                return self._dispatch_direct_inner(requests, max_depth, deadline)
+        return self._dispatch_direct_inner(requests, max_depth, deadline)
+
+    def _dispatch_direct_inner(self, requests, max_depth: int, deadline) -> list[bool]:
         kw = {}
         if deadline is not None and getattr(self.engine, "takes_deadline", False):
             kw["deadline"] = deadline
@@ -544,6 +649,10 @@ class CheckBatcher:
         if self.qos is not None:
             self._admit_counts(cols.namespaces)
         self._admit(min_version, timeout, deadline)
+        if self._m_columnar is not None:
+            self._m_columnar.inc()
+        # the transport and the freshness wait up to here
+        ledger_mark("admission")
         if getattr(self.engine, "encode_columns", None) is None:
             return self._columns_via_engine(cols, max_depth)
         out: list = []
@@ -563,15 +672,26 @@ class CheckBatcher:
             i += step
 
     def _dispatch_columns(self, cols, max_depth: int, deadline=None) -> list:
+        if self.tracer is not None:
+            with self.tracer.span("batcher.dispatch", batch_size=len(cols), columnar=1):
+                return self._dispatch_columns_inner(cols, max_depth, deadline)
+        return self._dispatch_columns_inner(cols, max_depth, deadline)
+
+    def _dispatch_columns_inner(self, cols, max_depth: int, deadline=None) -> list:
         """One encoded columnar dispatch: encode into staging, resolve cache
-        hits, launch only the misses."""
+        hits, launch only the misses. On the caller's thread, so
+        ``ledger_mark`` charges each phase to the ambient request ledger."""
         enc = self.engine.encode_columns(cols, max_depth)
         cache = self.encoded_cache
         if cache is None:
-            return self._launch_decode(enc, deadline)
+            ledger_mark("encode")
+            out = self._launch_decode(enc, deadline)
+            ledger_mark("decode")
+            return out
         keys = enc.keys()
         cached = cache.get_many(enc.version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
+        ledger_mark("encode")
         if not miss:
             enc.release()
             return [bool(v) for v in cached]
@@ -580,7 +700,9 @@ class CheckBatcher:
         res = self._launch_decode(enc, deadline)
         live = [(i, v) for i, v in zip(miss, res) if v is not None]
         cache.put_many(enc.version, [keys[i] for i, _ in live], [v for _, v in live])
-        return _merge(cached, miss, res)
+        out = _merge(cached, miss, res)
+        ledger_mark("decode")
+        return out
 
     def _launch_decode(self, enc, deadline=None) -> list:
         """The device stage and the decode of one encoded batch, on the
@@ -588,9 +710,11 @@ class CheckBatcher:
         per-row deadlines do; a row its oracle skipped stays None."""
         if deadline is not None:
             enc.deadlines = [deadline] * enc.n
+        launched = self.engine.launch_encoded(enc)
+        ledger_mark("launch")
         return [
             None if v is None else bool(v)
-            for v in self.engine.decode_launched(self.engine.launch_encoded(enc))
+            for v in self.engine.decode_launched(launched)
         ]
 
     def _columns_via_engine(self, cols, max_depth: int) -> list[bool]:
@@ -599,17 +723,23 @@ class CheckBatcher:
         tuples — with the result cache probed in bulk on flat string row
         keys, not request objects."""
         if self.cache is None:
-            return self._run_columns(cols, max_depth)
+            res = self._run_columns(cols, max_depth)
+            ledger_mark("kernel")
+            return res
         version = self.version_fn()
         keys = cols.row_keys(max_depth)
         cached = self.cache.get_many(version, keys)
         miss = [i for i, v in enumerate(cached) if v is None]
+        ledger_mark("encode")
         if not miss:
             return [bool(v) for v in cached]
         sub = cols.select(miss) if len(miss) < len(cols) else cols
         res = self._run_columns(sub, max_depth)
+        ledger_mark("kernel")
         self.cache.put_many(version, [keys[i] for i in miss], res)
-        return _merge(cached, miss, res)
+        out = _merge(cached, miss, res)
+        ledger_mark("decode")
+        return out
 
     def _run_columns(self, cols, max_depth: int) -> list[bool]:
         run = getattr(self.engine, "batch_check_columns", None)
@@ -655,6 +785,7 @@ class CheckBatcher:
         else:
             want = np.zeros(n, dtype=np.int32)
         d = np.where((want <= 0) | (want > gmax), gmax, want) if gmax > 0 else want
+        ledger_mark("admission")
         out: list[bool] = []
         i = 0
         while i < n:
@@ -666,7 +797,9 @@ class CheckBatcher:
     def _dispatch_encoded(self, s, t, d) -> list[bool]:
         cache = self.encoded_cache
         if cache is None or self.version_fn is None:
-            return self._run_encoded(s, t, d)
+            out = self._run_encoded(s, t, d)
+            ledger_mark("decode")
+            return out
         version = self.version_fn()
         keys = list(zip(s.tolist(), t.tolist(), d.tolist()))
         cached = cache.get_many(version, keys)
@@ -677,12 +810,16 @@ class CheckBatcher:
             s, t, d = s[miss], t[miss], d[miss]
         res = self._run_encoded(s, t, d)
         cache.put_many(version, [keys[i] for i in miss], res)
-        return _merge(cached, miss, res)
+        out = _merge(cached, miss, res)
+        ledger_mark("decode")
+        return out
 
     def _run_encoded(self, s, t, d) -> list[bool]:
         encode_ids = getattr(self.engine, "encode_ids", None)
         if encode_ids is not None:
-            return self._launch_decode(encode_ids(s, t, d))
+            enc = encode_ids(s, t, d)
+            ledger_mark("encode")
+            return self._launch_decode(enc)
         check_ids = getattr(self.engine, "check_ids", None)
         if check_ids is None:
             raise ErrInternal(
@@ -826,6 +963,7 @@ class CheckBatcher:
                 self._launch_q = _queue_mod.Queue(maxsize=max(2, self.encode_workers))
                 self._decode_q = _queue_mod.Queue(maxsize=max(1, new_depth))
                 self._encoders_live = self.encode_workers
+                self._register_pipeline_metrics()
                 self._threads = self._spawn_pipeline()
             else:
                 self._threads = [self._spawn_dispatcher()]
@@ -901,8 +1039,14 @@ class CheckBatcher:
         return batch
 
     def _note_expired(self, stage: str, n: int) -> None:
+        if self._m_deadline is not None:
+            self._m_deadline.labels(stage=stage).inc(n)
         with self._lock:
             self._expired[stage] = self._expired.get(stage, 0) + n
+
+    def _note_cancelled(self, stage: str, n: int) -> None:
+        if self._m_cancelled is not None:
+            self._m_cancelled.labels(stage=stage).inc(n)
 
     def _cull(self, items: list, stage: str) -> tuple[list, list[int]]:
         """Drop entries whose caller gave up — deadline passed (their future
@@ -912,10 +1056,11 @@ class CheckBatcher:
         now = time.monotonic()
         kept: list = []
         keep_idx: list[int] = []
-        expired = 0
+        expired = cancelled = 0
         for i, it in enumerate(items):
             f, dl = it[2], it[4]
             if f.cancelled():
+                cancelled += 1
                 continue
             if dl is not None and now >= dl:
                 if not f.done():
@@ -926,6 +1071,8 @@ class CheckBatcher:
             keep_idx.append(i)
         if expired:
             self._note_expired(stage, expired)
+        if cancelled:
+            self._note_cancelled(stage, cancelled)
         return kept, keep_idx
 
     # -- serial dispatcher -----------------------------------------------------
@@ -948,7 +1095,7 @@ class CheckBatcher:
                     f = item[2]
                     if not f.done():
                         f.set_exception(DispatcherCrashed())
-                self.n_restarts += 1
+                self._note_restart()
                 if closed:
                     return
 
@@ -966,11 +1113,22 @@ class CheckBatcher:
                 self._inflight = batch
             self.n_batches += 1
             self.n_dispatched += len(batch)
+            if self._m_batch_size is not None:
+                self._m_batch_size.observe(len(batch))
             requests = [b[0] for b in batch]
             depths = [b[1] for b in batch]
             t_dispatch = time.perf_counter()
+            self._mark_items(batch, "queue", t_dispatch)
             try:
-                results = self.engine.batch_check(requests, depths=depths)
+                if self.tracer is not None:
+                    with self.tracer.span(
+                        "batcher.dispatch",
+                        parent=self._batch_parent(batch),
+                        batch_size=len(batch),
+                    ):
+                        results = self.engine.batch_check(requests, depths=depths)
+                else:
+                    results = self.engine.batch_check(requests, depths=depths)
             except Exception as e:  # propagate to every caller in the batch
                 for item in batch:
                     f = item[2]
@@ -986,6 +1144,10 @@ class CheckBatcher:
                     t_dispatch - min(it[3] for it in batch),
                     time.perf_counter() - t_dispatch,
                 )
+            # the serial engine call is one piece (encode, kernel and decode
+            # in one): all of it is "kernel", marked before the futures
+            # resolve so the callers' own marks cannot race it
+            self._mark_items(batch, "kernel")
             for item, allowed in zip(batch, results):
                 f = item[2]
                 if not f.done():
@@ -1008,9 +1170,37 @@ class CheckBatcher:
             self.hbm.release(batch.hbm_token)
             batch.hbm_token = 0
 
-    @staticmethod
-    def _observe(stage: str, seconds: float) -> None:
+    def _observe(self, stage: str, seconds: float) -> None:
+        if self._m_stage is not None:
+            self._m_stage.labels(stage=stage).observe(seconds)
         DEVSTATS.record_stage(stage, seconds)
+
+    def _note_restart(self) -> None:
+        self.n_restarts += 1
+        if self._m_restarts is not None:
+            self._m_restarts.inc()
+
+    @staticmethod
+    def _batch_parent(items):
+        """The parent of a stage span: the first entry that carries a span
+        context. A batch serves many traces and OTLP has no multi-parent,
+        so the span joins one representative caller's trace."""
+        for it in items:
+            if it[7] is not None:
+                return it[7]
+        return None
+
+    @staticmethod
+    def _mark_items(items, stage: str, now: Optional[float] = None) -> None:
+        """Charge ``stage`` on every entry's ledger. Safe across threads:
+        each entry's marks are sequential (the stage handoffs through the
+        bounded queues order them), and they run before the entry's future
+        resolves, so they never race the caller's serialize and reply
+        marks."""
+        for it in items:
+            led = it[6]
+            if led is not None:
+                led.mark(stage, now)
 
     def _fail_batch(self, batch: _PBatch, exc: BaseException) -> None:
         self._complete(batch)
@@ -1035,7 +1225,7 @@ class CheckBatcher:
                 batch, holder.batch = holder.batch, None
                 if batch is not None:
                     self._fail_batch(batch, DispatcherCrashed())
-                self.n_restarts += 1
+                self._note_restart()
                 if self._closed:
                     return
 
@@ -1055,7 +1245,16 @@ class CheckBatcher:
             if items is None:
                 return
             items, _ = self._cull(items, "encode")
-            if items:
+            if not items:
+                continue
+            if self.tracer is not None:
+                with self.tracer.span(
+                    "batcher.encode",
+                    parent=self._batch_parent(items),
+                    batch_size=len(items),
+                ):
+                    self._encode_step(items, holder)
+            else:
                 self._encode_step(items, holder)
 
     def _encode_step(self, items: list, holder: _Holder) -> None:
@@ -1073,6 +1272,9 @@ class CheckBatcher:
         if self.overload is not None:
             # pipelined shape: the queue delay alone is the limiter signal
             self.overload.observe(queued)
+        self._mark_items(items, "queue", t0)
+        if self._m_batch_size is not None:
+            self._m_batch_size.observe(len(items))
         requests = [it[0] for it in items]
         depths = [it[1] for it in items]
         try:
@@ -1089,8 +1291,13 @@ class CheckBatcher:
             cached = self.encoded_cache.get_many(enc.version, keys)
             miss = [i for i, v in enumerate(cached) if v is None]
             if len(miss) < len(items):
+                now = time.perf_counter()
                 for it, v in zip(items, cached):
-                    if v is not None and not it[2].done():
+                    if v is None:
+                        continue
+                    if it[6] is not None:
+                        it[6].mark("encode", now)
+                    if not it[2].done():
                         it[2].set_result(bool(v))
                 if not miss:
                     enc.release()
@@ -1106,6 +1313,7 @@ class CheckBatcher:
         enc.deadlines = [it[4] for it in batch.items]
         batch.t_encoded = time.perf_counter()
         self._observe("encode", batch.t_encoded - t0)
+        self._mark_items(batch.items, "encode", batch.t_encoded)
         # ownership passes to the launch queue; the bounded put is the
         # encode stage's backpressure
         holder.batch = None
@@ -1117,7 +1325,15 @@ class CheckBatcher:
             if batch is _SENTINEL:
                 self._decode_q.put(_SENTINEL)
                 return
-            self._launch_step(batch, holder)
+            if self.tracer is not None:
+                with self.tracer.span(
+                    "batcher.launch",
+                    parent=self._batch_parent(batch.items),
+                    batch_size=len(batch.items),
+                ):
+                    self._launch_step(batch, holder)
+            else:
+                self._launch_step(batch, holder)
 
     def _launch_step(self, batch: _PBatch, holder: _Holder) -> None:
         holder.batch = batch
@@ -1157,6 +1373,7 @@ class CheckBatcher:
             return
         # launch = launch-queue wait + the enqueue of the steps
         self._observe("launch", time.perf_counter() - batch.t_encoded)
+        self._mark_items(batch.items, "launch")
         holder.batch = None
         # bounded put: blocks once pipeline_depth batches await decode,
         # which is what caps the batches in flight
@@ -1167,7 +1384,15 @@ class CheckBatcher:
             batch = self._decode_q.get()
             if batch is _SENTINEL:
                 return
-            self._decode_step(batch, holder)
+            if self.tracer is not None:
+                with self.tracer.span(
+                    "batcher.decode",
+                    parent=self._batch_parent(batch.items),
+                    batch_size=len(batch.items),
+                ):
+                    self._decode_step(batch, holder)
+            else:
+                self._decode_step(batch, holder)
 
     def _decode_step(self, batch: _PBatch, holder: _Holder) -> None:
         holder.batch = batch
@@ -1193,12 +1418,20 @@ class CheckBatcher:
             holder.batch = None
             return
         # device = the wait for the result's copy back
-        self._observe("device", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self._observe("device", t1 - t0)
         # a None answer is a row the breaker's oracle skipped because its
         # caller's deadline had passed: that caller already failed typed,
         # and nothing is cached or tapped for it
         for item, allowed in zip(batch.items, results):
             f = item[2]
+            led = item[6]
+            if led is not None:
+                # kernel = launch mark -> the answers are on the host;
+                # decode = the rest up to this row's resolution, marked
+                # before set_result so the woken caller's marks cannot race
+                led.mark("kernel", t1)
+                led.mark("decode")
             if allowed is not None and not f.done():
                 f.set_result(bool(allowed))
         live = [i for i, v in enumerate(results) if v is not None]
@@ -1213,6 +1446,7 @@ class CheckBatcher:
                 [bool(results[i]) for i in live],
             )
         self._complete(batch)
+        self._observe("decode", time.perf_counter() - t1)
         holder.batch = None
 
 

@@ -1,5 +1,5 @@
 """Check-result cache: version-stamped LRU over single-check answers
-(counterpart of ``keto_tpu/engine/cache.py``, without its metrics).
+(counterpart of ``keto_tpu/engine/cache.py``).
 
 Hot single checks (the same user hitting the same object) skip the engine
 entirely.
@@ -18,7 +18,9 @@ repeated payload costs dict probes, not engine dispatches.
 
 The same class backs the pipeline's encoded-request cache (keys are
 (start, target, depth) id triples instead of request tuples) — pass
-``name`` so the two caches keep distinct hit/miss counters.
+``name`` so the two caches keep distinct hit/miss counters
+(``keto_<name>_cache_hits_total`` and ``..._misses_total`` when a metrics
+registry is given).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Hashable, Optional
 
 
 class CheckResultCache:
-    def __init__(self, capacity: int = 65536, name: str = "check"):
+    def __init__(self, capacity: int = 65536, metrics=None, name: str = "check"):
         self.capacity = capacity
         self.name = name
         self._lock = threading.Lock()
@@ -38,6 +40,15 @@ class CheckResultCache:
         # probe tallies (the smoke run's hit share and the tests read them)
         self.hits = 0
         self.misses = 0
+        if metrics is not None:
+            self._m_hits = metrics.counter(
+                f"keto_{name}_cache_hits_total", f"{name} cache hits"
+            )
+            self._m_misses = metrics.counter(
+                f"keto_{name}_cache_misses_total", f"{name} cache misses"
+            )
+        else:
+            self._m_hits = self._m_misses = None
 
     def get(self, version: int, key: Hashable) -> Optional[bool]:
         with self._lock:
@@ -54,6 +65,9 @@ class CheckResultCache:
                 self.misses += 1
             else:
                 self.hits += 1
+        m = self._m_misses if hit is None else self._m_hits
+        if m is not None:
+            m.inc()
         return hit
 
     def put(self, version: int, key: Hashable, value: bool) -> None:
@@ -86,6 +100,11 @@ class CheckResultCache:
                         hits += 1
             self.hits += hits
             self.misses += len(keys) - hits
+        if self._m_hits is not None:
+            if hits:
+                self._m_hits.inc(hits)
+            if hits < len(keys):
+                self._m_misses.inc(len(keys) - hits)
         return out
 
     def put_many(self, version: int, keys, values) -> None:

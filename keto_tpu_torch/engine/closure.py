@@ -76,8 +76,22 @@ background rebuild until the device has memory headroom
 (``HbmAdmission.wait_for_headroom``), and ``reverse_residency_cb`` reports
 a device-resident D^T's bytes to the same admission. ``set_host_queries``
 moves the residency between the card and host memory at the next build:
-the device supervisor's CPU failover. Metrics and tracing wait for
-ROADMAP 14.5.
+the device supervisor's CPU failover.
+
+Telemetry, as in the reference: with a metrics registry the engine counts
+``keto_checks_total``, ``keto_check_batch_seconds`` and
+``keto_closure_builds_total{kind}`` (``full``, ``incremental``); with a
+tracer a build runs under ``closure.build`` with the child spans
+``snapshot.encode``, ``closure.interior``, ``closure.blocks`` (the host
+semiring builder's independent blocks), ``closure.semiring`` and
+``closure.matmul``. A deliberate difference from the reference: a build on
+the card waits on a CUDA event recorded after its last launch before it
+closes ``closure.semiring`` (or ``closure.matmul``) and reads the phase, so
+the span and ``last_build_phases["kernel"]`` time the kernels, not their
+queueing. The build runs on the rebuild worker or in the warmup (under
+strong freshness, on the check that is waiting for it anyway), so the wait
+holds up no check that would not wait for the build. The device semiring
+build needs no block decomposition, so it has no ``closure.blocks`` span.
 
 Rows whose F0/L fan-out overflows the padded width, and snapshots whose
 interior exceeds ``interior_limit`` (D is O(M^2) bytes), are answered by an
@@ -116,6 +130,7 @@ from ..ops.closure import (
     pack_adjacency,
 )
 from ..relationtuple.definitions import RelationTuple, SubjectID, SubjectSet
+from ..telemetry.tracing import NOOP_TRACER
 from ..utils.errors import ErrUnavailable
 from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, CheckEngine
@@ -308,6 +323,8 @@ class ClosureCheckEngine:
         rebuild_gate=None,  # zero-arg callable run before each background
         # rebuild (blocks until the device has room for one)
         device=None,
+        tracer=None,
+        metrics=None,
     ):
         if query_mode not in ("auto", "host", "device"):
             raise ValueError(f"unknown query_mode {query_mode!r}")
@@ -380,6 +397,22 @@ class ClosureCheckEngine:
         # blocks / kernel, matmul or incremental / total
         self.last_build_phases: dict[str, float] = {}
         self.last_dirty_rows = 0  # rows the last dirty-row rebuild re-ran
+        self.closure_built_at: Optional[float] = None  # the graph panel's age
+        self.tracer = tracer if tracer is not None else NOOP_TRACER
+        if metrics is not None:
+            self._m_checks = metrics.counter(
+                "keto_checks_total", "checks evaluated by the engine"
+            )
+            self._m_batch_s = metrics.histogram(
+                "keto_check_batch_seconds", "engine batch evaluation time"
+            )
+            self._m_builds = metrics.counter(
+                "keto_closure_builds_total",
+                "closure builds by kind",
+                labelnames=("kind",),
+            )
+        else:
+            self._m_checks = self._m_batch_s = self._m_builds = None
 
     @classmethod
     def from_closure(
@@ -651,7 +684,8 @@ class ClosureCheckEngine:
             if state is not None and state.version == self.snapshots.store.version:
                 return state  # a concurrent builder got there first
             t_snap = time.perf_counter()
-            snap = self.snapshots.snapshot()
+            with self.tracer.span("snapshot.encode"):
+                snap = self.snapshots.snapshot()
             snap_s = time.perf_counter() - t_snap
             state = self._build_state(snap, prev=state)
             self.last_build_phases["snapshot_encode"] = snap_s
@@ -665,6 +699,7 @@ class ClosureCheckEngine:
             else:
                 self._overlay = None
             self._state = state
+            self.closure_built_at = time.time()
             with self._state_cv:
                 self._state_cv.notify_all()  # wake wait_for_version
             return state
@@ -710,36 +745,47 @@ class ClosureCheckEngine:
         t_build = time.perf_counter()
         phases: dict[str, float] = {}
         self.last_build_phases = phases
+        with self.tracer.span(
+            "closure.build", edges=snap.num_edges, version=snap.version
+        ) as span:
+            state = self._build_state_in(snap, prev, phases, span)
+            phases["total"] = time.perf_counter() - t_build
+            return state
+
+    def _build_state_in(
+        self, snap: GraphSnapshot, prev: Optional[_State], phases: dict, span
+    ) -> _State:
         if not self.allow_device_builds:
             # a forked replica past its overlay: no build, exact answers from
             # the live store. Checked before build_interior: the O(E) scan
             # would be discarded, and rebuild kicks recur per write
+            span.set_attr("kind", "replica-fallback")
             if not self._fallback_logged:
                 self._fallback_logged = True
                 _log.warning(
                     "read replica pid %d is past its write overlay and may not "
                     "build: answering from the live store", os.getpid(),
                 )
-            phases["total"] = time.perf_counter() - t_build
             return _TooBig(version=snap.version, num_edges=snap.num_edges)
         t0 = time.perf_counter()
-        ig = build_interior(snap)
+        with self.tracer.span("closure.interior"):
+            ig = build_interior(snap)
         phases["interior"] = time.perf_counter() - t0
+        span.set_attr("interior", ig.m)
         if ig.m > self.interior_limit or self.global_max_depth > _MAX_CLOSURE_DEPTH:
             # depths beyond the uint8 distance range cannot be resolved by
             # the closure: exact fallback for the whole snapshot
-            phases["total"] = time.perf_counter() - t_build
+            span.set_attr("kind", "fallback")
             return _TooBig(version=snap.version, num_edges=snap.num_edges)
         k_max = self.global_max_depth - 1
         host = self.host_queries()
         if isinstance(prev, _ClosureArtifacts):
             new_ii = self._appended_interior_edges(prev, snap, ig)
             if new_ii is not None and len(new_ii) <= _MAX_INCR_EDGES:
-                self.n_incremental_builds += 1
+                self._count_build("incremental", span)
                 t0 = time.perf_counter()
                 art = self._incremental_artifacts(prev, snap, ig, k_max, new_ii)
                 phases["incremental"] = time.perf_counter() - t0
-                phases["total"] = time.perf_counter() - t_build
                 return art
             if (
                 self.builder != "matmul"
@@ -749,42 +795,55 @@ class ClosureCheckEngine:
             ):
                 # a larger delta (or deletes) over an unchanged interior node
                 # set: the dirty-row rebuild, bounded by the delta's reach
-                art = self._semiring_incremental(prev, snap, ig, k_max, phases)
-                phases["total"] = time.perf_counter() - t_build
-                return art
-        self.n_full_builds += 1
+                return self._semiring_incremental(prev, snap, ig, k_max, phases, span)
+        self._count_build("full", span)
         m_pad = _m_pad_for(ig.m)
         if self.builder == "semiring" and host:
             t0 = time.perf_counter()
-            blocks = interior_blocks(ig)
+            with self.tracer.span("closure.blocks", interior=ig.m):
+                blocks = interior_blocks(ig)
             phases["blocks"] = time.perf_counter() - t0
+            span.set_attr("blocks", blocks.n_blocks)
             t0 = time.perf_counter()
-            d_host = build_closure_bitset(
-                ig.ii_src, ig.ii_dst, ig.m, m_pad, k_max,
-                workers=self._build_workers(), blocks=blocks,
-            )
+            with self.tracer.span("closure.semiring", interior=ig.m):
+                d_host = build_closure_bitset(
+                    ig.ii_src, ig.ii_dst, ig.m, m_pad, k_max,
+                    workers=self._build_workers(), blocks=blocks,
+                )
             phases["kernel"] = time.perf_counter() - t0
-            art = _ClosureArtifacts(snap, ig, k_max, d_host=d_host)
-        else:
-            t0 = time.perf_counter()
+            return _ClosureArtifacts(snap, ig, k_max, d_host=d_host)
+        t0 = time.perf_counter()
+        semiring = self.builder == "semiring"
+        with self.tracer.span(
+            "closure.semiring" if semiring else "closure.matmul", interior=ig.m
+        ):
             packed = pack_adjacency(ig.ii_src, ig.ii_dst, m_pad)
-            build = (
-                build_closure_semiring if self.builder == "semiring"
-                else build_closure_packed
-            )
+            build = build_closure_semiring if semiring else build_closure_packed
             d = build(packed, ig.m, m_pad=m_pad, k_max=k_max, device=self.device)
-            if host:
-                # the matmul builder in host mode: one download, then the
-                # device copy is dropped (the host copy is writable: the
-                # overlay patches it in place)
-                art = _ClosureArtifacts(snap, ig, k_max, d_host=d.cpu().numpy())
-            else:
-                art = _ClosureArtifacts(snap, ig, k_max, d)
-            phases["kernel" if self.builder == "semiring" else "matmul"] = (
-                time.perf_counter() - t0
-            )
-        phases["total"] = time.perf_counter() - t_build
+            if d.is_cuda:
+                # the span and the phase close when the card has run the
+                # last launch, not when it was queued
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+        if host:
+            # the matmul builder in host mode: one download, then the device
+            # copy is dropped (the host copy is writable: the overlay
+            # patches it in place)
+            art = _ClosureArtifacts(snap, ig, k_max, d_host=d.cpu().numpy())
+        else:
+            art = _ClosureArtifacts(snap, ig, k_max, d)
+        phases["kernel" if semiring else "matmul"] = time.perf_counter() - t0
         return art
+
+    def _count_build(self, kind: str, span) -> None:
+        if kind == "full":
+            self.n_full_builds += 1
+        else:
+            self.n_incremental_builds += 1
+        span.set_attr("kind", kind)
+        if self._m_builds is not None:
+            self._m_builds.labels(kind=kind).inc()
 
     def _build_workers(self) -> int:
         if self.block_workers > 0:
@@ -813,6 +872,7 @@ class ClosureCheckEngine:
         ig: InteriorGraph,
         k_max: int,
         phases: dict,
+        span,
     ) -> _ClosureArtifacts:
         """The dirty-row closure update for any interior edge delta
         (engine/semiring.py): a reverse BFS finds the rows the delta can
@@ -828,7 +888,8 @@ class ClosureCheckEngine:
         )
         phases["kernel"] = phases["incremental"] = time.perf_counter() - t0
         self.last_dirty_rows = int(rows.size)
-        self.n_incremental_builds += 1
+        self._count_build("incremental", span)
+        span.set_attr("dirty_rows", int(rows.size))
         # carry D^T: the dirty rows of D are the dirty columns of D^T. Sound
         # because prev.d_rev is always prev.d_host's transpose: the overlay
         # mirrors every in-place patch of D onto it
@@ -1093,6 +1154,7 @@ class ClosureCheckEngine:
         breaker validates by dtype and shape before one ``tolist``."""
         if not requests:
             return np.zeros(0, dtype=bool)
+        t0 = time.perf_counter()
         state, pinned = self._serving_pinned()
         if not isinstance(state, _ClosureArtifacts):
             return np.array(
@@ -1105,9 +1167,16 @@ class ClosureCheckEngine:
         n = len(requests)
         s_ids, t_ids, is_id = state.snap.vocab.lookup_requests(requests)
         depth = self._depths(n, max_depth, depths)
-        return self._check_arrays(
+        allowed = self._check_arrays(
             state, s_ids, t_ids, is_id, depth, pinned, requests
         )
+        self._count_checks(n, t0)
+        return allowed
+
+    def _count_checks(self, n: int, t0: float) -> None:
+        if self._m_checks is not None:
+            self._m_checks.inc(n)
+            self._m_batch_s.observe(time.perf_counter() - t0)
 
     def batch_check_columns(
         self,
@@ -1136,6 +1205,7 @@ class ClosureCheckEngine:
         n = len(cols)
         if not n:
             return np.zeros(0, dtype=bool)
+        t0 = time.perf_counter()
         state, pinned = self._serving_pinned()
         if not isinstance(state, _ClosureArtifacts):
             # interior too large for a closure: the exact fallback, the only
@@ -1153,9 +1223,11 @@ class ClosureCheckEngine:
         t_ids = vocab.lookup_bulk(tkeys)
         is_id = np.fromiter((len(k) == 1 for k in tkeys), dtype=bool, count=n)
         depth = self._depths(n, max_depth, depths)
-        return self._check_arrays(
+        allowed = self._check_arrays(
             state, s_ids, t_ids, is_id, depth, pinned, _ColumnRows(cols)
         )
+        self._count_checks(n, t0)
+        return allowed
 
     def check_ids(
         self,

@@ -37,8 +37,10 @@ CSR (host work: no kernel runs), for every engine mode but ``host``.
 ``device.lost`` raise as those failures would, ``device.slow`` stalls, and
 ``device.batch_nan`` returns a garbage batch (NaN answers) as a sick card
 would; the breaker in ``engine/fallback.py`` is tested against them. The
-staging copies are tallied in ``DEVSTATS`` (``/debug/graph``). The
-per-request ledger marks wait for ROADMAP 14.5.
+staging copies are tallied in ``DEVSTATS`` (``/debug/graph``). The decode's
+copy back, the one blocking step, is charged to ``kernel`` on the ambient
+request ledger (``telemetry/attribution.py``) on the caller-thread batch
+paths, so the host-side conversion after it lands in ``decode``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from ..ops.frontier import (
 )
 from ..ops.packed import PACKED_BATCH_MULTIPLE, csr_row_ptr, packed_batched_check
 from ..relationtuple.definitions import RelationTuple, Subject, SubjectID, SubjectSet
+from ..telemetry.attribution import ledger_mark
 from ..telemetry.devstats import DEVSTATS
 from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, clamp_depth
@@ -602,6 +605,9 @@ class DeviceCheckEngine:
             if launched.garbage:
                 return np.full(enc.n, np.nan)
             hit = launched.hit[: enc.n].cpu()
+            # the copy above waited for the kernel: on the caller-thread
+            # batch paths the device wait is "kernel" on the request ledger
+            ledger_mark("kernel")
             DEVSTATS.record_transfer(hit.numel() * hit.element_size(), "d2h")
             return hit.numpy()
         finally:

@@ -56,8 +56,12 @@ the read path, not a device failure: it passes through uncharged.
 
 The wrapper is transparent: everything the batcher and the registry reach
 through (``wait_for_version``, ``answering_version``, ``warmup``, ...)
-delegates to the primary. Metrics wait for ROADMAP 14.5; the counts they
-would export are attributes here and entries of ``breaker_snapshot``.
+delegates to the primary. With a metrics registry the breaker exports the
+reference's families (``keto_device_engine_failures_total``,
+``keto_device_fallback_batches_total``, ``keto_device_circuit_open``,
+``keto_fallback_deadline_skips_total``, ``keto_device_oom_bisections_total``,
+``keto_compile_quarantine_size``); the same counts are attributes here and
+entries of ``breaker_snapshot``.
 """
 
 from __future__ import annotations
@@ -227,6 +231,7 @@ class DeviceFallbackEngine:
         max_bisect_depth: int = _MAX_BISECT_DEPTH,
         jitter_frac: float = _JITTER_FRAC,
         rng=None,  # injectable random.Random for deterministic jitter tests
+        metrics=None,
     ):
         self.primary = primary
         self._fallback_factory = fallback_factory
@@ -260,6 +265,39 @@ class DeviceFallbackEngine:
         self.n_deadline_skips = 0
         self.n_bisections = 0
         self.n_real_failures = 0  # batches failed typed, never re-answered
+        self._m_failures = self._m_fallback_batches = None
+        self._m_deadline_skips = self._m_bisections = None
+        if metrics is not None:
+            self._m_failures = metrics.counter(
+                "keto_device_engine_failures_total",
+                "device engine batches that raised or returned invalid output",
+            )
+            self._m_fallback_batches = metrics.counter(
+                "keto_device_fallback_batches_total",
+                "check batches answered by the host oracle while the "
+                "device circuit is open",
+            )
+            metrics.gauge(
+                "keto_device_circuit_open",
+                "1 while checks are served by the host fallback",
+                fn=lambda: 0.0 if self._open_until is None else 1.0,
+            )
+            self._m_deadline_skips = metrics.counter(
+                "keto_fallback_deadline_skips_total",
+                "rows the host-oracle fallback did not re-answer because "
+                "their caller deadline had already passed",
+            )
+            self._m_bisections = metrics.counter(
+                "keto_device_oom_bisections_total",
+                "encoded batches split in half and re-dispatched after a "
+                "device out-of-memory",
+            )
+            metrics.gauge(
+                "keto_compile_quarantine_size",
+                "(bucket, snapshot-version) shapes quarantined to the host "
+                "oracle after a shape-specific compile failure",
+                fn=lambda: float(len(self._quarantine)),
+            )
 
     # -- breaker bookkeeping ---------------------------------------------------
 
@@ -305,6 +343,8 @@ class DeviceFallbackEngine:
         threshold — a lost device fails every future batch, so waiting out
         the threshold just burns caller latency. A ``real`` failure takes
         readiness down at once, open circuit or not."""
+        if self._m_failures is not None:
+            self._m_failures.inc()
         with self._lock:
             self.n_failures += 1
             self._probing = False
@@ -611,6 +651,8 @@ class DeviceFallbackEngine:
     def _bisect_ids(self, snap, start, target, depths, depth):
         with self._lock:
             self.n_bisections += 1
+        if self._m_bisections is not None:
+            self._m_bisections.inc()
         mid = len(start) // 2
         merged: list = []
         for lo, hi in ((0, mid), (mid, len(start))):
@@ -710,6 +752,8 @@ class DeviceFallbackEngine:
     def _fallback_check(self, requests, max_depth, depths, deadlines=None) -> list:
         with self._lock:
             self.n_fallback_batches += 1
+        if self._m_fallback_batches is not None:
+            self._m_fallback_batches.inc()
         if deadlines is None:
             return self._fallback_answer(requests, max_depth, depths)
         # The oracle is a host BFS per row and may take far longer than any
@@ -744,6 +788,8 @@ class DeviceFallbackEngine:
         if skipped:
             with self._lock:
                 self.n_deadline_skips += skipped
+            if self._m_deadline_skips is not None:
+                self._m_deadline_skips.inc(skipped)
         return out
 
     def _fallback_answer(self, requests, max_depth, depths) -> list[bool]:

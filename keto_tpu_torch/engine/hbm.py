@@ -79,6 +79,7 @@ class HbmAdmission:
         bytes_per_row: int = _DEFAULT_BYTES_PER_ROW,
         devstats=DEVSTATS,
         clock=time.monotonic,
+        metrics=None,
     ):
         self.budget_frac = min(1.0, max(0.05, float(budget_frac)))
         self._bytes_per_row = float(bytes_per_row or _DEFAULT_BYTES_PER_ROW)
@@ -99,6 +100,25 @@ class HbmAdmission:
         self._inflight_bytes = 0.0
         self._next_token = 0
         self.n_splits = 0  # caller chunks pre-split at admission
+        self._m_splits = None
+        if metrics is not None:
+            metrics.gauge(
+                "keto_hbm_budget_bytes",
+                "HBM bytes the admission controller budgets for check "
+                "batches (hbm_budget_frac of the smallest device limit; "
+                "0 = no device memory stats, admission disabled)",
+                fn=lambda: float(self.budget_bytes() or 0.0),
+            )
+            metrics.gauge(
+                "keto_hbm_inflight_bytes",
+                "modeled HBM bytes of currently in-flight check batches",
+                fn=lambda: self._inflight_bytes,
+            )
+            self._m_splits = metrics.counter(
+                "keto_hbm_admission_splits_total",
+                "caller batches pre-split at admission because their "
+                "modeled HBM footprint exceeded the budget headroom",
+            )
 
     # -- calibration -----------------------------------------------------------
 
@@ -198,6 +218,8 @@ class HbmAdmission:
             if fit >= rows:
                 return rows
             self.n_splits += 1
+        if self._m_splits is not None:
+            self._m_splits.inc()
         return max(_MIN_ROWS, fit)
 
     def reserve(self, bucket: int, version: int) -> int:

@@ -187,6 +187,7 @@ class ListEngine:
         page_size: int = 0,
         page_token: str = "",
         deadline: Optional[float] = None,
+        rec=None,
     ) -> ListPage:
         depth = clamp_depth(max_depth, self.engine.global_max_depth)
         query = ["objects", namespace, relation, str(subject), depth]
@@ -201,6 +202,7 @@ class ListEngine:
             page_size,
             page_token,
             deadline,
+            rec,
         )
 
     def list_subjects(
@@ -212,6 +214,7 @@ class ListEngine:
         page_size: int = 0,
         page_token: str = "",
         deadline: Optional[float] = None,
+        rec=None,
     ) -> ListPage:
         depth = clamp_depth(max_depth, self.engine.global_max_depth)
         query = ["subjects", namespace, object, relation, depth]
@@ -226,6 +229,7 @@ class ListEngine:
             page_size,
             page_token,
             deadline,
+            rec,
         )
 
     # -- the encode -> gather -> decode spine ----------------------------------
@@ -238,7 +242,11 @@ class ListEngine:
         page_size: int,
         page_token: str,
         deadline: Optional[float],
+        rec,
     ) -> ListPage:
+        """``rec`` (the transport's check-telemetry record, or None) marks
+        the encode, gather ("launch") and decode stages on the request's
+        attribution ledger."""
         # encode: pick the serving residency. reverse_artifacts() is None
         # whenever the reverse path could be inexact; those requests answer
         # from the oracle without touching the breaker
@@ -246,6 +254,8 @@ class ListEngine:
         view = None
         if not self.breaker_open():
             view = self.engine.reverse_artifacts()
+        if rec is not None:
+            rec.mark("encode")
 
         # gather: the full sorted result, recomputed per page. Slicing one
         # deterministic sorted list makes paged == unpaged, and the version
@@ -271,6 +281,8 @@ class ListEngine:
         version = (
             view.version if source == "reverse" else self.engine.snapshots.store.version
         )
+        if rec is not None:
+            rec.mark("launch")
 
         # decode: validate the cursor against the version that answered,
         # slice, mint the continuation
@@ -286,6 +298,8 @@ class ListEngine:
             items = items[offset:end]
         elif offset:
             items = items[offset:]
+        if rec is not None:
+            rec.mark("decode")
         return ListPage(
             items=items, next_page_token=next_token, version=version, source=source
         )

@@ -26,9 +26,9 @@ the random source are injectable, so a test drives the plane
 deterministically. Standard library only.
 
 ``OverloadController.snapshot`` and ``history`` are what ``/debug/overload``
-serves (``api/debug.py``). Not ported yet: the metrics families (ROADMAP
-14.5; the flight recorder and logger hooks take any object with
-``record``/``info``, and the registry passes None).
+serves (``api/debug.py``). With a metrics registry the controller exports
+the reference's ``keto_overload_*`` families; the registry hands the ladder
+its flight recorder and logger, which record every rung transition.
 """
 
 from __future__ import annotations
@@ -251,6 +251,9 @@ class BrownoutController:
         self.transitions_up = 0
         self.transitions_down = 0
         self._history: deque[dict] = deque(maxlen=max(1, int(history)))
+        # called with "up"/"down" on every rung change (the controller's
+        # transitions counter)
+        self._on_transition = None
 
     def update(self, pressure: float, now: Optional[float] = None) -> int:
         """Fold one pressure sample into the ladder. Steps up at most one
@@ -320,6 +323,11 @@ class BrownoutController:
             "pressure": round(float(pressure), 3),
         }
         self._history.append(event)
+        if self._on_transition is not None:
+            try:
+                self._on_transition(direction)
+            except Exception:
+                pass
         if self._flight is not None:
             try:
                 self._flight.record(kind="overload", **event)
@@ -445,6 +453,7 @@ class OverloadController:
         enabled_fn: Optional[Callable[[], bool]] = None,
         clock: Callable[[], float] = time.monotonic,
         rand: Callable[[], float] = random.random,
+        metrics=None,
     ):
         self.max_queue = int(max_queue)
         self.limiter = limiter or AdaptiveLimiter(
@@ -463,6 +472,52 @@ class OverloadController:
         self.culled = 0
         self.stale_served = 0
         self.admitted = 0
+        self._m_sheds = None
+        self._m_throttle = None
+        self._m_culled = None
+        self._m_stale = None
+        if metrics is not None:
+            metrics.gauge(
+                "keto_overload_state",
+                "brownout ladder rung: 0 normal, 1 hedge-suppress, "
+                "2 bounded-stale, 3 shed-sheddable, 4 shed-default",
+                fn=lambda: float(self.state()),
+            )
+            metrics.gauge(
+                "keto_overload_limit",
+                "adaptive admission limit on the check queue (AIMD; "
+                "max_queue remains the hard bound)",
+                fn=lambda: float(self.limiter.limit),
+            )
+            self._m_sheds = metrics.counter(
+                "keto_overload_sheds_total",
+                "check requests shed by the overload ladder, by "
+                "criticality class",
+                labelnames=("criticality",),
+            )
+            transitions = metrics.counter(
+                "keto_overload_transitions_total",
+                "brownout ladder transitions, by direction",
+                labelnames=("direction",),
+            )
+            self._m_throttle = metrics.counter(
+                "keto_overload_throttle_rejected_total",
+                "check requests probabilistically rejected by the "
+                "server's adaptive (accepts/requests) throttle",
+            )
+            self._m_culled = metrics.counter(
+                "keto_overload_culled_total",
+                "queued check entries culled because their queued age "
+                "exceeded the CoDel target under sustained pressure",
+            )
+            self._m_stale = metrics.counter(
+                "keto_overload_stale_served_total",
+                "checks whose snaptoken freshness wait was relaxed to "
+                "bounded-stale by the brownout ladder",
+            )
+            self.brownout._on_transition = (
+                lambda d: transitions.labels(direction=d).inc()
+            )
 
     # -- state ----------------------------------------------------------------
 
@@ -520,9 +575,13 @@ class OverloadController:
             ):
                 reason = "throttle"
                 self.throttle_rejects += 1
+                if self._m_throttle is not None:
+                    self._m_throttle.inc()
             if reason is not None:
                 c = criticality if criticality in self.sheds else DEFAULT
                 self.sheds[c] += 1
+                if self._m_sheds is not None:
+                    self._m_sheds.labels(criticality=c).inc()
                 return reason
             self.throttle.on_accept(now)
             self.admitted += 1
@@ -554,6 +613,8 @@ class OverloadController:
     def note_culled(self, n: int) -> None:
         with self._lock:
             self.culled += n
+        if self._m_culled is not None:
+            self._m_culled.inc(n)
 
     def stale_ok(self) -> bool:
         """Brownout rung 2+: relax a snaptoken freshness wait to
@@ -566,6 +627,8 @@ class OverloadController:
     def note_stale_served(self) -> None:
         with self._lock:
             self.stale_served += 1
+        if self._m_stale is not None:
+            self._m_stale.inc()
 
     def hedge_suppressed(self) -> bool:
         """Brownout rung 1+: stop advertising a hedge delay to clients

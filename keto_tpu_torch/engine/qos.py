@@ -1,6 +1,7 @@
 """Per-tenant QoS: token-bucket admission per namespace (counterpart of
-``keto_tpu/engine/qos.py``, without its metrics, stats and the fleet
-scale).
+``keto_tpu/engine/qos.py``, without its stats and the fleet scale, which
+the fleet's burn alert sets: ROADMAP 14.6, so ``keto_qos_fleet_scale``
+reads 1.0 here).
 
 The batcher's own load shedding is *global* — a bounded queue that rejects
 everyone equally once full. That protects the process but not the tenants:
@@ -66,6 +67,7 @@ class NamespaceQos:
         burst: float = 100.0,
         overrides: dict | None = None,
         *,
+        metrics=None,
         clock=time.monotonic,
     ):
         self.rate = float(rate)
@@ -80,6 +82,19 @@ class NamespaceQos:
         self._clock = clock
         self._lock = threading.Lock()
         self._buckets: dict[str, _Bucket] = {}
+        self._throttled = None
+        if metrics is not None:
+            self._throttled = metrics.counter(
+                "keto_qos_throttled_total",
+                "check admissions rejected by per-namespace QoS",
+                labelnames=("namespace",),
+            )
+            metrics.gauge(
+                "keto_qos_fleet_scale",
+                "fleet QoS scale applied to every bucket (1.0 normal, "
+                "<1 while the aggregate burn alert is degrading)",
+                fn=lambda: 1.0,
+            )
 
     def _limits(self, namespace: str) -> tuple[float, float]:
         return self.overrides.get(namespace, (self.rate, self.burst))
@@ -102,6 +117,8 @@ class NamespaceQos:
                 b.tokens -= n
                 return
             deficit = n - b.tokens
+        if self._throttled is not None:
+            self._throttled.labels(namespace=namespace).inc()
         raise QosThrottled(namespace, retry_after_s=deficit / rate)
 
     def admit_counts(self, counts: dict[str, int]) -> None:

@@ -37,8 +37,12 @@ parity and unused until then.
 
 Remediation is a ladder, rate-limited by ``max_repairs_per_cycle`` and
 frozen while any injected guard (breaker open, HBM pressure) gives a
-reason: a scrubber must never add repair load to an incident. The SLO
-burn-rate freeze waits for the SLO tracker (ROADMAP 14.5).
+reason: a scrubber must never add repair load to an incident, and while the
+check SLO's fast-window burn rate is at ``freeze_burn_rate`` or above (0
+inherits the tracker's ``alert_burn_rate``), the cycle freezes with the
+reason ``slo_burn``. With a metrics registry the scrubber exports the
+reference's ``keto_scrub_*`` families; events also land in the flight
+recorder when one is given.
 
 Everything is injectable (engine/store getters, oracle, repair seam,
 clock, rng seed), so the tests drive detection deterministically. The
@@ -108,6 +112,10 @@ class ScrubDaemon:
         guards: Sequence[Callable[[], Optional[str]]] = (),
         clock: Callable[[], float] = time.monotonic,
         seed: int = 0,
+        slo=None,  # SLOTracker: the burn-rate freeze
+        freeze_burn_rate: float = 0.0,  # 0 = inherit slo.alert_burn_rate
+        metrics=None,
+        flight=None,
     ):
         self._engine_fn = engine_fn
         self._oracle_fn = oracle_fn
@@ -140,6 +148,35 @@ class ScrubDaemon:
         self._was_frozen: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self._slo = slo
+        self.freeze_burn_rate = float(freeze_burn_rate)
+        self._flight = flight
+        self._m_cycles = None
+        self._m_mismatches = None
+        self._m_repairs = None
+        if metrics is not None:
+            self._m_cycles = metrics.counter(
+                "keto_scrub_cycles_total",
+                "integrity scrub cycles completed",
+            )
+            self._m_mismatches = metrics.counter(
+                "keto_scrub_mismatches_total",
+                "derived-state divergences the scrubber detected, by kind "
+                "(device row, oracle replay, WAL segment, checkpoint, "
+                "replica digest)",
+                labelnames=("kind",),
+            )
+            self._m_repairs = metrics.counter(
+                "keto_scrub_repairs_total",
+                "scrubber remediations applied, by action",
+                labelnames=("action",),
+            )
+            metrics.gauge(
+                "keto_scrub_last_clean_version",
+                "store version at the end of the last scrub cycle that "
+                "found every sampled surface clean",
+                fn=lambda: float(self.last_clean_version),
+            )
 
     # -- daemon lifecycle -------------------------------------------------------
 
@@ -213,6 +250,8 @@ class ScrubDaemon:
             return event
         self._was_frozen = None
         self.cycles += 1
+        if self._m_cycles is not None:
+            self._m_cycles.inc()
         repairs_left = self.max_repairs_per_cycle
         findings: list[dict] = []
 
@@ -233,6 +272,8 @@ class ScrubDaemon:
                 applied = False
                 err = f"{type(e).__name__}: {e}"
             self.repairs[action] = self.repairs.get(action, 0) + 1
+            if self._m_repairs is not None:
+                self._m_repairs.labels(action=action).inc()
             findings.append(
                 {"action": action, "applied": applied, "error": err}
             )
@@ -259,6 +300,8 @@ class ScrubDaemon:
                 self.mismatches[kind] = (
                     self.mismatches.get(kind, 0) + n_bad
                 )
+                if self._m_mismatches is not None:
+                    self._m_mismatches.labels(kind=kind).inc(n_bad)
         if clean:
             version = 0
             if self._version_fn is not None:
@@ -449,6 +492,11 @@ class ScrubDaemon:
     # -- guards -----------------------------------------------------------------
 
     def _frozen_reason(self) -> Optional[str]:
+        slo = self._slo
+        if slo is not None:
+            threshold = self.freeze_burn_rate or slo.alert_burn_rate
+            if slo.burn_rate(slo.fast_window_s) >= threshold:
+                return "slo_burn"
         for guard in self._guards:
             try:
                 reason = guard()
@@ -460,6 +508,11 @@ class ScrubDaemon:
 
     def _emit(self, event: dict) -> dict:
         self._history.append(event)
+        if self._flight is not None:
+            try:
+                self._flight.record(kind="scrub", **event)
+            except Exception:
+                pass
         _log.info(
             "scrub %s",
             {k: v for k, v in event.items() if k != "findings"},

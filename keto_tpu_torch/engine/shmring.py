@@ -22,11 +22,13 @@ children inherit it):
 
 The doorbell bytes are the only per-request kernel crossing; the
 request/response payloads move through the shared mapping. A response is
-``(kind, body, stages)``: ``stages`` is the reference's per-stage
-``TimeLedger`` dict, which the worker merges into its own request ledger.
-The port has no attribution plane yet (ROADMAP 14.5): the field is always
-an empty dict and ``RingBackend.ring_submit`` is the seam where 14.5 will
-merge it.
+``(kind, body, stages)``: ``stages`` is the parent's per-stage
+``TimeLedger`` dict for that request (``telemetry/attribution.py``: the
+parent's handler runs under a fresh ledger), which ``RingBackend`` merges
+into the worker's own request ledger; the ring transit and the parent's
+pickup land in ``queue``, so the worker's ledger stays conserved across the
+process hop and its ``/debug/attribution`` shows where the parent spent
+the request.
 
 Failure contract (drilled by ``tests/test_torch_wire.py``):
 
@@ -58,6 +60,12 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..api import wirecodec
+from ..telemetry.attribution import (
+    TimeLedger,
+    current_ledger,
+    reset_current_ledger,
+    set_current_ledger,
+)
 from ..utils.errors import (
     DeadlineExceeded,
     ErrMalformedInput,
@@ -388,8 +396,8 @@ class RingServer:
     """Parent-side consumer: one thread per endpoint draining doorbells,
     each request handled synchronously against the single batcher (the
     batcher itself coalesces concurrent endpoint threads into device
-    batches). Each response ships an empty stage dict until the
-    attribution plane is ported (ROADMAP 14.5)."""
+    batches). Each request runs under a fresh attribution ledger whose
+    stage seconds ship back with the response."""
 
     def __init__(self, ring: WireRing, handler: Callable[[bytes], bytes]):
         self.ring = ring
@@ -424,17 +432,21 @@ class RingServer:
                 return
             (slot,) = _DOORBELL.unpack(head)
             frame = self.ring.read_slot(slot)
-            stages: dict = {}  # the parent's stage seconds: ROADMAP 14.5
+            ledger = TimeLedger()
+            token = set_current_ledger(ledger)
             try:
+                body = self.handler(frame)
                 payload = pickle.dumps(
-                    ("ok", self.handler(frame), stages),
+                    ("ok", body, ledger.stages),
                     protocol=pickle.HIGHEST_PROTOCOL,
                 )
             except Exception as e:  # shipped typed; the lane keeps serving
                 payload = pickle.dumps(
-                    ("err", _ship_error(e), stages),
+                    ("err", _ship_error(e), ledger.stages),
                     protocol=pickle.HIGHEST_PROTOCOL,
                 )
+            finally:
+                reset_current_ledger(token)
             try:
                 self.ring.write_slot(slot, payload)
                 sock.sendall(_DOORBELL.pack(slot))
@@ -489,10 +501,24 @@ class RingBackend:
             min_version=req.min_version,
             traceparent=req.traceparent,
         )
+        led = current_ledger()
+        if led is not None:
+            led.mark("admission")  # the local parse and gate up to the hop
+        t0 = time.perf_counter()
         payload = self.client.submit(frame, timeout=timeout)
-        # the parent's stage seconds: the reference merges them into the
-        # worker's request ledger here; empty until ROADMAP 14.5
-        kind, body, _stages = pickle.loads(payload)  # written by our parent
+        t1 = time.perf_counter()
+        kind, body, stages = pickle.loads(payload)  # written by our parent
+        if led is not None:
+            # the parent's stage seconds, and the ring transit and the
+            # parent's pickup as "queue": the ledger stays conserved
+            remote = 0.0
+            for stage, dt in stages.items():
+                led.stages[stage] = led.stages.get(stage, 0.0) + dt
+                remote += dt
+            residual = max(0.0, (t1 - t0) - remote)
+            if residual > 0:
+                led.stages["queue"] = led.stages.get("queue", 0.0) + residual
+            led.last = time.perf_counter()
         if kind == "err":
             raise RingRemoteError(body)
         allowed, _token = wirecodec.decode_check_response(body)

@@ -210,7 +210,7 @@ class DurableTupleStore:
         self.csr_provider = None
         #: optional ``(errno_or_none: int | None) -> None`` hook, called
         #: once per failed append BEFORE the failure propagates (the
-        #: registry logs it; the reference's metric waits for ROADMAP 14.5)
+        #: registry logs it and counts ``keto_wal_append_errors_total``)
         self.append_error_cb = None
 
         self._pid = os.getpid()

@@ -48,8 +48,20 @@ report of one span resets through :meth:`reset_peak`.
 
 Kernel builds replace JAX's compilation events: ``utils/kernels.py`` calls
 :meth:`DeviceStatsCollector.record_compile` with each nvcc build's seconds
-and ``native/`` with the gcc build's. The metrics binding (``bind``) waits
-for ROADMAP 14.5.
+and ``native/`` with the gcc build's, so ``keto_device_jit_compilations_total``
+counts nvcc and gcc builds here, not ``jax.monitoring`` events.
+
+``bind`` exports the collector through a ``MetricsRegistry`` (the
+reference's families, letter for letter): the transfer, stage and build
+counters, ``keto_device_count``, the ``keto_device_hbm_*`` gauges and the
+``keto_graph_*`` panel gauges. Every device sample goes through
+:func:`cuda_ready` and :meth:`sample_devices`, so a forked host-mode replica
+that is scraped never touches CUDA: its device gauges read 0.
+``keto_device_hbm_peak_bytes`` reads :meth:`peak_bytes`, the running
+maximum, never ``max_memory_allocated``, which the peak windows reset. The
+``device`` label is the port's platform and index, ``cuda:0`` on the card
+(JAX names the same card ``gpu:0``) and ``cpu:0`` for a registry on the CPU,
+as the reference's CPU backend reads.
 """
 
 from __future__ import annotations
@@ -58,6 +70,32 @@ import threading
 import time
 
 import torch
+
+from .metrics import MetricsRegistry
+
+# memory-statistics key -> (gauge name, help), the reference's families
+_HBM_KEYS = (
+    ("bytes_in_use", "keto_device_hbm_bytes_in_use",
+     "HBM bytes currently allocated on the device"),
+    ("bytes_limit", "keto_device_hbm_bytes_limit",
+     "HBM allocation limit on the device"),
+    ("peak_bytes_in_use", "keto_device_hbm_peak_bytes",
+     "peak HBM bytes allocated on the device since process start"),
+)
+
+# graph-panel dict key -> (gauge name, help)
+_PANEL_GAUGES = (
+    ("tuples", "keto_graph_tuples",
+     "relation tuples in the live store"),
+    ("csr_nnz", "keto_graph_csr_nnz",
+     "non-zeros (edges) in the snapshot CSR"),
+    ("vocab_size", "keto_graph_vocab_size",
+     "node vocabulary size of the live snapshot"),
+    ("closure_age_s", "keto_graph_closure_age_seconds",
+     "seconds since the serving closure artifact was built"),
+    ("snapshot_version", "keto_graph_snapshot_version",
+     "store version of the live graph snapshot"),
+)
 
 
 def cuda_ready() -> bool:
@@ -89,11 +127,97 @@ class DeviceStatsCollector:
         self._window_depth = 0
         self._hwm = 0.0
         self._span = 0.0
+        # metric handles from the most recent bind(); None before any
+        self._c_transfer = None
+        self._c_kernel = None
+        self._c_compiles = None
+        self._c_compile_s = None
 
-    def set_graph_panel(self, fn) -> None:
-        """The zero-arg callable behind the panel's ``graph`` entry (the
-        registry's graph shape)."""
-        self._graph_panel_fn = fn
+    # -- wiring ---------------------------------------------------------------
+
+    def bind(
+        self, metrics: MetricsRegistry, graph_panel_fn=None, platform: str = "cuda"
+    ) -> None:
+        """Export this collector through ``metrics``. Re-entrant: each call
+        repoints the exported series at the given registry, replaying the
+        tallies so far. ``platform`` is the registry's device type: ``cuda``
+        labels one series per card, ``cpu`` one ``cpu:0`` series that reads
+        0, as the reference's CPU backend does."""
+        if graph_panel_fn is not None:
+            self._graph_panel_fn = graph_panel_fn
+        self._c_transfer = metrics.counter(
+            "keto_device_transfer_bytes_total",
+            "host<->device bytes staged by the check engines",
+            labelnames=("direction",),
+        )
+        self._c_kernel = metrics.counter(
+            "keto_device_kernel_seconds_total",
+            "cumulative wall seconds spent in each check-pipeline stage",
+            labelnames=("stage",),
+        )
+        self._c_compiles = metrics.counter(
+            "keto_device_jit_compilations_total",
+            "kernel builds (nvcc for the CUDA kernels, gcc for the native "
+            "host tier) recorded through DEVSTATS.record_compile",
+        )
+        self._c_compile_s = metrics.counter(
+            "keto_device_compile_seconds_total",
+            "cumulative wall seconds spent in kernel builds",
+        )
+        with self._lock:
+            for direction, nbytes in self._transfer_bytes.items():
+                if nbytes:
+                    self._c_transfer.labels(direction=direction).inc(nbytes)
+            for stage, secs in self._stage_seconds.items():
+                if secs:
+                    self._c_kernel.labels(stage=stage).inc(secs)
+            if self._compiles:
+                self._c_compiles.inc(self._compiles)
+            if self._compile_seconds:
+                self._c_compile_s.inc(self._compile_seconds)
+        cuda = platform == "cuda"
+        metrics.gauge(
+            "keto_device_count",
+            "CUDA devices this process samples (1 for a registry on the CPU)",
+            fn=(lambda: float(len(self.sample_devices()))) if cuda else (lambda: 1.0),
+        )
+        hbm_gauges = [
+            metrics.gauge(name, help, labelnames=("device",))
+            for _, name, help in _HBM_KEYS
+        ]
+        # the parent process binds before it forks any replica, and only a
+        # process on the card binds cuda; device_count reads no context
+        n = torch.cuda.device_count() if cuda else 1
+        for i in range(n):
+            for (key, _, _), gauge in zip(_HBM_KEYS, hbm_gauges):
+                gauge.labels(device=f"{platform}:{i}").set_fn(
+                    self._hbm_sampler(i, key) if cuda else (lambda: 0.0)
+                )
+        for key, name, help in _PANEL_GAUGES:
+            metrics.gauge(name, help, fn=self._panel_sampler(key))
+
+    def _hbm_sampler(self, index: int, key: str):
+        def sample():
+            if key == "peak_bytes_in_use":
+                return float(self.peak_bytes() or 0.0)
+            for entry in self.sample_devices():
+                if entry["id"] == index:
+                    return float(entry.get("memory_stats", {}).get(key, 0))
+            return 0.0
+
+        return sample
+
+    def _panel_sampler(self, key: str):
+        def sample():
+            fn = self._graph_panel_fn
+            if fn is None:
+                return 0.0
+            try:
+                return float((fn() or {}).get(key) or 0)
+            except Exception:
+                return 0.0
+
+        return sample
 
     # -- tally points (called from the engine hot path) -----------------------
 
@@ -102,15 +226,25 @@ class DeviceStatsCollector:
             self._transfer_bytes[direction] = (
                 self._transfer_bytes.get(direction, 0.0) + nbytes
             )
+        c = self._c_transfer
+        if c is not None:
+            c.labels(direction=direction).inc(nbytes)
 
     def record_stage(self, stage: str, seconds: float) -> None:
         with self._lock:
             self._stage_seconds[stage] = self._stage_seconds.get(stage, 0.0) + seconds
+        c = self._c_kernel
+        if c is not None:
+            c.labels(stage=stage).inc(seconds)
 
     def record_compile(self, seconds: float) -> None:
         with self._lock:
             self._compiles += 1
             self._compile_seconds += seconds
+        if self._c_compiles is not None:
+            self._c_compiles.inc()
+        if self._c_compile_s is not None:
+            self._c_compile_s.inc(seconds)
 
     # -- introspection --------------------------------------------------------
 

@@ -5,9 +5,8 @@
   and one through ``GrpcClient``, each run by both packages' clients
   against both packages' servers (``JaxServer``, ``TorchServer`` of
   ``tests/test_torch_rest.py``). Every outcome (value or error class) must
-  be equal across the four runs, except ``metrics()``: the port's server
-  has no ``/metrics`` until ROADMAP 14.5, and there both clients raise
-  ErrNotFound alike.
+  be equal across the four runs, ``metrics()`` included: both servers
+  answer ``/metrics``.
 - The status-to-KetoError map with the Retry-After hint, per package.
 - The retry and hedging cases of ``tests/test_faults.py`` (the REST
   client's retries), ``tests/test_overload.py`` (budget, Retry-After floor,
@@ -234,9 +233,8 @@ def test_both_clients_answer_equal_against_both_servers(script, servers):
     got = {(c, s): script(P[c], servers[s]) for c in PKGS for s in PKGS}
     for s in PKGS:  # per server: the two packages' clients agree on everything
         assert got[("torch", s)] == got[("jax", s)], s
-    # across servers: everything but the metrics route (ROADMAP 14.5)
-    strip = [{k: v for k, v in got[("torch", s)].items() if k != "metrics"} for s in PKGS]
-    assert strip[0] == strip[1]
+    # across servers: everything, the metrics route included
+    assert got[("torch", "torch")] == got[("torch", "jax")]
     ref = got[("torch", "jax")]
     if script is rest_script:
         assert ref["check"] == ("ok", (True, 55)) and ref["check_no"] == ("ok", (False, 55))
@@ -245,7 +243,7 @@ def test_both_clients_answer_equal_against_both_servers(script, servers):
         assert ref["garbage_token"] == ("err", "ErrMalformedInput")
         assert len(ref["iter"][1]) == 9
         assert ref["metrics"] == ("ok", True)
-        assert got[("torch", "torch")]["metrics"] == ("err", "ErrNotFound")
+        assert got[("torch", "torch")]["metrics"] == ("ok", True)
     else:
         assert ref["check"] == (True, True, 55)
         assert ref["batch"] == ("ok", [True, False, True, True])

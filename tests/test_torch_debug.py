@@ -4,8 +4,10 @@ of /debug/device, /debug/scrub, /debug/overload, /debug/graph and
 /debug/config, and the gating (``debug.enabled: false`` -> 404,
 ``debug.token`` -> 403 without it), must be equal. Tolerance: exact, on
 keys, status codes and bodies of the gating responses. The port's
-breaker snapshot adds the counts the reference exports as metrics
-(ROADMAP 14.5): that difference is stated below, not hidden.
+breaker snapshot also carries the counts both packages export as metrics
+(``keto_device_engine_failures_total`` and its family, equal on both
+servers' ``/metrics``) and its real-error record: that difference is stated
+below, not hidden.
 """
 
 import asyncio
@@ -25,10 +27,16 @@ from keto_tpu_torch.driver import Config as TConfig
 from keto_tpu_torch.driver import Registry as TRegistry
 from keto_tpu_torch.relationtuple import RelationTuple
 
-# the breaker counts the port carries in /debug/device until the metrics
-# plane exports them (keto_device_engine_failures_total and friends)
+# the breaker counts the port carries in /debug/device beside the metric
+# families both packages export (BREAKER_FAMILIES), and its real-error record
 PORT_BREAKER_COUNTS = {"failures", "fallback_batches", "deadline_skips", "oom_bisections",
                        "open_real", "real_failures", "last_real_error"}
+
+BREAKER_FAMILIES = (
+    "keto_device_engine_failures_total", "keto_device_fallback_batches_total",
+    "keto_fallback_deadline_skips_total", "keto_device_oom_bisections_total",
+    "keto_device_circuit_open", "keto_compile_quarantine_size",
+)
 
 TOKEN = "s3cret-token"
 
@@ -124,6 +132,14 @@ def test_device_payload_keys_match(gated):
     assert td["supervisor"]["timeline"] == jd["supervisor"]["timeline"] == []
     assert td["breaker"]["open"] is jd["breaker"]["open"] is False
     assert td["hbm"]["budget_bytes"] is jd["hbm"]["budget_bytes"] is None  # no card
+    # the counts the snapshot carries are the breaker's metric families on
+    # both servers, with equal values
+    from keto_tpu_torch.telemetry.openmetrics import parse_text
+
+    expo = [parse_text(get(s, "/metrics", {})[1].decode()) for s in gated]
+    for name in BREAKER_FAMILIES:
+        assert expo[0].value(name) == expo[1].value(name) == 0.0, name
+    assert expo[1].value("keto_device_engine_failures_total") == td["breaker"]["failures"]
 
 
 def test_scrub_overload_graph_and_config_keys_match(gated):

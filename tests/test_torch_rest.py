@@ -68,7 +68,10 @@ class JaxServer:
 
 class TorchServer:
     def __init__(self):
-        self.registry = TRegistry(TConfig(values=VALUES), device="cpu")
+        # the reference's server beside it logs at error: so does this one
+        self.registry = TRegistry(
+            TConfig(values={**VALUES, "log": {"level": "error"}}), device="cpu"
+        )
         self.read_port, self.write_port = self.registry.start_all()
 
     def stop(self):

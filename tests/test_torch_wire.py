@@ -6,9 +6,9 @@ remote error revived typed, the parent's death failing pending futures
 typed, a dead worker retiring only its lane, slot exhaustion as a
 retryable 429, a deadline leaving its slot leased until the ack,
 ``RingBackend``), then the encoded front's two ring modes (QoS deferred to
-the ring, the parent front skipping the epoch gate). The attribution cases
-(the remote stages merged into the worker's ledger) wait for ROADMAP 14.5:
-the port ships an empty stage dict.
+the ring, the parent front skipping the epoch gate). A response carries the
+parent handler's attribution stages in both packages (the merge into the
+worker's ledger is in ``tests/test_torch_attribution.py``).
 
 Then a wire server of each package, ``serve.read.wire_workers`` 3 with
 ``engine.query_mode: host``, booted in a fresh interpreter (this file run
@@ -148,13 +148,16 @@ def pkg(request):
     if request.param == "torch":
         from keto_tpu_torch.api import wirecodec
         from keto_tpu_torch.engine import shmring
+        from keto_tpu_torch.telemetry import attribution
         from keto_tpu_torch.utils import errors
     else:
         from keto_tpu.api import wirecodec
         from keto_tpu.engine import shmring
+        from keto_tpu.telemetry import attribution
         from keto_tpu.utils import errors
     return SimpleNamespace(
-        name=request.param, ring=shmring, errors=errors, wirecodec=wirecodec
+        name=request.param, ring=shmring, errors=errors, wirecodec=wirecodec,
+        attribution=attribution,
     )
 
 
@@ -166,7 +169,11 @@ class TestWireRing:
     def test_roundtrip(self, pkg):
         r = pkg.ring
         ring = r.WireRing(2, slots_per_endpoint=2, slot_bytes=4096)
-        server = r.RingServer(ring, _echo_handler)
+        def handler(frame: bytes) -> bytes:
+            pkg.attribution.ledger_mark("kernel")  # the parent's ledger
+            return _echo_handler(frame)
+
+        server = r.RingServer(ring, handler)
         server.start()
         clients = [r.RingClient(ring, ring.endpoints[0]),
                    r.RingClient(ring, ring.endpoints[1])]
@@ -174,9 +181,7 @@ class TestWireRing:
             for i, cl in enumerate(clients):
                 kind, body, stages = pickle.loads(cl.submit(f"frame-{i}".encode(), timeout=10))
                 assert kind == "ok" and body == f"echo:frame-{i}".encode()
-                assert isinstance(stages, dict)
-                if pkg.name == "torch":
-                    assert stages == {}  # the attribution plane: ROADMAP 14.5
+                assert set(stages) == {"kernel"}  # the reference's stage set
         finally:
             for cl in clients:
                 cl.close()
