@@ -31,7 +31,8 @@ Phases, in order; any failure exits non-zero:
             serve.read.max-depth 5), a ClosureCheckEngine on the card, a
             few thousand sampled checks; the kernel launch count of the full
             build, D against a plain-built D, answers against the host BFS
-            oracle, then a leaf and an interior insert and delete, each
+            oracle (the first --oracle of them), then a leaf and an interior
+            insert and delete, each
             absorbed by the write overlay and re-checked against the
             oracle, and the patched D against a plain build of the written
             snapshot;
@@ -62,7 +63,8 @@ Phases, in order; any failure exits non-zero:
             org/team/repo ACL: 10M tuples"), whose interior is above the
             closure limit, served by DeviceCheckEngine(mode="packed") on
             the card: 4096 repo#pull checks against the same loop with the
-            plain propagate and against the host BFS oracle, the launch
+            plain propagate and the first --oracle against the host BFS
+            oracle, the launch
             count against the loop's iterations, one write and a re-check;
             B2 against its plain version on the real edges; B2 numbers:
             time per launch beside its bound and the plain version, packed
@@ -237,6 +239,31 @@ Phases, in order; any failure exits non-zero:
             edit logged as immutable and an invalid file refused, the server
             still answering; SIGTERM, rc 0, no watcher thread left; B1
             launches at boot and over the server's life
+14. fleet   a leader and two followers of rbac1m on the one card, each this
+            script re-run with --fleet-server CFG (fresh interpreters), with
+            lease election over [durable]'s WAL directory (the shared disk):
+            the leader recovers [durable]'s store (replication.role leader)
+            on ports chosen ahead; the followers, started beside it, wait for
+            its feed, fetch its /replication/checkpoint, restore it, encode
+            and build D with B1 (byte-equal to the plain build) and tail its
+            WAL. FLEET_WRITES acked REST writes (a tenth
+            role -> role), each read back on both followers with snaptoken=
+            at its token from /replication/status (the wait path,
+            write-to-visible p50/p99); a far token with a zero wait answers
+            503, Retry-After and the lag (the bounce path); a write to a
+            follower answers the read-only follower error with the leader
+            hint; the 4096 sample on the leader and both followers equal to
+            the set-graph oracle; /cluster/status with 3 members alive,
+            keto_cluster_* per instance in both formats, a hedged check pair
+            through ReplicatedRestClient stitched into one trace on the
+            leader's /debug/traces; GET /check from FLEET_CLIENTS clients over
+            both followers beside the leader alone; a follower's replica
+            scrub clean, then replica.skip_delta: the next cycle finds the
+            divergence and reseeds; the leader SIGKILLed mid-drive with its
+            lease held: a follower wins the next term, replays the shared
+            WAL, acks writes, no acked write lost and no phantom tuple, the
+            term lineage strictly increasing, the other follower retargeted
+            and converged; B1 launches of every node
 
 [device]    the device-aware planes (breaker, HBM admission, supervisor,
             scrubber, /debug), on by default as in the reference. Every
@@ -2696,7 +2723,7 @@ def serve_pool(args, serve: dict, card: str) -> dict:
 WIRE_WORKERS = 4
 WIRE_ROWS = 64  # rows per encoded frame
 WIRE_REPEATS = 32  # posts of each of the sample's frames per drive
-WIRE_DRIVES = 3  # timed drives of each server, the two in turns
+WIRE_DRIVES = 2  # timed drives of each server, the two in turns
 
 
 def serve_wire(args, serve: dict, card: str) -> dict:
@@ -4438,7 +4465,7 @@ def bounded_oracle_drill(eng, store, sample, want, hbm) -> dict:
 
 CLI_SERIAL = 256  # serial single checks per client, keep-alive
 CLI_HEDGED = 64  # check_hedged calls
-CLI_BATCH_REPS = 5  # timed batches of the sample per transport
+CLI_BATCH_REPS = 3  # timed batches of the sample per transport
 CLI_ORACLE = 64  # the sample's prefix held to the host CheckEngine over SQL
 CLI_NEW = 3  # tuples `relation-tuple create -` writes
 
@@ -5260,13 +5287,573 @@ def serve_phases(args, dev, card, walls: dict, b1_ms: float) -> dict:
     return serve
 
 
+# -- [fleet]: a leader and two followers of rbac1m on one card -----------------
+
+FLEET_WRITES = 1000  # acked REST writes, each read back on both followers
+FLEET_CLIENTS = 64  # GET /check clients, over the followers and on the leader
+FLEET_DRIVE = 2048  # GET /check requests per timed drive
+FLEET_LEASE_TTL_S = 2.0  # cluster.election.lease_ttl_s of every node
+FLEET_KILL_AFTER = 200  # acked writes of the failover drive before the SIGKILL
+FLEET_BOOT_S = 300.0  # a node's boot, to its first POOL line
+
+
+def fleet_values(durable_root: str, scratch: str, role: str, instance: str,
+                 upstream: str = "") -> dict:
+    """One node's config: the serve phase's engine settings, the cluster
+    plane with lease election over [durable]'s WAL directory (the shared
+    disk), and the role's replication block. The leader is [durable]'s
+    WAL'd columnar store; a follower holds a plain columnar store seeded
+    from the leader's checkpoint, with the scrubber on for its replica kind
+    (the cycles are stepped by the smoke; the replay kind off, as on the
+    serve phase's server; the bounce drill's 503s must not freeze it)."""
+    values = durable_values(durable_root) if role == "leader" else serve_config(
+        "auto", cache_size=0)
+    values["cluster"] = {
+        "enabled": True, "instance_id": instance,
+        "heartbeat_interval_ms": 200, "scrape_interval_ms": 500,
+        "election": {"enabled": True, "lease_ttl_s": FLEET_LEASE_TTL_S,
+                     "heartbeat_interval_ms": 200,
+                     "wal_dir": os.path.join(durable_root, "wal")},
+    }
+    if role == "leader":
+        values["replication"] = {"role": "leader", "poll_interval_ms": 10}
+    else:
+        values["replication"] = {"role": "follower", "upstream": upstream,
+                                 "dir": os.path.join(scratch, instance),
+                                 "poll_interval_ms": 10}
+        values["scrub"] = {"enabled": True, "interval_s": 3600, "replay_per_cycle": 0,
+                           "freeze_burn_rate": 1e9}
+    return values
+
+
+def fleet_server_main(args) -> int:
+    """A [fleet] node, in a fresh interpreter (this script with --fleet-server
+    CFG, a JSON file of Registry values): start_all on the card (a leader
+    recovers [durable]'s store, a follower bootstraps from the leader's
+    checkpoint and builds D with B1), then its boot build's D held against a
+    plain build of the same interior. One POOL line with its ports, boot
+    seconds and B1 launches, then commands on stdin: info, oracle <json
+    tuples>, present <json tuples>, scrub, arm <site>, stop."""
+    Config, Registry = port("driver", "Config", "Registry")
+    masked_spmv = port("engine", "masked_spmv")
+    pack_adjacency = port("ops.closure", "pack_adjacency")
+    RelationTuple = port("relationtuple", "RelationTuple")
+    subject_node_key = port("graph.vocab", "subject_node_key")
+    FAULTS = port("faults", "FAULTS")
+    harness = port("", "poolharness")
+
+    t_boot = time.perf_counter()
+    # the node's stderr (its log) goes to CFG.log, so that the pipe of POOL
+    # documents carries nothing else; the smoke prints its tail on a failure
+    log_fd = os.open(args.fleet_server + ".log", os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(log_fd, 2)
+    os.close(log_fd)
+    with open(args.fleet_server) as f:
+        values = json.load(f)
+    upstream = values["replication"].get("upstream")
+    if upstream:  # a follower boots beside its leader: wait for its feed
+        fetch = port("utils.urlfetch", "fetch")
+        deadline = time.monotonic() + FLEET_BOOT_S
+        while True:
+            try:
+                if fetch(f"{upstream}/replication/status", timeout=5.0)[0] == 200:
+                    break
+            except OSError:
+                pass
+            require(time.monotonic() < deadline, f"no leader at {upstream}")
+            time.sleep(0.1)
+    dev = torch.device(args.device)
+    reg = Registry(Config(values=values), device=dev)
+    store = reg.store()
+    inner = getattr(store, "inner", store)
+    masked_spmv.masked_step.launches = 0  # this server's path starts here
+    t0 = time.perf_counter()
+    read_port, write_port = reg.start_all()
+    start_s = time.perf_counter() - t0
+    boot_launches = masked_spmv.masked_step.launches
+    eng = reg.check_engine()
+    st = eng._state
+    t0 = time.perf_counter()
+    d_plain = masked_spmv.build_closure_semiring(
+        pack_adjacency(st.ig.ii_src, st.ig.ii_dst, st.m_pad), st.ig.m, m_pad=st.m_pad,
+        k_max=st.k_max, device=dev, step=masked_spmv.masked_step_plain,
+    )
+    plain_equal = bool(torch.equal(st.d, d_plain))
+    plain_s = time.perf_counter() - t0
+    del d_plain
+
+    def info(_arg: str = "") -> dict:
+        em, rep = reg._election, reg._replicator
+        return {
+            "read": read_port, "write": write_port, "pid": os.getpid(),
+            "version": store.version, "tuples": len(store),
+            "role": em.role if em is not None else reg.replication_role(),
+            "election": em.status() if em is not None else None,
+            "start_s": start_s, "boot_s": time.perf_counter() - t_boot,
+            "boot_b1": boot_launches, "b1": masked_spmv.masked_step.launches,
+            "seed": dict(reg.follower_boot),
+            "phases": {k: round(v, 4) for k, v in eng.last_build_phases.items()},
+            "plain_equal": plain_equal, "plain_s": plain_s, "m": int(st.ig.m),
+            "host": eng.host_queries(),
+            "reseeds": rep.reseeds_total if rep is not None else 0,
+            "promotion": dict(reg.last_promotion),
+        }
+
+    def oracle(arg: str) -> dict:
+        so = SetGraphOracle(inner)
+        return {"expect": so.batch([RelationTuple.from_dict(t) for t in json.loads(arg)])}
+
+    def present(arg: str) -> dict:
+        src, dst, vocab, _ = inner.snapshot_ids()
+        n = len(vocab)
+        have = np.unique(src.astype(np.int64) * n + dst.astype(np.int64))
+        out = []
+        for d in json.loads(arg):
+            t = RelationTuple.from_dict(d)
+            a = vocab.lookup((t.namespace, t.object, t.relation))
+            b = vocab.lookup(subject_node_key(t.subject))
+            if a is None or b is None:
+                out.append(False)
+                continue
+            key = a * n + b
+            i = int(np.searchsorted(have, key))
+            out.append(i < len(have) and int(have[i]) == key)
+        return {"present": out}
+
+    def scrub(_arg: str = "") -> dict:
+        t0 = time.perf_counter()
+        event = reg.scrubber().step()
+        findings = [f for f in event.get("findings", []) if f.get("kind") == "replica"]
+        return {"replica": findings[0] if findings else None, "s": time.perf_counter() - t0,
+                "repairs": dict(reg.scrubber().repairs),
+                "reseeds": reg._replicator.reseeds_total,
+                "b1": masked_spmv.masked_step.launches}
+
+    def arm(site: str) -> dict:
+        FAULTS.arm(site)
+        return {"armed": FAULTS.armed(site)}
+
+    def stop() -> dict:
+        reg.stop_all()
+        return {"stopped": True, "b1": masked_spmv.masked_step.launches,
+                "fired": FAULTS.fired("replica.skip_delta")}
+
+    harness.emit(info())
+    return harness.serve_commands(
+        {"info": info, "oracle": oracle, "present": present, "scrub": scrub, "arm": arm},
+        stop)
+
+
+def _status_token(write: str) -> str:
+    """The token of the newest durable write: /replication/status's version
+    and WAL position (a REST PUT answers the tuple, not a token)."""
+    status, doc = http("GET", f"{write}/replication/status")
+    require(status == 200, f"GET /replication/status: {status}")
+    wal = doc.get("wal") or {}
+    return f"z{doc['version']}.{wal.get('segment', 0)}.{wal.get('offset', 0)}"
+
+
+def _fleet_writes(args, prefix: str, n: int, interior: bool = True) -> list:
+    """`n` writes on rbac1m's pools, as [durable]'s: with `interior` a tenth
+    are role -> role edges (the followers' overlays patch D rows on the
+    card), the rest grants and group joins of fresh users (leaves, each a
+    tuple no one wrote before)."""
+    roles, resources, groups = durable_pools(args)
+    out = []
+    for i in range(n):
+        if interior and i % 10 == 0:
+            a, b = roles[(i * 13 + 1) % len(roles)], roles[(i * 17 + 5) % len(roles)]
+            if a == b:
+                b = roles[(i * 17 + 6) % len(roles)]
+            out.append(to_tuple(a, b))
+        elif i % 10 < 6:
+            out.append(to_tuple(resources[i * 7_919 % len(resources)], (f"{prefix}-u{i}",)))
+        else:
+            out.append(to_tuple(groups[i % len(groups)], (f"{prefix}-u{i}",)))
+    return out
+
+
+def serve_fleet(args, card: str, persist: dict, durable: dict) -> dict:
+    """[fleet]: a leader over [durable]'s directory and two followers, each a
+    --fleet-server interpreter on the one card, with lease election over
+    the shared WAL directory. Convergence of FLEET_WRITES acked writes on
+    both followers at each write's token (the wait path), the bounce, the
+    sample equal everywhere to the host oracle, a follower's read-only write
+    plane, federation and a stitched hedged trace, the replica scrub (clean,
+    then replica.skip_delta: divergence and reseed), GET /check from
+    FLEET_CLIENTS clients over the followers beside the leader alone, and a
+    SIGKILLed leader mid-drive: a follower wins the next term, no acked
+    write lost, no phantom tuple, the other follower retargets."""
+    import http.client as http_client
+    import signal
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    harness = port("", "poolharness")
+    fetch = port("utils.urlfetch", "fetch")
+    ReplicatedRestClient = port("client", "ReplicatedRestClient")
+    HedgePolicy, Hedger = port("client.hedge", "HedgePolicy", "Hedger")
+    LeaseStore = port("cluster.election", "LeaseStore")
+    tag = "fleet"
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    root = durable["root"]
+    scratch = tempfile.mkdtemp(prefix="keto-fleet-")
+    sample, out = persist["sample"], {"launches": 0}
+    servers: dict = {}
+    failed = True
+
+    def boot(name: str, values: dict):
+        cfg = os.path.join(scratch, f"{name}.json")
+        with open(cfg, "w") as f:
+            json.dump(values, f)
+        return harness.PoolProcess(
+            [sys.executable, str(Path(__file__).resolve()), "--fleet-server", cfg,
+             "--device", str(args.device)], name=f"fleet {name}")
+
+    def check_status(read: str, t, token: str = "", headers=None):
+        q = tuple_query(t) + (f"&snaptoken={token}" if token else "")
+        status, raw, hdrs = fetch(f"{read}/check?{q}", headers=headers or {})
+        return status, (json.loads(raw) if raw else None), hdrs
+
+    try:
+        # -- boots, all three at once: the leader recovers [durable]'s store
+        # on ports chosen here; the followers wait for its feed, then
+        # bootstrap from its checkpoint
+        t0 = time.perf_counter()
+        ports = port("driver.replicas", "resolve_free_ports")([("127.0.0.1", 0)] * 2)
+        lr, lw = (f"http://127.0.0.1:{p}" for p in ports)
+        values = fleet_values(root, scratch, "leader", "leader-0")
+        values["serve"]["read"]["port"], values["serve"]["write"]["port"] = ports
+        servers["leader"] = boot("leader", values)
+        for i in range(2):
+            servers[f"f{i}"] = boot(f"follower-{i}", fleet_values(
+                root, scratch, "follower", f"follower-{i}", upstream=lw))
+        lead = servers["leader"].next_doc(FLEET_BOOT_S)
+        leader_boot_s = time.perf_counter() - t0
+        require(lead["role"] == "leader" and lead["plain_equal"] and not lead["host"]
+                and [lead["read"], lead["write"]] == ports, f"[{tag}] leader boot {lead}")
+        fol = [servers[f"f{i}"].next_doc(FLEET_BOOT_S) for i in range(2)]
+        follower_boot_s = time.perf_counter() - t0
+        fr = [f"http://127.0.0.1:{d['read']}" for d in fol]
+        fw = [f"http://127.0.0.1:{d['write']}" for d in fol]
+        for i, d in enumerate(fol):
+            require(d["role"] == "follower" and d["boot_b1"] > 0 and d["plain_equal"]
+                    and not d["host"] and d["seed"].get("bytes", 0) > 0
+                    and d["version"] >= lead["version"],
+                    f"[{tag}] follower-{i} boot {d}")
+        out["boot"] = {"leader": lead, "followers": fol}
+        say(f"[{tag} {at()}] leader-0 from [durable]'s directory: version {lead['version']}, "
+            f"{lead['tuples']} tuples, serving {leader_boot_s:.3f}s after its start (start_all "
+            f"{lead['start_s']:.3f}s, {lead['boot_b1']} B1 launches); the two followers, "
+            f"started beside it, serving after {follower_boot_s:.3f}s: "
+            + "; ".join(
+                f"follower-{i} checkpoint {d['seed']['bytes']} bytes fetched in "
+                f"{d['seed']['fetch_s']:.3f}s, restored in {d['seed']['restore_s']:.3f}s, "
+                f"snapshot encode {d['phases'].get('snapshot_encode', 0):.3f}s, interior "
+                f"{d['phases'].get('interior', 0):.3f}s, B1 build "
+                f"{d['phases'].get('kernel', 0):.3f}s ({d['boot_b1']} launches, D "
+                f"byte-equal to the plain build of m={d['m']})" for i, d in enumerate(fol))
+            + f" ({card})")
+
+        # -- convergence: each acked write's token read back on both followers
+        writes = _fleet_writes(args, "fleet", FLEET_WRITES)
+        visible = []
+
+        def write_and_read(i_t):
+            i, t = i_t
+            require(rest_write(lw, "PUT", t) == 201, f"[{tag}] write {t} not acked")
+            t_ack = time.perf_counter()
+            token = _status_token(lw)
+            first = i % 2
+            for k in (first, 1 - first):
+                status, doc, _ = check_status(fr[k], t, token)
+                if k == first:
+                    visible.append(time.perf_counter() - t_ack)
+                require(status == 200 and doc == {"allowed": True},
+                        f"[{tag}] follower-{k} at {token}: {status} {doc} for {t}")
+            return token
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as pool:
+            tokens = list(pool.map(write_and_read, enumerate(writes)))
+        write_s = time.perf_counter() - t0
+        token = _status_token(lw)
+        out["visible_p50"], out["visible_p99"] = pct(visible, 50), pct(visible, 99)
+        say(f"[{tag} {at()}] {len(writes)} acked REST writes to the leader (16 clients, a "
+            f"tenth role -> role) in {write_s:.3f}s, each read back on both followers at "
+            f"its token (e.g. {tokens[-1]}): all allowed; write-to-visible on a follower at "
+            f"the write's token (ack -> /replication/status -> GET /check?snaptoken=) p50/p99 "
+            f"{out['visible_p50']:.3f}/{out['visible_p99']:.3f} ms ({card})")
+
+        # -- the bounce: a token far ahead, a zero wait
+        far = f"z{int(token[1:].split('.')[0]) + 10 ** 9}.0.0"
+        status, doc, hdrs = check_status(fr[0], writes[1], far, {"X-Request-Deadline-Ms": "0"})
+        details = ((doc or {}).get("error") or {}).get("details") or {}
+        require(status == 503 and hdrs.get("Retry-After") == "1"
+                and details.get("lag_versions", 0) >= 10 ** 9,
+                f"[{tag}] bounce: {status} {doc} {dict(hdrs)}")
+        # a write to a follower: the read-only follower error, the leader hint
+        status, doc = http("PUT", f"{fw[1]}/relation-tuples", writes[2].to_dict())
+        hint = (((doc or {}).get("error") or {}).get("details") or {}).get("leader_hint") or {}
+        require(status == 503 and "read-only follower" in doc["error"]["message"]
+                and hint.get("write_url") == lw and hint.get("leader_id") == "leader-0",
+                f"[{tag}] follower write: {status} {doc}")
+        say(f"[{tag} {at()}] bounce: {far} with a zero wait -> 503, Retry-After "
+            f"{hdrs.get('Retry-After')}, lag_versions {details['lag_versions']}; a write to "
+            f"follower-1: 503 {doc['error']['message']!r} with leader_hint {hint}")
+
+        # -- the sample everywhere, held to the host oracle
+        expect = servers["leader"].ask("oracle " + json.dumps([t.to_dict() for t in sample]),
+                                       600)["expect"]
+        body = [t.to_dict() for t in sample]
+        answers = {}
+        for name, read in (("leader-0", lr), ("follower-0", fr[0]), ("follower-1", fr[1])):
+            status, doc = http("POST", f"{read}/check/batch?snaptoken={token}", body)
+            require(status == 200, f"[{tag}] {name} /check/batch: {status}")
+            answers[name] = doc["allowed"]
+        require(all(a == expect for a in answers.values()),
+                f"[{tag}] the sample differs: "
+                + ", ".join(f"{k} {sum(x != y for x, y in zip(v, expect))}"
+                            for k, v in answers.items()))
+        say(f"[{tag} {at()}] the {len(sample)}-check sample at {token} on the leader and both "
+            f"followers equals the set-graph oracle over the leader's store "
+            f"({sum(expect)} allowed)")
+
+        # -- federation: three members alive, instance-labelled series, a
+        # stitched hedged trace
+        deadline = time.monotonic() + 30
+        while True:
+            status, cs = http("GET", f"{lr}/cluster/status")
+            cl = (cs or {}).get("cluster") or {}
+            if cl.get("alive", 0) >= 3 and cl.get("health") not in (None, "unknown"):
+                break
+            require(time.monotonic() < deadline, f"[{tag}] /cluster/status {cs}")
+            time.sleep(0.2)
+        ids = sorted(m["instance_id"] for m in cs["members"])
+        require(ids == ["follower-0", "follower-1", "leader-0"], f"[{tag}] members {ids}")
+        for om in (False, True):
+            doc = scrape(lr, openmetrics=om)
+            for i in range(2):
+                require(doc.value("keto_cluster_replication_lag_versions",
+                                  {"instance": f"follower-{i}"}) is not None
+                        and doc.value("keto_cluster_member_up",
+                                      {"instance": f"follower-{i}"}) == 1.0,
+                        f"[{tag}] leader /metrics lacks follower-{i}'s series")
+        hedger = Hedger(HedgePolicy(delay_s=0.0))  # always hedge
+        stitched = None
+        try:
+            with ReplicatedRestClient(fr, write_url=lw, hedger=hedger) as rc:
+                deadline = time.monotonic() + 30
+                while stitched is None and time.monotonic() < deadline:
+                    res = rc.check(sample[0], snaptoken=token)
+                    require(res.allowed == expect[0], f"[{tag}] routed check")
+                    tid = res.traceparent.split("-")[1]
+                    for _ in range(20):
+                        status, doc = http("GET", f"{lr}/debug/traces?trace_id={tid}")
+                        insts = {s.get("instance") for s in (doc or {}).get("spans", [])}
+                        if status == 200 and doc.get("stitched") and len(insts) >= 2:
+                            stitched = doc
+                            break
+                        time.sleep(0.1)
+                routed = rc.router.snapshot()
+        finally:
+            hedger.close()
+        require(stitched is not None and stitched["hedge"]["winner"],
+                f"[{tag}] no stitched hedged trace with spans from 2 processes")
+        say(f"[{tag} {at()}] /cluster/status: {cl['alive']}/{cl['members']} alive, health "
+            f"{cl['health']}, election term {cl['election']['observed_term']} leader "
+            f"{cl['election']['leader_id']}; keto_cluster_* per instance in text and "
+            f"OpenMetrics; a hedged check pair through ReplicatedRestClient is one stitched "
+            f"trace on the leader ({sorted(stitched['instances'])}, winner "
+            f"{stitched['hedge']['winner']['instance']}); the router's known versions "
+            f"{[v['known_version'] for v in routed.values()]}")
+
+        # -- GET /check from FLEET_CLIENTS clients: over both followers, then
+        # on the leader alone
+        picks = [sample[i % len(sample)] for i in range(FLEET_DRIVE)]
+        want = [expect[i % len(sample)] for i in range(FLEET_DRIVE)]
+        rates = {}
+        for name, reads in (("followers", fr), ("leader", [lr])):
+            urls = [f"{reads[i % len(reads)]}/check?{tuple_query(t)}"
+                    for i, t in enumerate(picks)]
+            results, wall = http_clients(urls, FLEET_CLIENTS, procs=4)
+            require([s for s, _ in results] == [200 if w else 403 for w in want],
+                    f"[{tag}] the {name} drive's answers differ from the oracle")
+            secs = [sec for _, sec in results]
+            rates[name] = (len(urls) / wall, pct(secs, 50), pct(secs, 99))
+        out["rates"] = rates
+        say(f"[{tag} {at()}] GET /check, {FLEET_CLIENTS} clients in 4 processes, "
+            f"{FLEET_DRIVE} requests each: over both followers {rates['followers'][0]:.0f} "
+            f"checks/s p50/p99 {rates['followers'][1]:.3f}/{rates['followers'][2]:.3f} ms; "
+            f"the leader alone {rates['leader'][0]:.0f} checks/s p50/p99 "
+            f"{rates['leader'][1]:.3f}/{rates['leader'][2]:.3f} ms; every answer the "
+            f"oracle's ({card})")
+
+        # -- anti-entropy: a clean replica cycle, then replica.skip_delta
+        version = http("GET", f"{lw}/replication/status")[1]["version"]
+        for i in range(2):
+            deadline = time.monotonic() + 30
+            while servers[f"f{i}"].ask("info")["version"] < version:
+                require(time.monotonic() < deadline, f"[{tag}] follower-{i} lags")
+                time.sleep(0.05)
+        clean = servers["f0"].ask("scrub", 300)
+        rf = clean["replica"]
+        require(rf and rf.get("mismatches") == 0 and rf.get("version") == version,
+                f"[{tag}] clean replica cycle {clean}")
+        servers["f1"].ask("arm replica.skip_delta")
+        skipped = _fleet_writes(args, "fleet-skip", 2)[1]  # a leaf grant
+        require(rest_write(lw, "PUT", skipped) == 201, f"[{tag}] the skipped write")
+        token = _status_token(lw)
+        deadline = time.monotonic() + 30
+        while servers["f1"].ask("info")["version"] < version + 1:
+            require(time.monotonic() < deadline, f"[{tag}] follower-1 lags")
+            time.sleep(0.05)
+        require(check_status(fr[1], skipped)[0] == 403
+                and check_status(fr[0], skipped, token)[0] == 200,
+                f"[{tag}] replica.skip_delta did not diverge follower-1 alone")
+        found = servers["f1"].ask("scrub", 300)
+        rf2 = found["replica"]
+        require(rf2 and rf2.get("mismatches", 0) >= 1 and found["reseeds"] == 1
+                and found["repairs"].get("reseed") == 1,
+                f"[{tag}] divergent replica cycle {found}")
+        t0 = time.perf_counter()
+        status, doc, _ = check_status(fr[1], skipped, token)
+        healed_s = time.perf_counter() - t0
+        require(status == 200, f"[{tag}] follower-1 after the reseed: {status} {doc}")
+        out["scrub"] = {"clean_s": clean["s"], "repair_s": found["s"],
+                        "b1": found["b1"] - fol[1]["boot_b1"]}
+        say(f"[{tag} {at()}] replica scrub: follower-0's digest equals the leader's at "
+            f"version {version} ({rf['chunks']} chunks, cycle {clean['s']:.3f}s); "
+            f"replica.skip_delta on follower-1: lag 0, the write missing, the next cycle "
+            f"finds {rf2['mismatches']} divergent chunk(s) at version {rf2['version']} and "
+            f"reseeds (cycle with the reseed and the residency rebuild {found['s']:.3f}s, "
+            f"{out['scrub']['b1']} B1 launches); the write then answers at its token after "
+            f"{healed_s:.3f}s ({card})")
+        planes_idle(fr[0], f"{tag} follower-0")
+        planes_idle(lr, f"{tag} leader-0")
+
+        # -- failover: SIGKILL the leader mid-drive, lease held
+        pre = servers["leader"].ask("info")
+        base = pre["tuples"]
+        drive = _fleet_writes(args, "fleet-kill", 4000, interior=False)
+        acked, attempted = [], []
+        stop_drive = threading.Event()
+        kill = {}
+
+        def writer(k: int) -> None:
+            for t in drive[k::4]:
+                if stop_drive.is_set():
+                    return
+                attempted.append(t)
+                try:
+                    if rest_write(lw, "PUT", t) == 201:
+                        acked.append(t)
+                except (OSError, http_client.HTTPException):
+                    return  # the leader is gone (an answer cut short is no ack)
+
+        with ThreadPoolExecutor(4) as pool:
+            futs = [pool.submit(writer, k) for k in range(4)]
+            deadline = time.monotonic() + 60
+            while len(acked) < FLEET_KILL_AFTER:
+                require(time.monotonic() < deadline, f"[{tag}] the failover drive stalled")
+                time.sleep(0.01)
+            kill["t"] = time.time()
+            t_kill = time.perf_counter()
+            os.killpg(servers["leader"].proc.pid, signal.SIGKILL)
+            servers["leader"].proc.wait(timeout=60)
+            servers["leader"].stopped = True
+            stop_drive.set()
+            for f in futs:
+                f.result()
+        winner = None
+        deadline = time.monotonic() + 60
+        while winner is None:
+            require(time.monotonic() < deadline, f"[{tag}] no follower promoted")
+            for i in range(2):
+                d = servers[f"f{i}"].ask("info")
+                if d["role"] == "leader":
+                    winner, wdoc = i, d
+            time.sleep(0.05)
+        won_s = wdoc["election"]["last_transition"]["at"] - kill["t"]
+        loser = 1 - winner
+        first = _fleet_writes(args, "fleet-after", 3)[1]
+        deadline = time.monotonic() + 60
+        while rest_write(fw[winner], "PUT", first) != 201:
+            require(time.monotonic() < deadline, f"[{tag}] the promoted leader refuses")
+            time.sleep(0.02)
+        first_s = time.perf_counter() - t_kill
+        acked_set = {str(t) for t in acked}
+        require(len(acked_set) == len(acked), f"[{tag}] duplicate writes in the drive")
+        got = servers[f"f{winner}"].ask(
+            "present " + json.dumps([t.to_dict() for t in acked]), 300)["present"]
+        lost = got.count(False)
+        tried = servers[f"f{winner}"].ask(
+            "present " + json.dumps([t.to_dict() for t in attempted]), 300)["present"]
+        after = servers[f"f{winner}"].ask("info")
+        phantom = after["tuples"] - (base + sum(tried) + 1)
+        lineage = LeaseStore(os.path.join(root, "wal")).lineage()
+        terms = [r["term"] for r in lineage]
+        out["lineage"] = [(r["term"], r["leader_id"], round(r["at"] - kill["t"], 3))
+                          for r in lineage if r["at"] >= kill["t"]]
+        out["promotions"] = {
+            f"follower-{i}": (d["promotion"], d["election"]["transitions"],
+                              d["election"]["last_transition"])
+            for i, d in ((i, servers[f"f{i}"].ask("info")) for i in range(2))}
+        require(lost == 0, f"[{tag}] {lost} acked writes lost across the failover")
+        require(phantom == 0, f"[{tag}] {phantom} tuples nobody wrote on the new leader")
+        require(len(terms) >= 2 and all(b > a for a, b in zip(terms, terms[1:]))
+                and after["election"]["term"] == terms[-1],
+                f"[{tag}] the term lineage {terms}")
+        token = _status_token(fw[winner])
+        status, doc, _ = check_status(fr[loser], first, token)
+        require(status == 200, f"[{tag}] follower-{loser} after the failover: {status} {doc}")
+        out["failover"] = {"won_s": won_s, "first_s": first_s, "lost": lost,
+                           "acked": len(acked), "attempted": len(attempted),
+                           "terms": terms}
+        say(f"[{tag} {at()}] SIGKILL of leader-0 after {len(acked)} acked writes of a "
+            f"4-client drive ({len(attempted)} attempted, {sum(tried) - len(acked)} durable "
+            f"but unacked): follower-{winner} won term {terms[-1]} {won_s:.3f}s after the kill "
+            f"(lease TTL {FLEET_LEASE_TTL_S}s), replayed the shared WAL and acked its first "
+            f"write {first_s:.3f}s after it; acked writes lost {lost}, phantom tuples "
+            f"{phantom}; term lineage {terms}, after the kill {out['lineage']} (term, "
+            f"holder, s); promotions {out['promotions']}; follower-{loser} retargeted "
+            f"and answers the new leader's write at {token} ({card})")
+        for i in range(2):
+            done = servers[f"f{i}"].stop(300)
+            require(done["stopped"], f"[{tag}] follower-{i} stop {done}")
+            out["launches"] += done["b1"]
+        out["launches"] += pre["b1"]  # the leader's, read before the SIGKILL
+        failed = False
+    finally:
+        for server in servers.values():
+            if not server.stopped:
+                server.kill_group()
+        if failed:  # each node's log tail, for the failure's reader
+            for name in ("leader", "follower-0", "follower-1"):
+                path = os.path.join(scratch, f"{name}.json.log")
+                if os.path.exists(path):
+                    with open(path, errors="replace") as f:
+                        tail = f.readlines()[-40:]
+                    print(f"[{tag}] {name}'s log, last lines:\n" + "".join(tail),
+                          file=sys.stderr, flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tuples", type=int, default=1_000_000)
     ap.add_argument("--gh-tuples", type=int, default=10_000_000)
     ap.add_argument("--checks", type=int, default=4096)
-    ap.add_argument("--oracle", type=int, default=256)
+    # the host BFS oracle's share of the sample in [main:*]: the host
+    # CheckEngine is slow at github10m, and 128 keeps the smoke in its budget
+    ap.add_argument("--oracle", type=int, default=128)
     ap.add_argument("--pool-server", action="store_true",
                     help="run the [serve:pool] server (the smoke starts it)")
     ap.add_argument("--pool-workers", type=int, default=POOL_WORKERS,
@@ -5287,6 +5874,9 @@ def main() -> int:
                          "smoke starts it)")
     ap.add_argument("--cli-client", default="",
                     help="run these client verbs in process (the smoke starts it)")
+    ap.add_argument("--fleet-server", default="",
+                    help="run a [fleet] node with the Registry values in this JSON "
+                         "file (the smoke starts it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5302,6 +5892,8 @@ def main() -> int:
         return cli_server_main(args.cli_server or args.config_server)
     if args.cli_client:
         return cli_client_main(args)
+    if args.fleet_server:
+        return fleet_server_main(args)
     masked_spmv = port("engine", "masked_spmv")
     _m_pad_for = port("engine.closure", "_m_pad_for")
     pack_adjacency = port("ops.closure", "pack_adjacency")
@@ -5425,6 +6017,11 @@ def main() -> int:
     cf = serve_config_plane(args, card, persist, cn)
     walls["config"] = time.perf_counter() - t0
 
+    # -- 14. the fleet: a leader and two followers, failover -------------------
+    t0 = time.perf_counter()
+    fl = serve_fleet(args, card, persist, durable)
+    walls["fleet"] = time.perf_counter() - t0
+
     walls["total"] = time.perf_counter() - t_all
     say(f"[numbers] card: {card}")
     say("[numbers] phase wall seconds: "
@@ -5471,6 +6068,23 @@ def main() -> int:
         f"{cf['reload_s']:.3f}s after the edit; {CONFIG_CLIENTS} HTTPS clients: "
         f"{cf['load'][0]} checks, {cf['load'][1]:.0f}/s, p50/p99 {cf['load'][2]:.3f}/"
         f"{cf['load'][3]:.3f} ms, none failed")
+    fb = fl["boot"]["followers"]
+    fo = fl["failover"]
+    say(f"[numbers] fleet ({card}): follower bootstrap s (checkpoint fetch / restore / "
+        f"snapshot encode / interior / B1 build): "
+        + "; ".join(f"follower-{i} {d['seed']['fetch_s']:.3f} / {d['seed']['restore_s']:.3f}"
+                    f" / {d['phases'].get('snapshot_encode', 0):.3f} / "
+                    f"{d['phases'].get('interior', 0):.3f} / {d['phases'].get('kernel', 0):.3f}"
+                    f" (start_all {d['start_s']:.3f})" for i, d in enumerate(fb))
+        + f"; checkpoint {fb[0]['seed']['bytes']} bytes; write-to-visible at the write's "
+        f"token p50/p99 {fl['visible_p50']:.3f}/{fl['visible_p99']:.3f} ms; GET /check at "
+        f"{FLEET_CLIENTS} clients: followers {fl['rates']['followers'][0]:.0f} checks/s "
+        f"p50/p99 {fl['rates']['followers'][1]:.3f}/{fl['rates']['followers'][2]:.3f} ms, "
+        f"leader alone {fl['rates']['leader'][0]:.0f} checks/s p50/p99 "
+        f"{fl['rates']['leader'][1]:.3f}/{fl['rates']['leader'][2]:.3f} ms; failover "
+        f"SIGKILL -> lease won {fo['won_s']:.3f}s -> first acked write {fo['first_s']:.3f}s; "
+        f"acked writes lost {fo['lost']} of {fo['acked']}; B1 launches in the phase "
+        f"{fl['launches']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     ov = serve["overload"]
@@ -5491,7 +6105,8 @@ def main() -> int:
         f"{ov['launches']}, persist {persist['launches']}, the spawn pool's parent "
         f"{spawn['launches']}, the opt-in pool (parent and worker) "
         f"{spawn['accel_launches']}, durable's three boots {durable['launches']}, the "
-        f"[cli] server {cn['launches']}, the [config] server {cf['launches']}; B2 "
+        f"[cli] server {cn['launches']}, the [config] server {cf['launches']}, the "
+        f"[fleet] nodes {fl['launches']}; B2 "
         f"launches: main:packed with its batcher drives {b2['launches']}")
     say(f"[numbers] [device] drill launches, not in the kernels line: B1 "
         f"{dv['launches']}, B2 {b2['drill_launches']}")
@@ -5502,7 +6117,7 @@ def main() -> int:
                        + serve["cache_launches"] + ov["launches"]
                        + persist["launches"] + spawn["launches"]
                        + spawn["accel_launches"] + durable["launches"]
-                       + cn["launches"] + cf["launches"])
+                       + cn["launches"] + cf["launches"] + fl["launches"])
     say(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (b1, b2)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,8 +3,8 @@
 ToProto/FromProto methods on its tuples and trees).
 
 The snaptoken parsing is the REST plane's own (``api/rest.py
-min_version_from``), so both transports accept the same spellings and
-raise the same error.
+min_version_from``, over ``replication/token.py``), so both transports
+accept the same spellings and raise the same error.
 """
 
 from __future__ import annotations
@@ -18,6 +18,10 @@ from ..relationtuple.definitions import (
     Subject,
     SubjectID,
     SubjectSet,
+)
+from ..replication.token import (  # noqa: F401  (LATEST_SENTINEL re-export)
+    LATEST_SENTINEL,
+    parse_snaptoken,
 )
 from ..utils.errors import ErrMalformedInput
 from .gen.ory.keto.acl.v1alpha1 import acl_pb2, expand_service_pb2

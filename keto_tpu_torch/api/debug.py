@@ -10,7 +10,10 @@ Routes (GET, read port only):
   (``?n=``), with the SLO snapshot and the check outcome counts
 - ``/debug/traces``   the tracer's finished spans, newest first, with hex
   ids (``?name=``, ``?n=``); ``?trace_id=`` keeps one trace and adds its
-  flight records
+  flight records, and on a cluster leader fans out to every alive member
+  and stitches their results into one timeline with the hedge's winner
+  (``&local=1`` suppresses the fan-out: it is what the leader sends the
+  members); every span and record carries its node's ``instance``
 - ``/debug/attribution`` where check wall time goes: the attribution
   ledger's stages (seconds, share of wall, coverage) and the last closure
   build's phases
@@ -27,11 +30,11 @@ Routes (GET, read port only):
   newest-first history (``?n=``)
 - ``/debug/scrub``    integrity plane: cycle/mismatch/repair totals,
   last-clean version, freeze reason, newest-first history (``?n=``)
+- ``/debug/cluster``  the federation scraper's full fleet status (404 off a
+  cluster leader)
 
-Not registered, because their planes are not ported: ``/debug/autotune``
-(ROADMAP 14.7) and ``/debug/cluster`` (14.6). ``/debug/traces`` answers from
-this process alone: the reference's fan-out of ``?trace_id=`` to the
-cluster's members waits for 14.6.
+Not registered, because its plane is not ported: ``/debug/autotune``
+(ROADMAP 14.7).
 
 Gating: ``debug.enabled: false`` hides the whole surface as 404 (the routes
 do not exist as far as a prober can tell); ``debug.token`` set requires
@@ -123,8 +126,15 @@ class DebugContext:
         attribution=None,
         profiler=None,
         build_phases_fn=None,
+        cluster=None,
+        instance_id: str = "",
     ):
         self.config = config
+        # the leader's federation scraper (member discovery for the trace
+        # fan-out, and /debug/cluster) and this node's instance id, stamped
+        # on every span and flight record /debug/traces returns
+        self.cluster = cluster
+        self.instance_id = instance_id or ""
         self.enabled = bool(enabled)
         self.token = token or ""
         self.profile_max_s = float(profile_max_s)
@@ -169,6 +179,7 @@ class DebugAPI:
             ("/debug/scrub", self.get_scrub),
             ("/debug/overload", self.get_overload),
             ("/debug/device", self.get_device),
+            ("/debug/cluster", self.get_cluster),
         ):
             router.add("GET", path, self._gated(handler))
 
@@ -210,11 +221,11 @@ class DebugAPI:
             payload["checks"] = self.ctx.check_telemetry.stats()
         return _json(payload)
 
-    def get_traces(self, req: Request) -> Response:
-        name = req.query.get("name") or None
-        trace_id = (req.query.get("trace_id") or "").strip().lower() or None
-        n = _n(req, 100)
+    def _local_trace_view(self, name, trace_id, n: int) -> dict:
+        """This process's spans (and, for a trace_id, its matching flight
+        records): one member's half of the stitched view."""
         tracer = self.ctx.tracer
+        instance = self.ctx.instance_id or None
         spans = []
         if tracer is not None:
             for s in tracer.finished(name):
@@ -230,20 +241,131 @@ class DebugAPI:
                         "start": s.start,
                         "duration_ms": round((s.duration or 0) * 1000, 3),
                         "attrs": dict(s.attrs),
-                        "instance": None,
+                        "instance": instance,
                     }
                 )
         spans = spans[-n:]
         spans.reverse()  # newest first, as /debug/flight
         payload: dict = {"spans": spans}
+        if self.ctx.instance_id:
+            payload["instance"] = self.ctx.instance_id
         if trace_id is not None:
             flight = self.ctx.flight
             payload["flight"] = [
-                dict(rec, instance=None)
+                dict(rec, instance=instance)
                 for rec in (flight.records(None) if flight is not None else [])
                 if rec.get("trace_id") == trace_id
             ]
+        return payload
+
+    def _stitch_cluster_trace(self, trace_id: str, n: int, local: dict) -> dict:
+        """Fan ``/debug/traces?trace_id=&local=1`` out to every alive member
+        and merge the spans and flight records into one timeline. A hedged
+        pair (one traceparent, two endpoints raced) is one view: both
+        ``check.request`` spans under the trace id, each with its instance;
+        the winner is the attempt that finished first."""
+        import urllib.request
+        from concurrent.futures import ThreadPoolExecutor
+
+        cluster = self.ctx.cluster
+        me = self.ctx.instance_id
+        per_instance: dict[str, dict] = {}
+        if me:
+            per_instance[me] = local
+
+        def fetch(url: str) -> dict:
+            req = urllib.request.Request(
+                f"{url}/debug/traces?trace_id={trace_id}&local=1&n={n}"
+            )
+            if self.ctx.token:
+                req.add_header("X-Debug-Token", self.ctx.token)
+            with urllib.request.urlopen(req, timeout=5) as resp:
+                return json.loads(resp.read().decode("utf-8"))
+
+        def attempt(url: str):
+            try:
+                return fetch(url)
+            except BaseException as e:  # noqa: BLE001 - reported per member
+                return e
+
+        targets = [(i, u) for i, u in cluster.member_read_urls() if i != me]
+        with ThreadPoolExecutor(max(1, len(targets))) as pool:
+            results = list(pool.map(attempt, [u for _, u in targets]))
+        errors = {}
+        for (instance, _), res in zip(targets, results):
+            if isinstance(res, BaseException):
+                errors[instance] = f"{type(res).__name__}: {res}"
+                continue
+            for span in res.get("spans", []):
+                span.setdefault("instance", instance)
+            for rec in res.get("flight", []):
+                rec.setdefault("instance", instance)
+            per_instance[instance] = res
+        spans = [s for view in per_instance.values() for s in view.get("spans", [])]
+        records = [r for view in per_instance.values() for r in view.get("flight", [])]
+        timeline = sorted(
+            [
+                {
+                    "kind": "span",
+                    "instance": s.get("instance"),
+                    "name": s["name"],
+                    "start": s["start"],
+                    "end": s["start"] + s["duration_ms"] / 1000.0,
+                    "duration_ms": s["duration_ms"],
+                    "hedge": bool((s.get("attrs") or {}).get("hedge")),
+                    "attrs": s.get("attrs"),
+                }
+                for s in spans
+            ],
+            key=lambda e: e["start"],
+        )
+        # the hedge race's winner: among this trace's check.request spans,
+        # the attempt that completed first
+        checks = [e for e in timeline if e["name"] == "check.request"]
+        winner = None
+        if checks:
+            first_done = min(checks, key=lambda e: e["end"])
+            winner = {
+                "instance": first_done["instance"],
+                "hedge": first_done["hedge"],
+                "duration_ms": first_done["duration_ms"],
+            }
+        return {
+            "trace_id": trace_id,
+            "stitched": True,
+            "instances": sorted(per_instance),
+            "spans": spans,
+            "flight": records,
+            "timeline": timeline,
+            "hedge": {
+                "attempts": len(checks),
+                "hedged": any(e["hedge"] for e in checks),
+                "winner": winner,
+            },
+            "errors": errors or None,
+        }
+
+    def get_traces(self, req: Request) -> Response:
+        name = req.query.get("name") or None
+        trace_id = (req.query.get("trace_id") or "").strip().lower() or None
+        local = req.query.get("local") == "1"
+        n = _n(req, 100)
+        payload = self._local_trace_view(name, trace_id, n)
+        if trace_id is not None and not local and self.ctx.cluster is not None:
+            payload = self._stitch_cluster_trace(trace_id, n, payload)
         return _json(payload)
+
+    def get_cluster(self, req: Request) -> Response:
+        """The federation scraper's full fleet status: /cluster/status and
+        the scrape internals, behind the debug gate."""
+        cluster = self.ctx.cluster
+        if cluster is None:
+            return _json(
+                {"error": "not a cluster leader (cluster.enabled off or "
+                          "this node is a follower)"},
+                404,
+            )
+        return _json(cluster.status())
 
     def get_attribution(self, req: Request) -> Response:
         attribution = self.ctx.attribution

@@ -95,6 +95,7 @@ def build_read_grpc_server(
     metrics=None,
     tracer=None,
     telemetry=None,  # the check telemetry (telemetry/flight.CheckTelemetry)
+    replication_waiter=None,  # a follower's snaptoken gate, or None
 ) -> grpc.Server:
     """Read-plane gRPC: Check, Expand, Read, Version, Health and reflection,
     plus List when the reverse-index tier is on."""
@@ -104,11 +105,13 @@ def build_read_grpc_server(
         CheckServicer(
             checker, snaptoken_fn, max_freshness_wait_s=max_freshness_wait_s,
             encoded_front=encoded_front, default_criticality=default_criticality,
-            telemetry=telemetry,
+            telemetry=telemetry, replication_waiter=replication_waiter,
         ),
     )
-    add_expand_service(server, ExpandServicer(expand_engine))
-    add_read_service(server, ReadServicer(manager))
+    add_expand_service(server, ExpandServicer(
+        expand_engine, replication_waiter, max_freshness_wait_s))
+    add_read_service(server, ReadServicer(
+        manager, replication_waiter, max_freshness_wait_s))
     services = READ_SERVICES
     if list_engine is not None:
         add_list_service(
@@ -116,6 +119,7 @@ def build_read_grpc_server(
             ListServicer(
                 list_engine, snaptoken_fn, version_waiter=list_version_waiter,
                 max_freshness_wait_s=max_freshness_wait_s, telemetry=telemetry,
+                replication_waiter=replication_waiter,
             ),
         )
         services = services + (f"{_PKG}.ListService",)
@@ -135,10 +139,11 @@ def build_write_grpc_server(
     logger=None,
     metrics=None,
     tracer=None,
+    read_only=False,  # a bool, or a callable asked per mutation
 ) -> grpc.Server:
     """Write-plane gRPC: Write, Version, Health and reflection."""
     server = _server("write", max_workers, max_message_bytes, logger, metrics, tracer)
-    add_write_service(server, WriteServicer(manager, snaptoken_fn))
+    add_write_service(server, WriteServicer(manager, snaptoken_fn, read_only=read_only))
     add_version_service(server, VersionServicer(version))
     add_health_service(server, health)
     add_reflection_service(server, WRITE_SERVICES)

@@ -60,8 +60,16 @@ errors included; a disallowed origin gets none. Without an ``Origin``, or
 with CORS off, requests pass through untouched.
 
 Each request runs on its connection's thread, so concurrent single checks
-meet in the check batcher. Not ported yet, and so not registered: the
-replication and cluster routes (ROADMAP 14.6).
+meet in the check batcher.
+
+The fleet's routes, as the reference's: ``/cluster/status`` on the read
+port (the federation rollup); on the write port a leader's
+``/replication/{status,checkpoint,wal,digest}`` and
+``POST /cluster/heartbeat``, a follower's ``/replication/status``. On a
+follower every read route with a ``snaptoken`` first waits for replication
+to replay past it (``ErrFollowerLag``, a 503 with ``Retry-After`` and the
+lag, when the freshness window closes first), and the write routes answer
+``ErrReadOnlyFollower``, a 503 whose details carry the ``leader_hint``.
 
 Telemetry, as the reference's middleware and read API: the router counts
 ``keto_http_requests_total{plane,method,route,code}`` and observes
@@ -82,7 +90,6 @@ from __future__ import annotations
 
 import json
 import math
-import re
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -91,6 +98,7 @@ from urllib.parse import parse_qsl, urlencode, urlsplit
 from ..engine.overload import parse_criticality
 from ..graph import vocabsync
 from ..relationtuple.columns import CheckColumns
+from ..replication.token import LATEST_SENTINEL, parse_snaptoken
 from ..relationtuple.definitions import (
     RelationQuery,
     RelationTuple,
@@ -100,7 +108,12 @@ from ..relationtuple.definitions import (
 )
 from ..telemetry.flight import NOOP_CHECK_TELEMETRY
 from ..telemetry.tracing import HEDGE_HEADER, TRACEPARENT_HEADER
-from ..utils.errors import DeadlineExceeded, ErrMalformedInput, KetoError
+from ..utils.errors import (
+    DeadlineExceeded,
+    ErrMalformedInput,
+    ErrReadOnlyFollower,
+    KetoError,
+)
 from ..utils.pagination import PaginationOptions
 from . import wirecodec
 
@@ -126,10 +139,6 @@ DEADLINE_HEADER = "X-Request-Deadline-Ms"
 #: (a typo must not change the answer, only the shed priority)
 CRITICALITY_HEADER = "X-Request-Criticality"
 
-#: min_version for `latest=true`: far above any real store version
-LATEST_SENTINEL = 1 << 62
-
-_TOKEN_RE = re.compile(r"^z(\d+)\.(\d+)\.(\d+)$")
 
 
 @dataclass
@@ -324,9 +333,10 @@ def min_version_from(snaptoken: str, latest) -> int:
     answered at; malformed spellings are a 400, not a silent stale read."""
     min_version = 0
     if snaptoken:
-        m = _TOKEN_RE.match(snaptoken)
         try:
-            min_version = int(m.group(1)) if m is not None else int(snaptoken)
+            # the structured token or a bare version: freshness keys on the
+            # version component either way (replication/token.py)
+            min_version = parse_snaptoken(snaptoken).version
         except ValueError:
             raise ErrMalformedInput(f"malformed snaptoken {snaptoken!r}") from None
     if isinstance(latest, str):
@@ -433,8 +443,14 @@ class ReadAPI:
         encoded_front=None,
         default_criticality: str = "default",
         telemetry=None,
+        replication_waiter=None,
     ):
         self.manager = manager
+        # the follower's replication gate (replication/follower.py
+        # wait_for_version): every read route with a snaptoken blocks until
+        # replay passes it, else ErrFollowerLag (503, Retry-After, the lag).
+        # None on a leader or standalone node
+        self.replication_waiter = replication_waiter
         # the per-request check telemetry (span, exemplar, SLO, flight
         # record, attribution ledger); the no-op when none is wired in
         self.telemetry = telemetry or NOOP_CHECK_TELEMETRY
@@ -470,22 +486,35 @@ class ReadAPI:
             router.add("GET", ROUTE_LIST_OBJECTS, self.get_list_objects)
             router.add("GET", ROUTE_LIST_SUBJECTS, self.get_list_subjects)
 
-    def _await_freshness(self, min_version: int, deadline: Optional[float]) -> None:
-        """Block until the engine answers at >= min_version, within the
-        freshness cap and the caller's deadline."""
-        if self.version_waiter is None or min_version <= 0:
-            return
+    def _freshness_timeout(self, deadline: Optional[float]) -> float:
         cap = self.max_freshness_wait_s
         timeout = float(cap() if callable(cap) else cap)
         if deadline is not None:
             timeout = min(timeout, max(0.0, deadline - time.monotonic()))
-        self.version_waiter(min_version, timeout_s=timeout)
+        return timeout
+
+    def _await_replication(self, min_version: int, deadline: Optional[float] = None) -> None:
+        """A follower blocks until replication replays past ``min_version``
+        (within the freshness cap and the caller's deadline); a no-op on a
+        leader. It runs before the batcher, unclamped."""
+        if self.replication_waiter is None or min_version <= 0:
+            return
+        self.replication_waiter(min_version, timeout_s=self._freshness_timeout(deadline))
+
+    def _await_freshness(self, min_version: int, deadline: Optional[float]) -> None:
+        """Block until the engine answers at >= min_version, within the
+        freshness cap and the caller's deadline."""
+        self._await_replication(min_version, deadline)
+        if self.version_waiter is None or min_version <= 0:
+            return
+        self.version_waiter(min_version, timeout_s=self._freshness_timeout(deadline))
 
     def get_expand(self, req: Request) -> Response:
         p = req.query
         # snaptoken: validated; the snapshot expand engine reads the live
         # store version by construction, so any token is already satisfied
-        _min_version_from_query(p)
+        # on a leader, and a follower waits for replay first
+        self._await_replication(_min_version_from_query(p))
         _dead_on_arrival(deadline_from_headers(req))
         _require_params(p, "namespace", "object", "relation")
         subject = SubjectSet(
@@ -580,9 +609,9 @@ class ReadAPI:
 
     def get_relations(self, req: Request) -> Response:
         p = req.query
-        # snaptoken: validated, then trivially satisfied (listing reads the
-        # live store)
-        _min_version_from_query(p)
+        # snaptoken: validated, then trivially satisfied on a leader (listing
+        # reads the live store); a follower waits for replay first
+        self._await_replication(_min_version_from_query(p))
         query = _query_from_params(p)
         try:
             size = int(p.get("page_size", "0"))
@@ -635,6 +664,7 @@ class ReadAPI:
                 "rest_batch", batch_size=len(cols), deadline=deadline,
                 traceparent=traceparent, hedge=hedge,
             ) as rec:
+                self._await_replication(min_version, deadline)
                 if run is None:
                     allowed = self.checker.check_batch(
                         cols.materialize(), max_depth, min_version=min_version
@@ -658,6 +688,7 @@ class ReadAPI:
             "rest_batch", batch_size=len(tuples), deadline=deadline,
             traceparent=traceparent, hedge=hedge,
         ) as rec:
+            self._await_replication(min_version, deadline)
             allowed = self.checker.check_batch(
                 tuples, max_depth, min_version=min_version, deadline=deadline,
                 criticality=criticality_from_headers(req, self.default_criticality),
@@ -682,6 +713,7 @@ class ReadAPI:
             "rest-encoded", batch_size=len(frame.start), deadline=deadline,
             traceparent=frame.traceparent,
         ) as rec:
+            self._await_replication(frame.min_version, deadline)
             allowed = self.encoded_front.check(frame, timeout=timeout)
             payload = wirecodec.encode_check_response(allowed, self.snaptoken_fn())
             rec.mark("serialize")
@@ -731,6 +763,7 @@ class ReadAPI:
             "rest", deadline=deadline, detail={"namespace": tup.namespace},
             traceparent=traceparent, hedge=hedge,
         ) as rec:
+            self._await_replication(min_version, deadline)
             allowed = self.checker.check(
                 tup, max_depth, min_version=min_version, deadline=deadline,
                 criticality=criticality,
@@ -742,15 +775,35 @@ class ReadAPI:
 
 
 class WriteAPI:
-    def __init__(self, manager):
+    def __init__(self, manager, read_only=False, leader_hint_fn=None):
         self.manager = manager
+        # a follower serves this port (health, version, replication) but
+        # rejects mutations: writes belong on the leader. A callable is asked
+        # per request: an elected node turns writable the moment it holds the
+        # lease, a fenced ex-leader read-only the moment it loses it
+        self.read_only = read_only
+        # () -> {"write_url", ...} | None: a rejected writer learns where the
+        # leader lives from the 503's envelope instead of probing again
+        self.leader_hint_fn = leader_hint_fn
 
     def register(self, router: Router) -> None:
         router.add("PUT", ROUTE_TUPLES, self.create_relation)
         router.add("DELETE", ROUTE_TUPLES, self.delete_relations)
         router.add("PATCH", ROUTE_TUPLES, self.patch_relations)
 
+    def _reject_if_read_only(self) -> None:
+        ro = self.read_only() if callable(self.read_only) else self.read_only
+        if ro:
+            hint = None
+            if self.leader_hint_fn is not None:
+                try:
+                    hint = self.leader_hint_fn()
+                except Exception:
+                    hint = None
+            raise ErrReadOnlyFollower(leader_hint=hint)
+
     def create_relation(self, req: Request) -> Response:
+        self._reject_if_read_only()
         body = _json_body(req)
         if not isinstance(body, dict):
             raise ErrMalformedInput("expected a json relation-tuple object")
@@ -760,10 +813,12 @@ class WriteAPI:
         return json_response(tup.to_dict(), 201, {"Location": location})
 
     def delete_relations(self, req: Request) -> Response:
+        self._reject_if_read_only()
         self.manager.delete_all_relation_tuples(_query_from_params(req.query))
         return Response(204)
 
     def patch_relations(self, req: Request) -> Response:
+        self._reject_if_read_only()
         body = _json_body(req)
         if not isinstance(body, list):
             raise ErrMalformedInput("expected a json array of deltas")
@@ -830,23 +885,95 @@ def register_common(router: Router, version: str, healthy_fn=None, metrics=None)
     router.add("GET", "/metrics", get_metrics)
 
 
+def _json_default(doc) -> Response:
+    """A status document as JSON, with anything json cannot spell as its
+    ``str`` (the reference's ``default=str`` round trip)."""
+    return json_response(json.loads(json.dumps(doc, default=str)))
+
+
 def build_read_router(
     manager, checker, snaptoken_fn, version: str, healthy_fn=None,
-    cors: Optional[dict] = None, metrics=None, logger=None, **read_kw,
+    cors: Optional[dict] = None, metrics=None, logger=None,
+    cluster_status_fn=None, **read_kw,
 ):
     """The read plane's routes; ``read_kw`` goes to ReadAPI (the expand and
-    list engines, the list routes' snaptoken gate, the check telemetry)."""
+    list engines, the list routes' snaptoken gate, the follower's
+    replication gate, the check telemetry). ``cluster_status_fn`` serves
+    ``/cluster/status``, the fleet's health rollup, public as /metrics."""
     router = Router(cors, plane="read", metrics=metrics, logger=logger)
     ReadAPI(manager, checker, snaptoken_fn, **read_kw).register(router)
     register_common(router, version, healthy_fn, metrics)
+    if cluster_status_fn is not None:
+        router.add("GET", "/cluster/status", lambda _req: _json_default(cluster_status_fn()))
     return router
+
+
+_NOT_LEADER = {"error": "not the replication leader"}
 
 
 def build_write_router(
     manager, version: str, healthy_fn=None, cors: Optional[dict] = None,
-    metrics=None, logger=None,
+    metrics=None, logger=None, read_only=False, leader_hint_fn=None,
+    replication_source=None, replication_source_fn=None,
+    replication_status_fn=None, cluster_membership=None, directives_fn=None,
 ):
+    """The write plane's routes, and the fleet's:
+
+    - a leader's ``replication_source`` registers ``/replication/*``;
+    - an election-enabled follower (``replication_source_fn``) registers
+      ``/replication/{status,checkpoint,wal}`` that delegate per request:
+      503 (or its lag view) until a promotion installs a source;
+    - a plain follower (``replication_status_fn``) serves its lag view at
+      ``/replication/status`` for the federation scraper;
+    - a leader's ``cluster_membership`` takes ``POST /cluster/heartbeat``,
+      whose reply carries ``directives_fn()``'s fleet orders."""
     router = Router(cors, plane="write", metrics=metrics, logger=logger)
-    WriteAPI(manager).register(router)
+    WriteAPI(manager, read_only=read_only, leader_hint_fn=leader_hint_fn).register(router)
     register_common(router, version, healthy_fn, metrics)
+    if replication_source is not None:
+        replication_source.register(router)
+    elif replication_source_fn is not None:
+
+        def repl_status(req):
+            src = replication_source_fn()
+            if src is not None:
+                return src.handle_status(req)
+            if replication_status_fn is not None:
+                return _json_default(replication_status_fn())
+            return json_response({"role": "follower"})
+
+        def delegate(name):
+            def route(req):
+                src = replication_source_fn()
+                if src is None:
+                    return json_response(_NOT_LEADER, 503)
+                return getattr(src, name)(req)
+
+            return route
+
+        router.add("GET", "/replication/status", repl_status)
+        router.add("GET", "/replication/checkpoint", delegate("handle_checkpoint"))
+        router.add("GET", "/replication/wal", delegate("handle_wal"))
+    elif replication_status_fn is not None:
+        router.add("GET", "/replication/status",
+                   lambda _req: _json_default(replication_status_fn()))
+    if cluster_membership is not None:
+
+        def heartbeat(req):
+            try:
+                payload = json.loads(req.body.decode("utf-8"))
+                if not isinstance(payload, dict):
+                    raise ValueError("heartbeat body must be an object")
+                row = cluster_membership.upsert(payload)
+            except Exception as e:
+                raise ErrMalformedInput(str(e)) from None
+            reply = {"ok": True, "heartbeats": row["heartbeats"]}
+            if directives_fn is not None:
+                try:
+                    reply["directives"] = directives_fn()
+                except Exception:
+                    pass
+            return json_response(reply)
+
+        router.add("POST", "/cluster/heartbeat", heartbeat)
     return router

@@ -19,8 +19,11 @@ check and list RPC runs inside the check telemetry's record
 (``telemetry/flight.py``), labelled ``grpc``, ``grpc_batch``,
 ``grpc-encoded`` and ``grpc_list`` as in the reference, and joins the
 caller's trace from the ``traceparent`` metadata (``x-keto-hedge: 1`` tags
-a hedged duplicate). Left out: the follower's read-only write plane
-(ROADMAP 14.6).
+a hedged duplicate). On a follower every read RPC with a snaptoken first
+waits for replication to replay past it (``replication_waiter``, the
+follower's ``wait_for_version``: ``ErrFollowerLag`` when the window closes
+first), and the write service answers ``ErrReadOnlyFollower``
+(UNAVAILABLE) while ``read_only`` says so.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from ..relationtuple.columns import CheckColumns, proto_has_columns
 from ..relationtuple.definitions import RelationTuple, SubjectID, subject_from_dict
 from ..telemetry.flight import NOOP_CHECK_TELEMETRY
 from ..telemetry.tracing import HEDGE_HEADER, TRACEPARENT_HEADER
-from ..utils.errors import ErrMalformedInput, KetoError
+from ..utils.errors import ErrMalformedInput, ErrReadOnlyFollower, KetoError
 from ..utils.pagination import PaginationOptions
 from . import wirecodec
 from .convert import (
@@ -79,10 +82,10 @@ def _criticality_from_metadata(context, default: str = "default") -> str:
 
 
 def _await_freshness(version_waiter, min_version: int, timeout_s: float):
-    """The snaptoken gate of the routes that do not pass through the check
-    batcher (the list service): block until the engine answers at
-    ``min_version`` or raise. None means the answer is live by
-    construction."""
+    """A snaptoken gate: the follower's replication wait on every read RPC,
+    and the engine's wait on the routes that do not pass through the check
+    batcher (the list service). Block until ``min_version`` is served or
+    raise; None means there is nothing to wait for here."""
     if version_waiter is None or min_version <= 0:
         return
     version_waiter(min_version, timeout_s=timeout_s)
@@ -148,10 +151,13 @@ class CheckServicer:
         encoded_front=None,
         default_criticality: str = "default",
         telemetry=None,
+        replication_waiter=None,
     ):
         self.checker = checker
         self.snaptoken_fn = snaptoken_fn
         self._freshness_cap = max_freshness_wait_s
+        # the follower's replication gate (None on a leader or standalone)
+        self.replication_waiter = replication_waiter
         # the per-request check telemetry, entered on the handler thread so
         # its span is the ambient parent inside checker.check()
         self.telemetry = telemetry or NOOP_CHECK_TELEMETRY
@@ -182,6 +188,7 @@ class CheckServicer:
             # a freshness wait is bounded by the RPC deadline; the batcher
             # rejects dead-on-arrival work and culls expiry mid-queue
             timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
+            _await_freshness(self.replication_waiter, min_version, timeout)
             # RPC termination (the client gone) cancels the queued entry
             entries: list = []
             context.add_callback(lambda: [f.cancel() for f in entries])
@@ -217,6 +224,7 @@ class CheckServicer:
         try:
             timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
             min_version = min_version_from(request.snaptoken, request.latest)
+            _await_freshness(self.replication_waiter, min_version, timeout)
             traceparent, hedge = _trace_from_metadata(context)
             if proto_has_columns(request):
                 cols = CheckColumns.from_proto(request)
@@ -291,6 +299,7 @@ class CheckServicer:
                 )
             req = wirecodec.decode_check_request(request)
             timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
+            _await_freshness(self.replication_waiter, req.min_version, timeout)
             with self.telemetry.record_check(
                 "grpc-encoded", batch_size=len(req.start), deadline=deadline,
                 traceparent=req.traceparent,
@@ -304,8 +313,10 @@ class CheckServicer:
 
 
 class ExpandServicer:
-    def __init__(self, expand_engine):
+    def __init__(self, expand_engine, replication_waiter=None, max_freshness_wait_s=30.0):
         self.expand_engine = expand_engine
+        self.replication_waiter = replication_waiter
+        self._freshness_cap = max_freshness_wait_s
 
     def Expand(self, request, context):
         try:
@@ -314,9 +325,12 @@ class ExpandServicer:
             )
             if subject is None:
                 raise ErrMalformedInput("expand request without subject")
-            # snaptoken: validated, then satisfied by construction (the
-            # expand engine reads the live store version)
-            min_version_from(request.snaptoken, False)
+            # snaptoken: validated, then satisfied by construction on a
+            # leader (the expand engine reads the live store version); a
+            # follower waits for replay first
+            min_version = min_version_from(request.snaptoken, False)
+            timeout, _ = _timeout_and_deadline(self._freshness_cap, context)
+            _await_freshness(self.replication_waiter, min_version, timeout)
             # paged expand rides invocation metadata (the proto has no
             # paging fields): keto-expand-page-size / -page-token request
             # it; the continuation token and the patch paths come back as
@@ -367,8 +381,10 @@ class ReadServicer:
     # RelationTuple fields a ListRelationTuplesRequest.expand_mask may name
     _MASKABLE = frozenset({"namespace", "object", "relation", "subject"})
 
-    def __init__(self, manager):
+    def __init__(self, manager, replication_waiter=None, max_freshness_wait_s=30.0):
         self.manager = manager
+        self.replication_waiter = replication_waiter
+        self._freshness_cap = max_freshness_wait_s
 
     def ListRelationTuples(self, request, context):
         try:
@@ -379,9 +395,11 @@ class ReadServicer:
                 q.relation,
                 q.subject if q.HasField("subject") else None,
             )
-            # snaptoken: validated, then satisfied (the list reads the live
-            # store)
-            min_version_from(request.snaptoken, False)
+            # snaptoken: validated, then satisfied on a leader (the list
+            # reads the live store); a follower waits for replay first
+            min_version = min_version_from(request.snaptoken, False)
+            timeout, _ = _timeout_and_deadline(self._freshness_cap, context)
+            _await_freshness(self.replication_waiter, min_version, timeout)
             mask = None
             # an empty path list means "no projection" (FieldMask read
             # convention), not "clear everything"
@@ -427,10 +445,12 @@ class ListServicer:
         version_waiter=None,
         max_freshness_wait_s=30.0,
         telemetry=None,
+        replication_waiter=None,
     ):
         self.list_engine = list_engine
         self.snaptoken_fn = snaptoken_fn
         self.version_waiter = version_waiter
+        self.replication_waiter = replication_waiter
         self._freshness_cap = max_freshness_wait_s
         self.telemetry = telemetry or NOOP_CHECK_TELEMETRY
 
@@ -450,6 +470,7 @@ class ListServicer:
                 body.get("snaptoken", ""), body.get("latest", "")
             )
             timeout, deadline = _timeout_and_deadline(self._freshness_cap, context)
+            _await_freshness(self.replication_waiter, min_version, timeout)
             _await_freshness(self.version_waiter, min_version, timeout)
             traceparent, hedge = _trace_from_metadata(context)
             with self.telemetry.record_check(
@@ -515,12 +536,22 @@ class ListServicer:
 
 
 class WriteServicer:
-    def __init__(self, manager, snaptoken_fn: Callable[[], str]):
+    def __init__(self, manager, snaptoken_fn: Callable[[], str], read_only=False):
         self.manager = manager
         self.snaptoken_fn = snaptoken_fn
+        # a follower serves the write port (health, version, replication) but
+        # rejects mutations; a callable is asked per call (under election a
+        # promoted follower accepts, a fenced ex-leader rejects)
+        self.read_only = read_only
+
+    def _is_read_only(self) -> bool:
+        ro = self.read_only
+        return bool(ro() if callable(ro) else ro)
 
     def TransactRelationTuples(self, request, context):
         try:
+            if self._is_read_only():
+                raise ErrReadOnlyFollower()
             inserts: list[RelationTuple] = []
             deletes: list[RelationTuple] = []
             for delta in request.relation_tuple_deltas:
@@ -541,6 +572,8 @@ class WriteServicer:
 
     def DeleteRelationTuples(self, request, context):
         try:
+            if self._is_read_only():
+                raise ErrReadOnlyFollower()
             q = request.query
             query = query_from_proto_fields(
                 q.namespace,

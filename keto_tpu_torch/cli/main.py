@@ -18,8 +18,9 @@ Every verb of the reference, with its arguments, options, output text,
 - ``debug snapshot`` — a support bundle pulled over REST from ``/debug``.
 
 Errors print ``Error: <message>`` on stderr and exit 1; a usage error
-exits 2. ``status --cluster``, ``debug snapshot --cluster`` and the
-replicated client need the fleet and name ROADMAP 14.6.
+exits 2. ``status --cluster`` prints the leader's fleet view
+(``/cluster/status``) and exits 1 when the fleet is red; ``debug snapshot
+--cluster`` adds every alive member's bundle under ``cluster/<instance>/``.
 """
 
 from __future__ import annotations
@@ -35,12 +36,6 @@ from typing import Optional, Sequence
 
 DEFAULT_READ_REMOTE = "127.0.0.1:4466"
 DEFAULT_WRITE_REMOTE = "127.0.0.1:4467"
-
-_CLUSTER_MSG = (
-    "{what} reads the fleet's /cluster/status, which is not ported to "
-    "keto_tpu_torch yet: ROADMAP item 14.6, the fleet"
-)
-
 
 class CliError(Exception):
     """A failed verb: ``Error: <message>`` on stderr, exit 1."""
@@ -400,26 +395,49 @@ def debug_snapshot(args) -> int:
     config, the graph panel with device stats, the flight recorder, the
     recent traces, the metrics exposition, pipeline occupancy and the
     version; every endpoint that failed is listed in ``errors.txt``. Safe
-    to attach to a ticket — /debug/config redacts secrets server-side."""
+    to attach to a ticket — /debug/config redacts secrets server-side. With
+    ``--cluster``, walks the leader's membership (``/cluster/status``) and
+    pulls the same bundle from every alive member."""
     import io
     import tarfile
     import urllib.error
     import urllib.request
 
-    if args.cluster:
-        raise CliError(_CLUSTER_MSG.format(what="debug snapshot --cluster"))
     base = (args.url or f"http://{read_remote(args)}").rstrip("/")
     fetched: list[tuple[str, bytes]] = []
     errors: list[str] = []
-    for name, path in SNAPSHOT_ENDPOINTS:
-        req = urllib.request.Request(base + path)
-        if args.token:
-            req.add_header("X-Debug-Token", args.token)
+
+    def pull(base_url: str, prefix: str = "") -> None:
+        for name, path in SNAPSHOT_ENDPOINTS:
+            req = urllib.request.Request(base_url + path)
+            if args.token:
+                req.add_header("X-Debug-Token", args.token)
+            try:
+                with urllib.request.urlopen(req, timeout=args.timeout_s) as resp:
+                    fetched.append((prefix + name, resp.read()))
+            except (urllib.error.URLError, OSError, ValueError) as e:
+                errors.append(f"{prefix}{path}: {e}")
+
+    pull(base)
+    if args.cluster:
         try:
-            with urllib.request.urlopen(req, timeout=args.timeout_s) as resp:
-                fetched.append((name, resp.read()))
+            with urllib.request.urlopen(base + "/cluster/status",
+                                        timeout=args.timeout_s) as resp:
+                cluster_status = resp.read()
+            fetched.append(("cluster_status.json", cluster_status))
+            members = json.loads(cluster_status.decode("utf-8")).get("members", [])
         except (urllib.error.URLError, OSError, ValueError) as e:
-            errors.append(f"{path}: {e}")
+            members = []
+            errors.append(f"/cluster/status: {e}")
+        for m in members:
+            member_url = (m.get("read_url") or "").rstrip("/")
+            instance = m.get("instance_id") or "unknown"
+            if not member_url or member_url == base:
+                continue
+            if not m.get("alive", True):
+                errors.append(f"cluster/{instance}: member down, skipped")
+                continue
+            pull(member_url, prefix=f"cluster/{instance}/")
     if not fetched:
         raise CliError(f"could not reach {base} — " + "; ".join(errors[:3]))
     out = args.out or f"keto-debug-{time.strftime('%Y%m%d-%H%M%S')}.tar.gz"
@@ -548,10 +566,58 @@ def namespace_migrate_status(args) -> int:
 
 def status(args) -> int:
     """Health of the read API; --block watches until SERVING (reference
-    cmd/status/root.go:28-110)."""
+    cmd/status/root.go:28-110). With --cluster, the leader's
+    /cluster/status: the per-member green/yellow/red rollup (replication
+    lag, SLO burn, breaker state, heartbeat liveness); exit 1 when red."""
     if args.cluster:
-        raise CliError(_CLUSTER_MSG.format(what="status --cluster"))
+        return cluster_status(args)
     return _remote().status(args)
+
+
+def cluster_status(args) -> int:
+    import urllib.request
+
+    url = f"http://{read_remote(args)}/cluster/status"
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            payload = json.loads(resp.read().decode("utf-8"))
+    except OSError as e:
+        raise CliError(f"could not fetch {url}: {e}") from None
+    summary = payload.get("cluster", {})
+    echo(
+        f"cluster: {summary.get('health', '?')} "
+        f"({summary.get('alive', '?')}/{summary.get('members', '?')} "
+        f"alive, aggregate burn {summary.get('aggregate_burn_rate', '?')})"
+    )
+    election = summary.get("election")
+    if election:
+        expires = election.get("lease_expires_in_s")
+        echo(
+            f"election: term={election.get('observed_term', '?')} "
+            f"leader={election.get('leader_id') or '?'} "
+            f"lease_expires_in={expires if expires is not None else '?'}s "
+            f"transitions={election.get('transitions', '?')} "
+            f"last={election.get('last_transition') or '-'}"
+        )
+    if summary.get("degraded"):
+        echo(f"degraded: fleet QoS tightened (directives={summary.get('directives')})")
+    for m in payload.get("members", []):
+        lag = m.get("lag_versions")
+        burn = m.get("burn_rate")
+        line = (
+            f"  {m.get('health', '?'):6s} "
+            f"{m.get('instance_id', '?')} "
+            f"role={m.get('role', '?')} "
+            f"alive={m.get('alive')} "
+            f"lag_versions={lag if lag is not None else '?'} "
+            f"burn={burn if burn is not None else '?'} "
+            f"qps={m.get('qps') if m.get('qps') is not None else '?'}"
+        )
+        reasons = m.get("reasons") or []
+        if reasons:
+            line += "  [" + "; ".join(reasons) + "]"
+        echo(line)
+    return 1 if summary.get("health") == "red" else 0
 
 
 def version(args) -> int:
@@ -676,7 +742,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", dest="timeout_s", type=float, default=10.0,
                    help="per-endpoint fetch timeout in seconds")
     p.add_argument("--cluster", action="store_true",
-                   help="every cluster member's bundle (ROADMAP 14.6)")
+                   help="aggregate a support bundle from every cluster member "
+                   "(discovered via the leader's /cluster/status), one "
+                   "cluster/<instance_id>/ subtree per member")
     p.set_defaults(func=debug_snapshot)
 
     nsp = sub.add_parser("namespace", help="namespace utilities"
@@ -708,7 +776,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", dest="timeout_s", type=float, default=0,
                    help="give up after this many seconds (0 = forever)")
     p.add_argument("--cluster", action="store_true",
-                   help="the leader's fleet view (ROADMAP 14.6)")
+                   help="show the leader's fleet view (/cluster/status) "
+                   "instead of the local health probe")
     p.set_defaults(func=status)
 
     p = sub.add_parser("version", help="print the build version")

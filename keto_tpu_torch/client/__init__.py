@@ -16,16 +16,16 @@ of ``keto_tpu/client/__init__.py``).
   ``Hedger``/``EndpointRouter`` (``hedge.py``): the client half of the
   overload plane.
 
-``ReplicatedRestClient``, the reference's snaptoken-aware client over a
-replicated read fleet, waits for the fleet (ROADMAP 14.6): constructing it
-raises.
+- ``ReplicatedRestClient`` — reads fanned across a replicated read fleet,
+  snaptoken-aware (a replica known to be past the token is preferred, a
+  hedge lands on a different replica), and writes that follow the leader
+  (a 503 with a ``leader_hint`` retargets and retries once).
 """
 
 from __future__ import annotations
 
 import http.client
 import json
-import re
 import select
 import threading
 from dataclasses import dataclass
@@ -48,10 +48,12 @@ from ..telemetry.tracing import (
     mint_traceparent,
 )
 from ..utils.errors import (
+    ErrFollowerLag,
     ErrForbidden,
     ErrInternal,
     ErrMalformedInput,
     ErrNotFound,
+    ErrReadOnlyFollower,
     ErrResourceExhausted,
     ErrStalePageToken,
     ErrUnavailable,
@@ -66,11 +68,6 @@ from .vocabcache import VocabCache, batch_check_encoded
 #: criticality class (critical | default | sheddable)
 CRITICALITY_HEADER = "X-Request-Criticality"
 CRITICALITY_METADATA_KEY = "x-keto-criticality"
-
-_REPLICATED_MSG = (
-    "ReplicatedRestClient routes reads across a replicated read fleet, which "
-    "is not ported to keto_tpu_torch yet: ROADMAP item 14.6, the fleet"
-)
 
 __all__ = [
     "RestClient",
@@ -91,9 +88,6 @@ __all__ = [
     "CRITICALITY_METADATA_KEY",
 ]
 
-_TOKEN_RE = re.compile(r"^z(\d+)\.")
-
-
 def __getattr__(name: str):
     # the gRPC client imports grpc: reach it only when it is asked for
     if name == "GrpcClient":
@@ -104,15 +98,16 @@ def __getattr__(name: str):
 
 
 def _snaptoken_version(snaptoken: str) -> int:
-    """Snaptoken -> minimum store version for the encoded wire frame (which
-    carries the version number, not the token string). The server's
-    snaptokens are bare version counters; a structured ``z<v>.<s>.<o>``
-    token is read too. Anything else is 0 (the server 400s it elsewhere)."""
+    """Snaptoken -> minimum store version (the encoded wire frame carries
+    the version number, not the token string; the replicated client routes
+    by it): a structured ``z<v>.<s>.<o>`` token or a bare version
+    (replication/token.py). Anything else is 0 (the server 400s it)."""
     if not snaptoken:
         return 0
-    m = _TOKEN_RE.match(snaptoken)
+    from ..replication.token import parse_snaptoken
+
     try:
-        return int(m.group(1)) if m is not None else int(snaptoken)
+        return parse_snaptoken(snaptoken).version
     except ValueError:
         return 0
 
@@ -157,10 +152,24 @@ class ListResult:
 def _error_for(status_code: int, body: dict, headers=None) -> KetoError:
     """The KetoError of a non-answer HTTP status, with the server's
     Retry-After hint as ``retry_after_s`` (run_with_retry floors its backoff
-    on it). A 503 with a ``leader_hint`` (the fleet's read-only follower)
-    stays ErrUnavailable until ROADMAP 14.6."""
+    on it). A 503 whose details carry a ``leader_hint`` (a read-only
+    follower, or an ex-leader fenced mid-election) is ErrReadOnlyFollower,
+    so the write path can follow it; one with the lag details is
+    ErrFollowerLag."""
     err = body.get("error") or {} if isinstance(body, dict) else {}
     message = err.get("message", "")
+    details = err.get("details") or {}
+    hint = details.get("leader_hint")
+    if status_code == 503 and isinstance(hint, dict):
+        return ErrReadOnlyFollower(message or None, leader_hint=hint)
+    if status_code == 503 and "lag_versions" in details:
+        e = ErrFollowerLag(
+            message or None,
+            lag_versions=details.get("lag_versions") or 0,
+            lag_seconds=details.get("lag_seconds") or 0.0,
+        )
+        _retry_after_from(e, headers)
+        return e
     cls = {
         400: ErrMalformedInput,
         403: ErrForbidden,
@@ -170,14 +179,19 @@ def _error_for(status_code: int, body: dict, headers=None) -> KetoError:
         503: ErrUnavailable,
     }.get(status_code, ErrInternal)
     e = cls(message or None)
-    if headers is not None:
-        ra = headers.get("Retry-After") or headers.get("retry-after")
-        if ra is not None:
-            try:
-                e.retry_after_s = max(0.0, float(ra))
-            except (TypeError, ValueError):
-                pass
+    _retry_after_from(e, headers)
     return e
+
+
+def _retry_after_from(e: KetoError, headers) -> None:
+    if headers is None:
+        return
+    ra = headers.get("Retry-After") or headers.get("retry-after")
+    if ra is not None:
+        try:
+            e.retry_after_s = max(0.0, float(ra))
+        except (TypeError, ValueError):
+            pass
 
 
 def _subject_params(subject: Subject, prefix: str = "") -> dict:
@@ -678,9 +692,202 @@ class RestClient:
 
 
 class ReplicatedRestClient:
-    """Reads fanned across a replicated read fleet (the reference's
-    snaptoken-aware, hedging, leader-following client). The fleet is not
-    ported yet: constructing one raises, naming ROADMAP 14.6."""
+    """Reads fanned across a replicated read fleet, snaptoken-aware.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_REPLICATED_MSG)
+    One ``RestClient`` per read endpoint (followers and/or the leader's read
+    plane) and one write endpoint (the leader). Reads route through an
+    ``EndpointRouter``: the primary prefers a replica already known to have
+    replayed past the request's snaptoken (so the server's freshness wait is
+    a no-op), and any hedge the ``Hedger`` fires lands on a different
+    replica.
+
+    The router learns from routed traffic: a successful at-least-token read
+    proves the endpoint reached that version; a shed or unavailable answer
+    (the follower's typed lag bounce too) adds a decaying penalty.
+    ``refresh_cluster_view`` folds a ``/cluster/status`` rollup in: red
+    members demoted, the leader remembered. Writes follow the leader: a 503
+    carrying a ``leader_hint`` (a read-only follower, or an ex-leader fenced
+    mid-election) retargets the write endpoint and retries once, so a
+    leadership change costs one round trip, not an outage.
+    """
+
+    def __init__(
+        self,
+        read_urls: Sequence[str],
+        write_url: Optional[str] = None,
+        timeout: float = 30.0,
+        verify=True,
+        retry: Optional[RetryPolicy] = None,
+        hedger: Optional[Hedger] = None,
+        router: Optional[EndpointRouter] = None,
+    ):
+        self.router = router or EndpointRouter(read_urls)
+        self._clients = {
+            ep: RestClient(ep, write_url=write_url, timeout=timeout, verify=verify,
+                           retry=retry)
+            for ep in self.router.endpoints
+        }
+        self._own_hedger = hedger is None
+        self._hedger = hedger or Hedger()
+        # any client reaches the one write endpoint; keep one handle
+        self._writer = self._clients[self.router.endpoints[0]]
+
+    def close(self) -> None:
+        if self._own_hedger:
+            self._hedger.close()
+        for c in self._clients.values():
+            c.close()
+
+    def __enter__(self) -> "ReplicatedRestClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _routed(self, endpoint: str, min_version: int, fn):
+        """Run one attempt against ``endpoint`` and feed the router."""
+        try:
+            result = fn(self._clients[endpoint])
+        except (ErrResourceExhausted, ErrUnavailable):
+            self.router.observe_error(endpoint)
+            raise
+        if min_version:
+            # an at-least-token read succeeded: the endpoint has replayed
+            # through the token's version
+            self.router.observe_version(endpoint, min_version)
+        return result
+
+    def check(
+        self,
+        tuple_or_str: RelationTuple | str,
+        max_depth: int = 0,
+        snaptoken: str = "",
+        latest: bool = False,
+    ) -> CheckResult:
+        """One hedged, routed check. Primary and hedge share a traceparent;
+        the hedge carries ``x-keto-hedge: 1`` and goes to a different
+        endpoint whenever the fleet has more than one."""
+        mv = _snaptoken_version(snaptoken)
+        primary_ep, hedge_ep = self.router.pick(mv)
+        tp = current_traceparent() or mint_traceparent()
+
+        def attempt(endpoint: str, is_hedge: bool) -> CheckResult:
+            return self._routed(
+                endpoint, mv,
+                lambda c: c.check(tuple_or_str, max_depth, snaptoken, latest,
+                                  traceparent=tp, hedge=is_hedge),
+            )
+
+        call = self._hedger.call(
+            lambda: attempt(primary_ep, False),
+            hedge=(lambda: attempt(hedge_ep, True)) if hedge_ep is not None else None,
+        )
+        return call.result
+
+    def batch_check(
+        self,
+        tuples: Sequence[RelationTuple | str],
+        max_depth: int = 0,
+        snaptoken: str = "",
+        latest: bool = False,
+    ) -> list[bool]:
+        """One routed batch check (not hedged: a batch duplicate doubles real
+        work, unlike a single point read)."""
+        mv = _snaptoken_version(snaptoken)
+        endpoint, _ = self.router.pick(mv)
+        return self._routed(
+            endpoint, mv, lambda c: c.batch_check(tuples, max_depth, snaptoken, latest)
+        )
+
+    def list_objects(
+        self,
+        subject: Subject | str,
+        relation: str,
+        namespace: str,
+        max_depth: int = 0,
+        page_size: int = 0,
+        page_token: str = "",
+        snaptoken: str = "",
+        latest: bool = False,
+    ) -> ListResult:
+        """One routed list-objects read (not hedged: a duplicate repeats a
+        whole row gather)."""
+        mv = _snaptoken_version(snaptoken)
+        endpoint, _ = self.router.pick(mv)
+        return self._routed(
+            endpoint, mv,
+            lambda c: c.list_objects(subject, relation, namespace, max_depth,
+                                     page_size, page_token, snaptoken, latest),
+        )
+
+    def list_subjects(
+        self,
+        namespace: str,
+        object: str,
+        relation: str,
+        max_depth: int = 0,
+        page_size: int = 0,
+        page_token: str = "",
+        snaptoken: str = "",
+        latest: bool = False,
+    ) -> ListResult:
+        mv = _snaptoken_version(snaptoken)
+        endpoint, _ = self.router.pick(mv)
+        return self._routed(
+            endpoint, mv,
+            lambda c: c.list_subjects(namespace, object, relation, max_depth,
+                                      page_size, page_token, snaptoken, latest),
+        )
+
+    def refresh_cluster_view(self) -> bool:
+        """Fetch ``/cluster/status`` from the first endpoint that answers
+        and fold it into the router (health demotions, versions, the
+        leader's coordinates). Best effort: False when none answered."""
+        for ep in self.router.endpoints:
+            try:
+                r = self._clients[ep]._http.request("GET", f"{ep}/cluster/status")
+                if r.status_code == 200:
+                    self.router.observe_status(r.json())
+                    return True
+            except Exception:
+                continue
+        return False
+
+    # -- the write plane (leader-following) -------------------------------------
+
+    def _follow_leader(self, write_url: str) -> None:
+        """Point every client's write endpoint at the new leader."""
+        write_url = write_url.rstrip("/")
+        for c in self._clients.values():
+            c.write_url = write_url
+
+    def _write(self, fn):
+        """One write against the current leader; on a 503 that names another
+        leader (a read-only follower, or an ex-leader fenced mid-election),
+        follow the hint and retry exactly once."""
+        try:
+            return fn(self._writer)
+        except ErrUnavailable as e:
+            hint = getattr(e, "leader_hint", None)
+            if isinstance(hint, dict):
+                self.router.observe_leader(hint)
+            else:
+                hint = self.router.leader()
+            target = str((hint or {}).get("write_url") or "").rstrip("/")
+            if not target or target == self._writer.write_url:
+                raise
+            self._follow_leader(target)
+            return fn(self._writer)
+
+    def create_relation_tuple(self, t: RelationTuple | str) -> RelationTuple:
+        return self._write(lambda c: c.create_relation_tuple(t))
+
+    def patch_relation_tuples(
+        self,
+        insert: Sequence[RelationTuple] = (),
+        delete: Sequence[RelationTuple] = (),
+    ) -> None:
+        self._write(lambda c: c.patch_relation_tuples(insert=insert, delete=delete))
+
+    def delete_relation_tuples(self, query: RelationQuery) -> None:
+        self._write(lambda c: c.delete_relation_tuples(query))

@@ -8,18 +8,23 @@ expose_backend_ports}``, ``log.{level,format}``, ``namespaces`` (an inline
 array of ``{id, name}``, or a string URI: ``file://``, a bare path, a
 directory, ``ws://``), the ``engine`` subtree,
 ``qos.{enabled,rate,burst,overrides}``, ``tracing.{provider,otlp}``, and the
-``telemetry``, ``overload``, ``scrub`` and ``debug`` subtrees — from a JSON
+``telemetry``, ``overload``, ``scrub``, ``debug``, ``replication`` and
+``cluster`` subtrees — from a JSON
 or TOML file (YAML where PyYAML is installed) merged with ``values``. Only
 the keys this package reads are validated, by hand and with the reference's
 messages (no jsonschema); the ``telemetry`` object and each of its
 ``flight``, ``slo``, ``attribution`` and ``profiler`` objects,
 ``tracing.otlp``, and the ``overload``, ``engine.memory``,
-``engine.failover``, ``scrub`` and ``debug`` objects are closed, as in the
+``engine.failover``, ``scrub``, ``debug``, ``replication``, ``cluster``,
+``cluster.health`` and ``cluster.election`` objects are closed, as in the
 reference's schema, so a misspelt key is an error; ``tracing.provider`` is
 one of ``""``, ``log`` and ``otlp``; other keys are carried and ignored.
 ``scrub.freeze_burn_rate`` is the scrubber's SLO freeze threshold (0 means
-``telemetry.slo.alert_burn_rate``), and ``scrub.digest_chunk_size`` is
-carried for the scrubber's replica kind (ROADMAP 14.6). The
+``telemetry.slo.alert_burn_rate``), and ``scrub.digest_chunk_size`` the
+replica kind's chunk. ``replication`` and ``cluster`` reload as in the
+reference: neither is frozen nor a hot knob, so a reload swaps their values
+and a component that reads them per call (the write plane's read-only
+gate reads ``replication.role``) follows. The
 durable write plane's ``store.wal.{dir,sync,sync-interval-ms,segment-bytes}``
 and ``checkpoint.{dir,interval-versions,interval-s,keep}`` are closed
 objects too.
@@ -162,6 +167,31 @@ DEFAULTS = {
     "checkpoint.interval-versions": 10000,
     "checkpoint.interval-s": 300,
     "checkpoint.keep": 2,
+    "replication.role": "",
+    "replication.upstream": "",
+    "replication.dir": "",
+    "replication.poll_interval_ms": 50,
+    "replication.max_records_per_poll": 512,
+    "cluster.enabled": False,
+    "cluster.instance_id": "",
+    "cluster.advertise_url": "",
+    "cluster.advertise_write_url": "",
+    "cluster.heartbeat_interval_ms": 1000,
+    "cluster.scrape_interval_ms": 2000,
+    "cluster.member_timeout_s": 10.0,
+    "cluster.health.lag_versions_yellow": 100,
+    "cluster.health.lag_versions_red": 10000,
+    "cluster.health.lag_seconds_yellow": 5.0,
+    "cluster.health.lag_seconds_red": 30.0,
+    "cluster.health.staleness_yellow_s": 10.0,
+    "cluster.health.staleness_red_s": 60.0,
+    "cluster.health.burn_yellow": 1.0,
+    "cluster.health.burn_red": 2.0,
+    "cluster.election.enabled": False,
+    "cluster.election.lease_ttl_s": 3.0,
+    "cluster.election.heartbeat_interval_ms": 500,
+    "cluster.election.priority": 0,
+    "cluster.election.wal_dir": "",
 }
 
 _ENGINE_MODES = [
@@ -294,6 +324,35 @@ _RULES: dict[str, tuple[str, Any]] = {
     "checkpoint.interval-versions": ("integer", 1),
     "checkpoint.interval-s": ("number", 0),
     "checkpoint.keep": ("integer", 1),
+    "replication": ("object", None),
+    "replication.role": ("enum", ["", "leader", "follower"]),
+    "replication.upstream": ("string", None),
+    "replication.dir": ("string", None),
+    "replication.poll_interval_ms": ("number", 1),
+    "replication.max_records_per_poll": ("integer", 1),
+    "cluster": ("object", None),
+    "cluster.enabled": ("boolean", None),
+    "cluster.instance_id": ("string", None),
+    "cluster.advertise_url": ("string", None),
+    "cluster.advertise_write_url": ("string", None),
+    "cluster.heartbeat_interval_ms": ("number", 10),
+    "cluster.scrape_interval_ms": ("number", 10),
+    "cluster.member_timeout_s": ("number", 0.1),
+    "cluster.health": ("object", None),
+    "cluster.health.lag_versions_yellow": ("integer", 0),
+    "cluster.health.lag_versions_red": ("integer", 0),
+    "cluster.health.lag_seconds_yellow": ("number", 0),
+    "cluster.health.lag_seconds_red": ("number", 0),
+    "cluster.health.staleness_yellow_s": ("number", 0),
+    "cluster.health.staleness_red_s": ("number", 0),
+    "cluster.health.burn_yellow": ("number", 0),
+    "cluster.health.burn_red": ("number", 0),
+    "cluster.election": ("object", None),
+    "cluster.election.enabled": ("boolean", None),
+    "cluster.election.lease_ttl_s": ("number", 0.1),
+    "cluster.election.heartbeat_interval_ms": ("number", 10),
+    "cluster.election.priority": ("integer", None),
+    "cluster.election.wal_dir": ("string", None),
 }
 
 # upper bounds, checked after the lower ones (the reference's keyword
@@ -315,7 +374,8 @@ _CLOSED = {
         "overload", "engine.memory", "engine.failover", "scrub", "debug",
         "store", "store.wal", "checkpoint", "tracing.otlp", "telemetry",
         "telemetry.flight", "telemetry.slo", "telemetry.attribution",
-        "telemetry.profiler",
+        "telemetry.profiler", "replication", "cluster", "cluster.health",
+        "cluster.election",
     )
 }
 

@@ -519,6 +519,25 @@ class Registry:
         self._attribution = None
         self._profiler = None
         self._check_telemetry = None
+        # the fleet (replication/, cluster/, telemetry/federation.py): the
+        # leader's replication source, the follower's replicator, the
+        # membership and federation on the leader, the heartbeater on a
+        # follower, the election and the feed a promoted follower serves
+        self._replication_source = None
+        self._replicator = None
+        self._cluster_membership = None
+        self._cluster_heartbeater = None
+        self._federation = None
+        self._election = None
+        self._promoted_source = None
+        self._cluster_instance_id = ""
+        self._bound_read_port = 0
+        self._bound_write_port = 0
+        # a follower's bootstrap: the checkpoint seed's bytes and seconds,
+        # and start_all's warmup (the encode and the closure build) after it;
+        # and its last promotion's report and seconds
+        self.follower_boot: dict = {}
+        self.last_promotion: dict = {}
 
     # -- telemetry providers ---------------------------------------------------
 
@@ -697,6 +716,7 @@ class Registry:
                     slow_s=float(self.config.get("telemetry.flight.slow_ms")) / 1e3,
                     stages_fn=self._stage_percentiles,
                     attribution=self.attribution(),
+                    role=self.replication_role(),
                 )
             return self._check_telemetry
 
@@ -772,10 +792,19 @@ class Registry:
         """The durable write plane (store/durable.py: WAL append before ack,
         atomic checkpoints, boot recovery) over the memory and columnar
         stores when ``store.wal.dir`` is set. A SQL store is durable
-        already: the knob is logged and ignored, as the reference does (the
-        reference also skips the wrap on a replication follower, a role
-        this package does not have yet: ROADMAP 14.6)."""
+        already: the knob is logged and ignored, as the reference does. A
+        replication follower skips the wrap: its durability is the leader's
+        WAL, and replicated deltas apply through the plain store's
+        ``apply_replicated_delta``."""
         wal_dir = str(self.config.get("store.wal.dir") or "")
+        if self.replication_role() == "follower":
+            if wal_dir:
+                self.logger().warn(
+                    "store.wal.dir is set but this node is a replication "
+                    "follower; the leader's WAL is the durability "
+                    "authority — ignoring the local WAL config",
+                )
+            return store
         if not wal_dir:
             return store
         if not getattr(store, "process_private", False):
@@ -1096,6 +1125,8 @@ class Registry:
                 reservoir=int(cfg.get("scrub.reservoir")),
                 replay_per_cycle=int(cfg.get("scrub.replay_per_cycle")),
                 store_fn=lambda: self._store,
+                replicator_fn=lambda: self._replicator,
+                digest_chunk_size=int(cfg.get("scrub.digest_chunk_size")),
                 wal_segments_per_cycle=int(cfg.get("scrub.wal_segments_per_cycle")),
                 max_repairs_per_cycle=int(cfg.get("scrub.max_repairs_per_cycle")),
                 history=int(cfg.get("scrub.history")),
@@ -1136,6 +1167,10 @@ class Registry:
                     # never constructs one
                     scrub_fn=lambda: self._scrubber,
                     overload_fn=lambda: self._overload,
+                    cluster=self.federation(),
+                    instance_id=(
+                        self.cluster_instance_id() if self.cluster_enabled() else ""
+                    ),
                 )
             return self._debug_context
 
@@ -1369,11 +1404,399 @@ class Registry:
                 )
             return self._list_engine
 
+    # -- replication (replication/) ---------------------------------------------
+
+    def replication_role(self) -> str:
+        """"" (standalone), "leader" or "follower"."""
+        return str(self.config.get("replication.role") or "")
+
+    def replication_source(self):
+        """The leader's WAL and checkpoint shipping, whose routes the write
+        plane registers. None off a leader."""
+        with self._lock:
+            if self._replication_source is None and self.replication_role() == "leader":
+                store = self.store()
+                if not hasattr(store, "wal"):
+                    raise ErrMalformedInput(
+                        "replication.role=leader requires a durable store "
+                        "(set store.wal.dir on a memory/columnar DSN)"
+                    )
+                from ..replication.leader import ReplicationSource
+
+                self._replication_source = ReplicationSource(
+                    store,
+                    poll_interval_s=float(self.config.get("replication.poll_interval_ms"))
+                    / 1e3,
+                )
+            return self._replication_source
+
+    def replicator(self):
+        """The follower's replication client: checkpoint bootstrap and WAL
+        tail replay into the local store. None off a follower."""
+        with self._lock:
+            if self._replicator is None and self.replication_role() == "follower":
+                upstream = str(self.config.get("replication.upstream") or "")
+                if not upstream:
+                    raise ErrMalformedInput(
+                        "replication.role=follower requires "
+                        "replication.upstream (the leader's write-plane URL)"
+                    )
+                scratch = str(self.config.get("replication.dir") or "")
+                if not scratch:
+                    import tempfile
+
+                    scratch = tempfile.mkdtemp(prefix="keto-follower-")
+                from ..replication.follower import FollowerReplicator
+
+                self._replicator = FollowerReplicator(
+                    self.store(),
+                    upstream,
+                    scratch_dir=scratch,
+                    poll_interval_s=float(self.config.get("replication.poll_interval_ms"))
+                    / 1e3,
+                    max_records=int(self.config.get("replication.max_records_per_poll")),
+                )
+                self._replicator.bind_metrics(self.metrics())
+                self._replicator.on_reseed = self._after_reseed
+            return self._replicator
+
+    def _after_reseed(self) -> None:
+        """A reseed replaced the follower's store wholesale and its version
+        may have moved back: rebuild the residency from the store and drop
+        cached answers, as the scrubber's repair does (the same version
+        numbers now name other contents)."""
+        engine = self._check_engine
+        if engine is None:
+            return  # not serving yet: the warmup builds from the seed
+        sup = self._device_supervisor
+        if sup is not None:
+            sup.reset_residency()
+        else:
+            reset = getattr(engine, "reset_residency", None)
+            if reset is not None:
+                reset()
+        b = self._checker
+        for c in (getattr(b, "cache", None), getattr(b, "encoded_cache", None)):
+            if c is not None:
+                c.clear()
+
+    def version_waiter(self):
+        """The follower's snaptoken gate (``wait_for_version``) for both read
+        planes; None on a leader or a standalone node, where the store is
+        authoritative and the engine's own freshness wait suffices. The gate
+        runs before the batcher and is not clamped: the engine's wait clamps
+        its target to the local store version (right locally, stale on a
+        follower mid-replay)."""
+        rep = self.replicator()
+        return rep.wait_for_version if rep is not None else None
+
+    # -- the cluster plane (cluster/, telemetry/federation.py) -------------------
+
+    def cluster_enabled(self) -> bool:
+        return bool(self.config.get("cluster.enabled"))
+
+    def cluster_instance_id(self) -> str:
+        """This node's stable identity: the membership key and the
+        ``instance`` label of every federated series. Defaults to
+        ``<role>-<random>``: a test boots several nodes of one role in one
+        process, and colliding ids would merge their rows."""
+        if not self._cluster_instance_id:
+            iid = str(self.config.get("cluster.instance_id") or "")
+            if not iid:
+                import uuid
+
+                iid = f"{self.replication_role() or 'leader'}-{uuid.uuid4().hex[:6]}"
+            self._cluster_instance_id = iid
+        return self._cluster_instance_id
+
+    def _cluster_url(self, plane: str) -> str:
+        """How other members reach this node's ``plane``:
+        cluster.advertise_url / advertise_write_url when set, else the
+        loopback URL of the bound port (right for one host; a fleet on
+        several hosts must advertise)."""
+        key = "cluster.advertise_url" if plane == "read" else "cluster.advertise_write_url"
+        url = str(self.config.get(key) or "")
+        if url:
+            return url.rstrip("/")
+        if plane == "read":
+            host = self.config.read_api_host()
+            port = self._bound_read_port or self.config.read_api_port()
+        else:
+            host = self.config.write_api_host()
+            port = self._bound_write_port or self.config.write_api_port()
+        if host in ("", "0.0.0.0", "::"):
+            host = "127.0.0.1"
+        return f"http://{host}:{port}"
+
+    def _cluster_self_payload(self) -> dict:
+        """The heartbeat body: what the fleet view wants to know of this
+        node without scraping it. Reads only components already built."""
+        store = self.store()
+        payload: dict = {
+            "instance_id": self.cluster_instance_id(),
+            "role": self.replication_role() or "leader",
+            "version": store.version,
+            "read_url": self._cluster_url("read"),
+            "write_url": self._cluster_url("write"),
+            "t": time.time(),
+        }
+        try:
+            payload["served_version"] = self._served_version()
+        except Exception:
+            pass
+        device = self._device_status()
+        payload["backend"] = device.get("backend")
+        sup = device.get("supervisor")
+        if sup:
+            payload["supervisor"] = {
+                "recovering": sup.get("recovering"),
+                "failovers": sup.get("failovers"),
+            }
+        if device.get("breaker") is not None:
+            payload["breaker"] = device["breaker"]
+        if device.get("quarantine") is not None:
+            payload["quarantine_size"] = len(device["quarantine"])
+        if device.get("hbm") is not None:
+            payload["hbm"] = {
+                "inflight_bytes": device["hbm"].get("inflight_bytes"),
+                "inflight_batches": device["hbm"].get("inflight_batches"),
+            }
+        if self._slo is not None:
+            snap = self._slo.snapshot()
+            payload["slo"] = {
+                "fast": snap.get("fast"),
+                "slow": snap.get("slow"),
+                "budget_remaining": snap.get("budget_remaining"),
+            }
+        rep = self._replicator
+        if rep is not None:
+            lag = rep.lag()
+            payload["lag_versions"] = lag.get("lag_versions")
+            payload["staleness_seconds"] = lag.get("staleness_seconds")
+        em = self._election
+        if em is not None:
+            # a promoted follower advertises itself as the leader, so routers
+            # and the fleet view follow it
+            payload["role"] = em.role
+            payload["election"] = {
+                "priority": em.priority,
+                "position": store.version,
+                "term": em.term,
+            }
+        elif self.election_enabled():
+            payload["election"] = {
+                "priority": int(self.config.get("cluster.election.priority")),
+                "position": store.version,
+            }
+        return payload
+
+    def cluster_membership(self):
+        """The heartbeat table of a leader (and of a standalone node, which
+        federates itself). None on a follower or with cluster.enabled off."""
+        with self._lock:
+            if (
+                self._cluster_membership is None
+                and self.cluster_enabled()
+                and self.replication_role() in ("", "leader")
+            ):
+                from ..cluster import ClusterMembership
+
+                self._cluster_membership = ClusterMembership(
+                    member_timeout_s=float(self.config.get("cluster.member_timeout_s")),
+                )
+            return self._cluster_membership
+
+    def federation(self):
+        """The leader's federation scraper: membership, then each member's
+        /metrics and /replication/status, into instance-labelled
+        keto_cluster_* series and the /cluster/status rollup. None wherever
+        cluster_membership() is None."""
+        membership = self.cluster_membership()
+        with self._lock:
+            if self._federation is None and membership is not None:
+                from ..telemetry.federation import DEFAULT_THRESHOLDS, FederationScraper
+
+                thresholds = {
+                    key: self.config.get(f"cluster.health.{key}", default=default)
+                    for key, default in DEFAULT_THRESHOLDS.items()
+                }
+                self._federation = FederationScraper(
+                    membership,
+                    self.metrics(),
+                    scrape_interval_s=float(self.config.get("cluster.scrape_interval_ms"))
+                    / 1e3,
+                    thresholds=thresholds,
+                    objective=float(self.config.get("telemetry.slo.objective")),
+                    self_payload_fn=self._cluster_self_payload,
+                    election_status_fn=(
+                        (lambda: self.election().status())
+                        if self.election_enabled()
+                        else None
+                    ),
+                    qos=self.qos(),
+                    logger=self.logger(),
+                )
+            return self._federation
+
+    def cluster_heartbeater(self):
+        """The follower's push side: beats this node's payload to the
+        leader's write plane (the replication upstream). None off a follower
+        or with cluster.enabled off."""
+        with self._lock:
+            if (
+                self._cluster_heartbeater is None
+                and self.cluster_enabled()
+                and self.replication_role() == "follower"
+            ):
+                upstream = str(self.config.get("replication.upstream") or "")
+                if upstream:
+                    from ..cluster import ClusterHeartbeater
+
+                    self._cluster_heartbeater = ClusterHeartbeater(
+                        upstream,
+                        self._cluster_self_payload,
+                        interval_s=float(self.config.get("cluster.heartbeat_interval_ms"))
+                        / 1e3,
+                        logger=self.logger(),
+                        on_directives=self._apply_directives,
+                    )
+            return self._cluster_heartbeater
+
+    def _cluster_status_fn(self):
+        """/cluster/status for the read plane: the federation rollup where
+        one runs (a leader or standalone node); on an election-enabled
+        follower an election-only view, so routers and operators see the
+        term and the leader's coordinates from any member."""
+        fed = self.federation()
+        if fed is not None:
+            return fed.status
+        if not self.election_enabled():
+            return None
+
+        def status() -> dict:
+            return {"cluster": {"election": self.election().status()}, "members": []}
+
+        return status
+
+    # -- leader election -----------------------------------------------------------
+
+    def election_enabled(self) -> bool:
+        return self.cluster_enabled() and bool(self.config.get("cluster.election.enabled"))
+
+    def _election_wal_dir(self) -> str:
+        """The shared directory the leases and the term lineage live in: by
+        default the WAL directory every member shares."""
+        d = str(self.config.get("cluster.election.wal_dir") or "")
+        return d or str(self.config.get("store.wal.dir") or "")
+
+    def election(self):
+        """Lease-based leader election over the shared WAL directory; None
+        unless cluster.enabled and cluster.election.enabled. Built lazily so
+        the advertised URLs are the bound ports: the serve path reaches it
+        through lambdas, never captures it when a plane is built."""
+        with self._lock:
+            if self._election is None and self.election_enabled():
+                wal_dir = self._election_wal_dir()
+                if not wal_dir:
+                    raise ErrMalformedInput(
+                        "cluster.election.enabled requires a shared WAL "
+                        "directory (store.wal.dir or cluster.election.wal_dir)"
+                    )
+                from ..cluster import ElectionManager, LeaseStore
+
+                cfg = self.config
+                self._election = ElectionManager(
+                    LeaseStore(wal_dir),
+                    instance_id=self.cluster_instance_id(),
+                    lease_ttl_s=float(cfg.get("cluster.election.lease_ttl_s")),
+                    heartbeat_interval_s=float(
+                        cfg.get("cluster.election.heartbeat_interval_ms")
+                    ) / 1e3,
+                    priority=int(cfg.get("cluster.election.priority")),
+                    read_url=self._cluster_url("read"),
+                    write_url=self._cluster_url("write"),
+                    promote_fn=self._election_promote,
+                    retarget_fn=self._election_retarget,
+                    position_fn=lambda: self.store().version,
+                    metrics=self.metrics(),
+                    logger=self.logger(),
+                )
+            return self._election
+
+    def _election_promote(self) -> None:
+        """The winning candidate's hook: replay the shared WAL into the local
+        store (no acked write lost: each hit the WAL before its ack), then
+        serve the replication feed, so the other followers retarget here
+        without re-bootstrapping."""
+        t0 = time.perf_counter()
+        wal_dir = self._election_wal_dir()
+        rep = self.replicator()
+        if rep is not None:
+            result = rep.promote(wal_dir)
+            self.logger().info("promoted via election", **result)
+            self.last_promotion = dict(result)
+        if self._promoted_source is None:
+            from ..cluster import PromotedReplicationSource
+
+            src = PromotedReplicationSource(
+                self.store(), wal_dir, sync=str(self.config.get("store.wal.sync"))
+            )
+            src.open()
+            self._promoted_source = src
+        self.last_promotion["s"] = time.perf_counter() - t0
+
+    def _election_retarget(self, lease: dict) -> None:
+        """The losing candidate's and a follower's hook: tail the new
+        leader's feed. The cursor carries over (the same shared WAL
+        directory), so there is no checkpoint re-bootstrap."""
+        target = str(lease.get("write_url") or "")
+        if not target:
+            return
+        rep = self._replicator
+        if rep is not None:
+            rep.retarget(target)
+        hb = self._cluster_heartbeater
+        if hb is not None:
+            hb.upstream = target.rstrip("/")
+            hb.url = f"{hb.upstream}/cluster/heartbeat"
+
+    def _write_read_only(self) -> bool:
+        """The write planes' gate, asked per mutation. Under election only
+        the holder of a live, unfenced lease accepts mutations: a promoted
+        follower opens up, a fenced ex-leader shuts mid-flight. Otherwise a
+        follower refuses them."""
+        em = self._election
+        if em is not None:
+            return not em.is_writable()
+        return self.replication_role() == "follower"
+
+    def _apply_directives(self, directives: dict) -> None:
+        """A follower's side of the heartbeat control channel: the leader's
+        reply carries fleet directives (the QoS scale while the aggregate
+        burn alert fires)."""
+        qos = self.qos()
+        if qos is None:
+            return
+        scale = directives.get("qos_scale")
+        if scale is not None:
+            qos.set_scale(float(scale), reason=str(directives.get("reason") or ""))
+
+    def _federation_directives(self):
+        fed = self._federation
+        return fed.directives() if fed is not None else None
+
     # -- snaptokens ------------------------------------------------------------
 
     def snaptoken(self) -> str:
-        """Write-plane snaptoken: the store's version counter."""
-        return str(self.store().version)
+        """Write-plane snaptoken: the store's durable position, a
+        structured ``z<version>.<segment>.<offset>`` token on a WAL'd store,
+        the bare version counter otherwise (replication/token.py parses
+        both)."""
+        store = self.store()
+        current_token = getattr(store, "current_token", None)
+        if current_token is not None:
+            return str(current_token())
+        return str(store.version)
 
     def _served_version(self) -> int:
         """The version checks are actually answered at (engine-served
@@ -1476,6 +1899,8 @@ class Registry:
                     metrics=self.metrics(),
                     logger=self.logger(),
                     telemetry=self.check_telemetry(),
+                    replication_waiter=self.version_waiter(),
+                    cluster_status_fn=self._cluster_status_fn(),
                 )
                 from ..api.debug import DebugAPI
 
@@ -1505,6 +1930,7 @@ class Registry:
                         metrics=self.metrics(),
                         tracer=self.tracer(),
                         telemetry=self.check_telemetry(),
+                        replication_waiter=self.version_waiter(),
                     )
                 read_port, grpc_port = self._shared_read_ports
                 self._read_plane = PlaneServer(
@@ -1529,11 +1955,32 @@ class Registry:
     def write_plane(self) -> PlaneServer:
         with self._lock:
             if self._write_plane is None:
+                follower = self.replication_role() == "follower"
+                rep = self.replicator()
                 router = build_write_router(
                     self.store(), self.version, healthy_fn=self.is_serving,
                     cors=self.config.cors("write"),
                     metrics=self.metrics(),
                     logger=self.logger(),
+                    read_only=self._write_read_only,
+                    leader_hint_fn=(
+                        (lambda: self.election().leader_hint())
+                        if self.election_enabled()
+                        else None
+                    ),
+                    replication_source=self.replication_source(),
+                    # an election-enabled follower may be promoted later: its
+                    # /replication/* routes delegate to the promoted source
+                    replication_source_fn=(
+                        (lambda: self._promoted_source)
+                        if self.election_enabled() and follower
+                        else None
+                    ),
+                    replication_status_fn=rep.lag if rep is not None else None,
+                    cluster_membership=self.cluster_membership(),
+                    directives_fn=(
+                        self._federation_directives if self.cluster_enabled() else None
+                    ),
                 )
                 api = self._grpc()
                 grpc_server = None
@@ -1549,6 +1996,7 @@ class Registry:
                         logger=self.logger(),
                         metrics=self.metrics(),
                         tracer=self.tracer(),
+                        read_only=self._write_read_only,
                     )
                 self._write_plane = PlaneServer(
                     router, self.config.write_api_host(),
@@ -1595,14 +2043,27 @@ class Registry:
         if spawned:
             self._spawn_workers(*self._pool_sizes())
         engine = self.check_engine()
+        replicator = self.replicator()
+        if replicator is not None:
+            # a follower: seed from the leader's checkpoint and start the
+            # tail before the warmup, so the warmed snapshot and closure
+            # cover the seeded graph, not an empty store
+            _log.info("follower bootstrap from %s", replicator.upstream)
+            replicator.start()
+            self.follower_boot = dict(replicator.seed_stats)
+            _log.info("follower replication started: version %d, leader version %d",
+                      store.version, replicator.leader_version)
         if hasattr(store, "recovery"):
             # the durable write plane: seed the snapshot's CSR from the
             # checkpoint (the warmup below then skips its derive when the
             # versions line up) and let later checkpoints carry the CSR
             self._prime_recovered_csr(store)
             store.csr_provider = self._checkpoint_csr
+        t_warm = time.perf_counter()
         if hasattr(engine, "warmup"):
             engine.warmup(int(self.config.get("engine.max_batch")))
+        if replicator is not None:
+            self.follower_boot["warmup_s"] = time.perf_counter() - t_warm
         # the snapshot CSR the expand engine and the overlay walk: deriving
         # it is an O(E log E) sort that belongs in warmup, not inside the
         # first live Expand (as the reference does)
@@ -1619,6 +2080,11 @@ class Registry:
         write_port = self.write_plane().start()
         if not self.grpc_enabled:
             _log.warning(self.grpc_off_reason)
+        # the cluster plane comes up once the bound ports are known: the
+        # self payload and the heartbeats advertise real URLs, never :0
+        self._bound_read_port, self._bound_write_port = read_port, write_port
+        if self.cluster_enabled():
+            self._start_cluster_plane()
         if bool(self.config.get("scrub.enabled")):
             # the scrubber's thread, after the fork like every thread
             self.scrubber().start()
@@ -1629,6 +2095,26 @@ class Registry:
         self._start_config_watcher()
         self.mark_serving()
         return read_port, write_port
+
+    def _start_cluster_plane(self) -> None:
+        hb = self.cluster_heartbeater()
+        if hb is not None:
+            hb.start()
+        fed = self.federation()
+        if fed is not None:
+            fed.start()
+        em = self.election() if self.election_enabled() else None
+        if em is not None:
+            if self.replication_role() in ("", "leader"):
+                # the configured leader claims the bootstrap lease before
+                # any follower may campaign
+                em.ensure_leadership()
+            em.start()
+        _log.info(
+            "cluster plane started: instance %s, role %s, federation %s, "
+            "election %s", self.cluster_instance_id(),
+            self.replication_role() or "leader", fed is not None, em is not None,
+        )
 
     def apply_log_config(self) -> None:
         """log.level and log.format onto the package logger."""
@@ -1894,6 +2380,18 @@ class Registry:
         self._serving = False  # readiness first, so balancers stop routing
         if self._health is not None:
             self._health.set_serving(False)
+        # the cluster plane next: stop advertising and scraping a node about
+        # to lose its serving surfaces. A clean stop releases the lease, so
+        # the survivors fail over in one heartbeat, not a TTL
+        if self._election is not None:
+            self._election.stop(release=True)
+            self._election = None
+        if self._federation is not None:
+            self._federation.stop()
+            self._federation = None
+        if self._cluster_heartbeater is not None:
+            self._cluster_heartbeater.stop()
+            self._cluster_heartbeater = None
         if self._replica_pool is not None:
             self._replica_pool.stop()
             self._replica_pool = None
@@ -1921,6 +2419,13 @@ class Registry:
             self._checker.close()
         if self._device_supervisor is not None:
             self._device_supervisor.stop()
+        if self._promoted_source is not None:
+            # after the write plane: the last acked mutation has run its
+            # delta listener, so the adopted WAL is complete
+            self._promoted_source.close()
+            self._promoted_source = None
+        if self._replicator is not None:
+            self._replicator.stop()
         if self._store is not None and hasattr(self._store, "close_durable"):
             # final checkpoint + WAL close: the next boot recovers from the
             # checkpoint instead of replaying the whole log

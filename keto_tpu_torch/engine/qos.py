@@ -1,7 +1,8 @@
 """Per-tenant QoS: token-bucket admission per namespace (counterpart of
-``keto_tpu/engine/qos.py``, without its stats and the fleet scale, which
-the fleet's burn alert sets: ROADMAP 14.6, so ``keto_qos_fleet_scale``
-reads 1.0 here).
+``keto_tpu/engine/qos.py``, without its stats). The fleet scale
+(``set_scale``, ``keto_qos_fleet_scale``) is what the leader's aggregate
+SLO burn alert sets (``telemetry/federation.py``), here and, through the
+heartbeat reply's directives, on every follower.
 
 The batcher's own load shedding is *global* — a bounded queue that rejects
 everyone equally once full. That protects the process but not the tenants:
@@ -82,6 +83,11 @@ class NamespaceQos:
         self._clock = clock
         self._lock = threading.Lock()
         self._buckets: dict[str, _Bucket] = {}
+        # the fleet-degradation scale (the cluster's burn alert): every
+        # bucket's effective rate and burst are multiplied by it, so the
+        # leader can tighten admission fleet-wide and relax it on recovery
+        self._scale = 1.0
+        self._scale_reason = ""
         self._throttled = None
         if metrics is not None:
             self._throttled = metrics.counter(
@@ -93,11 +99,28 @@ class NamespaceQos:
                 "keto_qos_fleet_scale",
                 "fleet QoS scale applied to every bucket (1.0 normal, "
                 "<1 while the aggregate burn alert is degrading)",
-                fn=lambda: 1.0,
+                fn=lambda: self._scale,
             )
 
+    def set_scale(self, scale: float, reason: str = "") -> bool:
+        """Apply a fleet-wide degradation scale in (0, 1]. Existing buckets
+        rebuild on their next admit (the rate/burst mismatch check below).
+        Returns True when the scale changed."""
+        scale = min(1.0, max(0.01, float(scale)))
+        with self._lock:
+            if scale == self._scale:
+                return False
+            self._scale = scale
+            self._scale_reason = str(reason)
+        return True
+
     def _limits(self, namespace: str) -> tuple[float, float]:
-        return self.overrides.get(namespace, (self.rate, self.burst))
+        rate, burst = self.overrides.get(namespace, (self.rate, self.burst))
+        scale = self._scale
+        if scale != 1.0 and rate > 0:
+            rate = rate * scale
+            burst = max(1.0, burst * scale)
+        return rate, burst
 
     def admit(self, namespace: str, n: int = 1) -> None:
         """Debit ``n`` check rows from ``namespace``'s bucket; raises
@@ -108,7 +131,7 @@ class NamespaceQos:
         now = self._clock()
         with self._lock:
             b = self._buckets.get(namespace)
-            if b is None:
+            if b is None or b.rate != rate or b.burst != burst:
                 b = _Bucket(rate, burst, now)
                 self._buckets[namespace] = b
             b.tokens = min(b.burst, b.tokens + (now - b.stamp) * b.rate)

@@ -31,9 +31,12 @@ Per cycle, in escalation order:
   its recorded sha256 (``graph/checkpoint.py load_checkpoint``). Damage →
   the file is removed and a fresh checkpoint cut.
 
-The reference's **replica anti-entropy** kind comes with replication and
-its digest (ROADMAP 14.6); ``scrub.digest_chunk_size`` is accepted for
-parity and unused until then.
+- **replica anti-entropy** — on a follower, the local state's chunked
+  digest (``replication/digest.py``, ``digest_chunk_size`` rows a chunk) is
+  compared with the leader's ``/replication/digest`` at the same applied
+  version (lag is not divergence: a version mismatch skips the cycle).
+  Divergence → the follower re-seeds from the leader's checkpoint
+  (``reseed``).
 
 Remediation is a ladder, rate-limited by ``max_repairs_per_cycle`` and
 frozen while any injected guard (breaker open, HBM pressure) gives a
@@ -69,11 +72,13 @@ KIND_DEVICE = "device"
 KIND_REPLAY = "replay"
 KIND_WAL = "wal"
 KIND_CHECKPOINT = "checkpoint"
+KIND_REPLICA = "replica"
 
 # repair actions (the keto_scrub_repairs_total label values)
 ACTION_RESET_RESIDENCY = "reset_residency"
 ACTION_CACHE_FLUSH = "cache_flush"
 ACTION_CHECKPOINT_REBUILD = "checkpoint_rebuild"
+ACTION_RESEED = "reseed"
 
 
 class _ReservoirEntry:
@@ -101,6 +106,8 @@ class ScrubDaemon:
         cache_flush_fn: Optional[Callable[[], None]] = None,
         version_fn: Optional[Callable[[], int]] = None,
         store_fn: Optional[Callable[[], object]] = None,  # durable or plain
+        replicator_fn: Optional[Callable[[], object]] = None,  # a follower's
+        digest_chunk_size: int = 1024,
         interval_s: float = 5.0,
         sample_rows: int = 64,
         reservoir: int = 256,
@@ -123,6 +130,8 @@ class ScrubDaemon:
         self._cache_flush_fn = cache_flush_fn
         self._version_fn = version_fn
         self._store_fn = store_fn
+        self._replicator_fn = replicator_fn
+        self.digest_chunk_size = max(1, int(digest_chunk_size))
         self.interval_s = float(interval_s)
         self.sample_rows = max(1, int(sample_rows))
         self.reservoir_capacity = max(1, int(reservoir))
@@ -285,6 +294,7 @@ class ScrubDaemon:
             (KIND_REPLAY, self._scrub_replay),
             (KIND_WAL, self._scrub_wal),
             (KIND_CHECKPOINT, self._scrub_checkpoint),
+            (KIND_REPLICA, self._scrub_replica),
         ):
             try:
                 report = check(repair)
@@ -488,6 +498,42 @@ class ScrubDaemon:
 
         repair(ACTION_CHECKPOINT_REBUILD, _rebuild)
         return {"path": path, "mismatches": 1, "error": err}
+
+    # -- (e) replica anti-entropy -------------------------------------------------
+
+    def _scrub_replica(self, repair) -> Optional[dict]:
+        if self._replicator_fn is None:
+            return None
+        replicator = self._replicator_fn()
+        if replicator is None:
+            return None
+        store = self._store_fn() if self._store_fn is not None else None
+        if store is None:
+            return None
+        from ..replication.digest import compute_digest, diff_digests
+
+        local = compute_digest(store, chunk_size=self.digest_chunk_size)
+        try:
+            remote = replicator.fetch_digest(chunk_size=self.digest_chunk_size)
+        except Exception as e:
+            return {"error": f"digest fetch: {type(e).__name__}: {e}"}
+        if remote.get("version") != local["version"]:
+            # replication lag, not divergence: compare only at equal applied
+            # versions (the next cycle lines up)
+            return {
+                "skipped": "version_lag",
+                "local_version": local["version"],
+                "remote_version": remote.get("version"),
+            }
+        divergent = diff_digests(local, remote)
+        if divergent:
+            repair(ACTION_RESEED, replicator.reseed)
+        return {
+            "version": local["version"],
+            "chunks": len(local["chunks"]),
+            "divergent_chunks": divergent,
+            "mismatches": len(divergent),
+        }
 
     # -- guards -----------------------------------------------------------------
 

@@ -3,7 +3,8 @@
 Named fault sites sit on the production failure-handling seams: the check
 batcher's stage loops, the device engine's launch, the list path's reverse
 gathers, the replica pool's delta broadcast, the supervisor's backend
-probe, the WAL's append and the checkpoint writer. Each is armed per process through :data:`FAULTS` or the
+probe, the WAL's append, the checkpoint writer, the follower's replay and
+the election. Each is armed per process through :data:`FAULTS` or the
 ``KETO_FAULTS`` environment knob, and the recovery paths that guard those
 seams (the batcher's watchdog, the device breaker in
 ``engine/fallback.py``, the device supervisor in ``driver/registry.py``,
@@ -73,6 +74,17 @@ site                          effect when armed
 ``checkpoint.crash_mid_write`` the checkpoint writer dies with a half-written
                               tmp file before the atomic rename; readers keep
                               the previous checkpoint (graph/checkpoint.py)
+``election.split_heartbeat``  a follower loses one leader-liveness observation
+                              and campaigns early; the lease CAS must reject
+                              it, never mint a second term
+                              (cluster/election.py)
+``replica.promote_fail``      a winning candidate's promotion raises; the
+                              lease is released and the election re-run
+                              (cluster/election.py)
+``replica.skip_delta``        a follower applies a delta's version but drops
+                              its tuples: silent divergence with zero lag,
+                              which only the anti-entropy digest sees
+                              (replication/follower.py)
 ============================  =================================================
 
 Slowness sites (:meth:`FaultRegistry.arm_slow`, consumed with
@@ -88,6 +100,8 @@ disarmed (``stuck``) instead of raising:
 ``device.slow``               the device engine inside the launch
 ``delta.slow``                the parent before broadcasting a delta frame
 ``replica.slow``              a gRPC Check before it answers (api/services.py)
+``election.lease_stall``      a lease acquire or renew, before its critical
+                              section (cluster/election.py)
 ============================  =================================================
 
 Sites of modules this package does not have yet keep their names here so
@@ -95,9 +109,7 @@ that a ``KETO_FAULTS`` string written for the reference parses the same;
 nothing calls them until their module arrives. ``client.unavailable`` keeps
 its name only: no module calls it, here or in the reference, whose client
 never fires it either. ``shard.launch_fail``
-and ``shard.launch_slow`` (12, the multi-device tiers);
-``election.split_heartbeat``, ``election.lease_stall``,
-``replica.promote_fail`` and ``replica.skip_delta`` (14.6, the fleet).
+and ``shard.launch_slow`` (12, the multi-device tiers).
 
 ``KETO_FAULTS`` syntax: comma-separated entries, each one of
 

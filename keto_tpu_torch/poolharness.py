@@ -121,10 +121,19 @@ class PoolProcess:
         self.stopped = False
 
     def _read(self) -> None:
+        decoder = json.JSONDecoder()
         for line in self.proc.stdout:
             self.lines.append(line)
-            if line.startswith(PREFIX):
-                self._docs.put(json.loads(line[len(PREFIX):]))
+            # the server's stderr shares the pipe: a write of another
+            # stream may land in a document's line, before or after it
+            at = line.find(PREFIX)
+            if at < 0:
+                continue
+            try:
+                doc, _ = decoder.raw_decode(line, at + len(PREFIX))
+            except ValueError:
+                continue  # not a document; kept in lines
+            self._docs.put(doc)
 
     def next_doc(self, timeout: float) -> dict:
         """The next POOL document; RuntimeError with the server's last lines

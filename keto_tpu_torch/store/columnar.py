@@ -382,6 +382,29 @@ class ColumnarTupleStore(OrderedNotifier, Manager):
             self._enqueue_notification(v, inserted=fresh, deleted=gone)
         self._drain_notifications(upto=v)
 
+    # -- replication ----------------------------------------------------------
+
+    def apply_replicated_delta(
+        self,
+        version: int,
+        inserted: Sequence[RelationTuple],
+        deleted: Sequence[RelationTuple],
+    ) -> bool:
+        """Apply one leader-shipped delta at the leader's version number,
+        through the ordered notifier (the follower's snapshot layer and
+        write overlay subscribe as to any local write). Validation is
+        skipped: the delta passed it on the leader. No-op (False) for a
+        version at or below the current one."""
+        with self._lock:
+            if version <= self._version:
+                return False
+            fresh = [f for t in inserted if (f := self._insert_locked(t)) is not None]
+            gone = [g for t in deleted if (g := self._delete_locked(t)) is not None]
+            self._version = version
+            self._enqueue_notification(version, inserted=fresh, deleted=gone)
+        self._drain_notifications(upto=version)
+        return True
+
     # -- bulk + snapshot support ----------------------------------------------
 
     def _extend_node_cols(self) -> None:

@@ -25,8 +25,9 @@ stores (counterpart of ``keto_tpu/store/durable.py``).
 Reads, subscriptions, snapshot surfaces and other attributes delegate to
 the inner store, and ``process_private`` stays true so the replica pool
 forks it as before; a forked child's capture hook is a no-op (the parent
-owns the log). The reference's ``current_token`` (a snaptoken with the WAL
-position) waits for the replication plane (ROADMAP 14.6).
+owns the log). ``current_token`` is the structured snaptoken of the newest
+acked write: the version and the WAL position its frame ended at
+(``replication/token.py``).
 """
 
 from __future__ import annotations
@@ -258,6 +259,18 @@ class DurableTupleStore:
         return self.inner.version
 
     # -- capture + logging -----------------------------------------------------
+
+    def current_token(self):
+        """The zookie for the newest acked write: the store version plus
+        the WAL position its frame ended at. Version first, position second
+        keeps the pair conservative under concurrent writes (the offset may
+        already include a newer frame, never an older one: a token must
+        never under-promise durability)."""
+        from ..replication.token import SnapToken
+
+        version = self.inner.version
+        segment, offset = self.wal.position()
+        return SnapToken(version=version, segment=segment, offset=offset)
 
     def _capture(self, version, inserted, deleted) -> None:
         # runs inside the inner store's ordered drain, before the mutator

@@ -122,6 +122,31 @@ class InMemoryTupleStore(OrderedNotifier, Manager):
             self._enqueue_notification(v, inserted=fresh, deleted=gone)
         self._drain_notifications(upto=v)
 
+    # -- replication ----------------------------------------------------------
+
+    def apply_replicated_delta(
+        self,
+        version: int,
+        inserted: Sequence[RelationTuple],
+        deleted: Sequence[RelationTuple],
+    ) -> bool:
+        """Apply one leader-shipped delta at the leader's version number.
+        Unlike boot-time WAL replay, this runs while the store is live on a
+        follower, so it goes through the ordered notifier: the snapshot
+        layer and the write overlay see it as they would a local write.
+        Validation is skipped (the delta passed it on the leader). False,
+        a no-op, for a version at or below the current one: replay after a
+        reconnect may resend the overlap."""
+        with self._lock:
+            if version <= self._version:
+                return False
+            fresh = self._insert_locked(inserted)
+            gone = self._delete_locked(deleted)
+            self._version = version
+            self._enqueue_notification(version, inserted=fresh, deleted=gone)
+        self._drain_notifications(upto=version)
+        return True
+
     # -- snapshot support -----------------------------------------------------
 
     def all_tuples(self) -> list[RelationTuple]:

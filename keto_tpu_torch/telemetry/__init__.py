@@ -6,12 +6,14 @@ Standard library only, as in the reference: spans export to the structured
 log, over OTLP/HTTP JSON and to an in-process ring; metrics are served at
 ``GET /metrics`` on both planes.
 
-The fleet's federation scraper (``telemetry/federation.py`` in the
-reference) waits for ROADMAP 14.6. ``DEVSTATS`` and
+``federation.py`` is the fleet's federation scraper: the leader's
+instance-labelled ``keto_cluster_*`` series and the ``/cluster/status``
+rollup. ``DEVSTATS`` and
 ``DeviceStatsCollector`` load on first use, because ``devstats`` imports
 ``torch`` and a client that only stamps trace headers does not need it.
 """
 
+from .federation import FederationScraper, rollup_health
 from .flight import NOOP_CHECK_TELEMETRY, CheckTelemetry, FlightRecorder
 from .logging import configure_logging, get_logger
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
@@ -36,6 +38,8 @@ __all__ = [
     "CheckTelemetry",
     "NOOP_CHECK_TELEMETRY",
     "SLOTracker",
+    "FederationScraper",
+    "rollup_health",
 ]
 
 

@@ -2,8 +2,9 @@
 ``keto_tpu/telemetry/openmetrics.py``).
 
 The same parser serves the tests and ``chip_smoke.py``, which read both
-packages' ``/metrics`` with it, and the fleet's federation scraper (ROADMAP
-14.6), which re-exports member expositions as instance-labeled series.
+packages' ``/metrics`` with it, and the fleet's federation scraper
+(``telemetry/federation.py``), which re-exports member expositions as
+instance-labeled series.
 
 ``parse_text(text, openmetrics=False)`` returns a :class:`ParseResult`
 whose ``errors`` list carries every *format-level* violation (malformed

@@ -1,7 +1,8 @@
 """Herodot-style rich errors (counterpart of ``keto_tpu/utils/errors.py``).
 
-Only the errors the Check, Expand and list paths, their stores and the REST
-plane raise are kept. Each carries its HTTP status and gRPC code, and renders the herodot
+Only the errors the Check, Expand and list paths, their stores, the fleet
+(``ErrFollowerLag``, ``ErrReadOnlyFollower``) and the REST plane raise are
+kept. Each carries its HTTP status and gRPC code, and renders the herodot
 JSON envelope ``{"error": {code, status, message}}`` the transports send.
 """
 
@@ -164,6 +165,64 @@ class ErrUnavailable(KetoError):
     status_code = 503
     status = "Service Unavailable"
     grpc_code = "UNAVAILABLE"
+
+
+class ErrFollowerLag(ErrUnavailable):
+    """A follower could not catch up to the requested snaptoken within the
+    freshness window. Retryable: the response carries the follower's
+    current lag so the caller can back off or re-route to the leader."""
+
+    retry_after_s = 1
+
+    def __init__(
+        self,
+        message: str | None = None,
+        *,
+        lag_versions: int = 0,
+        lag_seconds: float = 0.0,
+        retry_after_s: float | None = None,
+    ):
+        self.lag_versions = int(lag_versions)
+        self.lag_seconds = float(lag_seconds)
+        if retry_after_s is not None:
+            self.retry_after_s = retry_after_s
+        super().__init__(message)
+
+    def default_message(self) -> str:
+        return (
+            "The follower replica is behind the requested snaptoken "
+            f"(lag: {self.lag_versions} versions); retry or route to "
+            "the leader."
+        )
+
+    def envelope(self) -> dict:
+        doc = super().envelope()
+        doc["error"]["details"] = {
+            "lag_versions": self.lag_versions,
+            "lag_seconds": round(self.lag_seconds, 3),
+        }
+        return doc
+
+
+class ErrReadOnlyFollower(ErrUnavailable):
+    """A mutation reached a follower replica, which serves reads only. When
+    the node knows who leads (an election lease on file), the envelope
+    carries a ``leader_hint`` so the client can follow the leader without
+    another discovery round trip."""
+
+    def __init__(self, message: str | None = None, *, leader_hint: dict | None = None):
+        #: {"leader_id", "term", "read_url", "write_url"} or None
+        self.leader_hint = leader_hint
+        super().__init__(message)
+
+    def default_message(self) -> str:
+        return "This replica is a read-only follower; write to the leader."
+
+    def envelope(self) -> dict:
+        doc = super().envelope()
+        if self.leader_hint:
+            doc["error"]["details"] = {"leader_hint": self.leader_hint}
+        return doc
 
 
 class ErrInternal(KetoError):

@@ -22,8 +22,6 @@ import torch
 from keto_tpu.driver import Config as JConfig
 from keto_tpu.utils.errors import ErrMalformedInput as JMalformed
 from keto_tpu_torch.cli import main as cli_main
-from keto_tpu_torch.cli.main import CliError
-from keto_tpu_torch.client import ReplicatedRestClient
 from keto_tpu_torch.driver import Config as TConfig
 from keto_tpu_torch.driver import Registry, registry as registry_mod
 from keto_tpu_torch.driver.config import DEFAULTS
@@ -176,6 +174,78 @@ def test_invalid_values_raise_the_reference_message(values):
     assert got.value.status_code == 400
 
 
+FLEET_REFUSALS = [
+    {"replication": {"role": "follower", "bogus": 1}},
+    {"replication": {"role": "boss"}},
+    {"replication": {"upstream": 5}},
+    {"replication": {"dir": ["x"]}},
+    {"replication": {"poll_interval_ms": 0}},
+    {"replication": {"max_records_per_poll": 1.5}},
+    {"replication": {"max_records_per_poll": 0}},
+    {"replication": "leader"},
+    {"cluster": {"enabled": True, "electon": {}}},
+    {"cluster": {"enabled": "yes"}},
+    {"cluster": {"instance_id": 7}},
+    {"cluster": {"advertise_url": False}},
+    {"cluster": {"advertise_write_url": None}},
+    {"cluster": {"heartbeat_interval_ms": 5}},
+    {"cluster": {"scrape_interval_ms": "fast"}},
+    {"cluster": {"member_timeout_s": 0}},
+    {"cluster": {"health": 5}},
+    {"cluster": {"health": {"burn_redd": 1}}},
+    {"cluster": {"health": {"lag_versions_yellow": -1}}},
+    {"cluster": {"health": {"lag_versions_red": 1.5}}},
+    {"cluster": {"health": {"lag_seconds_red": "30"}}},
+    {"cluster": {"health": {"staleness_yellow_s": -0.5}}},
+    {"cluster": {"health": {"burn_yellow": True}}},
+    {"cluster": {"election": []}},
+    {"cluster": {"election": {"lease_ttl": 3}}},
+    {"cluster": {"election": {"enabled": "yes"}}},
+    {"cluster": {"election": {"lease_ttl_s": 0.05}}},
+    {"cluster": {"election": {"heartbeat_interval_ms": 1}}},
+    {"cluster": {"election": {"priority": 1.5}}},
+    {"cluster": {"election": {"wal_dir": 3}}},
+]
+
+
+@pytest.mark.parametrize("values", FLEET_REFUSALS)
+def test_fleet_config_is_refused_as_the_reference_refuses_it(values):
+    """The config repair: the replication and cluster objects (and
+    cluster.health, cluster.election) are closed and typed as the
+    reference's schema has them; the port used to carry and ignore them."""
+    with pytest.raises(JMalformed) as want:
+        JConfig(values=values, env={})
+    with pytest.raises(TMalformed) as got:
+        TConfig(values=values)
+    assert got.value.message == want.value.message
+
+
+def test_fleet_config_defaults_and_reload_are_the_references(tmp_path):
+    from keto_tpu.driver import config as jconfig
+    from keto_tpu_torch.driver import config as tconfig
+
+    fleet = {k: v for k, v in jconfig.DEFAULTS.items()
+             if k.startswith(("replication.", "cluster."))}
+    assert {k: tconfig.DEFAULTS[k] for k in fleet} == fleet
+    # neither subtree is frozen nor a hot knob: a reload swaps it in
+    for mod in (jconfig, tconfig):
+        assert not {"replication", "cluster"} & set(mod.IMMUTABLE_KEYS)
+        assert not [k for k in mod.HOT_KNOB_KEYS if k.startswith(("replication", "cluster"))]
+    path = tmp_path / "keto.json"
+    doc = {"cluster": {"enabled": True, "scrape_interval_ms": 500},
+           "replication": {"role": "leader"}}
+    path.write_text(json.dumps(doc))
+    j = JConfig(config_file=str(path), env={})
+    t = TConfig(config_file=str(path), env={})
+    doc["cluster"]["scrape_interval_ms"] = 250
+    doc["replication"]["poll_interval_ms"] = 20
+    path.write_text(json.dumps(doc))
+    assert t.reload() == j.reload()
+    for key in ("cluster.scrape_interval_ms", "replication.poll_interval_ms",
+                "cluster.election.lease_ttl_s"):
+        assert t.get(key) == j.get(key)
+
+
 def test_config_files(tmp_path, monkeypatch):
     as_json = tmp_path / "keto.json"
     as_json.write_text(json.dumps(VALUES))
@@ -202,28 +272,15 @@ def test_config_files(tmp_path, monkeypatch):
         TConfig(config_file=str(as_yaml))
 
 
-def _run_verb(argv):
-    args = cli_main.build_parser().parse_args(argv)
-    return args.func(args)
-
-
 @pytest.mark.parametrize(
     "values,item",
     [
         ({"engine": {"mode": "sharded"}}, "item 12"),
         ({"engine": {"sharding": {"enabled": True}}}, "item 12"),
         ({"dsn": "redis://db"}, "unsupported DSN 'redis://db'"),
-        # the fleet's client and CLI paths: a callable that must refuse
-        (lambda: _run_verb(["status", "--cluster"]), "item 14.6"),
-        (lambda: _run_verb(["debug", "snapshot", "--cluster"]), "item 14.6"),
-        (lambda: ReplicatedRestClient(["http://127.0.0.1:4466"]), "item 14.6"),
     ],
 )
 def test_unported_paths_name_their_roadmap_item(values, item):
-    if callable(values):
-        with pytest.raises((CliError, NotImplementedError), match=item):
-            values()
-        return
     reg = Registry(TConfig(values=values), device="cpu")
     with pytest.raises(TMalformed, match=item):
         reg.store()

@@ -361,6 +361,106 @@ def test_a_durable_store_exports_its_recovery_families(tmp_path):
     assert again.store().recovery.replayed_deltas == 1
 
 
+# -- a leader and a follower of each package: the fleet's families ------------------
+
+FLEET_PREFIXES = ("keto_cluster_", "keto_replication_", "keto_election_", "keto_qos_")
+
+
+def _fleet_values(root, role: str, instance: str, upstream: str = "") -> dict:
+    wal = str(root / "wal")
+    values = {
+        **VALUES, "dsn": "memory",
+        "replication": {"role": role, "poll_interval_ms": 10},
+        "cluster": {"enabled": True, "instance_id": instance,
+                    "heartbeat_interval_ms": 50, "scrape_interval_ms": 100,
+                    "election": {"enabled": True, "lease_ttl_s": 30.0,
+                                 "heartbeat_interval_ms": 50, "wal_dir": wal}},
+        "qos": {"enabled": True},
+    }
+    if role == "leader":
+        values["store"] = {"wal": {"dir": wal}}
+    else:
+        values["replication"].update(upstream=upstream, dir=str(root / instance))
+    return values
+
+
+def _fleet_families(text: str) -> dict:
+    """The fleet's families of one exposition: name -> (type, label names of
+    each series, histogram bucket bounds)."""
+    doc = _families(text)
+    out = {}
+    for name, fam in doc.families.items():
+        if not name.startswith(FLEET_PREFIXES):
+            continue
+        out[name] = (fam.type, sorted({tuple(sorted(s.labels)) for s in fam.samples}),
+                     sorted({s.labels.get("le") for s in fam.samples if "le" in s.labels}))
+    return out
+
+
+@pytest.fixture(scope="module")
+def fleet_metrics(tmp_path_factory):
+    """For each package, a leader and a follower after one script: a write,
+    a check at its token on the follower, a federation cycle that sees the
+    follower's heartbeat. Their /metrics (text and OpenMetrics)."""
+    out = {}
+    for name, cls in (("torch", TorchServer), ("jax", JaxServer)):
+        root = tmp_path_factory.mktemp(f"fleet-{name}")
+        leader = cls(_fleet_values(root, "leader", "leader-0"))
+        servers = [leader]
+        try:
+            follower = cls(_fleet_values(root, "follower", "follower-0",
+                                         f"http://127.0.0.1:{leader.write_port}"))
+            servers.append(follower)
+            read_l = f"http://127.0.0.1:{leader.read_port}"
+            read_f = f"http://127.0.0.1:{follower.read_port}"
+            assert _request("PUT", f"http://127.0.0.1:{leader.write_port}/relation-tuples",
+                            {"namespace": "videos", "object": "/cats", "relation": "owner",
+                             "subject_id": "cat lady"})[0] == 201
+            token = leader.registry.snaptoken()
+            assert _request("GET", f"{read_f}/check?" + urllib.parse.urlencode({
+                "namespace": "videos", "object": "/cats", "relation": "owner",
+                "subject_id": "cat lady", "snaptoken": token}))[0] == 200
+            want = 'keto_cluster_replication_lag_versions{instance="follower-0"}'
+            deadline = time.monotonic() + 60
+            while want not in _request("GET", f"{read_l}/metrics")[1].decode():
+                assert time.monotonic() < deadline, "no federated follower series"
+                time.sleep(0.05)
+            out[name] = {
+                role: (_request("GET", f"{url}/metrics")[1].decode(),
+                       _request("GET", f"{url}/metrics", headers={
+                           "Accept": "application/openmetrics-text"})[1].decode())
+                for role, url in (("leader", read_l), ("follower", read_f))
+            }
+        finally:
+            for server in reversed(servers):
+                server.stop()
+    return out
+
+
+@pytest.mark.parametrize("role", ["leader", "follower"])
+def test_the_fleets_families_are_equal(fleet_metrics, role):
+    t = _fleet_families(fleet_metrics["torch"][role][0])
+    j = _fleet_families(fleet_metrics["jax"][role][0])
+    assert t == j
+    want = {"leader": ("keto_cluster_members", "keto_cluster_replication_lag_versions",
+                       "keto_cluster_slo_burn_rate_aggregate", "keto_election_term",
+                       "keto_qos_fleet_scale"),
+            "follower": ("keto_replication_lag_versions", "keto_replication_applied_total",
+                         "keto_election_is_leader", "keto_qos_fleet_scale")}[role]
+    assert set(want) <= set(t)
+    # each package's parser reads both packages' OpenMetrics exposition
+    for pkg in ("torch", "jax"):
+        _families(fleet_metrics[pkg][role][1], openmetrics=True)
+
+
+def test_the_leader_labels_each_member(fleet_metrics):
+    for pkg in ("torch", "jax"):
+        doc = _families(fleet_metrics[pkg]["leader"][0])
+        instances = {s.labels["instance"]
+                     for s in doc.families["keto_cluster_member_up"].samples}
+        assert instances == {"leader-0", "follower-0"}, pkg
+
+
 # -- a forked pool of each package exporting spans ---------------------------------
 
 POOL_BOOT_S = 120.0
