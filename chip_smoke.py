@@ -759,6 +759,7 @@ def run_rbac(args, rng, dev, card) -> dict:
     n_or = min(args.oracle, k)
     t0 = time.perf_counter()
     want = oracle.batch_check(sample[:n_or])
+    sample_oracle = want
     bad = sum(a != b for a, b in zip(allowed[:n_or], want))
     say(f"[main:closure] D byte-equal to plain; oracle {n_or} checks, "
         f"{sum(want)} allowed, {bad} disagree ({time.perf_counter() - t0:.1f}s)")
@@ -899,6 +900,7 @@ def run_rbac(args, rng, dev, card) -> dict:
     say(f"[native] call sites that took the C path on the closure path (device "
         f"and host query mode): {native_sites(calls)}")
     native_rbac(eng, heng, store, sample, card)
+    sharded_rbac(store, mgr, eng, oracle, sample, sample_oracle, p50_ms, edges, dev, card)
     return {
         "name": "masked_spmv",
         "route": "cuda",
@@ -911,6 +913,123 @@ def run_rbac(args, rng, dev, card) -> dict:
         "bound_by": bound_by,
         "library_ms": lib_ms,
     }
+
+
+SHARD_REPS = 5  # timed 4096 batches of the two-stripe sharded tier
+SHARD_WRITES = 4  # leaf writes before the incremental re-shard
+
+
+def sharded_rbac(store, mgr, eng, oracle, sample, sample_oracle, closure_p50_ms, edges,
+                 dev, card) -> None:
+    """The sharded serving tier at rbac1m on the one card: a two-stripe mesh
+    of the same device (its D built on the host and replicated), the sample
+    equal to the closure engine's answers and its prefix to the oracle's
+    (``sample_oracle``, taken at the phase's start: the store holds the same
+    tuples again, the phase's writes deleted), SHARD_WRITES leaf writes, an
+    incremental re-shard (not a full one) and equal answers again, then the
+    per-shard residency HBM admission learned. Then a Registry with
+    engine.sharding on: one device, so it falls through to the closure
+    engine and logs the reference's line."""
+    import logging
+
+    ShardedServingEngine, make_mesh = port("parallel", "ShardedServingEngine", "make_mesh")
+    HbmAdmission = port("engine.hbm", "HbmAdmission")
+    Config, Registry = port("driver", "Config", "Registry")
+    tag = "main:closure sharded"
+    t_step = time.perf_counter()
+    hbm = HbmAdmission()
+    sh = ShardedServingEngine(mgr, mesh=make_mesh([dev, dev], data=1, edge=2), max_depth=5,
+                              hbm=hbm)
+    t0 = time.perf_counter()
+    sh._residency(mgr.snapshot())
+    build_s = time.perf_counter() - t0
+    require(sh.n_full_reshards == 1, f"[{tag}] {sh.n_full_reshards} full re-shards at build")
+    n_or = len(sample_oracle)
+    closure = eng.batch_check(sample)
+    got = sh.batch_check(sample)
+    require(got == closure, f"[{tag}] {sum(a != b for a, b in zip(got, closure))} answers "
+            "differ from the closure engine's")
+    require(got[:n_or] == sample_oracle, f"[{tag}] the first {n_or} differ from the oracle's")
+    lat = []
+    for _ in range(SHARD_REPS):
+        t0 = time.perf_counter()
+        sh.batch_check(sample)
+        lat.append(time.perf_counter() - t0)
+    p50_ms = float(np.median(lat)) * 1e3
+    sb = sh.shard_bytes()
+    say(f"[{tag}] two stripes on {dev} x2: full re-shard (host D + stripes + upload) "
+        f"{build_s:.3f}s, m_pad {sh._host['m_pad']}; the {len(sample)} sample equal to the "
+        f"closure engine's and the first {n_or} to the oracle; batch p50 {p50_ms:.3f} ms "
+        f"(x{SHARD_REPS}) against the closure engine's {closure_p50_ms:.3f} ms; "
+        f"shard_bytes per stripe {sb['per_shard_logical']} (total_per_shard "
+        f"{sb['total_per_shard']}); escalated {sh.overflow_stats['escalated']}, host "
+        f"fallback {sh.overflow_stats['host_fallback']} of {sh.overflow_stats['rows']} rows "
+        f"({card})")
+
+    # leaf writes: a new user joins a group per write; append-only, so the
+    # tier re-shards incrementally
+    g_src, g_dst = edges["grant"]
+    grants = [i for i in range(len(g_src)) if g_dst[i][1].startswith("g")][:SHARD_WRITES]
+    writes = [to_tuple(g_dst[i], (f"shard-user-{j}",)) for j, i in enumerate(grants)]
+    probes = [to_tuple(g_src[i], (f"shard-user-{j}",)) for j, i in enumerate(grants)]
+    store.write_relation_tuples(*writes)
+    t0 = time.perf_counter()
+    sh._residency(mgr.snapshot())
+    reshard_s = time.perf_counter() - t0
+    last = dict(sh.last_reshard)
+    require(last.get("kind") == "incremental" and sh.n_full_reshards == 1
+            and sh.n_incremental_reshards == 1,
+            f"[{tag}] the writes re-sharded {last} (full {sh.n_full_reshards}, "
+            f"incremental {sh.n_incremental_reshards})")
+    batch = probes + sample
+    got = sh.batch_check(batch)
+    closure = eng.batch_check(batch)
+    want = oracle.batch_check(batch[:len(probes) + n_or])
+    require(got == closure, f"[{tag}] after the writes: "
+            f"{sum(a != b for a, b in zip(got, closure))} answers differ from the closure "
+            "engine's")
+    require(got[:len(probes) + n_or] == want and all(got[:len(probes)]),
+            f"[{tag}] after the writes: the probes {got[:len(probes)]} or the oracle prefix "
+            "differ")
+    residency = hbm.snapshot()["shard_residency"]
+    require(len(residency) == 2 and all(v > 0 for v in residency.values()),
+            f"[{tag}] HBM admission learned {residency}")
+    store.delete_relation_tuples(*writes)
+    say(f"[{tag}] {len(writes)} leaf writes: incremental re-shard {reshard_s:.3f}s "
+        f"({last['dirty_rows']} dirty D rows, stripes {last['shards']}); the probes allowed "
+        f"and the sample equal to the closure engine's and the oracle's again; HBM "
+        f"admission's shard residency {residency} ({card})")
+    del sh
+    torch.cuda.empty_cache()
+
+    # the registry on one card: engine.sharding falls through, with its line
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep()
+    server_log = logging.getLogger("keto_tpu_torch.server")
+    level = server_log.level
+    server_log.addHandler(handler)
+    server_log.setLevel(logging.INFO)
+    try:
+        values = serve_config("auto")
+        values["engine"]["sharding"] = {"enabled": True}
+        reg = Registry(Config(values=values), device=dev)
+        engine = reg.check_engine()
+    finally:
+        server_log.removeHandler(handler)
+        server_log.setLevel(level)
+    line = "engine.sharding enabled but mesh has one device; serving single-chip"
+    devices = reg.mesh_devices()
+    require(type(engine).__name__ == "ClosureCheckEngine" and line in records
+            and len(devices) == 1,
+            f"[{tag}] {devices} with engine.sharding: {type(engine).__name__}, {records}")
+    say(f"[{tag}] a Registry with engine.sharding.enabled, mesh devices {devices}: "
+        f"{type(engine).__name__}, logged {line!r}; the step took "
+        f"{time.perf_counter() - t_step:.1f}s")
 
 
 def closure_host(args, store, mgr, edges, sample, oracle,
@@ -4809,6 +4928,8 @@ def serve_cli(args, card: str, persist: dict, durable: dict) -> dict:
 
 
 CONFIG_CLIENTS = 64  # HTTPS GET /check clients across the hot-knob reload
+AUTOTUNE_INTERVAL_S = 0.5  # [config]'s autotune.interval_s
+AUTOTUNE_WAIT_S = 20.0  # the longest [config] waits for the tuner's first move
 CONFIG_ORIGIN = "https://app.example"  # the one origin CORS allows
 CONFIG_KNOBS = {"engine.pipeline_depth": 1, "engine.encode_workers": 3,
                 "serve.read.max_freshness_wait_s": 12.5}
@@ -5051,35 +5172,49 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
             f"answered 201 after {out['ns_visible_s']:.3f}s (404 before it), its check allowed")
 
         # 5. the hot knobs, edited under 64 HTTPS clients
-        stop = threading.Event()
-        lat, errors, served = [], [], [0]
-        lock = threading.Lock()
+        class Clients:
+            """CONFIG_CLIENTS HTTPS GET /check clients on the sample, each
+            answer held against the sample's, until stopped."""
 
-        def client(k: int) -> None:
-            mine = []
-            i = k
-            while not stop.is_set():
-                t, w = sample[i % len(sample)], want[i % len(sample)]
-                t0 = time.perf_counter()
-                try:
-                    ok = rest.check(t).allowed
-                except Exception as e:
-                    with lock:
-                        errors.append(repr(e))
-                    continue
-                mine.append(time.perf_counter() - t0)
-                if ok != w:
-                    with lock:
-                        errors.append(f"{t}: {ok} != {w}")
-                i += CONFIG_CLIENTS
-            with lock:
-                lat.extend(mine)
-                served[0] += len(mine)
+            def __init__(self):
+                self.stop = threading.Event()
+                self.lat, self.errors, self.served = [], [], [0]
+                self.lock = threading.Lock()
+                self.threads = [threading.Thread(target=self.client, args=(k,))
+                                for k in range(CONFIG_CLIENTS)]
+                self.t_load = time.perf_counter()
+                for t in self.threads:
+                    t.start()
 
-        threads = [threading.Thread(target=client, args=(k,)) for k in range(CONFIG_CLIENTS)]
-        t_load = time.perf_counter()
-        for t in threads:
-            t.start()
+            def client(self, k: int) -> None:
+                mine = []
+                i = k
+                while not self.stop.is_set():
+                    t, w = sample[i % len(sample)], want[i % len(sample)]
+                    t0 = time.perf_counter()
+                    try:
+                        ok = rest.check(t).allowed
+                    except Exception as e:
+                        with self.lock:
+                            self.errors.append(repr(e))
+                        continue
+                    mine.append(time.perf_counter() - t0)
+                    if ok != w:
+                        with self.lock:
+                            self.errors.append(f"{t}: {ok} != {w}")
+                    i += CONFIG_CLIENTS
+                with self.lock:
+                    self.lat.extend(mine)
+                    self.served[0] += len(mine)
+
+            def join(self) -> float:
+                self.stop.set()
+                for t in self.threads:
+                    t.join(timeout=120)
+                return time.perf_counter() - self.t_load
+
+        drive = Clients()
+        lat, errors, served = drive.lat, drive.errors, drive.served
         try:
             time.sleep(1.0)
             hot = json.loads(json.dumps(values))
@@ -5102,10 +5237,7 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
                     + "".join(server.lines[-20:]))
             time.sleep(1.0)
         finally:
-            stop.set()
-            for t in threads:
-                t.join(timeout=120)
-        load_s = time.perf_counter() - t_load
+            load_s = drive.join()
         require(not errors and served[0] > 0,
                 f"[{tag}] {len(errors)} failed or wrong answers across the reload: {errors[:5]}")
         out["load"] = (served[0], served[0] / load_s, pct(lat, 50), pct(lat, 99))
@@ -5159,6 +5291,57 @@ def serve_config_plane(args, card: str, persist: dict, cn: dict) -> dict:
             f"self_overhead {out['pprof']['self_overhead']}; folded "
             f"{len(folded.splitlines())} lines, the heaviest "
             f"{folded.splitlines()[0].decode()[-160:]}")
+
+        # 5c. the online autotuner, turned on by a reload under the 64
+        # clients. The two knobs step 5 edited are pinned, so /debug/config
+        # keeps their edited values for step 6; the SLO freeze is set out of
+        # reach, because the drive's own tail can burn the 0.1% budget of the
+        # 250 ms target in seconds, and a frozen tuner moves nothing
+        tuned = json.loads(json.dumps(hot))
+        tuned["autotune"] = {
+            "enabled": True, "interval_s": AUTOTUNE_INTERVAL_S, "min_requests": 32,
+            "freeze_burn_rate": 1e9,
+            "knobs": {"pipeline_depth": {"enabled": False},
+                      "encode_workers": {"enabled": False}},
+        }
+        drive = Clients()
+        try:
+            t0 = time.perf_counter()
+            write_config(cfg, tuned)
+            tuner = {}
+            while time.perf_counter() - t0 < AUTOTUNE_WAIT_S:
+                time.sleep(0.25)
+                status, tuner = http("GET", f"{read}/debug/autotune", verify=cert)
+                if status == 200 and tuner.get("moves_total", 0) >= 1:
+                    break
+            out["autotune_first_move_s"] = time.perf_counter() - t0
+        finally:
+            load_s = drive.join()
+        # no traffic, so every later window is idle: the counts stop moving
+        time.sleep(3 * AUTOTUNE_INTERVAL_S)
+        require(not drive.errors and drive.served[0] > 0,
+                f"[{tag}] {len(drive.errors)} failed or wrong answers under the autotuner: "
+                f"{drive.errors[:5]}")
+        status, tuner = http("GET", f"{read}/debug/autotune?n=20", verify=cert)
+        moves = [e for e in tuner.get("history", []) if e.get("action") == "move"]
+        metric_moves = counter_sum(scrape(read, verify=cert), "keto_autotune_moves_total")
+        require(status == 200 and tuner["enabled"] and tuner["running"]
+                and tuner["moves_total"] >= 1 and moves,
+                f"[{tag}] the autotuner made no move: {status} {tuner}")
+        require(metric_moves == tuner["moves_total"],
+                f"[{tag}] keto_autotune_moves_total {metric_moves} != /debug/autotune "
+                f"moves_total {tuner['moves_total']}")
+        out["autotune"] = {k: tuner[k] for k in ("ticks", "moves_total", "reverts_total",
+                                                 "frozen", "baseline_checks_per_s")}
+        out["autotune"]["knobs"] = {k: v["value"] for k, v in tuner["knobs"].items()}
+        say(f"[{tag} {at()}] autotune turned on by a reload (interval_s "
+            f"{AUTOTUNE_INTERVAL_S}, pipeline_depth and encode_workers pinned): first move "
+            f"{out['autotune_first_move_s']:.3f}s after the edit; {drive.served[0]} checks "
+            f"from {CONFIG_CLIENTS} HTTPS clients in {load_s:.1f}s, none failed, every "
+            f"answer the sample's; /debug/autotune {out['autotune']}; moves "
+            + "; ".join(f"{e['knob']} {e['old']} -> {e['new']} (stage {e['stage']})"
+                        for e in reversed(moves))
+            + f"; keto_autotune_moves_total {metric_moves:.0f} = moves_total ({card})")
 
         # 6. edits that must not apply: the dsn, then an invalid file
         frozen = json.loads(json.dumps(traced))

@@ -16,7 +16,9 @@ from the snapshot's forward CSR (``engine/device.py``), and list queries
 from the transposed closure ``D^T`` beside ``D`` on the card
 (``engine/listing.py``). ``driver/`` with ``api/`` and ``cli/`` serve
 Check, Expand, the list queries and tuple writes over REST
-(``python -m keto_tpu_torch.cli serve -c config.json``).
+(``python -m keto_tpu_torch.cli serve -c config.json``). ``parallel/``
+spreads the check over a grid of devices, and ``engine/autotune.py`` tunes
+the serving knobs from the wall-clock ledger.
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``keto_tpu``: each module it needs is its own trimmed copy, and its

@@ -26,15 +26,17 @@ Routes (GET, read port only):
   ``.tar.gz`` holding the Chrome trace; one capture at a time (409 else)
 - ``/debug/device``   device-fault plane: serving backend, breaker and
   quarantined shapes, the supervisor's failover timeline, HBM budget
+- ``/debug/autotune`` the online autotuner: knob table with live values and
+  bounds, freeze reason, move and revert totals, newest-first history
+  (``?n=``) with each move's before and after breakdowns; the
+  ``hedge_delay_ms`` knob's value is what clients feed
+  ``HedgePolicy.advertise``
 - ``/debug/overload`` overload-control plane: ladder rung, limits, sheds,
   newest-first history (``?n=``)
 - ``/debug/scrub``    integrity plane: cycle/mismatch/repair totals,
   last-clean version, freeze reason, newest-first history (``?n=``)
 - ``/debug/cluster``  the federation scraper's full fleet status (404 off a
   cluster leader)
-
-Not registered, because its plane is not ported: ``/debug/autotune``
-(ROADMAP 14.7).
 
 Gating: ``debug.enabled: false`` hides the whole surface as 404 (the routes
 do not exist as far as a prober can tell); ``debug.token`` set requires
@@ -117,6 +119,7 @@ class DebugContext:
         token: str = "",
         profile_max_s: float = 30.0,
         device_status_fn=None,
+        autotune_fn=None,
         scrub_fn=None,
         overload_fn=None,
         flight=None,
@@ -146,6 +149,7 @@ class DebugContext:
         self.profiler = profiler
         self.build_phases_fn = build_phases_fn
         self.device_status_fn = device_status_fn
+        self.autotune_fn = autotune_fn
         self.scrub_fn = scrub_fn
         self.overload_fn = overload_fn
 
@@ -176,6 +180,7 @@ class DebugAPI:
             ("/debug/pprof", self.get_pprof),
             ("/debug/config", self.get_config),
             ("/debug/profile", self.get_profile),
+            ("/debug/autotune", self.get_autotune),
             ("/debug/scrub", self.get_scrub),
             ("/debug/overload", self.get_overload),
             ("/debug/device", self.get_device),
@@ -412,6 +417,25 @@ class DebugAPI:
                 dict(getattr(cfg, "_overrides", {}) or {})
             )
             payload["config_file"] = getattr(cfg, "config_file", None)
+        return _json(payload)
+
+    def get_autotune(self, req: Request) -> Response:
+        tuner = self.ctx.autotune_fn() if self.ctx.autotune_fn is not None else None
+        # brownout rung 1 (engine/overload.py): under pressure the server
+        # stops recommending its tuned hedge delay, so polling clients fall
+        # back to their own estimate; reported with the tuner off too
+        ov = self.ctx.overload_fn() if self.ctx.overload_fn is not None else None
+        suppressed = ov is not None and ov.hedge_suppressed()
+        if tuner is None:
+            return _json({"enabled": False, "running": False, "knobs": {},
+                          "hedge_suppressed": suppressed})
+        payload = tuner.snapshot()
+        payload["history"] = tuner.history(_n(req))
+        payload["hedge_suppressed"] = suppressed
+        if suppressed:
+            knob = payload.get("knobs", {}).get("hedge_delay_ms")
+            if isinstance(knob, dict):
+                knob["value"] = None
         return _json(payload)
 
     def get_overload(self, req: Request) -> Response:

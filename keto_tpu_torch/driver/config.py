@@ -8,17 +8,23 @@ expose_backend_ports}``, ``log.{level,format}``, ``namespaces`` (an inline
 array of ``{id, name}``, or a string URI: ``file://``, a bare path, a
 directory, ``ws://``), the ``engine`` subtree,
 ``qos.{enabled,rate,burst,overrides}``, ``tracing.{provider,otlp}``, and the
-``telemetry``, ``overload``, ``scrub``, ``debug``, ``replication`` and
-``cluster`` subtrees — from a JSON
-or TOML file (YAML where PyYAML is installed) merged with ``values``. Only
-the keys this package reads are validated, by hand and with the reference's
-messages (no jsonschema); the ``telemetry`` object and each of its
-``flight``, ``slo``, ``attribution`` and ``profiler`` objects,
-``tracing.otlp``, and the ``overload``, ``engine.memory``,
-``engine.failover``, ``scrub``, ``debug``, ``replication``, ``cluster``,
-``cluster.health`` and ``cluster.election`` objects are closed, as in the
-reference's schema, so a misspelt key is an error; ``tracing.provider`` is
-one of ``""``, ``log`` and ``otlp``; other keys are carried and ignored.
+``telemetry``, ``overload``, ``scrub``, ``debug``, ``replication``,
+``cluster`` and ``autotune`` subtrees — from a JSON
+or TOML file (YAML where PyYAML is installed) merged with ``values``. The
+reference's schema is checked by hand, with its messages (no jsonschema):
+the root object, ``serve``, ``engine`` and each of its ``mesh``,
+``sharding``, ``memory`` and ``failover`` objects, ``qos``, ``autotune``
+and each ``autotune.knobs.<name>``, the ``telemetry`` object and each of
+its ``flight``, ``slo``, ``attribution`` and ``profiler`` objects,
+``tracing.otlp``, and the ``overload``, ``scrub``, ``debug``,
+``replication``, ``cluster``, ``cluster.health`` and ``cluster.election``
+objects are closed, as there, so a misspelt key is an error. Of several
+violations the one reported is jsonschema's ``best_match``: the shallowest,
+and of siblings the one whose path sorts last. ``serve.read``,
+``serve.write``, ``log`` and ``tracing`` stay open, as in the reference.
+``version``, ``profiling`` and ``engine.compile_cache_dir`` (the
+reference's JAX compilation cache; the port's kernel build cache is
+``utils/kernels.py``) are declared and typed but not read.
 ``scrub.freeze_burn_rate`` is the scrubber's SLO freeze threshold (0 means
 ``telemetry.slo.alert_burn_rate``), and ``scrub.digest_chunk_size`` the
 replica kind's chunk. ``replication`` and ``cluster`` reload as in the
@@ -91,7 +97,14 @@ DEFAULTS = {
     "engine.freshness": "auto",
     "engine.strong_freshness_edges": 1 << 21,
     "engine.rebuild_debounce_ms": 50,
+    "engine.dense_threshold": 8192,
+    "engine.batch_window_us": 200,
+    "engine.mesh.data": 1,
+    "engine.mesh.edge": 0,
     "engine.sharding.enabled": False,
+    "engine.sharding.data": 1,
+    "engine.sharding.edge": 0,
+    "engine.sharding.edge_chunk": 0,
     "engine.sharding.escalation_budget": 0.05,
     "engine.reverse_index": True,
     "engine.closure_builder": "auto",
@@ -130,6 +143,14 @@ DEFAULTS = {
     "overload.throttle_k": 2.0,
     "overload.history": 256,
     "overload.default_criticality": "default",
+    "autotune.enabled": False,
+    "autotune.interval_s": 5.0,
+    "autotune.min_requests": 32,
+    "autotune.revert_threshold": 0.05,
+    "autotune.freeze_burn_rate": 0.0,
+    "autotune.backoff_ticks": 3,
+    "autotune.history": 256,
+    "autotune.knobs": {},
     "scrub.enabled": False,
     "scrub.interval_s": 5.0,
     "scrub.sample_rows": 64,
@@ -215,7 +236,10 @@ _PLANE_RULES: dict[str, tuple[str, Any]] = {
 }
 
 _RULES: dict[str, tuple[str, Any]] = {
+    "version": ("string", None),
     "dsn": ("string", None),
+    "profiling": ("string", None),
+    "serve": ("object", None),
     "serve.read.port": ("integer", None),
     "serve.read.host": ("string", None),
     "serve.read.max-depth": ("integer", 1),
@@ -236,20 +260,31 @@ _RULES: dict[str, tuple[str, Any]] = {
     "log": ("object", None),
     "log.level": ("enum", ["trace", "debug", "info", "warn", "error", "fatal"]),
     "log.format": ("enum", ["json", "text"]),
+    "engine": ("object", None),
     "engine.mode": ("enum", _ENGINE_MODES),
+    "engine.dense_threshold": ("integer", 2),
     "engine.max_batch": ("integer", 1),
+    "engine.batch_window_us": ("number", 0),
     "engine.max_queue": ("integer", 0),
     "engine.interior_limit": ("integer", 2),
     "engine.query_mode": ("enum", ["auto", "host", "device"]),
     "engine.freshness": ("enum", ["auto", "strong", "bounded"]),
     "engine.strong_freshness_edges": ("integer", 0),
     "engine.rebuild_debounce_ms": ("number", 0),
+    "engine.mesh": ("object", None),
+    "engine.mesh.data": ("integer", 1),
+    "engine.mesh.edge": ("integer", 0),
+    "engine.sharding": ("object", None),
     "engine.sharding.enabled": ("boolean", None),
+    "engine.sharding.data": ("integer", 1),
+    "engine.sharding.edge": ("integer", 0),
+    "engine.sharding.edge_chunk": ("integer", 0),
     "engine.sharding.escalation_budget": ("number", 0),
     "engine.reverse_index": ("boolean", None),
     "engine.closure_builder": ("enum", ["auto", "matmul", "semiring"]),
     "engine.closure_block_workers": ("integer", 0),
     "engine.expand_page_size": ("integer", 0),
+    "engine.compile_cache_dir": ("string", None),
     "engine.fallback_threshold": ("integer", 1),
     "engine.fallback_cooldown_ms": ("number", 0),
     "engine.cache_size": ("integer", 0),
@@ -266,6 +301,7 @@ _RULES: dict[str, tuple[str, Any]] = {
     "engine.failover.probe_interval_s": ("number", ("exclusive", 0)),
     "engine.failover.max_backoff_s": ("number", 0),
     "engine.failover.allow_cpu": ("boolean", None),
+    "qos": ("object", None),
     "qos.enabled": ("boolean", None),
     "qos.rate": ("number", None),
     "qos.burst": ("number", 1),
@@ -283,6 +319,15 @@ _RULES: dict[str, tuple[str, Any]] = {
     "overload.throttle_k": ("number", 1),
     "overload.history": ("integer", 1),
     "overload.default_criticality": ("enum", ["default", "sheddable"]),
+    "autotune": ("object", None),
+    "autotune.enabled": ("boolean", None),
+    "autotune.interval_s": ("number", ("exclusive", 0)),
+    "autotune.min_requests": ("integer", 1),
+    "autotune.revert_threshold": ("number", 0),
+    "autotune.freeze_burn_rate": ("number", 0),
+    "autotune.backoff_ticks": ("integer", 0),
+    "autotune.history": ("integer", 1),
+    "autotune.knobs": ("object", None),
     "scrub.enabled": ("boolean", None),
     "scrub.interval_s": ("number", ("exclusive", 0)),
     "scrub.sample_rows": ("integer", 1),
@@ -365,12 +410,13 @@ _MAXIMA = {
     "telemetry.profiler.hz": 1000,
 }
 
-# objects whose schema admits no other property
+# objects whose schema admits no other property ("" is the root)
 _CLOSED = {
     obj: {
         key[len(obj) + 1:].split(".")[0] for key in _RULES if key.startswith(obj + ".")
     }
     for obj in (
+        "serve", "engine", "engine.mesh", "engine.sharding", "qos", "autotune",
         "overload", "engine.memory", "engine.failover", "scrub", "debug",
         "store", "store.wal", "checkpoint", "tracing.otlp", "telemetry",
         "telemetry.flight", "telemetry.slo", "telemetry.attribution",
@@ -378,9 +424,19 @@ _CLOSED = {
         "cluster.election",
     )
 }
+_CLOSED[""] = {key.split(".")[0] for key in _RULES} | {KEY_NAMESPACES}
 
-# the properties each per-namespace qos override may carry
-_QOS_OVERRIDE_RULES = {"rate": None, "burst": 1}
+# the closed objects each entry of a map may be: a per-namespace qos
+# override, and a per-knob autotune override
+_ENTRY_RULES = {
+    "qos.overrides": {"rate": ("number", None), "burst": ("number", 1)},
+    "autotune.knobs": {
+        "enabled": ("boolean", None),
+        "min": ("number", None),
+        "max": ("number", None),
+        "step": ("number", None),
+    },
+}
 
 _MISSING = object()
 
@@ -418,6 +474,10 @@ def _violation(key: str, value: Any) -> Optional[tuple[str, str]]:
     """The reference's jsonschema message and its path suffix for ``value``
     under ``key``'s rule, or None when it passes."""
     kind, rule = _RULES[key]
+    return _check(kind, rule, _MAXIMA.get(key), value)
+
+
+def _check(kind: str, rule: Any, top: Any, value: Any) -> Optional[tuple[str, str]]:
     if kind == "enum":
         return None if value in rule else (f"{value!r} is not one of {rule!r}", "")
     if not _is_type(value, kind):
@@ -432,7 +492,6 @@ def _violation(key: str, value: Any) -> Optional[tuple[str, str]]:
             return f"{value!r} is less than or equal to the minimum of {rule[1]!r}", ""
     elif rule is not None and value < rule:
         return f"{value!r} is less than the minimum of {rule!r}", ""
-    top = _MAXIMA.get(key)
     if isinstance(top, tuple):
         if value >= top[1]:
             return f"{value!r} is greater than or equal to the maximum of {top[1]!r}", ""
@@ -442,74 +501,96 @@ def _violation(key: str, value: Any) -> Optional[tuple[str, str]]:
 
 
 def validate(data: dict) -> None:
-    """Check the keys this package reads; raise ErrMalformedInput with the
-    reference's jsonschema wording on the first violation."""
+    """Check the reference's schema; raise ErrMalformedInput with its
+    jsonschema wording for the violation its ``best_match`` reports: the
+    shallowest, and of siblings the one whose path sorts last."""
     if not isinstance(data, dict):
         raise _invalid(f"{data!r} is not of type 'object'", "")
+    worst = None
+    for rank, message, path in _violations(data):
+        if worst is None or rank > worst[0]:
+            worst = (rank, message, path)
+    if worst is not None:
+        raise _invalid(worst[1], worst[2])
+
+
+def _rank(parts: list) -> tuple:
+    return (-len(parts), tuple(parts))
+
+
+def _violations(data: dict):
+    """(rank, message, path) of every violation, in the schema's order."""
     for key in _RULES:
         value = _dig(data, key)
         if value is _MISSING:
             continue
         bad = _violation(key, value)
         if bad is not None:
-            raise _invalid(bad[0], key.replace(".", "/") + bad[1])
+            parts = key.split(".") + ([int(bad[1][1:])] if bad[1] else [])
+            yield _rank(parts), bad[0], key.replace(".", "/") + bad[1]
     for key, allowed in _CLOSED.items():
-        node = _dig(data, key)
+        node = data if key == "" else _dig(data, key)
         if isinstance(node, dict):
-            _no_extra(node, allowed, key.replace(".", "/"))
-    _validate_qos_overrides(_dig(data, "qos.overrides"))
-    spec = data.get(KEY_NAMESPACES, _MISSING)
+            extra = _extra(node, allowed)
+            if extra is not None:
+                yield _rank(key.split(".") if key else []), extra, key.replace(".", "/")
+    for key, rules in _ENTRY_RULES.items():
+        entries = _dig(data, key)
+        if isinstance(entries, dict):  # absent, or already refused as not an object
+            for name, entry in entries.items():
+                yield from _entry_violations(key.split(".") + [name], entry, rules)
+    bad = _namespaces_violation(data.get(KEY_NAMESPACES, _MISSING))
+    if bad is not None:
+        # the reference's error is its oneOf's, at ``namespaces``, worded
+        # by the failing branch relative to the array
+        yield _rank([KEY_NAMESPACES]), bad[0], bad[1]
+
+
+def _entry_violations(parts: list, entry: Any, rules: dict):
+    """One entry of a map of closed objects (``qos.overrides.<ns>``,
+    ``autotune.knobs.<name>``)."""
+    path = "/".join(parts)
+    if not isinstance(entry, dict):
+        yield _rank(parts), f"{entry!r} is not of type 'object'", path
+        return
+    extra = _extra(entry, rules)
+    if extra is not None:
+        yield _rank(parts), extra, path
+    for key, (kind, rule) in rules.items():
+        if key in entry:
+            bad = _check(kind, rule, None, entry[key])
+            if bad is not None:
+                yield _rank(parts + [key]), bad[0], f"{path}/{key}"
+
+
+def _namespaces_violation(spec) -> Optional[tuple[str, str]]:
     if spec is _MISSING or isinstance(spec, str):
-        return  # a string is a file, directory or ws:// URI
+        return None  # a string is a file, directory or ws:// URI
     if not isinstance(spec, list):
-        raise _invalid(f"{spec!r} is not valid under any of the given schemas", "namespaces")
+        return f"{spec!r} is not valid under any of the given schemas", "namespaces"
     for i, ns in enumerate(spec):
         # the reference reports namespace errors relative to the array
         # (the failing branch of its oneOf), so the path starts at the index
         path = str(i)
         if not isinstance(ns, dict):
-            raise _invalid(f"{ns!r} is not of type 'object'", path)
+            return f"{ns!r} is not of type 'object'", path
         if "name" not in ns:
-            raise _invalid("'name' is a required property", path)
+            return "'name' is a required property", path
         if not isinstance(ns["name"], str):
-            raise _invalid(f"{ns['name']!r} is not of type 'string'", path + "/name")
+            return f"{ns['name']!r} is not of type 'string'", path + "/name"
         if "id" in ns and not _is_type(ns["id"], "integer"):
-            raise _invalid(f"{ns['id']!r} is not of type 'integer'", path + "/id")
+            return f"{ns['id']!r} is not of type 'integer'", path + "/id"
+    return None
 
 
-def _validate_qos_overrides(overrides) -> None:
-    """``qos.overrides``: namespace -> {"rate": number, "burst": number >=
-    1}, nothing else (the reference's schema)."""
-    if not isinstance(overrides, dict):
-        return  # absent, or already rejected as not an object
-    for ns, o in overrides.items():
-        path = f"qos/overrides/{ns}"
-        if not isinstance(o, dict):
-            raise _invalid(f"{o!r} is not of type 'object'", path)
-        _no_extra(o, _QOS_OVERRIDE_RULES, path)
-        for key, minimum in _QOS_OVERRIDE_RULES.items():
-            if key not in o:
-                continue
-            value = o[key]
-            if not _is_type(value, "number"):
-                raise _invalid(f"{value!r} is not of type 'number'", f"{path}/{key}")
-            if minimum is not None and value < minimum:
-                raise _invalid(
-                    f"{value!r} is less than the minimum of {minimum!r}",
-                    f"{path}/{key}",
-                )
-
-
-def _no_extra(obj: dict, allowed, path: str) -> None:
-    """jsonschema's ``additionalProperties: false``, with its message."""
-    extra = [k for k in obj if k not in allowed]
-    if extra:
-        names = ", ".join(repr(k) for k in extra)
-        verb = "was" if len(extra) == 1 else "were"
-        raise _invalid(
-            f"Additional properties are not allowed ({names} {verb} unexpected)",
-            path,
-        )
+def _extra(obj: dict, allowed) -> Optional[str]:
+    """jsonschema's ``additionalProperties: false`` message, or None."""
+    extra = sorted(k for k in obj if k not in allowed)
+    if not extra:
+        return None
+    names = ", ".join(repr(k) for k in extra)
+    verb = "was" if len(extra) == 1 else "were"
+    return f"Additional properties are not allowed ({names} {verb} unexpected)"
 
 
 def load_config_file(path: str) -> dict:
@@ -540,10 +621,10 @@ IMMUTABLE_KEYS = ("dsn", "serve")
 # server (no socket rebinds); reload() grafts their fresh values in
 HOT_SERVE_KEYS = ("serve.read.max_freshness_wait_s",)
 
-# the registered hot knobs: each may change on a live server (a file reload
-# or an operator's set_hot) and is re-applied through a component seam
-# (driver/registry.py's appliers). engine.sharding.escalation_budget has no
-# applier until the sharded tier exists (ROADMAP item 12)
+# the registered hot knobs: each may change on a live server (a file reload,
+# an operator's set_hot or the autotuner) and is re-applied through a
+# component seam (driver/registry.py's appliers; the escalation budget's
+# exists while the sharded serving tier serves)
 HOT_ENGINE_KEYS = (
     "engine.pipeline_depth",
     "engine.encode_workers",

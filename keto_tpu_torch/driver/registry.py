@@ -9,9 +9,19 @@ without them the planes serve REST alone, ``start_all`` logs one line
 saying why, and ``grpc_enabled`` stays False.
 
 ``Registry(config, device=None)`` runs its engines on the CUDA card unless
-the caller passes ``device="cpu"``; without CUDA it raises. The sharded
-tiers, which this package does not have yet, fail with an error that names
-their roadmap item (12).
+the caller passes ``device="cpu"``; without CUDA it raises.
+
+The multi-device tiers (``parallel/``), dispatched as the reference does:
+``engine.mode: sharded`` builds ``ShardedCheckEngine`` on ``engine.mesh.*``;
+``engine.sharding.enabled`` (in any mode but ``host``) builds
+``ShardedServingEngine`` on ``engine.sharding.*`` when the mesh has at least
+two devices, and otherwise logs "engine.sharding enabled but mesh has one
+device; serving single-chip" and falls through to the engine of
+``engine.mode``. The mesh's devices are every CUDA device
+(``torch.cuda.device_count()``), or on a CPU registry the one CPU; the
+``mesh_devices`` argument names them instead (the tests' ``[cpu] * 8``,
+the port's counterpart of the reference's ``XLA_FLAGS`` virtual devices; a
+device may repeat).
 
 The store is the DSN's (``store()``): ``memory``, ``columnar``, or a SQL
 database (``sqlite://``, ``postgres://``, ``cockroach://``, ``mysql://``;
@@ -50,11 +60,22 @@ changed file reloads (``Config.reload``); a reload of ``log`` re-applies
 it, an edited hot engine knob reaches its live component through
 ``_hot_knob_appliers`` (the batcher's ``reconfigure``, the encoded cache's
 ``resize``, HBM admission's ``set_budget_frac``, the expand and list page
-size), ``scrub.enabled`` turned on starts the scrubber, and
+size, the sharded tier's escalation budget), ``scrub.enabled`` or
+``autotune.enabled`` turned on starts the scrubber or the autotuner, and
 ``overload.enabled`` is read per decision (a live kill switch).
 ``serve.read.max_freshness_wait_s`` is read per wait; a reload of
-``tracing`` reconfigures the live tracer (``Tracer.reconfigure``). The
-``autotune`` reload waits for ROADMAP 14.7.
+``tracing`` reconfigures the live tracer (``Tracer.reconfigure``).
+
+The online autotuner (``autotuner()``, ``engine/autotune.py``,
+``autotune.*``) moves the knobs of its table (``encode_workers``,
+``pipeline_depth``, ``encoded_cache_size``, ``hbm_budget_frac``,
+``escalation_budget`` on the sharded tier, ``expand_page_size`` when
+paging is on, and the advertised ``hedge_delay_ms``) through
+``_apply_hot_knob``: ``Config.set_hot``, then the same appliers. It reads
+the attribution ledger and the SLO, freezes on the breaker and on HBM
+pressure, and serves ``/debug/autotune``; ``start_all`` starts its thread
+after any fork when ``autotune.enabled`` is on, and ``stop_all`` stops it
+before the batcher closes.
 
 Telemetry (``telemetry/``), as the reference wires it: ``metrics()`` is the
 one ``MetricsRegistry`` every component reports into (with the store
@@ -85,6 +106,8 @@ import threading
 import time
 from typing import Optional
 
+import torch
+
 from .. import __version__
 from ..api.daemon import PlaneServer
 from ..api.rest import build_read_router, build_write_router
@@ -99,10 +122,6 @@ from ..utils.errors import ErrMalformedInput
 from ..utils.kernels import resolve_device
 from .config import Config
 
-_SHARDED_MSG = (
-    "sharded serving (engine.mode sharded, engine.sharding.enabled) is not "
-    "ported to keto_tpu_torch yet: ROADMAP item 12, the multi-device tiers"
-)
 _GRPC_SIZE_KEYS = (
     "serve.read.grpc-max-message-size",
     "serve.write.grpc-max-message-size",
@@ -459,9 +478,12 @@ class _Readiness:
 
 
 class Registry:
-    def __init__(self, config: Optional[Config] = None, device=None):
+    def __init__(self, config: Optional[Config] = None, device=None, mesh_devices=None):
         self.config = config if config is not None else Config()
         self.device = resolve_device(device)
+        # the devices a sharded tier's mesh spans; None = mesh_devices()'s
+        # default
+        self._mesh_devices = list(mesh_devices) if mesh_devices is not None else None
         self.version = __version__
         self._lock = threading.RLock()  # providers are built once
         self._namespace_manager = None
@@ -498,6 +520,15 @@ class Registry:
         self._device_supervisor = None
         self._hbm_admission = None
         self._scrubber = None
+        # the online autotuner (engine/autotune.py): built by autotuner(),
+        # its thread started by start_all after any fork, or by a reload
+        # that turns autotune.enabled on
+        self._autotuner = None
+        # the reply-stage virtual knob: the hedge delay this server
+        # advertises (/debug/autotune; clients adopt it with
+        # HedgePolicy.advertise). It starts at the client's cold default,
+        # so an untuned server recommends nothing aggressive
+        self._hedge_advertised_ms = 1000.0
         self._debug_context = None
         self._breaker_ok = True
         self._readiness = _Readiness(self)
@@ -860,14 +891,59 @@ class Registry:
                 self._check_engine = self._build_check_engine()
             return self._check_engine
 
+    def mesh_devices(self) -> list:
+        """The devices a sharded tier's mesh spans: the ``mesh_devices``
+        the registry was given, else every CUDA device on a CUDA registry,
+        else this registry's one device."""
+        if self._mesh_devices is not None:
+            return list(self._mesh_devices)
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [self.device]
+
     def _build_check_engine(self):
         cfg = self.config
         max_depth = cfg.read_api_max_depth()
         mode = cfg.engine_mode()
-        if mode == "sharded" or (
-            bool(cfg.get("engine.sharding.enabled")) and mode != "host"
-        ):
-            raise ErrMalformedInput(_SHARDED_MSG)
+        if bool(cfg.get("engine.sharding.enabled")) and mode != "host":
+            # the sharded serving tier: live check traffic through the
+            # node-striped mesh closure engine. A one-device mesh falls
+            # through to the single-device engines below: sharding with no
+            # stripes to spread is pure overhead
+            devices = self.mesh_devices()
+            if len(devices) >= 2:
+                from ..parallel import ShardedServingEngine, make_mesh
+
+                return ShardedServingEngine(
+                    self.snapshots(),
+                    mesh=make_mesh(
+                        devices,
+                        data=int(cfg.get("engine.sharding.data")),
+                        edge=int(cfg.get("engine.sharding.edge")) or None,
+                    ),
+                    max_depth=max_depth,
+                    edge_chunk=int(cfg.get("engine.sharding.edge_chunk")),
+                    escalation_budget=float(cfg.get("engine.sharding.escalation_budget")),
+                    hbm=self.hbm_admission(),
+                    metrics=self.metrics(),
+                    logger=self.logger(),
+                )
+            self.logger().info(
+                "engine.sharding enabled but mesh has one device; serving single-chip",
+                devices=len(devices),
+            )
+        if mode == "sharded":
+            from ..parallel import ShardedCheckEngine, make_mesh
+
+            return ShardedCheckEngine(
+                self.snapshots(),
+                mesh=make_mesh(
+                    self.mesh_devices(),
+                    data=int(cfg.get("engine.mesh.data")),
+                    edge=int(cfg.get("engine.mesh.edge")) or None,
+                ),
+                max_depth=max_depth,
+            )
         if mode == "host":
             return CheckEngine(self.store(), max_depth=max_depth)
         if mode in ("closure", "auto"):
@@ -905,6 +981,7 @@ class Registry:
             self.snapshots(),
             max_depth=max_depth,
             mode=mode if mode in ("dense", "scatter", "packed") else "auto",
+            dense_threshold=int(cfg.get("engine.dense_threshold")),
             device=self.device,
         )
 
@@ -928,6 +1005,7 @@ class Registry:
                     self._checker = CheckBatcher(
                         engine,
                         max_batch=max_batch,
+                        window_s=float(cfg.get("engine.batch_window_us")) / 1e6,
                         max_queue=int(cfg.get("engine.max_queue")),
                         max_freshness_wait_s=self._freshness_cap_s,
                         cache=(
@@ -953,11 +1031,12 @@ class Registry:
 
     def _hot_knob_appliers(self) -> dict:
         """Key -> the callable that installs a new value of a registered hot
-        engine knob (config.HOT_ENGINE_KEYS) on the live component. Rebuilt
-        per call, so components built late are picked up; a key whose
-        component does not exist in this serving mode is absent
-        (engine.sharding.escalation_budget until the sharded tier exists,
-        ROADMAP item 12)."""
+        engine knob (config.HOT_ENGINE_KEYS) on the live component. Shared
+        by the autotuner's knob table and the config watcher's reload, so a
+        reloaded file and a tuner move mean the same write. Rebuilt per
+        call, so components built late are picked up; a key whose component
+        does not exist in this serving mode is absent
+        (engine.sharding.escalation_budget off the sharded tier)."""
         out: dict = {}
         batcher = self._checker
         if isinstance(batcher, CheckBatcher):
@@ -974,6 +1053,11 @@ class Registry:
         hbm = self._hbm_admission
         if hbm is not None:
             out["engine.memory.hbm_budget_frac"] = lambda v: hbm.set_budget_frac(float(v))
+        engine = self._check_engine
+        if engine is not None and hasattr(engine, "escalation_budget"):
+            out["engine.sharding.escalation_budget"] = lambda v: setattr(
+                engine, "escalation_budget", float(v)
+            )
 
         def _apply_page_size(v):
             for e in (self._expand_engine, self._list_engine):
@@ -984,13 +1068,147 @@ class Registry:
         return out
 
     def _apply_hot_knob(self, key: str, value) -> None:
-        """A validated write to a hot knob: the config's override first (so
-        /debug/config and a restart agree with the live component), then
-        the component's seam."""
+        """The autotuner's write path for a config-backed knob: the config's
+        validated override first (so /debug/config and a restart agree with
+        the live component), then the component's seam."""
         self.config.set_hot(key, value)
         fn = self._hot_knob_appliers().get(key)
         if fn is not None:
             fn(value)
+
+    def autotuner(self):
+        """The online autotuner (engine/autotune.py) over this registry's
+        knob table. Building it builds the checker first, so the batcher,
+        breaker and admission seams exist; its thread starts only in
+        start_all (after any fork) or on a reload that turns
+        autotune.enabled on."""
+        with self._lock:
+            if self._autotuner is None:
+                self.checker()
+                self._autotuner = self._build_autotuner()
+            return self._autotuner
+
+    def _build_autotuner(self):
+        from ..engine.autotune import AutoTuner, Knob
+
+        cfg = self.config
+        overrides = cfg.get("autotune.knobs") or {}
+
+        def build(name: str, **kw) -> Knob:
+            o = overrides.get(name) if isinstance(overrides, dict) else None
+            if isinstance(o, dict):
+                # the operator's pin or bounds: autotune.knobs.<name>.
+                # {enabled,min,max,step}
+                for key, arg in (("min", "lo"), ("max", "hi"), ("step", "step")):
+                    if key in o:
+                        kw[arg] = o[key]
+                if "enabled" in o:
+                    kw["enabled"] = bool(o["enabled"])
+            return Knob(name, **kw)
+
+        def hot(key: str, cast):
+            return lambda v: self._apply_hot_knob(key, cast(v))
+
+        knobs = []
+        batcher = self._checker
+        if isinstance(batcher, CheckBatcher):
+            knobs.append(build(
+                "encode_workers", stage="queue", lo=1, hi=8, step=1,
+                read=lambda: batcher.encode_workers,
+                apply=hot("engine.encode_workers", int),
+                key="engine.encode_workers",
+            ))
+            knobs.append(build(
+                "pipeline_depth", stage="launch", lo=1, hi=8, step=1,
+                read=lambda: batcher.pipeline_depth,
+                apply=hot("engine.pipeline_depth", int),
+                key="engine.pipeline_depth",
+            ))
+            if batcher.encoded_cache is not None:
+                knobs.append(build(
+                    "encoded_cache_size", stage="encode", lo=1024, hi=1 << 20,
+                    step=65536,
+                    read=lambda: batcher.encoded_cache.capacity,
+                    apply=hot("engine.encoded_cache_size", int),
+                    key="engine.encoded_cache_size",
+                ))
+        hbm = self._hbm_admission
+        if hbm is not None:
+            knobs.append(build(
+                "hbm_budget_frac", stage="kernel", lo=0.1, hi=0.95, step=0.05,
+                integer=False,
+                read=lambda: hbm.budget_frac,
+                apply=hot("engine.memory.hbm_budget_frac", lambda v: round(float(v), 4)),
+                key="engine.memory.hbm_budget_frac",
+            ))
+        engine = self._check_engine
+        if engine is not None and hasattr(engine, "escalation_budget"):
+            knobs.append(build(
+                "escalation_budget", stage="kernel", lo=0.01, hi=0.5, step=0.02,
+                integer=False,
+                read=lambda: engine.escalation_budget,
+                apply=hot("engine.sharding.escalation_budget", lambda v: round(float(v), 4)),
+                key="engine.sharding.escalation_budget",
+            ))
+        expand = self._expand_engine
+        if expand is not None and getattr(expand, "default_page_size", 0):
+            # paging off (size 0) stays off: turning it on would change the
+            # shape of responses, which a tuner must not do
+            knobs.append(build(
+                "expand_page_size", stage="serialize", lo=256, hi=8192, step=256,
+                higher_helps=False,
+                read=lambda: expand.default_page_size,
+                apply=hot("engine.expand_page_size", int),
+                key="engine.expand_page_size",
+            ))
+
+        def advertise_hedge(v):
+            self._hedge_advertised_ms = float(v)
+
+        knobs.append(build(
+            "hedge_delay_ms", stage="reply", lo=1, hi=1000, step=10,
+            higher_helps=False,
+            read=lambda: self._hedge_advertised_ms,
+            apply=advertise_hedge,
+        ))
+
+        def breaker_guard():
+            breaker = self._engine_breaker
+            if breaker is None:
+                return None
+            try:
+                return "breaker_open" if breaker.breaker_snapshot()["open"] else None
+            except Exception:
+                return None
+
+        def hbm_guard():
+            h = self._hbm_admission
+            if h is None:
+                return None
+            try:
+                snap = h.snapshot()
+            except Exception:
+                return None
+            if snap.get("headroom_bytes", 1) <= 0 and snap.get("inflight_bytes", 0) > 0:
+                return "hbm_pressure"
+            return None
+
+        return AutoTuner(
+            knobs,
+            attribution=self.attribution(),
+            slo=self.slo(),
+            metrics=self.metrics(),
+            flight=self.flight(),
+            logger=self.logger(),
+            interval_s=float(cfg.get("autotune.interval_s")),
+            min_requests=int(cfg.get("autotune.min_requests")),
+            revert_threshold=float(cfg.get("autotune.revert_threshold")),
+            freeze_burn_rate=float(cfg.get("autotune.freeze_burn_rate")),
+            backoff_ticks=int(cfg.get("autotune.backoff_ticks")),
+            history=int(cfg.get("autotune.history")),
+            enabled_fn=lambda: bool(cfg.get("autotune.enabled")),
+            guards=(breaker_guard, hbm_guard),
+        )
 
     def _wrap_breaker(self, engine):
         from ..engine.fallback import DeviceFallbackEngine
@@ -1165,6 +1383,7 @@ class Registry:
                     device_status_fn=self._device_status,
                     # getters, not instances: /debug observes a plane and
                     # never constructs one
+                    autotune_fn=lambda: self._autotuner,
                     scrub_fn=lambda: self._scrubber,
                     overload_fn=lambda: self._overload,
                     cluster=self.federation(),
@@ -2092,6 +2311,11 @@ class Registry:
             # the continuous sampling profiler: started here, after any
             # replica fork, so its thread never meets the fork inventory
             self.profiler().start()
+        if bool(self.config.get("autotune.enabled")):
+            # the feedback controller's thread: the same after-the-fork
+            # rule. Turned off by a reload, its every tick short-circuits;
+            # turned on by one, the config watcher starts it
+            self.autotuner().start()
         self._start_config_watcher()
         self.mark_serving()
         return read_port, write_port
@@ -2180,10 +2404,16 @@ class Registry:
                     self.scrubber().start()
                 except Exception as e:
                     log.warn("scrubber start failed", error=str(e))
+            if "autotune" in applied and bool(self.config.get("autotune.enabled")):
+                # the same contract as the scrubber's
+                try:
+                    self.autotuner().start()
+                except Exception as e:
+                    log.warn("autotuner start failed", error=str(e))
             if "tracing" in applied and self._tracer is not None:
                 self._tracer.reconfigure(**self._tracing_config())
             # overload.enabled needs no step: the controller reads it per
-            # decision. The autotune reload waits for ROADMAP 14.7
+            # decision
 
     def _reload_hot_knobs(self, knob_file: dict, log) -> None:
         """Each hot engine knob the file edit changed, through the same
@@ -2403,6 +2633,11 @@ class Registry:
         if self._wire_ring is not None:
             self._wire_ring.close()
             self._wire_ring = None
+        if self._autotuner is not None:
+            # before the batcher closes: a knob move mid-shutdown must not
+            # race reconfigure() against close()
+            self._autotuner.stop()
+            self._autotuner = None
         if self._scrubber is not None:
             self._scrubber.stop()
         if self._profiler is not None:

@@ -1,6 +1,5 @@
 """Device-memory admission: a memory model between the batcher and the card
-(counterpart of ``keto_tpu/engine/hbm.py``, without the per-shard model,
-which waits for the multi-device tiers, ROADMAP 12).
+(counterpart of ``keto_tpu/engine/hbm.py``).
 
 The budget sits *before* the allocator, so the first OOM the process sees
 is not the allocator's:
@@ -18,7 +17,17 @@ is not the allocator's:
   lets the closure engine hold a rebuild until in-flight batch memory has
   drained, so a rebuild's peak and serving's cannot stack;
 - a device-resident reverse closure ``D^T`` (the list path) is charged as
-  resident bytes through :meth:`HbmAdmission.set_reverse_residency`.
+  resident bytes through :meth:`HbmAdmission.set_reverse_residency`;
+- the sharded serving tier (``parallel/serving.py``) pushes its per-shard
+  residency through :meth:`HbmAdmission.set_shard_residency`, and admission
+  respects the headroom of the fullest shard; per-device peaks teach a
+  per-(bucket, snapshot, shard) model (:meth:`modeled_shard_bytes`). The
+  peaks are ``torch.cuda.max_memory_allocated`` of each device
+  (``DEVSTATS.device_peaks``); the current device's is the batch's peak
+  window's, another device's its process high-water mark, as the
+  reference's per-device samples are. Where a devstats has no
+  ``device_peaks`` they come from its ``sample_devices`` entries, as in the
+  reference.
 
 What the budget charges: bytes that tensors hold (PyTorch's
 ``memory_allocated`` and its high-water mark), not the caching allocator's
@@ -92,11 +101,18 @@ class HbmAdmission:
         self._calibrated_at: float = float("-inf")
         # (bucket, snapshot-version) -> modeled bytes for one such batch
         self._model: dict[tuple[int, int], float] = {}
-        # device-resident reverse closure D^T (list serving)
+        # (bucket, snapshot-version, shard) -> modeled per-shard peak of one
+        # such batch (the sharded serving tier; shard = device index)
+        self._shard_model: dict[tuple[int, int, int], float] = {}
+        # shard -> resident bytes the sharded tier pinned on that device (D's
+        # replica + the shard's CSR stripes); admission subtracts the fullest
+        self._shard_residency: dict[int, float] = {}
+        # device-resident reverse closure D^T (list serving); it stacks on
+        # the shard floor (_resident_floor_locked)
         self._reverse_residency = 0.0
-        # token -> (modeled cost, shape key, the batch's peak-window entry —
-        # None when no device reports memory stats)
-        self._inflight: dict[int, tuple[float, tuple[int, int], Optional[tuple]]] = {}
+        # token -> (modeled cost, shape key, the batch's peak-window entry,
+        # per-device peaks at reserve; each None when no device reports)
+        self._inflight: dict[int, tuple] = {}
         self._inflight_bytes = 0.0
         self._next_token = 0
         self.n_splits = 0  # caller chunks pre-split at admission
@@ -192,7 +208,57 @@ class HbmAdmission:
             return None
         return None if charge is None else float(charge)
 
+    def _peak_by_shard(self) -> Optional[list]:
+        """Per-device peak samples (device order = shard order), or None
+        when no device reports (a peak of 0 on a fresh process is a real
+        sample)."""
+        try:
+            peaks_fn = getattr(self._devstats, "device_peaks", None)
+            if peaks_fn is not None:
+                return peaks_fn()
+            peaks = [
+                float(dev["memory_stats"].get("peak_bytes_in_use") or 0)
+                for dev in self._devstats.sample_devices()
+                if dev.get("memory_stats")
+            ]
+        except Exception:
+            return None
+        return peaks or None
+
+    def _observe_shard_peaks(self, key: tuple[int, int], before: list, after: list) -> None:
+        """Fold per-device peak rises of one batch into the per-(bucket,
+        snapshot, shard) model: a sharded batch lands on every shard at
+        once, and the shard that peaked highest is the one a bigger batch
+        runs out of memory on first."""
+        with self._lock:
+            for shard, (b, a) in enumerate(zip(before, after)):
+                delta = a - b
+                if delta <= 0:
+                    continue
+                skey = (key[0], key[1], shard)
+                old = self._shard_model.get(skey)
+                self._shard_model[skey] = (
+                    delta if old is None else (1 - _EMA_ALPHA) * old + _EMA_ALPHA * delta
+                )
+            while len(self._shard_model) > 1024:
+                self._shard_model.pop(next(iter(self._shard_model)))
+
+    def modeled_shard_bytes(self, bucket: int, version: int, shard: int) -> Optional[float]:
+        """The learned per-shard peak of one (bucket, snapshot, shard) batch
+        shape, or None before any observation."""
+        with self._lock:
+            return self._shard_model.get((bucket, version, shard))
+
     # -- admission -------------------------------------------------------------
+
+    def set_shard_residency(self, residency: dict) -> None:
+        """The sharded serving tier reports its per-shard resident bytes
+        (D's replica + that shard's CSR stripes) after every re-shard;
+        admission subtracts the fullest shard, the device a batch runs out
+        of memory on first."""
+        with self._lock:
+            self._shard_residency = {int(k): float(v) for k, v in residency.items()}
+            self._headroom_wake.notify_all()
 
     def set_reverse_residency(self, nbytes: float) -> None:
         """The closure engine reports the device-resident reverse closure
@@ -201,18 +267,25 @@ class HbmAdmission:
             self._reverse_residency = max(0.0, float(nbytes))
             self._headroom_wake.notify_all()
 
+    def _resident_floor_locked(self) -> float:
+        # the shard residencies are per-device alternatives (the fullest
+        # shard runs out first); D^T is pinned beside D on every serving
+        # device, so it stacks on that floor
+        return max(self._shard_residency.values(), default=0.0) + self._reverse_residency
+
     def clamp_rows(self, rows: int) -> int:
         """Largest batch (<= ``rows``) whose modeled footprint fits the
-        headroom left by in-flight batches and the resident D^T — the
-        batcher asks per chunk, so an oversized caller batch is pre-split
-        at admission instead of running out of memory in the launch."""
+        headroom left by in-flight batches and the resident floor (the
+        fullest shard and D^T) — the batcher asks per chunk, so an
+        oversized caller batch is pre-split at admission instead of running
+        out of memory in the launch."""
         with self._lock:
             self._calibrate_locked()
             budget = self._budget_bytes
             if budget is None or rows <= _MIN_ROWS:
                 return rows
             headroom = max(
-                0.0, budget - self._inflight_bytes - self._reverse_residency
+                0.0, budget - self._inflight_bytes - self._resident_floor_locked()
             )
             fit = int(headroom / max(1.0, self._bytes_per_row))
             if fit >= rows:
@@ -232,11 +305,12 @@ class HbmAdmission:
             cost = self._modeled_bytes_locked(bucket, version)
             self._next_token += 1
             token = self._next_token
-            self._inflight[token] = (cost, (bucket, version), None)
+            self._inflight[token] = (cost, (bucket, version), None, None)
         entry = self._window_enter()
+        peaks = self._peak_by_shard()
         with self._lock:
             if token in self._inflight:
-                self._inflight[token] = (cost, (bucket, version), entry)
+                self._inflight[token] = (cost, (bucket, version), entry, peaks)
                 self._inflight_bytes += cost
         return token
 
@@ -247,9 +321,13 @@ class HbmAdmission:
             entry = self._inflight.pop(token, None)
             if entry is None:
                 return
-            cost, key, window = entry
+            cost, key, window, peaks_before = entry
             self._inflight_bytes = max(0.0, self._inflight_bytes - cost)
             self._headroom_wake.notify_all()
+        if peaks_before is not None and len(peaks_before) > 1:
+            peaks_after = self._peak_by_shard()
+            if peaks_after is not None:
+                self._observe_shard_peaks(key, peaks_before, peaks_after)
         if window is None:
             return  # no window was entered: nothing to leave or learn
         charge = self._window_exit(window)
@@ -288,8 +366,7 @@ class HbmAdmission:
             self._headroom_wake.notify_all()
 
     def snapshot(self) -> dict:
-        """The /debug/device ``hbm`` entry. The reference's shard keys are
-        kept (empty, zero) until the sharded tier reports residencies."""
+        """The /debug/device ``hbm`` entry."""
         with self._lock:
             budget = self._budget_bytes
             return {
@@ -302,8 +379,8 @@ class HbmAdmission:
                 ),
                 "bytes_per_row": round(self._bytes_per_row, 1),
                 "modeled_shapes": len(self._model),
-                "shard_residency": {},
+                "shard_residency": dict(self._shard_residency),
                 "reverse_residency_bytes": self._reverse_residency,
-                "resident_floor_bytes": self._reverse_residency,
-                "modeled_shard_shapes": 0,
+                "resident_floor_bytes": self._resident_floor_locked(),
+                "modeled_shard_shapes": len(self._shard_model),
             }

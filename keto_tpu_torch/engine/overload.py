@@ -632,8 +632,7 @@ class OverloadController:
 
     def hedge_suppressed(self) -> bool:
         """Brownout rung 1+: stop advertising a hedge delay to clients
-        (the reference's advertised hedge delay consults this; the port
-        advertises none yet)."""
+        (``/debug/autotune`` blanks its ``hedge_delay_ms`` knob then)."""
         if not self.enabled():
             return False
         with self._lock:

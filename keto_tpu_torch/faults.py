@@ -2,9 +2,9 @@
 
 Named fault sites sit on the production failure-handling seams: the check
 batcher's stage loops, the device engine's launch, the list path's reverse
-gathers, the replica pool's delta broadcast, the supervisor's backend
-probe, the WAL's append, the checkpoint writer, the follower's replay and
-the election. Each is armed per process through :data:`FAULTS` or the
+gathers, the sharded tier's launch, the replica pool's delta broadcast,
+the supervisor's backend probe, the WAL's append, the checkpoint writer,
+the follower's replay and the election. Each is armed per process through :data:`FAULTS` or the
 ``KETO_FAULTS`` environment knob, and the recovery paths that guard those
 seams (the batcher's watchdog, the device breaker in
 ``engine/fallback.py``, the device supervisor in ``driver/registry.py``,
@@ -50,6 +50,10 @@ site                          effect when armed
                               (engine/device.py, driver/registry.py)
 ``backend.probe_hang``        the supervisor's backend probe counts as a child
                               killed at its timeout (driver/registry.py)
+``shard.launch_fail``         a sharded serving-tier launch raises before the
+                              mesh dispatch; the breaker answers the batch
+                              from the host oracle and probes the mesh path
+                              again (parallel/serving.py, engine/fallback.py)
 ``list.gather_fail``          a list query's reverse gather raises; the list
                               breaker answers from the live-store oracle
                               (engine/listing.py)
@@ -100,16 +104,16 @@ disarmed (``stuck``) instead of raising:
 ``device.slow``               the device engine inside the launch
 ``delta.slow``                the parent before broadcasting a delta frame
 ``replica.slow``              a gRPC Check before it answers (api/services.py)
+``shard.launch_slow``         a sharded serving-tier launch, before the mesh
+                              dispatch: a straggling shard
+                              (parallel/serving.py)
 ``election.lease_stall``      a lease acquire or renew, before its critical
                               section (cluster/election.py)
 ============================  =================================================
 
-Sites of modules this package does not have yet keep their names here so
-that a ``KETO_FAULTS`` string written for the reference parses the same;
-nothing calls them until their module arrives. ``client.unavailable`` keeps
-its name only: no module calls it, here or in the reference, whose client
-never fires it either. ``shard.launch_fail``
-and ``shard.launch_slow`` (12, the multi-device tiers).
+``client.unavailable`` keeps its name only, so that a ``KETO_FAULTS`` string
+written for the reference parses the same: no module calls it, here or in
+the reference, whose client never fires it either.
 
 ``KETO_FAULTS`` syntax: comma-separated entries, each one of
 

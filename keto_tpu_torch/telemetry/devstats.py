@@ -272,6 +272,22 @@ class DeviceStatsCollector:
             out.append(entry)
         return out
 
+    def device_peaks(self):
+        """``torch.cuda.max_memory_allocated`` of each CUDA device, in device
+        order: the per-shard samples of HBM admission's shard model. The
+        current device's is its batch peak window's (the windows reset it);
+        another device's is its process high-water mark. None where this
+        process may not ask."""
+        if not cuda_ready():
+            return None
+        try:
+            return [
+                float(torch.cuda.max_memory_allocated(i))
+                for i in range(torch.cuda.device_count())
+            ]
+        except Exception:
+            return None  # a sick context: no sample
+
     def _mark(self, peak: float, span: bool = False) -> float:
         with self._window_lock:
             return max(self._span if span else self._hwm, float(peak))

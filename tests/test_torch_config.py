@@ -163,6 +163,41 @@ def test_keys_match_the_reference(values):
         {"serve": {"read": {"tls": {"key": {"path": 5}}}}},
         {"serve": {"write": {"expose_backend_ports": "yes"}}},
         {"engine": {"sharding": {"escalation_budget": 2}}},
+        # the objects the reference closes and the port used to carry and
+        # ignore (ROADMAP §C.1), and the value rules it used to skip
+        {"zz": 1},
+        {"serve": {"reed": {"port": 1}}},
+        {"engine": {"pipline_depth": 4}},
+        {"engine": {"mesh": {"x": 1}}},
+        {"engine": {"sharding": {"enabeld": True}}},
+        {"qos": {"enabeld": True}},
+        {"autotune": {"bogus": 1}},
+        {"autotune": {"interval_s": 0}},
+        {"engine": {"sharding": {"data": 0}}},
+        {"zz": 1, "yy": 2, "engine": {"max_batch": 0}},
+        {"engine": {"max_batch": 0, "pipline": 1}},
+        {"engine": 5},
+        {"serve": []},
+        {"engine": {"mesh": {"data": 0}}},
+        {"engine": {"mesh": {"edge": -1}}},
+        {"engine": {"sharding": {"edge": 1.5}}},
+        {"engine": {"sharding": {"edge_chunk": -1}}},
+        {"engine": {"dense_threshold": 1}},
+        {"engine": {"batch_window_us": -1}},
+        {"engine": {"compile_cache_dir": 3}},
+        {"version": 2},
+        {"profiling": True},
+        {"autotune": {"enabled": "yes"}},
+        {"autotune": {"min_requests": 0}},
+        {"autotune": {"revert_threshold": -0.1}},
+        {"autotune": {"freeze_burn_rate": -1}},
+        {"autotune": {"backoff_ticks": -1}},
+        {"autotune": {"history": 0}},
+        {"autotune": {"knobs": []}},
+        {"autotune": {"knobs": {"pipeline_depth": 3}}},
+        {"autotune": {"knobs": {"pipeline_depth": {"maxx": 3}}}},
+        {"autotune": {"knobs": {"pipeline_depth": {"enabled": 1}}}},
+        {"autotune": {"knobs": {"pipeline_depth": {"step": "one", "bogus": 1}}}},
     ],
 )
 def test_invalid_values_raise_the_reference_message(values):
@@ -273,16 +308,25 @@ def test_config_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "values,item",
+    "values,outcome",
     [
-        ({"engine": {"mode": "sharded"}}, "item 12"),
-        ({"engine": {"sharding": {"enabled": True}}}, "item 12"),
+        ({"engine": {"mode": "sharded"}}, "ShardedCheckEngine"),
+        ({"engine": {"sharding": {"enabled": True}}}, "ShardedServingEngine"),
         ({"dsn": "redis://db"}, "unsupported DSN 'redis://db'"),
     ],
 )
-def test_unported_paths_name_their_roadmap_item(values, item):
-    reg = Registry(TConfig(values=values), device="cpu")
-    with pytest.raises(TMalformed, match=item):
+def test_sharded_configs_are_served_and_a_foreign_dsn_is_refused(values, outcome):
+    # the two sharded configurations were refused with their ROADMAP item
+    # until the multi-device tiers were ported; on an 8-stripe CPU mesh
+    # each now builds its engine
+    reg = Registry(TConfig(values=values), device="cpu",
+                   mesh_devices=[torch.device("cpu")] * 8)
+    if outcome.startswith("Sharded"):
+        engine = reg.check_engine()
+        assert type(engine).__name__ == outcome
+        assert engine.mesh.shape == {"data": 1, "edge": 8}
+        return
+    with pytest.raises(TMalformed, match=outcome):
         reg.store()
         reg.check_engine()
 
