@@ -33,6 +33,12 @@ TLS, which that would bypass.
 The gRPC server is any object with ``add_insecure_port``, ``start`` and
 ``stop`` (``api/grpc_servers.py`` builds them); this module imports no
 grpc.
+
+Each REST request runs under a ``TransportLedger``
+(``telemetry/attribution.py``) opened before its body is read: a check
+record adopts it, and it is folded into the attribution ledger after the
+reply's last byte is written, so ``/debug/attribution`` times a check from
+the body read to the socket write.
 """
 
 from __future__ import annotations
@@ -46,6 +52,11 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..telemetry.attribution import (
+    TransportLedger,
+    reset_current_ledger,
+    set_current_ledger,
+)
 from .rest import Request, Router
 
 _H2_PREFACE_HEAD = b"PRI "
@@ -72,19 +83,25 @@ class _Handler(BaseHTTPRequestHandler):
             self.rfile = io.BufferedReader(_Replay(head, self.connection))
 
     def _serve(self) -> None:
-        length = int(self.headers.get("Content-Length") or 0)
-        body = self.rfile.read(length) if length > 0 else b""
-        req = Request.parse(self.command, self.path, self.headers, body)
-        resp = self.router.dispatch(req)
-        self.send_response(resp.status)
-        for name, value in resp.headers.items():
-            self.send_header(name, value)
-        if resp.status != 204:
-            self.send_header("Content-Type", resp.content_type)
-            self.send_header("Content-Length", str(len(resp.body)))
-        self.end_headers()
-        if resp.status != 204:
-            self.wfile.write(resp.body)
+        ledger = TransportLedger()
+        token = set_current_ledger(ledger)
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(length) if length > 0 else b""
+            req = Request.parse(self.command, self.path, self.headers, body)
+            resp = self.router.dispatch(req)
+            self.send_response(resp.status)
+            for name, value in resp.headers.items():
+                self.send_header(name, value)
+            if resp.status != 204:
+                self.send_header("Content-Type", resp.content_type)
+                self.send_header("Content-Length", str(len(resp.body)))
+            self.end_headers()
+            if resp.status != 204:
+                self.wfile.write(resp.body)
+        finally:
+            reset_current_ledger(token)
+            ledger.close()
 
     do_GET = do_POST = do_PUT = do_DELETE = do_PATCH = do_OPTIONS = _serve
 

@@ -81,7 +81,9 @@ telemetry's record (``telemetry/flight.py CheckTelemetry``): a
 ``keto_check_duration_seconds`` histogram with a trace-id exemplar,
 ``keto_check_requests_total{transport,outcome}``, the SLO, the flight
 recorder and the attribution ledger, whose ``serialize`` stage covers the
-response body. The transports are labelled as in the reference: ``rest``,
+response body. Served by ``api/daemon.py``, the record adopts the
+transport's ledger, which runs from the body read (``admission``) to the
+socket write (``reply``). The transports are labelled as in the reference: ``rest``,
 ``rest_batch``, ``rest-encoded`` and ``rest_list``. ``x-keto-hedge: 1``
 tags a client's hedged duplicate.
 """

@@ -70,7 +70,9 @@ Telemetry, as in the reference: with a metrics registry the batcher exports
 ``keto_check_cancelled_total`` and, pipelined, the queue-depth gauges and
 ``keto_pipeline_stage_seconds``; with a tracer each dispatch or stage runs
 under a span (``batcher.dispatch``, ``batcher.encode``, ``batcher.launch``,
-``batcher.decode``) that joins one caller's trace. The caller's attribution
+``batcher.decode``) that joins one caller's trace; the caller-thread
+columnar and encoded dispatches open the three stage spans under their
+``batcher.dispatch`` too. The caller's attribution
 ledger (``telemetry/attribution.py``) and span context ride each queue
 entry, so the stage threads charge queue, encode, launch, kernel and decode
 time to the request that waited for them; the caller-assembled batches mark
@@ -84,6 +86,7 @@ import threading
 import time
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutTimeout
+from contextlib import nullcontext
 from typing import Optional, Sequence
 
 import numpy as np
@@ -592,27 +595,22 @@ class CheckBatcher:
         deadline, an engine that bounds its host oracle by one
         (``takes_deadline``, the breaker) gets it. Runs under a
         ``batcher.dispatch`` span that joins the caller's trace."""
-        if self.tracer is not None:
-            with self.tracer.span("batcher.dispatch", batch_size=len(requests)):
-                return self._dispatch_direct_inner(requests, max_depth, deadline)
-        return self._dispatch_direct_inner(requests, max_depth, deadline)
-
-    def _dispatch_direct_inner(self, requests, max_depth: int, deadline) -> list[bool]:
         kw = {}
         if deadline is not None and getattr(self.engine, "takes_deadline", False):
             kw["deadline"] = deadline
         out: list = []
-        i = 0
-        while i < len(requests):
-            step = self._admit_rows()
-            chunk = requests[i : i + step]
-            out.extend(
-                None if v is None else bool(v)
-                for v in self.engine.batch_check(chunk, max_depth, **kw)
-            )
-            i += step
-        _raise_unanswered(out)
-        self._tap(requests, out)
+        with self._span("batcher.dispatch", len(requests)):
+            i = 0
+            while i < len(requests):
+                step = self._admit_rows()
+                chunk = requests[i : i + step]
+                out.extend(
+                    None if v is None else bool(v)
+                    for v in self.engine.batch_check(chunk, max_depth, **kw)
+                )
+                i += step
+            _raise_unanswered(out)
+            self._tap(requests, out)
         return out
 
     def _tap(self, requests, results) -> None:
@@ -672,50 +670,61 @@ class CheckBatcher:
             i += step
 
     def _dispatch_columns(self, cols, max_depth: int, deadline=None) -> list:
-        if self.tracer is not None:
-            with self.tracer.span("batcher.dispatch", batch_size=len(cols), columnar=1):
-                return self._dispatch_columns_inner(cols, max_depth, deadline)
-        return self._dispatch_columns_inner(cols, max_depth, deadline)
-
-    def _dispatch_columns_inner(self, cols, max_depth: int, deadline=None) -> list:
         """One encoded columnar dispatch: encode into staging, resolve cache
         hits, launch only the misses. On the caller's thread, so
         ``ledger_mark`` charges each phase to the ambient request ledger."""
-        enc = self.engine.encode_columns(cols, max_depth)
         cache = self.encoded_cache
-        if cache is None:
-            ledger_mark("encode")
-            out = self._launch_decode(enc, deadline)
-            ledger_mark("decode")
-            return out
-        keys = enc.keys()
-        cached = cache.get_many(enc.version, keys)
-        miss = [i for i, v in enumerate(cached) if v is None]
-        ledger_mark("encode")
-        if not miss:
-            enc.release()
-            return [bool(v) for v in cached]
-        if len(miss) < len(keys):
-            enc.compact(miss)
-        res = self._launch_decode(enc, deadline)
-        live = [(i, v) for i, v in zip(miss, res) if v is not None]
-        cache.put_many(enc.version, [keys[i] for i, _ in live], [v for _, v in live])
-        out = _merge(cached, miss, res)
-        ledger_mark("decode")
-        return out
+        with self._span("batcher.dispatch", len(cols), columnar=1):
+            with self._span("batcher.encode", len(cols)):
+                enc = self.engine.encode_columns(cols, max_depth)
+                if cache is not None:
+                    keys = enc.keys()
+                    cached = cache.get_many(enc.version, keys)
+                    miss = [i for i, v in enumerate(cached) if v is None]
+                ledger_mark("encode")
+            if cache is None:
+                return self._launch_decode(enc, deadline)
+            if not miss:
+                enc.release()
+                return [bool(v) for v in cached]
+            if len(miss) < len(keys):
+                enc.compact(miss)
 
-    def _launch_decode(self, enc, deadline=None) -> list:
+            def fill(res):
+                live = [(i, v) for i, v in zip(miss, res) if v is not None]
+                cache.put_many(enc.version, [keys[i] for i, _ in live], [v for _, v in live])
+                return _merge(cached, miss, res)
+
+            return self._launch_decode(enc, deadline, fill)
+
+    def _span(self, name: str, n: int, **attrs):
+        """A caller-thread span of ``n`` rows: ``batcher.dispatch``, or a
+        stage under it named as the pipelined path's; nothing without a
+        tracer."""
+        if self.tracer is None:
+            return nullcontext()
+        return self.tracer.span(name, batch_size=n, **attrs)
+
+    def _launch_decode(self, enc, deadline=None, fill=None) -> list:
         """The device stage and the decode of one encoded batch, on the
-        caller's thread. A deadline reaches the breaker as the pipeline's
-        per-row deadlines do; a row its oracle skipped stays None."""
+        caller's thread; ``fill`` maps the answers to the caller's rows
+        inside the decode stage. A deadline reaches the breaker as the
+        pipeline's per-row deadlines do; a row its oracle skipped stays
+        None."""
         if deadline is not None:
             enc.deadlines = [deadline] * enc.n
-        launched = self.engine.launch_encoded(enc)
-        ledger_mark("launch")
-        return [
-            None if v is None else bool(v)
-            for v in self.engine.decode_launched(launched)
-        ]
+        with self._span("batcher.launch", enc.n):
+            launched = self.engine.launch_encoded(enc)
+            ledger_mark("launch")
+        with self._span("batcher.decode", enc.n):
+            out = [
+                None if v is None else bool(v)
+                for v in self.engine.decode_launched(launched)
+            ]
+            if fill is not None:
+                out = fill(out)
+            ledger_mark("decode")
+        return out
 
     def _columns_via_engine(self, cols, max_depth: int) -> list[bool]:
         """Engines without the columnar split API (closure, host oracle):
@@ -796,29 +805,31 @@ class CheckBatcher:
 
     def _dispatch_encoded(self, s, t, d) -> list[bool]:
         cache = self.encoded_cache
-        if cache is None or self.version_fn is None:
-            out = self._run_encoded(s, t, d)
+        with self._span("batcher.dispatch", len(s), encoded=1):
+            if cache is None or self.version_fn is None:
+                out = self._run_encoded(s, t, d)
+                ledger_mark("decode")
+                return out
+            version = self.version_fn()
+            keys = list(zip(s.tolist(), t.tolist(), d.tolist()))
+            cached = cache.get_many(version, keys)
+            miss = [i for i, v in enumerate(cached) if v is None]
+            if not miss:
+                return [bool(v) for v in cached]
+            if len(miss) < len(keys):
+                s, t, d = s[miss], t[miss], d[miss]
+            res = self._run_encoded(s, t, d)
+            cache.put_many(version, [keys[i] for i in miss], res)
+            out = _merge(cached, miss, res)
             ledger_mark("decode")
-            return out
-        version = self.version_fn()
-        keys = list(zip(s.tolist(), t.tolist(), d.tolist()))
-        cached = cache.get_many(version, keys)
-        miss = [i for i, v in enumerate(cached) if v is None]
-        if not miss:
-            return [bool(v) for v in cached]
-        if len(miss) < len(keys):
-            s, t, d = s[miss], t[miss], d[miss]
-        res = self._run_encoded(s, t, d)
-        cache.put_many(version, [keys[i] for i in miss], res)
-        out = _merge(cached, miss, res)
-        ledger_mark("decode")
         return out
 
     def _run_encoded(self, s, t, d) -> list[bool]:
         encode_ids = getattr(self.engine, "encode_ids", None)
         if encode_ids is not None:
-            enc = encode_ids(s, t, d)
-            ledger_mark("encode")
+            with self._span("batcher.encode", len(s)):
+                enc = encode_ids(s, t, d)
+                ledger_mark("encode")
             return self._launch_decode(enc)
         check_ids = getattr(self.engine, "check_ids", None)
         if check_ids is None:

@@ -37,10 +37,14 @@ CSR (host work: no kernel runs), for every engine mode but ``host``.
 ``device.lost`` raise as those failures would, ``device.slow`` stalls, and
 ``device.batch_nan`` returns a garbage batch (NaN answers) as a sick card
 would; the breaker in ``engine/fallback.py`` is tested against them. The
-staging copies are tallied in ``DEVSTATS`` (``/debug/graph``). The decode's
-copy back, the one blocking step, is charged to ``kernel`` on the ambient
-request ledger (``telemetry/attribution.py``) on the caller-thread batch
-paths, so the host-side conversion after it lands in ``decode``.
+staging copies are tallied in ``DEVSTATS`` (``/debug/graph``). The three
+uploads (``device.upload``) and the decode's copy back (``device.decode``)
+block the host, and each runs inside ``DEVSTATS.wait`` with the packed,
+dense and scatter loops' own syncs (``telemetry/devstats.py``): on the
+caller-thread batch paths the blocks are ``kernel`` on the ambient request
+ledger (``telemetry/attribution.py``) and the host work between them
+``launch``, so the host-side conversion after the copy back lands in
+``decode``.
 """
 
 from __future__ import annotations
@@ -63,7 +67,6 @@ from ..ops.frontier import (
 )
 from ..ops.packed import PACKED_BATCH_MULTIPLE, csr_row_ptr, packed_batched_check
 from ..relationtuple.definitions import RelationTuple, Subject, SubjectID, SubjectSet
-from ..telemetry.attribution import ledger_mark
 from ..telemetry.devstats import DEVSTATS
 from ..utils.kernels import resolve_device
 from .check import DEFAULT_MAX_DEPTH, clamp_depth
@@ -561,9 +564,12 @@ class DeviceCheckEngine:
         dg = enc.dg
         dev = self.device
         # torch.tensor copies: the staging buffers are recycled after decode
-        start = torch.tensor(enc.start, device=dev)
-        target = torch.tensor(enc.target, device=dev)
-        depth = torch.tensor(enc.depth, device=dev)
+        with DEVSTATS.wait("device.upload"):
+            start = torch.tensor(enc.start, device=dev)
+        with DEVSTATS.wait("device.upload"):
+            target = torch.tensor(enc.target, device=dev)
+        with DEVSTATS.wait("device.upload"):
+            depth = torch.tensor(enc.depth, device=dev)
         if dg.mode == "packed":
             hit = packed_batched_check(
                 dg.src_by_dst,
@@ -604,10 +610,10 @@ class DeviceCheckEngine:
         try:
             if launched.garbage:
                 return np.full(enc.n, np.nan)
-            hit = launched.hit[: enc.n].cpu()
-            # the copy above waited for the kernel: on the caller-thread
-            # batch paths the device wait is "kernel" on the request ledger
-            ledger_mark("kernel")
+            # the copy back waits for the steps: "kernel" on the ambient
+            # request ledger of the caller-thread batch paths
+            with DEVSTATS.wait("device.decode"):
+                hit = launched.hit[: enc.n].cpu()
             DEVSTATS.record_transfer(hit.numel() * hit.element_size(), "d2h")
             return hit.numpy()
         finally:

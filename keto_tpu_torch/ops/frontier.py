@@ -23,7 +23,8 @@ Two propagation strategies:
 
 The JAX ``lax.while_loop`` is a host loop here: it runs while
 ``i < max_steps`` and not every request is done, reading ``done.all()``
-once per step. It evaluates the JAX loop's condition, so it stops where
+once per step (the check loop's read is the ``frontier.done`` site of
+``DEVSTATS.wait``, ``telemetry/devstats.py``). It evaluates the JAX loop's condition, so it stops where
 that loop stops. The answers also equal those of a loop run to
 ``max_steps`` regardless (see ``_run_check`` and ``_run_distances``).
 """
@@ -31,6 +32,8 @@ that loop stops. The answers also equal those of a loop run to
 from __future__ import annotations
 
 import torch
+
+from ..telemetry.devstats import DEVSTATS
 
 # Unreachable sentinel for distance labels.
 UNREACHED = 0x7FFFFFFF
@@ -119,7 +122,7 @@ def _run_check(propagate, start, target, depth, padded_nodes, max_steps):
     hit = torch.zeros(batch, dtype=torch.bool, device=start.device)
     done = torch.zeros(batch, dtype=torch.bool, device=start.device)
     i = 0
-    while i < max_steps and not bool(done.all()):
+    while i < max_steps and not DEVSTATS.all_done(done, "frontier.done"):
         p = propagate(f)
         changed = (p & ~f).any(dim=1)
         reached = p[rows, tgt]

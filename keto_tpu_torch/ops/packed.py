@@ -30,6 +30,15 @@ bit, so from then on the frontier holds exactly the nodes at distance in
 ``1 <= i <= depth[b]``. Unknown start/target nodes are handled by the
 engine forcing depth 0 (the dummy row would otherwise let an unknown start
 "reach" an unknown target).
+
+The loop's host<->device synchronisations each run inside
+``DEVSTATS.wait`` (``telemetry/devstats.py``): the row-pointer tail's
+upload when the engine passes its cached ``row_ptr`` (``packed.row_ptr``),
+``_bits``'s upload in ``_build_f0`` and in every step's ``_probe_hits``
+(``packed.bits``), and the ``done.all()`` read of every loop test that
+gets that far (``packed.done``). A batch that runs ``k`` steps makes
+``1 + (1 + k) + (k + 1)`` of them, one ``done`` read fewer when the loop
+ends on ``max_steps``: 14 when max-depth 5 runs all 6 steps.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..telemetry.devstats import DEVSTATS
 from ..utils import kernels
 
 KERNEL = "packed_propagate"
@@ -53,7 +63,8 @@ PACKED_BATCH_MULTIPLE = 4096
 def _bits(device) -> torch.Tensor:
     """int32[32]: word value of each bit; bit 31 is -2^31 in int32."""
     bits = (np.uint32(1) << np.arange(32, dtype=np.uint32)).view(np.int32)
-    return torch.from_numpy(bits).to(device)
+    with DEVSTATS.wait("packed.bits"):
+        return torch.from_numpy(bits).to(device)
 
 
 def csr_row_ptr(dst_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -239,11 +250,10 @@ def packed_batched_check(
     else:
         # probe row b holds edge n_real + b; the last probe row also holds
         # the padding edges
-        rp = torch.cat([
-            row_ptr,
-            n_real + torch.arange(1, bsz, dtype=torch.int64, device=dev),
-            torch.tensor([n_real + bsz + pad], dtype=torch.int64, device=dev),
-        ])
+        probes = n_real + torch.arange(1, bsz, dtype=torch.int64, device=dev)
+        with DEVSTATS.wait("packed.row_ptr"):
+            tail = torch.tensor([n_real + bsz + pad], dtype=torch.int64, device=dev)
+        rp = torch.cat([row_ptr, probes, tail])
 
     f = _build_f0(start, padded_nodes, w)
     hit = torch.zeros(bsz, dtype=torch.bool, device=dev)
@@ -252,7 +262,7 @@ def packed_batched_check(
     # a done request is either hit (hit stays set) or past its depth
     # (i >= depth[b], so the gate 1 <= i <= depth[b] is closed for good).
     i = 0
-    while i <= max_steps and not bool(done.all()):
+    while i <= max_steps and not DEVSTATS.all_done(done, "packed.done"):
         p_full = propagate(f, src_all, dst_all, n_out, row_ptr=rp)
         # probe row b = f[target_b] BEFORE this pass: at iteration i >= 1
         # that is "dist(target) in [1, i]"

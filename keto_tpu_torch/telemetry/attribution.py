@@ -21,12 +21,27 @@ time a conserved quantity:
   construction and a leak is visible instead of silent. Served at
   ``/debug/attribution``.
 
+- ``TransportLedger`` — the ledger the REST transport opens before it
+  reads a request's body (``api/daemon.py``). A check record adopts it
+  instead of starting its own (``claim``), and the transport folds it in
+  (``close``) once the reply's last byte is written, so the request's
+  wall is the transport's: body read and parse are ``admission``, the
+  router's metrics, its log line and the socket write are ``reply``. A
+  request that opened no check record is not folded in.
+
 Stage vocabulary (flow order): admission (transport handling up to the
 batcher), queue (admission-queue wait), encode (vocab probe + encode +
 encoded-cache probe), launch (launch-queue wait + async kernel enqueue),
 kernel (block-until-materialized on device), decode (result decode +
 cache population + future resolution), serialize (response body build),
 reply (everything after the body until the telemetry record closes).
+
+On the caller-thread paths ``kernel`` is exactly the time blocked on the
+card: every host<->device synchronisation of the check path runs inside
+``DEVSTATS.wait(site)`` (``telemetry/devstats.py``), which charges the host
+time before it to the caller's stage and the block to ``kernel``, and
+counts the site on the ledger (``waits``). ``AttributionLedger.snapshot``
+sums them as ``device_waits``.
 """
 
 from __future__ import annotations
@@ -63,13 +78,15 @@ class TimeLedger:
     accumulate. Cheap enough for the hot path: one perf_counter call and
     one dict update per mark."""
 
-    __slots__ = ("t0", "last", "stages")
+    __slots__ = ("t0", "last", "stages", "waits")
 
     def __init__(self, t0: Optional[float] = None):
         now = time.perf_counter() if t0 is None else t0
         self.t0 = now
         self.last = now
         self.stages: dict[str, float] = {}
+        # device-wait site -> [count, seconds] (DEVSTATS.wait)
+        self.waits: dict[str, list] = {}
 
     def mark(self, stage: str, now: Optional[float] = None) -> None:
         if now is None:
@@ -81,6 +98,43 @@ class TimeLedger:
 
     def attributed(self) -> float:
         return sum(self.stages.values())
+
+
+def add_wait(waits: dict, site: str, count: int, seconds: float) -> None:
+    """Add to a ``{site: [count, seconds]}`` tally of device waits."""
+    w = waits.get(site)
+    if w is None:
+        waits[site] = [count, seconds]
+    else:
+        w[0] += count
+        w[1] += seconds
+
+
+class TransportLedger(TimeLedger):
+    """A request's ledger from the first body byte to the last reply byte
+    (see the module docstring). The transport installs it as the ambient
+    ledger; the request's check record ``claim``s it with its
+    AttributionLedger (None when attribution is off) and batch size."""
+
+    __slots__ = ("claimed", "_sink", "_batch")
+
+    def __init__(self, t0: Optional[float] = None):
+        super().__init__(t0)
+        self.claimed = False
+        self._sink = None
+        self._batch = 1
+
+    def claim(self, sink, batch_size: int) -> None:
+        self.claimed = True
+        self._sink = sink
+        self._batch = batch_size
+
+    def close(self) -> None:
+        """The reply is written: charge the rest to ``reply`` and fold the
+        ledger into the claiming record's AttributionLedger."""
+        self.mark("reply")
+        if self._sink is not None:
+            self._sink.record(self, self.last - self.t0, self._batch)
 
 
 def current_ledger() -> Optional[TimeLedger]:
@@ -121,6 +175,7 @@ class AttributionLedger:
         self._wall_s = 0.0
         self._requests = 0
         self._entries = 0
+        self._waits: dict[str, list] = {}
         self._counter = None
         if metrics is not None:
             from .metrics import time_attribution_counter
@@ -147,6 +202,8 @@ class AttributionLedger:
             self._wall_s += max(wall_s, attributed)
             self._requests += 1
             self._entries += max(1, int(batch_size))
+            for site, (n, secs) in ledger.waits.items():
+                add_wait(self._waits, site, n, secs)
         if self._counter is not None:
             for stage, dt in ledger.stages.items():
                 self._counter.labels(stage=stage).inc(dt)
@@ -159,6 +216,7 @@ class AttributionLedger:
             wall = self._wall_s
             requests = self._requests
             entries = self._entries
+            waits = {site: (n, secs) for site, (n, secs) in self._waits.items()}
         unattributed = stages.get(UNATTRIBUTED, 0.0)
         attributed = sum(stages.values()) - unattributed
         coverage = (attributed / wall) if wall > 0 else 1.0
@@ -188,6 +246,10 @@ class AttributionLedger:
             "unattributed_s": round(unattributed, 6),
             "coverage": round(coverage, 4),
             "stages": breakdown,
+            "device_waits": {
+                site: {"count": n, "seconds": round(secs, 6)}
+                for site, (n, secs) in sorted(waits.items())
+            },
         }
 
     def reset(self) -> None:
@@ -196,3 +258,4 @@ class AttributionLedger:
             self._wall_s = 0.0
             self._requests = 0
             self._entries = 0
+            self._waits.clear()

@@ -51,10 +51,40 @@ Kernel builds replace JAX's compilation events: ``utils/kernels.py`` calls
 and ``native/`` with the gcc build's, so ``keto_device_jit_compilations_total``
 counts nvcc and gcc builds here, not ``jax.monitoring`` events.
 
+Device waits (``wait(site)``): every host<->device synchronisation of the
+check path (``engine/device.py``, ``ops/packed.py``, ``ops/frontier.py``)
+runs inside ``DEVSTATS.wait(site)``, a context manager that times the
+block on ``time.perf_counter`` and adds it to
+``keto_device_syncs_total{site}`` and ``keto_device_sync_seconds_total
+{site}``. On a thread with an ambient request ledger it also charges the
+host time since the ledger's last mark to ``launch``, the block to
+``kernel``, and the site to the ledger's ``waits``. While a torch profiler records, the block is a
+``device.wait:<site>`` range in the trace. The sites:
+
+- ``device.upload``  the three blocking uploads of a batch's start,
+  target and depth columns (``launch_encoded``);
+- ``packed.row_ptr`` the packed loop's row-pointer tail upload;
+- ``packed.bits``    ``_bits``'s upload, once for the initial frontier and
+  once per step;
+- ``packed.done``    the packed loop's ``done.all()`` read, once per loop
+  test;
+- ``frontier.done``  the same read in the dense and scatter loops;
+- ``device.decode``  the copy of the answers back to the host.
+
+The counters are the port's own: the reference's JAX dispatch has no
+such sites. Reading them: a 4 096-row packed batch at max-depth 5 makes
+18 syncs, so syncs per batch that climb mean loops that run more steps;
+the seconds are the host blocked on the card, which includes the card
+running other request threads' work on the shared stream. The pipelined
+batcher's stage threads, which carry no request ledger, count here too.
+``/debug/attribution`` carries the same tally summed over the requests it
+recorded, as ``device_waits: {site: {count, seconds}}``.
+
 ``bind`` exports the collector through a ``MetricsRegistry`` (the
-reference's families, letter for letter): the transfer, stage and build
-counters, ``keto_device_count``, the ``keto_device_hbm_*`` gauges and the
-``keto_graph_*`` panel gauges. Every device sample goes through
+reference's families, letter for letter, and the two above): the
+transfer, stage and build counters, ``keto_device_count``, the
+``keto_device_hbm_*`` gauges and the ``keto_graph_*`` panel gauges.
+Every device sample goes through
 :func:`cuda_ready` and :meth:`sample_devices`, so a forked host-mode replica
 that is scraped never touches CUDA: its device gauges read 0.
 ``keto_device_hbm_peak_bytes`` reads :meth:`peak_bytes`, the running
@@ -71,7 +101,11 @@ import time
 
 import torch
 
+from .attribution import add_wait, current_ledger
 from .metrics import MetricsRegistry
+from .tracing import profiler_range
+
+WAIT_RANGE = "device.wait:"
 
 # memory-statistics key -> (gauge name, help), the reference's families
 _HBM_KEYS = (
@@ -98,6 +132,36 @@ _PANEL_GAUGES = (
 )
 
 
+class _Wait:
+    """One timed synchronisation (``DeviceStatsCollector.wait``)."""
+
+    __slots__ = ("_stats", "site", "_ledger", "_t0", "_range")
+
+    def __init__(self, stats, site: str):
+        self._stats = stats
+        self.site = site
+
+    def __enter__(self):
+        self._ledger = led = current_ledger()
+        self._t0 = t0 = time.perf_counter()
+        if led is not None:
+            led.mark("launch", t0)
+        self._range = profiler_range(WAIT_RANGE + self.site)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        dt = t1 - self._t0
+        led = self._ledger
+        if led is not None:
+            led.mark("kernel", t1)
+            add_wait(led.waits, self.site, 1, dt)
+        self._stats._record_wait(self.site, dt)
+        return False
+
+
 def cuda_ready() -> bool:
     """Whether this process may ask the CUDA allocator anything: CUDA
     initialised here, not inherited through a fork. A flag test only: it
@@ -119,6 +183,7 @@ class DeviceStatsCollector:
         self._stage_seconds: dict[str, float] = {}
         self._compiles = 0
         self._compile_seconds = 0.0
+        self._waits: dict[str, list] = {}  # site -> [count, seconds]
         self._graph_panel_fn = None
         # the per-batch peak window: batches inside it, and the high-water
         # marks folded in before each reset: the process's, and the span's
@@ -132,6 +197,8 @@ class DeviceStatsCollector:
         self._c_kernel = None
         self._c_compiles = None
         self._c_compile_s = None
+        self._c_syncs = None
+        self._c_sync_s = None
 
     # -- wiring ---------------------------------------------------------------
 
@@ -164,7 +231,20 @@ class DeviceStatsCollector:
             "keto_device_compile_seconds_total",
             "cumulative wall seconds spent in kernel builds",
         )
+        self._c_syncs = metrics.counter(
+            "keto_device_syncs_total",
+            "host<->device synchronisations of the check path, by site",
+            labelnames=("site",),
+        )
+        self._c_sync_s = metrics.counter(
+            "keto_device_sync_seconds_total",
+            "wall seconds the host spent blocked on the device, by site",
+            labelnames=("site",),
+        )
         with self._lock:
+            for site, (n, secs) in self._waits.items():
+                self._c_syncs.labels(site=site).inc(n)
+                self._c_sync_s.labels(site=site).inc(secs)
             for direction, nbytes in self._transfer_bytes.items():
                 if nbytes:
                     self._c_transfer.labels(direction=direction).inc(nbytes)
@@ -236,6 +316,25 @@ class DeviceStatsCollector:
         c = self._c_kernel
         if c is not None:
             c.labels(stage=stage).inc(seconds)
+
+    def wait(self, site: str) -> _Wait:
+        """The context manager around one host<->device synchronisation
+        (see the module docstring)."""
+        return _Wait(self, site)
+
+    def all_done(self, done, site: str) -> bool:
+        """``done.all()`` read back to the host, a loop test of the check
+        loops, as the sync ``site``."""
+        with self.wait(site):
+            return bool(done.all())
+
+    def _record_wait(self, site: str, seconds: float) -> None:
+        with self._lock:
+            add_wait(self._waits, site, 1, seconds)
+        c = self._c_syncs
+        if c is not None:
+            c.labels(site=site).inc()
+            self._c_sync_s.labels(site=site).inc(seconds)
 
     def record_compile(self, seconds: float) -> None:
         with self._lock:

@@ -37,6 +37,8 @@ from typing import Optional
 
 from .attribution import (
     TimeLedger,
+    TransportLedger,
+    current_ledger,
     reset_current_ledger,
     set_current_ledger,
 )
@@ -228,6 +230,12 @@ class CheckTelemetry:
     The context manager must run on the thread that executes the check
     (the gRPC handler thread / the REST executor worker) so the tracer
     span contextvar is visible downstream.
+
+    Under the REST transport the record adopts the request's ambient
+    ``TransportLedger`` instead of starting a ledger of its own, and the
+    transport folds it into ``attribution`` after the reply is written;
+    the record's own clock still times the histogram, the SLO and the
+    flight record.
     """
 
     SPAN_NAME = "check.request"
@@ -395,10 +403,20 @@ class _CheckRecord:
 
     def __enter__(self):
         self._t0 = time.perf_counter()
-        # the accounting ledger shares t0 with the wall clock so the
-        # conservation check (stages sum >= 95% of wall) is exact
-        self.ledger = TimeLedger(self._t0)
-        self._ledger_token = set_current_ledger(self.ledger)
+        ambient = current_ledger()
+        if isinstance(ambient, TransportLedger) and not ambient.claimed:
+            # the REST transport's ledger, open since the body's first
+            # byte: this record adopts it, and the transport folds it into
+            # the attribution ledger once the reply is written. Up to here
+            # the transport read and parsed the request: "admission"
+            ambient.claim(self._tel.attribution, self.batch_size)
+            ambient.mark("admission", self._t0)
+            self.ledger = ambient
+        else:
+            # the accounting ledger shares t0 with the wall clock so the
+            # conservation check (stages sum >= 95% of wall) is exact
+            self.ledger = TimeLedger(self._t0)
+            self._ledger_token = set_current_ledger(self.ledger)
         remote = (
             parse_traceparent(self.traceparent)
             if self.traceparent
@@ -443,10 +461,10 @@ class _CheckRecord:
                 except ValueError:
                     pass  # exited in a different context; ledger still ours
                 self._ledger_token = None
-            if self._tel.attribution is not None:
-                self._tel.attribution.record(
-                    self.ledger, duration_s, self.batch_size
-                )
+                if self._tel.attribution is not None:
+                    self._tel.attribution.record(
+                        self.ledger, duration_s, self.batch_size
+                    )
             if self.ledger.stages:
                 detail = dict(detail or ())
                 detail["ledger_ms"] = {

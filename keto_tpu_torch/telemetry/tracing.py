@@ -24,12 +24,23 @@ A span that times device work closes after the card has finished it: the
 closure build waits on a CUDA event recorded after its last launch before
 it closes ``closure.semiring`` (``engine/closure.py``). The check path
 never synchronises for a span.
+
+Spans time themselves on ``time.perf_counter``, the monotonic clock of the
+attribution ledger and of the device trace; their wall start (OTLP,
+``/debug/traces``, cross-node stitching) comes from one anchor pair of
+wall and monotonic readings taken when this module loads. While a
+``torch.profiler`` records in the process, each span also opens a
+``record_function`` range of its own name (:func:`profiler_range`), so the
+program's spans sit in the Chrome trace beside the kernels, on the thread
+that ran them. With no profiler recording, no range opens and nothing is
+imported.
 """
 
 from __future__ import annotations
 
 import contextvars
 import os as _os
+import sys
 import threading
 import time
 from collections import deque
@@ -111,6 +122,25 @@ def _new_span_id() -> int:
     return int.from_bytes(_os.urandom(8), "big") or 1
 
 
+# the per-process anchor: a span's wall start is _WALL0 plus its
+# perf_counter start's distance from _PERF0
+_WALL0 = time.time()
+_PERF0 = time.perf_counter()
+
+
+def profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a torch
+    profiler records in this process, else None; the caller exits it.
+    The profiler's flag is read off ``sys.modules``: a process that never
+    loaded the profiler is not recording, and nothing gets imported."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 def _warn_missing_endpoint() -> None:
     import logging
 
@@ -123,7 +153,7 @@ def _warn_missing_endpoint() -> None:
 class Span:
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id", "start", "duration",
-        "attrs", "_tracer", "_token",
+        "attrs", "_tracer", "_token", "_t0", "_range",
     )
 
     def __init__(
@@ -140,10 +170,12 @@ class Span:
         self.parent_id = parent.span_id if parent else None
         self.trace_id = parent.trace_id if parent else _new_trace_id()
         self.span_id = _new_span_id()
-        self.start = time.time()
+        self._t0 = time.perf_counter()
+        self.start = _WALL0 + (self._t0 - _PERF0)
         self.duration = None
         self._tracer = tracer
         self._token = None
+        self._range = None
 
     def set_attr(self, key: str, value: Any) -> None:
         self.attrs[key] = value
@@ -153,10 +185,14 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _current_span.set(self)
+        self._range = profiler_range(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        self.duration = time.time() - self.start
+        self.duration = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         if exc_type is not None:
             self.attrs["error"] = repr(exc)
         _current_span.reset(self._token)

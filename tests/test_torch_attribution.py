@@ -50,6 +50,15 @@ def p(request):
     return PURE[request.param]
 
 
+# the port's additions to the reference's attribution snapshot, and nothing
+# else: the device waits its check path times (telemetry/devstats.py)
+PORT_ONLY = ("device_waits",)
+
+
+def _port_only(attr) -> set:
+    return set(PORT_ONLY) if attr is tattr else set()
+
+
 VALUES = {
     "namespaces": [{"id": 1, "name": "videos"}],
     "serve": {"read": {"port": 0, "host": "127.0.0.1"},
@@ -195,7 +204,10 @@ def test_conservation_is_by_construction(p):
     assert snap["stages"][p.attr.UNATTRIBUTED]["seconds"] == pytest.approx(0.0013, abs=1e-6)
     assert snap["coverage"] == pytest.approx(led.attributed() / wall, abs=1e-3)
     assert snap["coverage"] > 0.95
-    assert snap == _conservation_snapshot(jattr)[2]  # the reference's, exactly
+    ref = _conservation_snapshot(jattr)[2]
+    # the reference's, exactly, beside the port's own keys
+    assert {k: v for k, v in snap.items() if k not in _port_only(p.attr)} == ref
+    assert set(snap) - set(ref) == _port_only(p.attr)
 
 
 def test_snapshot_orders_canonical_stages_first(p):
@@ -204,9 +216,12 @@ def test_snapshot_orders_canonical_stages_first(p):
     led.mark("zz-adhoc", now=0.6)
     agg = p.attr.AttributionLedger()
     agg.record(led, wall_s=0.7)
-    stages = list(agg.snapshot()["stages"])
+    snap = agg.snapshot()
+    stages = list(snap["stages"])
     assert stages == ["kernel", "zz-adhoc", p.attr.UNATTRIBUTED]
     assert p.attr.ATTRIBUTION_STAGES == jattr.ATTRIBUTION_STAGES
+    ref = set(jattr.AttributionLedger().snapshot())
+    assert ref <= set(snap) and set(snap) - ref == _port_only(p.attr)
 
 
 def test_ambient_ledger_contextvar(p):

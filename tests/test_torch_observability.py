@@ -59,7 +59,14 @@ TUPLES = ["videos:/cats#owner@cat lady", "videos:/cats/1.mp4#owner@(videos:/cats
 # process-wide tallies: every server and engine in the test process adds to
 # them, so their values and series depend on what ran before
 NOT_COMPARED = {"keto_device_transfer_bytes_total", "keto_device_kernel_seconds_total",
-                "keto_device_jit_compilations_total", "keto_device_compile_seconds_total"}
+                "keto_device_jit_compilations_total", "keto_device_compile_seconds_total",
+                "keto_device_syncs_total", "keto_device_sync_seconds_total"}
+
+# the port's additions to the reference's surface, and nothing else: the
+# device-wait counters of its check path (telemetry/devstats.py) and their
+# per-request sum on /debug/attribution
+PORT_ONLY = {"families": {"keto_device_syncs_total", "keto_device_sync_seconds_total"},
+             "/debug/attribution": {"device_waits"}}
 
 
 class JaxServer:
@@ -197,8 +204,11 @@ def test_the_request_script_answers_alike(scripted):
 def test_metrics_families_types_and_labels_are_equal(scripted):
     t = _families(scripted["torch"]["text"])
     j = _families(scripted["jax"]["text"])
-    assert list(t.families) == list(j.families)
-    for name in t.families:
+    assert {n for n in t.families if n not in j.families} == PORT_ONLY["families"]
+    for name in PORT_ONLY["families"]:
+        assert t.families[name].type == "counter", name
+    assert [n for n in t.families if n in j.families] == list(j.families)
+    for name in j.families:
         ft, fj = t.families[name], j.families[name]
         assert ft.type == fj.type, name  # HELP may name the port's own events
         if name in NOT_COMPARED:
@@ -288,7 +298,8 @@ def test_debug_payloads_have_the_same_keys(scripted, path):
         names = {s["name"] for s in t["spans"]}
         assert {"check.request", "grpc.request", "batcher.dispatch"} <= names
     elif path == "/debug/attribution":
-        assert set(t["attribution"]) == set(j["attribution"])
+        assert set(t["attribution"]) - set(j["attribution"]) == PORT_ONLY[path]
+        assert set(j["attribution"]) <= set(t["attribution"])
         assert set(t["attribution"]["stages"]) == set(j["attribution"]["stages"])
     else:
         for key in t:
