@@ -27,8 +27,9 @@
 // served from L2. Skewed in-degree needs nothing special: a row's edges are
 // walked by its own group, and no buffer is sized by the degree. Row
 // offsets are 64-bit: row * W * 4 reaches 2^32 bytes at N_pad = 2^23,
-// W = 128. TMA row gathers, L2-aware source ordering and fusing the
-// caller's f | p update are left for later work.
+// W = 128. TMA row gathers and L2-aware source ordering are left for later
+// work. The caller passes each pass's output back as the next frontier, so
+// there is no f | p update between passes to fuse.
 //
 // Contract (checked by the Python wrapper in ops/packed.py): W a multiple
 // of 4, f 16-byte aligned and row-major contiguous, every src in [0, N_pad),

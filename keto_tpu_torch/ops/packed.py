@@ -20,16 +20,23 @@ registers. ``packed_propagate_plain`` is the same function in PyTorch: the
 wrapper uses it only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.
 
-The check loop keeps the JAX loop's semantics, including its one structural
+The check loop gives the JAX loop's answers, including its one structural
 twist: probe edges read the frontier BEFORE the pass's propagation, so the
-probe lags one iteration. The loop compensates by (a) replacing the
-frontier with the propagated set after iteration 0 — dropping the start
-bit, so from then on the frontier holds exactly the nodes at distance in
-[1, i] and a start==target request cannot trivially "reach" itself — and
-(b) running depth+1 probe iterations with hit condition
-``1 <= i <= depth[b]``. Unknown start/target nodes are handled by the
-engine forcing depth 0 (the dummy row would otherwise let an unknown start
-"reach" an unknown target).
+probe lags one iteration, and the loop runs depth+1 probe iterations with
+hit condition ``1 <= i <= depth[b]``. Unknown start/target nodes are
+handled by the engine forcing depth 0 (the dummy row would otherwise let an
+unknown start "reach" an unknown target).
+
+Where the JAX loop keeps the accumulated set ``A_i = R_1 | ... | R_i``
+(``R_i``: the nodes reached by walks of exactly i edges; it replaces the
+frontier with the pass's output after iteration 0, then ORs each output
+in), the port keeps the last pass's output, ``R_i``, so nothing touches
+the frontier between passes. ``hit`` is still equal at every iteration:
+the probe at iteration i reads ``R_i[target]`` for ``A_i[target]``, and any
+``j <= i`` with ``target`` in ``R_j`` set ``hit`` at iteration j, inside
+the same gate; so ``done``, the early stop and the passes are equal too.
+The start bit is never in the frontier after iteration 0, so a
+start==target request needs a real cycle in both.
 
 The loop's host<->device synchronisations each run inside
 ``DEVSTATS.wait`` (``telemetry/devstats.py``): the row-pointer tail's
@@ -223,9 +230,13 @@ def packed_batched_check(
     `propagate` is the pass: the kernel wrapper by default,
     ``packed_propagate_plain`` to hold the kernel against its plain version.
 
-    Memory: the frontier is updated in place, so the loop holds the
-    frontier, one pass's output and the pass's temporaries, not a fresh
-    frontier per step as ``jnp.where(i == 0, p, f | p)`` would allocate.
+    Memory: the frontier of pass i + 1 is pass i's output itself (a
+    contiguous prefix view, walks of exactly i + 1 edges, not the
+    accumulated set of the JAX loop's ``jnp.where(i == 0, p, f | p)``), so
+    the loop holds the frontier, one pass's output and the pass's
+    temporaries: two frontier-sized buffers, with no copy or OR between
+    passes. f0 is built over the output's n_out rows, so every one of
+    those buffers has one size and a freed one serves the next pass.
     """
     bsz = start.shape[0]
     if bsz % PACKED_BATCH_MULTIPLE:
@@ -255,7 +266,7 @@ def packed_batched_check(
             tail = torch.tensor([n_real + bsz + pad], dtype=torch.int64, device=dev)
         rp = torch.cat([row_ptr, probes, tail])
 
-    f = _build_f0(start, padded_nodes, w)
+    f = _build_f0(start, n_out, w)[:padded_nodes]
     hit = torch.zeros(bsz, dtype=torch.bool, device=dev)
     done = torch.zeros(bsz, dtype=torch.bool, device=dev)
     # The JAX loop's condition, read once per step. Stopping early is exact:
@@ -265,15 +276,14 @@ def packed_batched_check(
     while i <= max_steps and not DEVSTATS.all_done(done, "packed.done"):
         p_full = propagate(f, src_all, dst_all, n_out, row_ptr=rp)
         # probe row b = f[target_b] BEFORE this pass: at iteration i >= 1
-        # that is "dist(target) in [1, i]"
+        # that is "a walk of exactly i edges reaches target"
         reached = _probe_hits(p_full[padded_nodes:], w)
         hit |= reached & (i >= 1) & (i <= depth)
-        p = p_full[:padded_nodes]
-        if i == 0:
-            f.copy_(p)  # iteration 0 REPLACES the frontier (drops the start bit)
-        else:
-            f |= p
-        del p, p_full  # free this pass's output before the next one allocates
+        # the next frontier is this pass's output (at i == 0 that drops the
+        # start bit); rebinding f frees the previous one before the next
+        # pass allocates
+        f = p_full[:padded_nodes]
+        del p_full
         done = hit | (i >= depth)
         i += 1
     return hit

@@ -180,3 +180,110 @@ def test_batched_check_counts_each_pass():
             padded_nodes=64, max_steps=5, propagate=counting,
         )
         assert len(calls) == passes
+
+
+def accumulating_check(src, dst, start, target, depth, *, padded_nodes, max_steps):
+    """The packed check as the JAX loop runs it, in plain torch: the
+    frontier is the accumulated set, replaced by the pass's output at
+    iteration 0 and OR-ed with it after. Returns (hit, passes)."""
+    bsz = start.shape[0]
+    w = bsz // 32
+    n_out = padded_nodes + bsz
+    pad = (-(src.shape[0] + bsz)) % tpacked._CHUNK
+    src_all = torch.cat([src, target, torch.full((pad,), padded_nodes - 1, dtype=torch.int32)])
+    dst_all = torch.cat([
+        dst, padded_nodes + torch.arange(bsz, dtype=torch.int32),
+        torch.full((pad,), n_out - 1, dtype=torch.int32),
+    ])
+    f = tpacked._build_f0(start, padded_nodes, w)
+    hit = torch.zeros(bsz, dtype=torch.bool)
+    done = torch.zeros(bsz, dtype=torch.bool)
+    i = 0
+    while i <= max_steps and not bool(done.all()):
+        p_full = tpacked.packed_propagate_plain(f, src_all, dst_all, n_out)
+        hit |= tpacked._probe_hits(p_full[padded_nodes:], w) & (i >= 1) & (i <= depth)
+        p = p_full[:padded_nodes]
+        if i == 0:
+            f.copy_(p)
+        else:
+            f |= p
+        done = hit | (i >= depth)
+        i += 1
+    return hit, i
+
+
+def check_case(seed, max_steps, kind):
+    """Inputs of one property case: a random graph with cycles, dummy start
+    and target rows at depth 0, start == target rows, depths in
+    0..max_steps ("mixed") or in 0..max_steps // 2 ("shallow", so the loop
+    stops on depth); or ("hit_early") every row one edge from its target
+    at depth max_steps, so the loop stops after two passes."""
+    rng = np.random.default_rng(seed + 4000)
+    n_pad, bsz = 128, 4096
+    live = int(rng.integers(20, n_pad - 1))
+    src, dst = random_graph(rng, live, int(rng.integers(live, 4 * live)))
+    dummy = n_pad - 1
+    if kind == "hit_early":
+        e = rng.integers(len(src), size=bsz)
+        start, target = src[e].copy(), dst[e].copy()
+        depth = np.full(bsz, max_steps, dtype=np.int32)
+    else:
+        start = rng.integers(live, size=bsz).astype(np.int32)
+        target = rng.integers(live, size=bsz).astype(np.int32)
+        top = max_steps // 2 if kind == "shallow" else max_steps
+        depth = rng.integers(0, top + 1, size=bsz).astype(np.int32)
+        target[:32] = start[:32]  # start == target: needs a real cycle
+        start[32:48] = dummy
+        target[40:56] = dummy
+        depth[32:56] = 0
+    args = [torch.from_numpy(a.astype(np.int32)) for a in (src, dst, start, target, depth)]
+    return args, n_pad
+
+
+@pytest.mark.parametrize(
+    "seed,max_steps,kind",
+    [(s, s % 9, "mixed") for s in range(13)]
+    + [(13, 8, "hit_early"), (14, 3, "hit_early"), (15, 8, "shallow"), (16, 6, "shallow")],
+)
+def test_batched_check_matches_the_accumulating_loop(seed, max_steps, kind):
+    """Carrying the last pass's output as the frontier gives the same `hit`
+    and the same number of passes as carrying the accumulated set."""
+    args, n_pad = check_case(seed, max_steps, kind)
+    want, want_passes = accumulating_check(*args, padded_nodes=n_pad, max_steps=max_steps)
+    calls = []
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return tpacked.packed_propagate_plain(*a, **kw)
+
+    got = tpacked.packed_batched_check(
+        *args, padded_nodes=n_pad, max_steps=max_steps, propagate=counting
+    )
+    assert torch.equal(got, want)
+    assert len(calls) == want_passes
+    if kind == "hit_early":
+        assert bool(want.all()) and want_passes == min(2, max_steps + 1)
+    elif kind == "shallow":
+        assert want_passes == int(args[4].max()) + 1 < max_steps + 1
+    if kind != "hit_early" and max_steps >= 1:
+        assert 0 < int(want.sum()) < len(want)
+
+
+def test_batched_check_passes_the_output_on_untouched():
+    """Pass k >= 1 reads pass k-1's output as its frontier, unchanged and
+    in place: no copy, no in-place OR between passes."""
+    args, n_pad = check_case(3, 5, "mixed")
+    seen = []  # per pass: f's data_ptr, shape and rows, the output's data_ptr and frontier rows
+
+    def recording(f, *a, **kw):
+        out = tpacked.packed_propagate_plain(f, *a, **kw)
+        seen.append((f.data_ptr(), tuple(f.shape), f.clone(), out.data_ptr(), out[:n_pad].clone()))
+        return out
+
+    tpacked.packed_batched_check(
+        *args, padded_nodes=n_pad, max_steps=5, propagate=recording
+    )
+    assert len(seen) == 6
+    for (_, _, _, out_ptr, out_rows), (f_ptr, f_shape, f, _, _) in zip(seen, seen[1:]):
+        assert f_ptr == out_ptr and f_shape == (n_pad, 4096 // 32)
+        assert torch.equal(f, out_rows)
