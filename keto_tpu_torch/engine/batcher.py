@@ -18,7 +18,7 @@ class:
   back and resolves the callers' futures. Bounded queues between the
   stages cap the batches in flight at about ``pipeline_depth`` past the
   encoders. All stages share the current CUDA stream. The packed loop
-  reads ``done.all()`` every step, so the launch thread waits on the card
+  tests for done rows every step, so the launch thread waits on the card
   for most of a batch: what overlaps is the host encode and decode of the
   neighbouring batches, not two device batches. A snapshot-versioned
   encoded-request cache sits in front of the device stage: rows whose

@@ -542,8 +542,8 @@ class DeviceCheckEngine:
 
     def launch_encoded(self, enc: EncodedBatch) -> LaunchedBatch:
         """Stage 2 (the device stage): copy the batch to the device and
-        enqueue the steps. The loop reads one `done.all()` per step, so it
-        returns once the last step is enqueued; the result stays on the
+        enqueue the steps. The loop tests for done rows once per step, so
+        it returns once the last step is enqueued; the result stays on the
         device."""
         # fault sites: stand-ins for a failed kernel build, an
         # out-of-memory, a lost device, a launch refused for one shape, a

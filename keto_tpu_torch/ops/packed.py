@@ -6,11 +6,12 @@
 - Edges are sorted by destination. One propagation pass gives
   ``out[d] = OR of F[src[e]]`` over the edges with ``dst[e] == d``, zeros
   for rows with no in-edge: a segmented OR over a CSR keyed by destination.
-- The per-request target test rides the same pass as B **probe edges**
-  ``(target_b -> N_pad + b)`` appended after the real edges (their dst ids
-  are larger than every real node, so sortedness is preserved). After the
-  pass, probe row b holds ``F[target_b]``; bit b of it is "request b reached
-  its target".
+- In the Python loop, the per-request target test rides the same pass as
+  B **probe edges** ``(target_b -> N_pad + b)`` appended after the real
+  edges (their dst ids are larger than every real node, so sortedness is
+  preserved). After the pass, probe row b holds ``F[target_b]``; bit b of
+  it is "request b reached its target". The native loop reads that bit of
+  ``F[target_b]`` in place instead (below), with no probe edges or rows.
 
 Kernel note. ``packed_propagate`` launches ``csrc/packed_propagate.cu``, the
 hand-written Hopper replacement of the Pallas kernel
@@ -38,14 +39,29 @@ the same gate; so ``done``, the early stop and the passes are equal too.
 The start bit is never in the frontier after iteration 0, so a
 start==target request needs a real cycle in both.
 
-The loop's host<->device synchronisations each run inside
+Two loops give these answers, chosen by what the input shows, with no
+knob. CUDA tensors with the default pass take the **native loop**: one
+call into the kernel library (``packed_check_loop`` in
+``csrc/packed_propagate.cu``, loaded through ctypes like B2, so the
+interpreter is released for the whole loop and no Python runs between
+passes). Per step it launches one probe kernel (the target test, ``hit``
+and the count of rows not done, read in place from the frontier before
+the pass), B2, and below ``max_steps`` one wait for the count. The whole
+call is one sync site, ``packed.loop``. CPU tensors, or an explicit
+``propagate=`` hook, take the **Python loop** below, which the CPU tests
+hold against the JAX loop. ``DEVSTATS.record_packed_loop`` counts the
+loops and passes of each (``keto_packed_loops_total{path}``,
+``keto_packed_passes_total{path}``, path ``native`` or ``python``).
+
+The Python loop's host<->device synchronisations each run inside
 ``DEVSTATS.wait`` (``telemetry/devstats.py``): the row-pointer tail's
 upload when the engine passes its cached ``row_ptr`` (``packed.row_ptr``),
 ``_bits``'s upload in ``_build_f0`` and in every step's ``_probe_hits``
 (``packed.bits``), and the ``done.all()`` read of every loop test that
 gets that far (``packed.done``). A batch that runs ``k`` steps makes
 ``1 + (1 + k) + (k + 1)`` of them, one ``done`` read fewer when the loop
-ends on ``max_steps``: 14 when max-depth 5 runs all 6 steps.
+ends on ``max_steps``: 14 when max-depth 5 runs all 6 steps. The native
+loop makes one, ``packed.loop``.
 """
 
 from __future__ import annotations
@@ -184,6 +200,61 @@ def _kernel_fn():
     return fn
 
 
+def _loop_fn():
+    lib = kernels.load(KERNEL)
+    fn = lib.packed_check_loop
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [
+            p, p, p, p, ctypes.c_int64, ctypes.c_int, p, p, p, p, p, p,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int), p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _native_check(
+    src_sorted, dst_sorted, start, target, depth, padded_nodes, max_steps, row_ptr
+) -> torch.Tensor:
+    """The packed check as one ``packed_check_loop`` call on CUDA tensors:
+    the same ``hit`` and the same passes as the Python loop. Buffers come
+    from the caching allocator, so HBM admission sees them: two frontier
+    buffers [padded_nodes, W], ``hit``, a count a step and one pinned int."""
+    bsz = start.shape[0]
+    w = bsz // 32
+    dev = start.device
+    for name, t in (("start", start), ("target", target), ("depth", depth)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (bsz,) or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous int32[{bsz}]")
+        if t.device != dev:
+            raise ValueError("operands must share one device")
+    if row_ptr is None:
+        row_ptr = csr_row_ptr(dst_sorted, padded_nodes)
+    fa = torch.empty((padded_nodes, w), dtype=torch.int32, device=dev)
+    _check_operands(fa, src_sorted, dst_sorted, padded_nodes, row_ptr)
+    fb = torch.empty_like(fa)
+    hit = torch.empty(bsz, dtype=torch.bool, device=dev)
+    open_rows = torch.empty(max_steps + 1, dtype=torch.int32, device=dev)
+    host_open = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    passes = ctypes.c_int(0)
+    fn = _loop_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        with DEVSTATS.wait("packed.loop"):
+            err = fn(
+                fa.data_ptr(), fb.data_ptr(), src_sorted.data_ptr(),
+                row_ptr.data_ptr(), padded_nodes, w, start.data_ptr(),
+                target.data_ptr(), depth.data_ptr(), hit.data_ptr(),
+                open_rows.data_ptr(), host_open.data_ptr(), max_steps,
+                ctypes.byref(passes), stream,
+            )
+    if err != 0:
+        raise kernels.launch_error("packed_check_loop", err)
+    packed_propagate.launches += passes.value
+    DEVSTATS.record_packed_loop("native", passes.value)
+    return hit
+
+
 def _build_f0(start, padded_nodes: int, w: int) -> torch.Tensor:
     """Initial frontier: bit b set at row start[b], as one scatter.
 
@@ -220,15 +291,18 @@ def packed_batched_check(
     padded_nodes: int,
     max_steps: int,
     row_ptr: Optional[torch.Tensor] = None,
-    propagate=packed_propagate,
+    propagate=None,
 ) -> torch.Tensor:
     """allowed: bool[B]. B must be a multiple of 4096. src/dst: real edges
-    sorted by dst (int32, all dst < padded_nodes); probe edges and padding
-    edges (dummy -> n_out-1, up to the 1024-edge multiple) are appended
-    here. `row_ptr` (int64[padded_nodes + 1]) is the CSR of the real edges,
-    cached per snapshot by the engine; it is derived when not given.
-    `propagate` is the pass: the kernel wrapper by default,
-    ``packed_propagate_plain`` to hold the kernel against its plain version.
+    sorted by dst (int32, all dst < padded_nodes); start/target/depth:
+    int32[B], every node in [0, padded_nodes). The Python loop appends the
+    probe edges and padding edges (dummy -> n_out-1, up to the 1024-edge
+    multiple) here. `row_ptr` (int64[padded_nodes + 1]) is the CSR of the
+    real edges, cached per snapshot by the engine; it is derived when not
+    given. `propagate` is the pass: None means the kernel, which on CUDA
+    tensors runs the native loop (module docstring); a function given here
+    (``packed_propagate`` or ``packed_propagate_plain``, to hold one loop
+    or pass against another) runs in the Python loop.
 
     Memory: the frontier of pass i + 1 is pass i's output itself (a
     contiguous prefix view, walks of exactly i + 1 edges, not the
@@ -241,6 +315,13 @@ def packed_batched_check(
     bsz = start.shape[0]
     if bsz % PACKED_BATCH_MULTIPLE:
         raise ValueError(f"B={bsz} must be a multiple of {PACKED_BATCH_MULTIPLE}")
+    if propagate is None:
+        if start.device.type == "cuda":
+            return _native_check(
+                src_sorted, dst_sorted, start, target, depth,
+                padded_nodes, max_steps, row_ptr,
+            )
+        propagate = packed_propagate
     w = bsz // 32
     n_out = padded_nodes + bsz
     dev = start.device
@@ -286,4 +367,5 @@ def packed_batched_check(
         del p_full
         done = hit | (i >= depth)
         i += 1
+    DEVSTATS.record_packed_loop("python", i)
     return hit

@@ -63,25 +63,35 @@ host time since the ledger's last mark to ``launch``, the block to
 
 - ``device.upload``  the three blocking uploads of a batch's start,
   target and depth columns (``launch_encoded``);
-- ``packed.row_ptr`` the packed loop's row-pointer tail upload;
+- ``packed.loop``    the packed check's native loop on the card, one call
+  into the kernel library that waits on the card once a step;
+- ``packed.row_ptr`` the packed Python loop's row-pointer tail upload;
 - ``packed.bits``    ``_bits``'s upload, once for the initial frontier and
-  once per step;
-- ``packed.done``    the packed loop's ``done.all()`` read, once per loop
+  once per step of the Python loop;
+- ``packed.done``    the Python loop's ``done.all()`` read, once per loop
   test;
 - ``frontier.done``  the same read in the dense and scatter loops;
 - ``device.decode``  the copy of the answers back to the host.
 
 The counters are the port's own: the reference's JAX dispatch has no
-such sites. Reading them: a 4 096-row packed batch at max-depth 5 makes
-18 syncs, so syncs per batch that climb mean loops that run more steps;
+such sites. Reading them: a 4 096-row packed batch on the card makes 5
+syncs (18 in the Python loop at max-depth 5, whose count climbs with the
+steps a loop runs);
 the seconds are the host blocked on the card, which includes the card
 running other request threads' work on the shared stream. The pipelined
 batcher's stage threads, which carry no request ledger, count here too.
 ``/debug/attribution`` carries the same tally summed over the requests it
 recorded, as ``device_waits: {site: {count, seconds}}``.
 
+Packed loops (``record_packed_loop(path, passes)``): each packed check
+adds one to ``keto_packed_loops_total{path}`` and its B2 passes to
+``keto_packed_passes_total{path}``, ``path`` being ``native`` (the one
+call on the card) or ``python`` (the CPU loop, or a caller's own pass
+function), so a scrape shows which loop serves and how many passes a loop
+runs. Port-only, like the sync families.
+
 ``bind`` exports the collector through a ``MetricsRegistry`` (the
-reference's families, letter for letter, and the two above): the
+reference's families, letter for letter, and the four above): the
 transfer, stage and build counters, ``keto_device_count``, the
 ``keto_device_hbm_*`` gauges and the ``keto_graph_*`` panel gauges.
 Every device sample goes through
@@ -184,6 +194,7 @@ class DeviceStatsCollector:
         self._compiles = 0
         self._compile_seconds = 0.0
         self._waits: dict[str, list] = {}  # site -> [count, seconds]
+        self._packed_loops: dict[str, list] = {}  # path -> [loops, passes]
         self._graph_panel_fn = None
         # the per-batch peak window: batches inside it, and the high-water
         # marks folded in before each reset: the process's, and the span's
@@ -199,6 +210,8 @@ class DeviceStatsCollector:
         self._c_compile_s = None
         self._c_syncs = None
         self._c_sync_s = None
+        self._c_loops = None
+        self._c_passes = None
 
     # -- wiring ---------------------------------------------------------------
 
@@ -241,10 +254,24 @@ class DeviceStatsCollector:
             "wall seconds the host spent blocked on the device, by site",
             labelnames=("site",),
         )
+        self._c_loops = metrics.counter(
+            "keto_packed_loops_total",
+            "packed check loops run, by path: native (one call into the "
+            "kernel library) or python",
+            labelnames=("path",),
+        )
+        self._c_passes = metrics.counter(
+            "keto_packed_passes_total",
+            "B2 propagation passes run by the packed check loops, by path",
+            labelnames=("path",),
+        )
         with self._lock:
             for site, (n, secs) in self._waits.items():
                 self._c_syncs.labels(site=site).inc(n)
                 self._c_sync_s.labels(site=site).inc(secs)
+            for path, (loops, passes) in self._packed_loops.items():
+                self._c_loops.labels(path=path).inc(loops)
+                self._c_passes.labels(path=path).inc(passes)
             for direction, nbytes in self._transfer_bytes.items():
                 if nbytes:
                     self._c_transfer.labels(direction=direction).inc(nbytes)
@@ -335,6 +362,18 @@ class DeviceStatsCollector:
         if c is not None:
             c.labels(site=site).inc()
             self._c_sync_s.labels(site=site).inc(seconds)
+
+    def record_packed_loop(self, path: str, passes: int) -> None:
+        """One packed check loop of ``path`` (native or python) that ran
+        ``passes`` B2 passes."""
+        with self._lock:
+            tally = self._packed_loops.setdefault(path, [0, 0])
+            tally[0] += 1
+            tally[1] += passes
+        c = self._c_loops
+        if c is not None:
+            c.labels(path=path).inc()
+            self._c_passes.labels(path=path).inc(passes)
 
     def record_compile(self, seconds: float) -> None:
         with self._lock:

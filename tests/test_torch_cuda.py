@@ -1,7 +1,9 @@
 """keto_tpu_torch on a CUDA card: the masked-SpMV and packed-propagate
-kernels against their plain versions, the closure and packed engines on
-the card against the same engines on the CPU, and the list path's D^T and
-row gathers on the card against the CPU build.
+kernels against their plain versions, the packed check's native loop
+against its Python loop (the same B2 kernel, pass by pass), with the sync
+sites and loop counters of one packed engine batch, the closure and packed
+engines on the card against the same engines on the CPU, and the list
+path's D^T and row gathers on the card against the CPU build.
 
 Marked ``cuda``; each test skips when no card is present (decided inside
 the fixture, never at import). Run on a card with
@@ -18,7 +20,16 @@ from keto_tpu_torch.engine import masked_spmv
 from keto_tpu_torch.graph import SnapshotManager
 from keto_tpu_torch.ops import packed
 from keto_tpu_torch.relationtuple import RelationTuple
+from keto_tpu_torch.relationtuple.columns import CheckColumns
 from keto_tpu_torch.store import InMemoryTupleStore
+from keto_tpu_torch.telemetry.attribution import (
+    TimeLedger,
+    reset_current_ledger,
+    set_current_ledger,
+)
+from keto_tpu_torch.telemetry.devstats import DEVSTATS
+from keto_tpu_torch.telemetry.metrics import MetricsRegistry
+from packed_cases import check_case
 
 pytestmark = pytest.mark.cuda
 
@@ -187,6 +198,94 @@ def test_packed_engine_on_card_matches_cpu(cuda):
     assert packed.packed_propagate.launches > before
     assert got == on_cpu.batch_check(reqs, depths=depths)
     assert 0 < sum(got) < len(got)
+
+
+@pytest.mark.parametrize(
+    "seed,max_steps,kind,bsz",
+    [(s, s % 9, "mixed", 4096) for s in range(9)]
+    + [(9, 5, "mixed", 8192), (10, 8, "mixed", 8192), (11, 0, "mixed", 8192)]
+    + [(13, 8, "hit_early", 4096), (14, 3, "hit_early", 8192)]
+    + [(15, 8, "shallow", 4096), (16, 6, "shallow", 8192)],
+)
+def test_native_loop_matches_the_python_loop(cuda, seed, max_steps, kind, bsz):
+    """The one-call native loop against the Python loop running the same
+    B2 kernel: ``hit`` bitwise equal and the same passes, over random
+    graphs with cycles, dummy rows at depth 0, start == target, batches
+    that all hit early and batches whose depths stop the loop early; with
+    the engine's cached CSR and with the CSR derived."""
+    args, n_pad = check_case(seed, max_steps, kind, bsz)
+    src, dst, start, target, depth = (a.to(cuda) for a in args)
+    row_ptr = packed.csr_row_ptr(dst, n_pad) if seed % 2 else None
+    calls = []
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return packed.packed_propagate(*a, **kw)
+
+    common = dict(padded_nodes=n_pad, max_steps=max_steps, row_ptr=row_ptr)
+    want = packed.packed_batched_check(src, dst, start, target, depth,
+                                       propagate=counting, **common)
+    before = packed.packed_propagate.launches
+    got = packed.packed_batched_check(src, dst, start, target, depth, **common)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and got.device.type == "cuda"
+    assert torch.equal(got, want)
+    assert packed.packed_propagate.launches - before == len(calls)
+    if kind == "hit_early":
+        assert bool(want.all()) and len(calls) == min(2, max_steps + 1)
+    elif kind == "shallow":
+        assert len(calls) == int(args[4].max()) + 1 < max_steps + 1
+    if kind != "hit_early" and max_steps >= 1:
+        assert 0 < int(want.sum()) < len(want)
+
+
+@pytest.mark.parametrize("reqs,allowed,passes", [
+    # a denied row between known nodes is done only at its depth: all 6
+    (["n:obj#access@alice", "n:doc#read@alice"], [True, False], 6),
+    # alice hits at distance 3; the unknown subject has depth 0
+    (["n:obj#access@alice", "n:obj#access@mallory"], [True, False], 4),
+    (["n:doc#read@bob", "n:team#member@alice"], [True, True], 2),
+])
+def test_a_packed_engine_batch_makes_five_syncs_on_the_card(cuda, reqs, allowed, passes):
+    """One packed DeviceCheckEngine batch on the card: the three uploads,
+    one native loop and the decode, on the ambient ledger and in
+    ``keto_device_syncs_total``; one native loop with its passes in
+    ``keto_packed_{loops,passes}_total`` and in B2's launch count."""
+    store = InMemoryTupleStore()
+    store.write_relation_tuples(*(RelationTuple.from_string(s) for s in (
+        "n:obj#access@(n:org#member)", "n:org#member@(n:team#member)",
+        "n:team#member@alice", "n:doc#read@bob")))
+    eng = DeviceCheckEngine(SnapshotManager(store), max_depth=5, mode="packed", device=cuda)
+    cols = CheckColumns.from_tuples([RelationTuple.from_string(s) for s in reqs])
+    assert eng.batch_check_columns(cols) == allowed  # builds and loads the kernels
+    metrics = MetricsRegistry()
+    DEVSTATS.bind(metrics, platform="cuda")
+    syncs = metrics.get("keto_device_syncs_total")
+    loops, passes_fam = (metrics.get(f"keto_packed_{n}_total") for n in ("loops", "passes"))
+    sites = ("device.upload", "packed.loop", "device.decode",
+             "packed.bits", "packed.done", "packed.row_ptr")
+
+    def counts():
+        return ({site: syncs.labels(site=site).value for site in sites},
+                {path: (loops.labels(path=path).value, passes_fam.labels(path=path).value)
+                 for path in ("native", "python")},
+                packed.packed_propagate.launches)
+
+    (sync0, loop0, launch0) = counts()
+    led = TimeLedger()
+    token = set_current_ledger(led)
+    try:
+        assert eng.batch_check_columns(cols) == allowed
+    finally:
+        reset_current_ledger(token)
+    (sync1, loop1, launch1) = counts()
+    want = {"device.upload": 3, "packed.loop": 1, "device.decode": 1}
+    assert {site: n for site, (n, _) in led.waits.items()} == want
+    assert {s: sync1[s] - sync0[s] for s in sites} == {
+        **want, "packed.bits": 0, "packed.done": 0, "packed.row_ptr": 0}
+    assert {p: (loop1[p][0] - loop0[p][0], loop1[p][1] - loop0[p][1]) for p in loop1} == {
+        "native": (1, passes), "python": (0, 0)}
+    assert launch1 - launch0 == passes
 
 
 def test_overlay_on_card_matches_cpu(cuda):
@@ -377,8 +476,6 @@ def test_pipelined_packed_batcher_on_card_matches_cpu(cuda):
 
 
 def test_columnar_batch_on_card_matches_cpu(cuda):
-    from keto_tpu_torch.relationtuple.columns import CheckColumns
-
     rng = np.random.default_rng(9)
     store = _random_store(rng)
     reqs = [

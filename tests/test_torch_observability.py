@@ -60,12 +60,14 @@ TUPLES = ["videos:/cats#owner@cat lady", "videos:/cats/1.mp4#owner@(videos:/cats
 # them, so their values and series depend on what ran before
 NOT_COMPARED = {"keto_device_transfer_bytes_total", "keto_device_kernel_seconds_total",
                 "keto_device_jit_compilations_total", "keto_device_compile_seconds_total",
-                "keto_device_syncs_total", "keto_device_sync_seconds_total"}
+                "keto_device_syncs_total", "keto_device_sync_seconds_total",
+                "keto_packed_loops_total", "keto_packed_passes_total"}
 
 # the port's additions to the reference's surface, and nothing else: the
-# device-wait counters of its check path (telemetry/devstats.py) and their
-# per-request sum on /debug/attribution
-PORT_ONLY = {"families": {"keto_device_syncs_total", "keto_device_sync_seconds_total"},
+# device-wait counters of its check path and the packed loop counters
+# (telemetry/devstats.py), and the waits' per-request sum on /debug/attribution
+PORT_ONLY = {"families": {"keto_device_syncs_total", "keto_device_sync_seconds_total",
+                          "keto_packed_loops_total", "keto_packed_passes_total"},
              "/debug/attribution": {"device_waits"}}
 
 

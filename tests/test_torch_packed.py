@@ -14,6 +14,10 @@ import torch
 
 from keto_tpu.ops import packed as jpacked
 from keto_tpu_torch.ops import packed as tpacked
+from keto_tpu_torch.telemetry.devstats import DEVSTATS
+from keto_tpu_torch.telemetry.metrics import MetricsRegistry
+from keto_tpu_torch.utils import kernels
+from packed_cases import check_case, random_graph
 
 torch.set_num_threads(1)
 
@@ -109,16 +113,6 @@ def test_build_f0_and_probe_hits_match_jax(n_pad, bsz):
     assert np.array_equal(got_hits.numpy(), want_hits)
 
 
-def random_graph(rng, n_nodes, n_edges):
-    """A dst-sorted edge list over n_nodes live nodes with cycles."""
-    src = rng.integers(n_nodes, size=n_edges)
-    dst = rng.integers(n_nodes, size=n_edges)
-    src[:4] = [0, 1, 2, 3]  # a cycle 0 -> 1 -> 2 -> 3 -> 0
-    dst[:4] = [1, 2, 3, 0]
-    order = np.argsort(dst, kind="stable")
-    return src[order].astype(np.int32), dst[order].astype(np.int32)
-
-
 @pytest.mark.parametrize("seed,max_steps", [(0, 5), (1, 3), (2, 8)])
 def test_batched_check_matches_jax(seed, max_steps):
     rng = np.random.default_rng(seed + 90)
@@ -212,34 +206,6 @@ def accumulating_check(src, dst, start, target, depth, *, padded_nodes, max_step
     return hit, i
 
 
-def check_case(seed, max_steps, kind):
-    """Inputs of one property case: a random graph with cycles, dummy start
-    and target rows at depth 0, start == target rows, depths in
-    0..max_steps ("mixed") or in 0..max_steps // 2 ("shallow", so the loop
-    stops on depth); or ("hit_early") every row one edge from its target
-    at depth max_steps, so the loop stops after two passes."""
-    rng = np.random.default_rng(seed + 4000)
-    n_pad, bsz = 128, 4096
-    live = int(rng.integers(20, n_pad - 1))
-    src, dst = random_graph(rng, live, int(rng.integers(live, 4 * live)))
-    dummy = n_pad - 1
-    if kind == "hit_early":
-        e = rng.integers(len(src), size=bsz)
-        start, target = src[e].copy(), dst[e].copy()
-        depth = np.full(bsz, max_steps, dtype=np.int32)
-    else:
-        start = rng.integers(live, size=bsz).astype(np.int32)
-        target = rng.integers(live, size=bsz).astype(np.int32)
-        top = max_steps // 2 if kind == "shallow" else max_steps
-        depth = rng.integers(0, top + 1, size=bsz).astype(np.int32)
-        target[:32] = start[:32]  # start == target: needs a real cycle
-        start[32:48] = dummy
-        target[40:56] = dummy
-        depth[32:56] = 0
-    args = [torch.from_numpy(a.astype(np.int32)) for a in (src, dst, start, target, depth)]
-    return args, n_pad
-
-
 @pytest.mark.parametrize(
     "seed,max_steps,kind",
     [(s, s % 9, "mixed") for s in range(13)]
@@ -287,3 +253,39 @@ def test_batched_check_passes_the_output_on_untouched():
     for (_, _, _, out_ptr, out_rows), (f_ptr, f_shape, f, _, _) in zip(seen, seen[1:]):
         assert f_ptr == out_ptr and f_shape == (n_pad, 4096 // 32)
         assert torch.equal(f, out_rows)
+
+
+def test_cpu_tensors_and_a_given_pass_take_the_python_loop(monkeypatch):
+    """The native loop is for CUDA tensors with the default pass: CPU
+    tensors, and any pass a caller gives, run the Python loop, never load
+    the kernel library, and count as ``python`` loops with their passes."""
+
+    def refuse(name):
+        raise AssertionError(f"the kernel library {name} was loaded")
+
+    monkeypatch.setattr(kernels, "load", refuse)
+    metrics = MetricsRegistry()
+    DEVSTATS.bind(metrics, platform="cpu")
+    loops, passes = (metrics.get(f"keto_packed_{n}_total") for n in ("loops", "passes"))
+
+    def counts():
+        return {(fam, path): f.labels(path=path).value
+                for fam, f in (("loops", loops), ("passes", passes))
+                for path in ("native", "python")}
+
+    args, n_pad = check_case(7, 5, "shallow")
+    before = counts()
+    default = tpacked.packed_batched_check(*args, padded_nodes=n_pad, max_steps=5)
+    kernel = tpacked.packed_batched_check(
+        *args, padded_nodes=n_pad, max_steps=5, propagate=tpacked.packed_propagate
+    )
+    plain = tpacked.packed_batched_check(
+        *args, padded_nodes=n_pad, max_steps=5, propagate=tpacked.packed_propagate_plain
+    )
+    assert torch.equal(default, kernel) and torch.equal(default, plain)
+    n = int(args[4].max()) + 1  # "shallow": the loop stops on depth
+    after = counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        ("loops", "native"): 0, ("loops", "python"): 3,
+        ("passes", "native"): 0, ("passes", "python"): 3 * n,
+    }
